@@ -1,0 +1,377 @@
+"""InvertedIndex on one device: the port's main path.
+
+The counterpart of ``gpu_mapreduce_tpu/apps/invertedindex.py`` with a
+one-device mesh (the path ``bench.py`` drives).  Find every
+``<a href="..."`` URL in an HTML corpus, emit (url id, doc id) pairs,
+group them by URL and count each group; with ``outdir`` also write
+``url \\t files`` lines to ``part-00000``.
+
+The map stage runs over the corpus held on the device as u32 words:
+
+    mark (hand-written CUDA kernel, csrc/mark_words.cu)
+    → compaction of the word mask (ascending byte starts)
+    → URL windows as unaligned u32 loads (64 bytes, then 256 bytes for
+      the long tail)
+    → closing-quote scan + two seeded masked lookup3 passes → u64 URL id
+      and an independent alt id (a u64 intern collision shows as one id
+      with two alt ids)
+    → doc ids by searchsorted over the file offsets
+    → valid rows packed first, in order, and the collision count.
+
+Around it, a cap-retry / wide-window loop: a hit count past the capacity
+retries with the exact power-of-two capacity, and a long-URL-dense corpus
+(more than cap/4 rows past the 64-byte window) retries with 256-byte
+windows for every row.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.mapreduce import MapReduce
+from ..core.runtime import resolve_device, synchronize
+from ..ops.bits import to_numpy, to_torch, unsigned_order_key
+from ..ops.cuda.match import (bytes_view_u32, compact_word_matches,
+                              first_byte_pos, mark_words,
+                              mask_words_to_length, unaligned_words)
+from ..ops.hash import hash_bytes64_masked
+from ..ops.sort import lexsort
+from ..parallel.group import reduce_sharded
+from ..parallel.sharded import ShardedKV
+from ..utils.io import findfiles
+
+PATTERN = b'<a href="'
+QUOTE = ord('"')
+MAX_URL = 256               # longest URL matched (window width in bytes)
+URL_DICT_MAX = 64 << 20     # keep URL bytes below this corpus size
+
+_GAP = MAX_URL + len(PATTERN)  # zero gap between files: no cross-file
+                               # matches, and a URL window never bleeds
+                               # into the next file
+_W_SHORT = 16                  # 64-byte first-tier URL window
+_ALT_HI, _ALT_LO = 0x9E3779B9, 0x85EBCA6B   # alt-id seed family
+
+
+def _build_corpus(files: Sequence[str]):
+    """Concatenate files with zero gaps → (bytes, file data starts int32).
+    Byte offsets are int32 on the device, so one corpus stays < 2 GiB."""
+    pieces: List[np.ndarray] = []
+    starts = np.zeros(len(files), np.int64)
+    gap = np.zeros(_GAP, np.uint8)
+    off = 0
+    for i, f in enumerate(files):
+        with open(f, "rb") as fh:
+            data = np.frombuffer(fh.read(), np.uint8)
+        starts[i] = off
+        pieces.append(data)
+        pieces.append(gap)
+        off += len(data) + _GAP
+    if off >= (1 << 31):
+        raise ValueError(
+            f"corpus is {off} bytes; the device path indexes bytes with "
+            f"int32 — split the file list into < 2 GiB batches")
+    corpus = np.concatenate(pieces) if pieces else np.zeros(0, np.uint8)
+    return corpus, starts.astype(np.int32)
+
+
+def _bucket_words(nwords: int) -> int:
+    """Round a corpus word count up to a size bucket: next power of two
+    below 1 Mi words, else the next 1 Mi-word multiple."""
+    n = max(nwords, 64)
+    if n <= (1 << 20):
+        return 1 << (n - 1).bit_length()
+    g = 1 << 20
+    return -(-n // g) * g
+
+
+def _hash2(win: torch.Tensor, length: torch.Tensor):
+    """(u64 id, alt id) of each row's first ``length`` window bytes."""
+    l0 = length.clamp(min=0)
+    wm = mask_words_to_length(win, l0)
+    return (hash_bytes64_masked(wm, l0),
+            hash_bytes64_masked(wm, l0, _ALT_HI, _ALT_LO))
+
+
+def _window_hash(words: torch.Tensor, ustarts: torch.Tensor, nwords: int):
+    win = unaligned_words(words, ustarts, nwords)
+    length = first_byte_pos(win, QUOTE)
+    ids, alts = _hash2(win, length)
+    return ids, alts, length
+
+
+def _count_collisions(ids: torch.Tensor, alts: torch.Tensor,
+                      valid: torch.Tensor) -> int:
+    """#ids carrying two different alt ids among valid rows — a real
+    64-bit intern collision."""
+    masked = torch.where(valid, ids, torch.zeros_like(ids))
+    order = lexsort((unsigned_order_key(alts), unsigned_order_key(masked),
+                     ~valid))
+    a, b, v = ids[order], alts[order], valid[order]
+    return int(((a[1:] == a[:-1]) & (b[1:] != b[:-1])
+                & v[1:] & v[:-1]).sum())
+
+
+def _extract_core(words: torch.Tensor, file_starts: torch.Tensor, *,
+                  cap: int, wide: bool):
+    """The map stage over one corpus of int32 words [m] with file data
+    starts [F] (int32, ascending).  Returns the packed columns [cap] —
+    ids and alts (u64 as int64), docs (int32), URL byte starts and
+    lengths (int32), valid rows first — and the host counts nhits,
+    npairs, ncoll and nlong (the raw long-tail count)."""
+    nw = MAX_URL // 4
+    w1 = nw if wide else _W_SHORT
+    cap_long = max(8, cap // 4)
+    dev = words.device
+    m = words.shape[0]
+    nbytes = 4 * m
+    wmask = mark_words(words, PATTERN)
+    starts, nhits = compact_word_matches(wmask, nbytes, cap)
+    ustarts = starts + len(PATTERN)
+    ids, alts, lengths = _window_hash(words, ustarts, w1)
+
+    nlong = 0
+    if not wide:
+        # long tail: no quote in the 64-byte window → regather 256 bytes
+        # for the first cap/4 such rows (the JAX path's lax.cond branch,
+        # whose fixed-size slot array drops its unused slots; here the
+        # rows are indexed directly, so no slot is ever out of range)
+        is_long = (lengths < 0) & (starts < nbytes)
+        nlong = int(is_long.sum())
+        if nlong > 0:
+            rows = torch.nonzero(is_long, as_tuple=True)[0][:cap_long]
+            lwin = unaligned_words(words, ustarts[rows], nw)
+            lln = first_byte_pos(lwin, QUOTE)
+            lln = torch.where(lln >= _W_SHORT * 4, lln,
+                              torch.full_like(lln, -1))
+            ids[rows], alts[rows] = _hash2(lwin, lln)
+            lengths[rows] = lln
+
+    docs = torch.searchsorted(file_starts, starts, right=True) - 1
+    valid = (starts < nbytes) & (lengths >= 0)
+    npairs = int(valid.sum())
+    # valid rows first, each part in row order (a stable partition)
+    order = torch.cat([torch.nonzero(valid, as_tuple=True)[0],
+                       torch.nonzero(~valid, as_tuple=True)[0]])
+    pids, palts = ids[order], alts[order]
+    ncoll = _count_collisions(pids, palts,
+                              torch.arange(cap, device=dev) < npairs)
+    return (pids, palts, docs[order].to(torch.int32), ustarts[order],
+            lengths[order], nhits, npairs, ncoll, nlong)
+
+
+def _url_dict_wanted(files, want_urls: bool) -> bool:
+    """Keep URL bytes when output needs them or the corpus is small."""
+    return want_urls or sum(os.path.getsize(f) for f in files) \
+        <= URL_DICT_MAX
+
+
+def _host_collision_count(ids: np.ndarray, alts: np.ndarray) -> int:
+    """Host version of :func:`_count_collisions` over valid rows."""
+    order = np.lexsort((alts, ids))
+    a, b = ids[order], alts[order]
+    return int(((a[1:] == a[:-1]) & (b[1:] != b[:-1])).sum())
+
+
+class StageTimer:
+    """Cumulative wall-clock seconds per pipeline stage.  Each stage ends
+    with a device synchronise, so its time includes its device work."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.times: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            synchronize(self.device)
+            self.times[name] = self.times.get(name, 0.0) \
+                + time.perf_counter() - t0
+
+
+class InvertedIndex:
+    """Builds an inverted URL→documents index over the MapReduce ops."""
+
+    _BATCH_BYTES = 1 << 30   # per-corpus cap: byte offsets are int32
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._urls: Dict[int, bytes] = {}
+        self.shard_urls: Optional[List[Dict[int, bytes]]] = None
+        self.docs: List[str] = []
+        self.npairs = 0
+        self.timer = StageTimer(self.device)
+        self._reset_stats()
+
+    def _reset_stats(self):
+        # map-stage machinery: batches, hit-capacity retries, wide-window
+        # fallbacks, largest raw long-tail count
+        self.stats = {"nbatches": 0, "cap_retries": 0,
+                      "wide_fallbacks": 0, "nlong_max": 0}
+
+    @property
+    def urls(self) -> Dict[int, bytes]:
+        """id → URL bytes, over every dictionary the run kept."""
+        merged: Dict[int, bytes] = {}
+        for d in self.shard_urls or []:
+            merged.update(d)
+        merged.update(self._urls)
+        return merged
+
+    @staticmethod
+    def _intern(table: Dict[int, bytes], ids, urls) -> None:
+        for h, url in zip(ids.tolist(), urls):
+            prev = table.get(h)
+            if prev is not None and prev != url:
+                raise ValueError(
+                    f"64-bit URL intern collision: {prev!r} vs {url!r}")
+            table[h] = url
+
+    def _file_batches(self, files, sizes):
+        """Greedy contiguous file batches under the int32 corpus cap."""
+        batches, cur, size = [], [], 0
+        for f, fbytes in zip(files, sizes):
+            fsz = int(fbytes) + _GAP
+            if fsz > self._BATCH_BYTES:
+                raise ValueError(
+                    f"{f}: single file of {fsz} bytes exceeds the device "
+                    f"corpus cap ({self._BATCH_BYTES})")
+            if cur and size + fsz > self._BATCH_BYTES:
+                batches.append(cur)
+                cur, size = [], 0
+            cur.append(f)
+            size += fsz
+        if cur:
+            batches.append(cur)
+        return batches
+
+    def _map_corpus(self, files, kv, want_urls: bool) -> None:
+        """The map stage: each batch of files becomes one corpus on the
+        device and one ShardedKV frame of (url id, doc id) pairs."""
+        self.docs = list(files)
+        keep_bytes = _url_dict_wanted(files, want_urls)
+        if keep_bytes:
+            self.shard_urls = [{}]
+        batches = self._file_batches(
+            files, [os.path.getsize(f) for f in files])
+        checks = []     # per-batch (ids, alts) for the cross-batch check
+        base = 0
+        for batch in batches:
+            doc_base, base = base, base + len(batch)
+            with self.timer.stage("read"):
+                corpus, fstarts = _build_corpus(batch)
+            self.stats["nbatches"] += 1
+            if len(corpus) == 0:
+                continue
+            W = _bucket_words(-(-len(corpus) // 4))
+            fst = np.full(max(len(fstarts), 1), 4 * W, np.int32)
+            fst[:len(fstarts)] = fstarts
+            wp = np.zeros(W, np.uint32)
+            w = bytes_view_u32(corpus)
+            wp[:len(w)] = w
+            with self.timer.stage("h2d"):
+                words = to_torch(wp, self.device)
+                fstarts_d = to_torch(fst, self.device)
+
+            # ~1 href/KB is the PUMA-style density; an overflow retries
+            # with the exact power-of-two capacity
+            cap = max(8, 1 << (max(1, len(corpus) // 1024) - 1).bit_length())
+            wide = False
+            with self.timer.stage("map_device"):
+                while True:
+                    (ids, alts, docs, ustarts, lengths, nhits, npairs,
+                     ncoll, nlong) = _extract_core(words, fstarts_d,
+                                                   cap=cap, wide=wide)
+                    self.stats["nlong_max"] = max(self.stats["nlong_max"],
+                                                  nlong)
+                    if nhits > cap:
+                        cap = max(8, 1 << (nhits - 1).bit_length())
+                        self.stats["cap_retries"] += 1
+                    elif nlong > max(8, cap // 4):
+                        wide = True   # long-URL-dense corpus
+                        self.stats["wide_fallbacks"] += 1
+                    else:
+                        break
+                if ncoll:
+                    raise ValueError(
+                        f"{ncoll} 64-bit URL intern collision(s) detected")
+                docs = docs + doc_base
+            kv.add_frame(ShardedKV(ids, docs, np.array([npairs], np.int32),
+                                   np.dtype(np.uint64), np.dtype(np.uint32)))
+            if len(batches) > 1:
+                checks.append((ids[:npairs], alts[:npairs]))
+
+            if keep_bytes and npairs:
+                with self.timer.stage("url_dict"):
+                    us = ustarts[:npairs].cpu().numpy()
+                    ln = lengths[:npairs].cpu().numpy()
+                    urls = [corpus[s:s + l].tobytes()
+                            for s, l in zip(us.tolist(), ln.tolist())]
+                    self._intern(self.shard_urls[0],
+                                 to_numpy(ids[:npairs], np.uint64), urls)
+
+        if checks:
+            with self.timer.stage("map_device"):
+                ids = torch.cat([c[0] for c in checks])
+                alts = torch.cat([c[1] for c in checks])
+                ncoll = _count_collisions(
+                    ids, alts, torch.ones_like(ids, dtype=torch.bool))
+                if ncoll:
+                    raise ValueError(
+                        f"{ncoll} 64-bit URL intern collision(s) detected "
+                        f"(distinct URLs share a u64 id)")
+
+    def run(self, paths: Sequence[str],
+            outdir: Optional[str] = None) -> Tuple[int, int]:
+        """Returns (total hits, unique urls).  Writes ``url \\t files``
+        lines to ``outdir/part-00000`` when outdir is given (reference
+        myreduce, cuda/InvertedIndex.cu:463-513)."""
+        mr = MapReduce(self.device)
+        self._reset_stats()
+        self._urls, self.shard_urls = {}, None
+        files = findfiles(list(paths))
+        with self.timer.stage("map"):
+            self.npairs = mr.map(1, lambda itask, kv, ptr: self._map_corpus(
+                files, kv, want_urls=outdir is not None))
+        with self.timer.stage("aggregate"):
+            mr.aggregate()
+        with self.timer.stage("convert"):
+            mr.convert()
+
+        nurl = [0]
+
+        def emit_batch(fr, kv, ptr):
+            counted = reduce_sharded(fr, "count")
+            nurl[0] += len(counted)
+            kv.add_frame(counted)
+
+        with self.timer.stage("reduce"):
+            if outdir:
+                os.makedirs(outdir, exist_ok=True)
+                for fr in mr.kmv.frames():
+                    self._write_parts_sharded(outdir, fr)
+            mr.reduce(emit_batch, batch=True)
+        self.mr = mr
+        return self.npairs, nurl[0]
+
+    def _write_parts_sharded(self, outdir: str, fr) -> None:
+        """Write ``part-<shard>`` from each shard's groups in ascending
+        unsigned URL id, decoding URL bytes from the run's dictionary."""
+        for p in range(fr.nprocs):
+            lookup = (self.shard_urls[p] if self.shard_urls is not None
+                      else self._urls)
+            hf = fr.shard_to_host(p)
+            with open(os.path.join(outdir, f"part-{p:05d}"), "w") as out:
+                for k, vals in hf.groups():
+                    url = lookup[int(k)].decode(errors="replace")
+                    names = " ".join(self.docs[int(v)]
+                                     for v in sorted(set(vals)))
+                    out.write(f"{url}\t{names}\n")

@@ -1,0 +1,87 @@
+"""KV and KMV frames on the host: the in-memory unit of data.
+
+The dense subset of ``gpu_mapreduce_tpu/core/frame.py``.  KMV layout:
+unique keys ``[g]``, per-group counts ``[g]``, exclusive offsets
+``[g+1]`` and a flat value column whose rows are grouped contiguously.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Tuple
+
+import numpy as np
+
+from .column import DenseColumn, as_column
+from .runtime import MRError
+
+
+class KVFrame:
+    """Immutable batch of (key, value) pairs."""
+
+    __slots__ = ("key", "value")
+
+    def __init__(self, key, value):
+        key, value = as_column(key), as_column(value)
+        if len(key) != len(value):
+            raise MRError(f"key/value lengths differ: {len(key)} vs "
+                          f"{len(value)}")
+        self.key = key
+        self.value = value
+
+    def __len__(self) -> int:
+        return len(self.key)
+
+    def to_host(self) -> "KVFrame":
+        return self
+
+    def pairs(self) -> Iterator[Tuple[object, object]]:
+        """(key, value) as Python scalars — the per-pair callback view."""
+        yield from zip(self.key.tolist(), self.value.tolist())
+
+    def __repr__(self):
+        return f"KVFrame(n={len(self)}, key={self.key!r}, value={self.value!r})"
+
+
+class KMVFrame:
+    """Immutable batch of (key, multivalue) groups; group i's values are
+    ``values[offsets[i]:offsets[i+1]]``."""
+
+    __slots__ = ("key", "nvalues", "offsets", "values")
+
+    def __init__(self, key, nvalues, offsets, values):
+        self.key = as_column(key)
+        self.nvalues = np.asarray(nvalues, dtype=np.int64)
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.values = as_column(values)
+        if len(self.offsets) != len(self.key) + 1:
+            raise MRError("KMVFrame offsets must have one entry per group "
+                          "plus one")
+
+    def __len__(self) -> int:
+        return len(self.key)
+
+    @property
+    def nvalues_total(self) -> int:
+        return len(self.values)
+
+    def to_host(self) -> "KMVFrame":
+        return self
+
+    def group_values(self, i: int) -> DenseColumn:
+        return self.values.slice(int(self.offsets[i]),
+                                 int(self.offsets[i + 1]))
+
+    def groups(self) -> Iterator[Tuple[object, list]]:
+        """(key, [values]) per group — the per-group reduce view."""
+        keys = self.key.tolist()
+        vals = self.values.tolist()
+        for i, k in enumerate(keys):
+            yield k, vals[int(self.offsets[i]):int(self.offsets[i + 1])]
+
+    def __repr__(self):
+        return (f"KMVFrame(g={len(self)}, n={self.nvalues_total}, "
+                f"key={self.key!r}, values={self.values!r})")
+
+
+def empty_kv() -> KVFrame:
+    return KVFrame(np.zeros(0, np.uint64), np.zeros(0, np.uint64))

@@ -1,0 +1,202 @@
+"""Pattern matching over a u32-word corpus: the map stage's front half.
+
+The counterpart of ``gpu_mapreduce_tpu/ops/pallas/match.py``'s word-packed
+path.  :func:`mark_words` launches the hand-written kernel
+``csrc/mark_words.cu`` on a CUDA tensor; on a CPU tensor it runs
+:func:`mark_words_ref`, the same masked-compare math in plain PyTorch
+(the counterpart of ``mark_words_xla``).  The rest (compaction, unaligned
+URL windows, quote scan, length masking) is PyTorch on either device.
+
+Word buffers are int32 tensors holding u32 bit patterns; the window
+helpers return u32 values in int64 lanes (``ops/bits``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ...core.runtime import MRError
+from ..bits import M32, to_u32_lanes
+from . import library, note_kernel_launch
+
+MAX_NW = 8    # csrc/mark_words.cu: patterns up to 26 bytes
+
+
+def _min_period(pattern: bytes) -> int:
+    for d in range(1, len(pattern)):
+        if pattern[d:] == pattern[:-d]:
+            return d
+    return len(pattern)
+
+
+def _alignment_tables(pattern: bytes) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-alignment masked-compare constants: for byte alignment a in
+    0..3, (masks[a], vals[a]) are u32 words with 0xFF at the byte
+    positions the pattern occupies in the little-endian word window
+    starting at the match word."""
+    L = len(pattern)
+    nw = (L + 3 + 3) // 4
+    masks = np.zeros((4, nw), np.uint32)
+    vals = np.zeros((4, nw), np.uint32)
+    for a in range(4):
+        mb = bytearray(4 * nw)
+        vb = bytearray(4 * nw)
+        for i, p in enumerate(pattern):
+            mb[a + i] = 0xFF
+            vb[a + i] = p
+        masks[a] = np.frombuffer(bytes(mb), "<u4")
+        vals[a] = np.frombuffer(bytes(vb), "<u4")
+    return masks, vals
+
+
+def _check_pattern(pattern: bytes) -> None:
+    if _min_period(pattern) < 4:
+        raise ValueError(
+            f"pattern period {_min_period(pattern)} < 4: two alignments of "
+            f"one word could match")
+    if (len(pattern) + 6) // 4 > MAX_NW:
+        raise ValueError(f"pattern of {len(pattern)} bytes spans more than "
+                         f"{MAX_NW} words")
+
+
+def bytes_view_u32(data: np.ndarray) -> np.ndarray:
+    """HOST helper: u8 [n] → little-endian u32 words [ceil(n/4)] (zero-pad
+    tail)."""
+    n = data.shape[0]
+    pad = (-n) % 4
+    if pad:
+        data = np.concatenate([data, np.zeros(pad, np.uint8)])
+    return np.ascontiguousarray(data).view(np.dtype("<u4"))
+
+
+def mark_words_ref(words: torch.Tensor, pattern: bytes) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: word buffer [m] → int8 [m];
+    0 = no match, a+1 = the pattern starts at byte 4*i+a."""
+    _check_pattern(pattern)
+    masks, vals = _alignment_tables(pattern)
+    m = words.shape[0]
+    wu = to_u32_lanes(words)
+    nw = masks.shape[1]
+    views = [wu] + [torch.nn.functional.pad(wu[j:], (0, min(j, m)))
+                    for j in range(1, nw)]
+    out = torch.zeros(m, dtype=torch.int8, device=words.device)
+    for a in range(3, -1, -1):           # lowest alignment wins
+        hit = None
+        for j in range(nw):
+            mk = int(masks[a, j])
+            if not mk:
+                continue
+            eq = (views[j] & mk) == (int(vals[a, j]) & mk)
+            hit = eq if hit is None else hit & eq
+        out = torch.where(hit, torch.tensor(a + 1, dtype=torch.int8,
+                                            device=words.device), out)
+    return out
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.mark_words_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_int64, u32p, u32p,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.mark_words_launch.restype = ctypes.c_int
+
+
+def mark_words(words: torch.Tensor, pattern: bytes) -> torch.Tensor:
+    """Word-packed mark over a contiguous int32 word buffer [m] → int8
+    [m] (see :func:`mark_words_ref`).  A CUDA tensor launches
+    ``csrc/mark_words.cu`` on the current stream; a CPU tensor runs the
+    plain version.  Anything else raises."""
+    _check_pattern(pattern)
+    if not isinstance(words, torch.Tensor) or words.dim() != 1 \
+            or words.dtype != torch.int32 or not words.is_contiguous():
+        raise ValueError("mark_words takes a contiguous 1-D int32 tensor")
+    if words.device.type == "cpu":
+        return mark_words_ref(words, pattern)
+    if words.device.type != "cuda":
+        raise ValueError(f"mark_words: unsupported device {words.device}")
+    m = words.shape[0]
+    out = torch.empty(m, dtype=torch.int8, device=words.device)
+    if m == 0:
+        return out
+    masks, vals = _alignment_tables(pattern)
+    nw = masks.shape[1]
+    cm = (ctypes.c_uint32 * masks.size)(*masks.reshape(-1).tolist())
+    cv = (ctypes.c_uint32 * vals.size)(*vals.reshape(-1).tolist())
+    lib = library("mark_words", _bind)
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    rc = lib.mark_words_launch(words.data_ptr(), out.data_ptr(), m, cm, cv,
+                               nw, words.device.index or 0, stream)
+    if rc != 0:
+        raise MRError(f"mark_words kernel launch failed (CUDA error {rc})")
+    note_kernel_launch(mark_words)
+    return out
+
+
+mark_words.launches = 0
+
+
+def compact_word_matches(wmask: torch.Tensor, nbytes: int,
+                         max_hits: int) -> Tuple[torch.Tensor, int]:
+    """Word mask → ascending byte starts [max_hits] int32 (fill
+    ``nbytes``, out of range on purpose) and the total hit count, which
+    may exceed ``max_hits``.  The same output as every JAX compaction
+    mode (scatter / searchsorted / blocked)."""
+    idx = torch.nonzero(wmask, as_tuple=True)[0]      # ascending
+    total = int(idx.numel())
+    idx = idx[:max_hits]
+    starts = torch.full((max_hits,), nbytes, dtype=torch.int32,
+                        device=wmask.device)
+    starts[:idx.numel()] = (4 * idx + wmask[idx].to(torch.int64)
+                            - 1).to(torch.int32)
+    return starts, total
+
+
+def unaligned_words(words: torch.Tensor, starts: torch.Tensor,
+                    nwords: int) -> torch.Tensor:
+    """Row i holds the ``nwords`` little-endian u32 words whose bytes start
+    at BYTE offset ``starts[i]`` (u32 values in int64 lanes), rebuilt from
+    aligned loads and shifts.  Out-of-range bytes read as zero."""
+    m = words.shape[0]
+    st = starts.to(torch.int64)
+    k = torch.div(st, 4, rounding_mode="floor")
+    sh = (8 * (st - 4 * k))[:, None]
+    idx = k[:, None] + torch.arange(nwords + 1, device=words.device)[None, :]
+    inside = (idx >= 0) & (idx < m)
+    g = to_u32_lanes(words[idx.clamp(0, m - 1)])
+    g = torch.where(inside, g, torch.zeros((), dtype=torch.int64,
+                                           device=words.device))
+    lo = g[:, :-1] >> sh
+    hi = torch.where(sh > 0, (g[:, 1:] << (32 - sh)) & M32,
+                     torch.zeros((), dtype=torch.int64, device=words.device))
+    return lo | hi
+
+
+def first_byte_pos(wu: torch.Tensor, byte: int) -> torch.Tensor:
+    """Per row of a u32 window array [n, W]: byte offset of the first
+    occurrence of ``byte`` (int32), or -1."""
+    n, W = wu.shape
+    shifts = torch.arange(0, 32, 8, device=wu.device)
+    b = ((wu[:, :, None] >> shifts) & 0xFF).reshape(n, 4 * W)
+    pos = torch.arange(4 * W, dtype=torch.int32, device=wu.device)
+    big = torch.tensor(4 * W, dtype=torch.int32, device=wu.device)
+    best = torch.where(b == byte, pos, big).amin(dim=1)
+    return torch.where(best < 4 * W, best, torch.full_like(best, -1))
+
+
+_LEN_LUT = (0, 0xFF, 0xFFFF, 0xFFFFFF, 0xFFFFFFFF)
+
+
+def mask_words_to_length(wu: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """Zero every byte at offset >= lengths[i] in row i of a u32 window
+    array (the zero-padded words the masked hash requires)."""
+    W = wu.shape[1]
+    nb = (lengths.to(torch.int64)[:, None]
+          - 4 * torch.arange(W, device=wu.device)[None, :]).clamp(0, 4)
+    lut = torch.tensor(_LEN_LUT, dtype=torch.int64, device=wu.device)
+    return to_u32_lanes(wu) & lut[nb]

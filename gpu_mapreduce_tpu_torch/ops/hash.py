@@ -1,0 +1,197 @@
+"""lookup3 hashing (Bob Jenkins, public domain algorithm) in PyTorch.
+
+The counterpart of ``gpu_mapreduce_tpu/ops/hash.py``:
+
+* :func:`hashlittle` / :func:`hash_bytes64` — the exact scalar host
+  version over ``bytes`` (a pure-Python copy).
+* :func:`hash_words32`, :func:`hashlittle_masked`,
+  :func:`hash_bytes64_masked` and :func:`hash_u64` — vectorised over
+  tensors, bit-identical to the scalar version.
+
+Tensor arithmetic runs on int64 lanes holding u32 values (``ops/bits``):
+every add and subtract is masked back to 32 bits, and the rotates' right
+shifts see only non-negative values, so they are logical.  Results are
+u32 values in int64 lanes; the 64-bit ids are u64 bit patterns in int64
+(``(hi << 32) | lo`` wraps into the sign bit as intended).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from .bits import M32 as _M32
+from .bits import to_u32_lanes
+
+
+def _rot(x: int, k: int) -> int:
+    return ((x << k) | (x >> (32 - k))) & _M32
+
+
+def _mix(a: int, b: int, c: int):
+    a = (a - c) & _M32; a ^= _rot(c, 4); c = (c + b) & _M32
+    b = (b - a) & _M32; b ^= _rot(a, 6); a = (a + c) & _M32
+    c = (c - b) & _M32; c ^= _rot(b, 8); b = (b + a) & _M32
+    a = (a - c) & _M32; a ^= _rot(c, 16); c = (c + b) & _M32
+    b = (b - a) & _M32; b ^= _rot(a, 19); a = (a + c) & _M32
+    c = (c - b) & _M32; c ^= _rot(b, 4); b = (b + a) & _M32
+    return a, b, c
+
+
+def _final(a: int, b: int, c: int):
+    c ^= b; c = (c - _rot(b, 14)) & _M32
+    a ^= c; a = (a - _rot(c, 11)) & _M32
+    b ^= a; b = (b - _rot(a, 25)) & _M32
+    c ^= b; c = (c - _rot(b, 16)) & _M32
+    a ^= c; a = (a - _rot(c, 4)) & _M32
+    b ^= a; b = (b - _rot(a, 14)) & _M32
+    c ^= b; c = (c - _rot(b, 24)) & _M32
+    return a, b, c
+
+
+def hashlittle(data: bytes, initval: int = 0) -> int:
+    """Exact hashlittle(key, length, initval) → uint32 (reference
+    src/hash.cpp:104-228), byte-at-a-time formulation."""
+    length = len(data)
+    a = b = c = (0xDEADBEEF + length + initval) & _M32
+    i = 0
+    while length > 12:
+        a = (a + int.from_bytes(data[i:i + 4], "little")) & _M32
+        b = (b + int.from_bytes(data[i + 4:i + 8], "little")) & _M32
+        c = (c + int.from_bytes(data[i + 8:i + 12], "little")) & _M32
+        a, b, c = _mix(a, b, c)
+        i += 12
+        length -= 12
+    tail = data[i:]
+    if length == 0:
+        return c
+    pad = tail + b"\x00" * (12 - len(tail))
+    a = (a + int.from_bytes(pad[0:4], "little")) & _M32
+    b = (b + int.from_bytes(pad[4:8], "little")) & _M32
+    c = (c + int.from_bytes(pad[8:12], "little")) & _M32
+    a, b, c = _final(a, b, c)
+    return c
+
+
+def hash_bytes64(data: bytes) -> int:
+    """64-bit intern id for a byte string: two seeded hashlittle passes."""
+    return (hashlittle(data, 0) << 32) | hashlittle(data, 0xDEADBEEF)
+
+
+# ---------------------------------------------------------------------------
+# tensor versions: u32 values in int64 lanes
+# ---------------------------------------------------------------------------
+
+def _trot(x, k: int):
+    return ((x << k) & _M32) | (x >> (32 - k))
+
+
+def _tmix(a, b, c):
+    a = (a - c) & _M32; a = a ^ _trot(c, 4); c = (c + b) & _M32
+    b = (b - a) & _M32; b = b ^ _trot(a, 6); a = (a + c) & _M32
+    c = (c - b) & _M32; c = c ^ _trot(b, 8); b = (b + a) & _M32
+    a = (a - c) & _M32; a = a ^ _trot(c, 16); c = (c + b) & _M32
+    b = (b - a) & _M32; b = b ^ _trot(a, 19); a = (a + c) & _M32
+    c = (c - b) & _M32; c = c ^ _trot(b, 4); b = (b + a) & _M32
+    return a, b, c
+
+
+def _tfinal(a, b, c):
+    c = c ^ b; c = (c - _trot(b, 14)) & _M32
+    a = a ^ c; a = (a - _trot(c, 11)) & _M32
+    b = b ^ a; b = (b - _trot(a, 25)) & _M32
+    c = c ^ b; c = (c - _trot(b, 16)) & _M32
+    a = a ^ c; a = (a - _trot(c, 4)) & _M32
+    b = b ^ a; b = (b - _trot(a, 14)) & _M32
+    c = c ^ b; c = (c - _trot(b, 24)) & _M32
+    return a, b, c
+
+
+def hash_words32(words: torch.Tensor, initval: int = 0) -> torch.Tensor:
+    """hashlittle over fixed-width keys: ``words`` [..., W] of u32 bit
+    patterns, each row one key of 4*W bytes → u32 hashes [...] (int64
+    lanes)."""
+    words = to_u32_lanes(words)
+    w = words.shape[-1]
+    init = (0xDEADBEEF + 4 * w + initval) & _M32
+    a = torch.full(words.shape[:-1], init, dtype=torch.int64,
+                   device=words.device)
+    b = c = a
+    i = 0
+    while w > 3:
+        a = (a + words[..., i]) & _M32
+        b = (b + words[..., i + 1]) & _M32
+        c = (c + words[..., i + 2]) & _M32
+        a, b, c = _tmix(a, b, c)
+        i += 3
+        w -= 3
+    if w == 0:
+        return c
+    if w >= 1:
+        a = (a + words[..., i]) & _M32
+    if w >= 2:
+        b = (b + words[..., i + 1]) & _M32
+    if w >= 3:
+        c = (c + words[..., i + 2]) & _M32
+    return _tfinal(a, b, c)[2]
+
+
+def _hashlittle_masked_seeds(words: torch.Tensor, lengths: torch.Tensor,
+                             seeds: Sequence[int]) -> torch.Tensor:
+    """hashlittle over variable-length keys for several seeds in one
+    pass: → u32 hashes [len(seeds), ...] (int64 lanes).  Each row of
+    ``words`` [..., T] is a key's bytes as little-endian u32 words,
+    zeroed beyond its length (lookup3's tail padding)."""
+    words = to_u32_lanes(words)
+    T = words.shape[-1]
+    pad = (-T) % 3
+    if pad:
+        words = torch.nn.functional.pad(words, (0, pad))
+        T += pad
+    lengths = lengths.to(torch.int64)
+    seed = torch.tensor([(0xDEADBEEF + s) & _M32 for s in seeds],
+                        dtype=torch.int64, device=words.device)
+    seed = seed.reshape((len(seeds),) + (1,) * lengths.dim())
+    init = (seed + lengths) & _M32
+    a = b = c = out = init     # length 0: hashlittle returns c == init
+    for t in range(T // 3):
+        rem = lengths - 12 * t
+        is_full = rem > 12            # another block follows → mix
+        is_tail = (rem > 0) & (rem <= 12)   # this block is the tail
+        a0 = (a + words[..., 3 * t]) & _M32
+        b0 = (b + words[..., 3 * t + 1]) & _M32
+        c0 = (c + words[..., 3 * t + 2]) & _M32
+        am, bm, cm = _tmix(a0, b0, c0)
+        cf = _tfinal(a0, b0, c0)[2]
+        a = torch.where(is_full, am, a)
+        b = torch.where(is_full, bm, b)
+        c = torch.where(is_full, cm, c)
+        out = torch.where(is_tail, cf, out)
+    return out
+
+
+def hashlittle_masked(words: torch.Tensor, lengths: torch.Tensor,
+                      initval: int = 0) -> torch.Tensor:
+    """hashlittle over variable-length keys (see
+    :func:`_hashlittle_masked_seeds`) → u32 hashes [...]."""
+    return _hashlittle_masked_seeds(words, lengths, (initval,))[0]
+
+
+def hash_bytes64_masked(words: torch.Tensor, lengths: torch.Tensor,
+                        seed_hi: int = 0,
+                        seed_lo: int = 0xDEADBEEF) -> torch.Tensor:
+    """u64 intern id (int64 bit pattern) from two seeded masked-hashlittle
+    passes, computed together.  Default seeds: bit-identical to
+    :func:`hash_bytes64`; other seeds give an independent id family."""
+    hi, lo = _hashlittle_masked_seeds(words, lengths, (seed_hi, seed_lo))
+    return (hi << 32) | lo
+
+
+def hash_u64(keys: torch.Tensor, initval: int = 0) -> torch.Tensor:
+    """u64 keys (int64 bit patterns) → u32 hashes matching hashlittle on
+    their 8-byte little-endian encodings."""
+    keys = keys.to(torch.int64)
+    lo = keys & _M32
+    hi = (keys >> 32) & _M32
+    return hash_words32(torch.stack([lo, hi], dim=-1), initval)
