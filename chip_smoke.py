@@ -12,7 +12,12 @@ nonzero):
               with nvcc (ptxas's register/spill report included);
 3. kernels  — each kernel against its plain PyTorch version on the card,
               exactly, at the main path's shape and at edge shapes; then
-              CUDA-event timings beside the kernel's bound;
+              CUDA-event timings beside the kernel's bound and, where one
+              PyTorch call computes the same function, that call's time:
+              mark_words (the map stage's word mark), seg_table (the group
+              table at both IntCount shapes, compared through its
+              epilogue) and mark_bytes (the byte mark, off every entry
+              point);
 4. main     — InvertedIndex().run() on the benchmark's 256 MB, 4-file
               corpus (warm-up, then one timed run, with every launch
               count set to 0 just before it): pairs and unique URLs must
@@ -20,13 +25,24 @@ nonzero):
 5. paths    — a dense corpus (must take a cap retry and the wide
               fallback), a skewed one, and an outdir run whose part file
               must equal a regex oracle and the port's CPU run byte for
-              byte.
+              byte;
+6. intcount — intcount(paths, ntop=10) on two 128 MB files of u32 keys
+              (uniform, and zipf(1.3) capped at 2^22): once eagerly, then
+              with MRTPU_FUSE=1 a cold run (sort path) and a warm run
+              (group table), each with every launch count set to 0 just
+              before it; all three must equal a numpy oracle, and
+              seg_table must launch on the warm run and not on the cold.
+              Each run is then repeated with every op, the plan and the
+              fused group between device synchronises, for the stage
+              seconds (``op_seconds``).
 
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
 result when no CUDA device is present.  Imports nothing of JAX.
 """
 
+import contextlib
+import functools
 import json
 import os
 import re
@@ -38,7 +54,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 NONTENSOR_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
+L2_BYTES = 50e6              # H100 SXM L2 cache
 MAIN_MB = 256                # bench.py's BENCH_MB default
+INTCOUNT_KEYS = 1 << 25      # 128 MB of u32 keys: one rank of cpu/IntCount.cpp
 
 
 def emit(obj) -> None:
@@ -155,6 +173,309 @@ def time_mark_words(words) -> dict:
             "bytes": nbytes, "ops": ops}
 
 
+def intcount_files(d):
+    """The two IntCount inputs, 128 MB of u32 keys each, from a fixed
+    seed: uniform (about 33.4 M distinct keys) and zipf(1.3) capped at
+    2^22 (the shape of bench.py's zipf intcount)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    keys = {"uniform": rng.integers(0, 1 << 32, INTCOUNT_KEYS,
+                                    dtype=np.uint32),
+            "zipf": np.minimum(rng.zipf(1.3, INTCOUNT_KEYS),
+                               1 << 22).astype(np.uint32)}
+    paths = {}
+    for cell, k in keys.items():
+        paths[cell] = os.path.join(d, f"intcount-{cell}.bin")
+        k.tofile(paths[cell])
+    return paths, keys
+
+
+def table_shape(keys_u32, device):
+    """The warm run's table for one IntCount file: its u64 keys on the
+    card, and T = table_slots(gcap) with gcap as the cold run arms it."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.bits import to_torch
+    from gpu_mapreduce_tpu_torch.ops.cuda.group import table_slots
+    from gpu_mapreduce_tpu_torch.parallel.sharded import round_cap
+    from gpu_mapreduce_tpu_torch.plan.fuser import _gcap_for
+    keys = to_torch(keys_u32.astype(np.uint64), device)
+    g = int(torch.unique(keys).numel())
+    gcap = _gcap_for(g, round_cap(keys.numel()))
+    return keys, table_slots(gcap), gcap
+
+
+def check_seg_table(shapes, device) -> dict:
+    """segment_table vs segment_table_ref on the card, compared through
+    table_to_groups: the groups exactly, overflow as a predicate."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.bits import to_torch, widen64
+    from gpu_mapreduce_tpu_torch.ops.cuda.group import (segment_table,
+                                                        segment_table_ref)
+    from gpu_mapreduce_tpu_torch.ops.segment import table_to_groups
+    rng = np.random.default_rng(1)
+    cases = []                  # (name, keys, values, T, gcap, dtypes)
+    for cell, (keys, T, gcap) in shapes.items():
+        vals = rng.integers(0, 1 << 32, keys.numel(), dtype=np.uint32)
+        cases.append((f"{cell}_count", keys, None, T, gcap, np.uint64,
+                      None))
+        cases.append((f"{cell}_sum", keys, to_torch(vals, device), T, gcap,
+                      np.uint64, np.uint32))
+    k32 = rng.integers(-50_000, 50_000, 1 << 20).astype(np.int32)
+    v32 = rng.integers(-(1 << 31), 1 << 31, 1 << 20).astype(np.int32)
+    cases.append(("i32_negative_sum", to_torch(k32, device),
+                  to_torch(v32, device), 1 << 18, 1 << 17, np.int32,
+                  np.int32))
+    k64 = rng.integers(0, 1 << 64, 1000, dtype=np.uint64)[
+        rng.integers(0, 1000, 1 << 20)]
+    k64[::3] = 0
+    k64[1::5] = np.iinfo(np.uint64).max
+    v64 = rng.integers(0, 1 << 64, 1 << 20, dtype=np.uint64)
+    cases.append(("zero_and_max_sum", to_torch(k64, device),
+                  to_torch(v64, device), 2048, 1024, np.uint64, np.uint64))
+    # nvalid < cap: only the first 700,001 of 2^20 rows
+    cases.append(("nvalid_lt_cap_count", to_torch(k64, device)[:700_001],
+                  None, 2048, 1024, np.uint64, None))
+    over = (np.arange(50_000, dtype=np.uint64) * np.uint64(7919))
+    cases.append(("overflow_count", to_torch(over, device), None, 1 << 14,
+                  1 << 14, np.uint64, None))
+    done = []
+    for name, keys, vals, T, gcap, kd, vd in cases:
+        op = "count" if vals is None else "sum"
+        k = widen64(keys, kd).contiguous()
+        v = None if vals is None else widen64(vals, vd).contiguous()
+        got = table_to_groups(segment_table(k, v, T), T, gcap, op, kd, vd)
+        ref = table_to_groups(segment_table_ref(k, v, T), T, gcap, op, kd,
+                              vd)
+        torch.cuda.synchronize()
+        if name == "overflow_count":
+            # which keys won the full table's slots depends on the race,
+            # so only the predicate the fuser reads is compared
+            same = got[3] > 0 and ref[3] > 0
+        else:
+            same = (torch.equal(got[0], ref[0])
+                    and torch.equal(got[1], ref[1])
+                    and got[2] == ref[2] and got[3] == ref[3] == 0)
+        if not same:
+            raise AssertionError(f"seg_table differs from its plain version "
+                                 f"on case {name}: g {got[2]} vs {ref[2]}, "
+                                 f"overflow {got[3]} vs {ref[3]}")
+        done.append({"case": name, "rows": int(k.numel()), "T": T,
+                     "groups": got[2], "overflow": got[3]})
+    return {"cases": done, "max_abs_err": 0}
+
+
+def table_bound(n: int, T: int, with_sum: bool) -> dict:
+    """Least time for the group table: each key (and value) read once,
+    the table's least state (8 B key + 4 B count a slot) written once,
+    and, when the table (16 B a slot) outgrows the L2, one random 32-byte
+    sector per row."""
+    nbytes = 8 * n * (2 if with_sum else 1) + 12 * T
+    if 16 * T > L2_BYTES:
+        nbytes += 32 * n
+    ops = 12 * n                        # hash, probe compare, adds a row
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / NONTENSOR_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_seg_table(keys, T: int, gcap: int) -> dict:
+    """The count table at one IntCount shape: the kernel (wrapper, table
+    zeroing included), its plain version, one torch.unique call that
+    computes the same groups and counts, and the bound; beside them the
+    epilogue (table_to_groups) that the warm group runs after it."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.cuda.group import (segment_table,
+                                                        segment_table_ref)
+    from gpu_mapreduce_tpu_torch.ops.segment import table_to_groups
+    ms = cuda_ms(lambda: segment_table(keys, None, T), iters=10)
+    plain_ms = cuda_ms(lambda: segment_table_ref(keys, None, T), iters=2,
+                       warmup=1)
+    library_ms = cuda_ms(lambda: torch.unique(keys, return_counts=True),
+                         iters=10)
+    table = segment_table(keys, None, T)
+    epilogue_ms = cuda_ms(lambda: table_to_groups(
+        table, T, gcap, "count", np.uint64, None), iters=5)
+    return {"n": int(keys.numel()), "T": T, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "epilogue_ms": epilogue_ms,
+            **table_bound(int(keys.numel()), T, False)}
+
+
+def check_mark_bytes(corpus, device) -> dict:
+    """mark vs mark_ref on the card, exactly: the main corpus, planted
+    matches across thread-block and grid-stride seams, n = 1, 2, 3, and a
+    pattern ending in \\0 that matches at the tail."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.apps.invertedindex import PATTERN
+    from gpu_mapreduce_tpu_torch.ops.cuda.match import mark, mark_ref
+    rng = np.random.default_rng(2)
+    n = 4 << 20
+    # one grid-stride step of bytes: 16 blocks of 256 threads a SM
+    stride = torch.cuda.get_device_properties(device).multi_processor_count \
+        * 16 * 256
+    offs = []                           # planted starts, 9+ bytes apart
+    for o in sorted({256 * k - (k % 9) for k in range(1, 400)}
+                    | {stride * m - 4 for m in range(1, 7)} | {n - 9}):
+        if not offs or o - offs[-1] >= len(PATTERN):
+            offs.append(o)
+    buf = rng.integers(0, 256, n, dtype=np.uint8)
+    for o in offs:
+        buf[o:o + len(PATTERN)] = np.frombuffer(PATTERN, np.uint8)
+    tail = rng.integers(0, 256, 1 << 20, dtype=np.uint8)
+    tail[-1] = ord("a")
+    cases = {"main_path": (torch.from_numpy(corpus).to(device), PATTERN),
+             "seams": (torch.from_numpy(buf).to(device), PATTERN),
+             "tail_a0": (torch.from_numpy(tail).to(device), b"a\x00"),
+             "period_1": (torch.from_numpy(rng.choice(
+                 np.frombuffer(b"ab", np.uint8), 1 << 20)).to(device),
+                 b"aaa")}
+    for k in (1, 2, 3):
+        cases[f"n={k}"] = (torch.full((k,), ord("a"), dtype=torch.uint8,
+                                      device=device), b"a\x00")
+    for name, (b, pat) in cases.items():
+        got, ref = mark(b, pat), mark_ref(b, pat)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"mark_bytes differs from its plain "
+                                 f"version on case {name}")
+        if name == "seams" and \
+                torch.nonzero(got).flatten().tolist() != offs:
+            raise AssertionError("mark_bytes missed planted matches")
+        if pat.endswith(b"\x00") and int(got[-1]) != 1:
+            raise AssertionError(f"mark_bytes: no tail match on {name}")
+    return {"cases": list(cases), "max_abs_err": 0}
+
+
+def time_mark_bytes(buf) -> dict:
+    from gpu_mapreduce_tpu_torch.apps.invertedindex import PATTERN
+    from gpu_mapreduce_tpu_torch.ops.cuda.match import mark, mark_ref
+    n = int(buf.numel())
+    ms = cuda_ms(lambda: mark(buf, PATTERN), iters=50)
+    plain_ms = cuda_ms(lambda: mark_ref(buf, PATTERN), iters=3, warmup=1)
+    nbytes = 2 * n                       # read each byte, write one int8
+    ops = 2 * len(PATTERN) * n           # a compare and an AND a byte
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / NONTENSOR_OPS_PER_S * 1e3
+    return {"n": n, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def intcount_oracle(keys_u32, ntop: int):
+    """(nints, nunique, top) by numpy: count descending, then key
+    descending (the tie order of the descending value sort over
+    ascending-key groups)."""
+    import numpy as np
+    uk, c = np.unique(keys_u32, return_counts=True)
+    order = np.lexsort((-uk.astype(np.int64), -c))[:ntop]
+    return len(keys_u32), len(uk), [(int(uk[i]), int(c[i])) for i in order]
+
+
+@contextlib.contextmanager
+def op_seconds():
+    """Wall seconds per MapReduce op, fused group and plan, each between
+    two device synchronises, into the dict the block yields.  The smoke
+    wraps the library's methods for the block's length; the library never
+    waits on the card to time itself.  Spans nest: a barrier op (gather,
+    scan_kv) holds the plan it runs, the plan holds the replayed
+    aggregate (the H2D) and the fused group; under fuse=1 the recorded
+    call of a deferred op takes only microseconds."""
+    import torch
+    from gpu_mapreduce_tpu_torch.core.mapreduce import MapReduce
+    from gpu_mapreduce_tpu_torch.plan import fuser
+    times = {}
+    spans = [(MapReduce, op, op) for op in
+             ("map_files", "aggregate", "convert", "reduce", "gather",
+              "sort_values", "scan_kv")]
+    spans += [(fuser, "execute_plan", "plan"),
+              (fuser, "_exec_local_group", "fused_group")]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in spans]
+
+    def timed(fn, label):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[label] = times.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for (owner, attr, label), (_, _, fn) in zip(spans, saved):
+        setattr(owner, attr, timed(fn, label))
+    try:
+        yield times
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def run_intcount(cell, path, keys_u32, kernels, smi) -> dict:
+    """intcount eager, then fused cold (sort path) and fused warm (group
+    table), each timed after every launch count is set to 0."""
+    import torch
+    from gpu_mapreduce_tpu_torch import intcount
+    from gpu_mapreduce_tpu_torch.ops.cuda.group import segment_table
+    from gpu_mapreduce_tpu_torch.plan import plan_cache, plan_history
+    want = intcount_oracle(keys_u32, 10)
+    runs = {}
+    saved = os.environ.get("MRTPU_FUSE")
+    try:
+        for run, fuse in (("eager", "0"), ("cold", "1"), ("warm", "1")):
+            os.environ["MRTPU_FUSE"] = fuse
+            if run == "cold":
+                plan_cache().clear()
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = intcount([path], ntop=10)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if got != want:
+                raise AssertionError(f"intcount-{cell} {run}: {got[:2]} "
+                                     f"top {got[2][:3]}... != oracle "
+                                     f"{want[:2]} top {want[2][:3]}...")
+            rec = {"end_to_end_s": dt,
+                   "launches": {k.__name__: k.launches for k in kernels},
+                   "max_memory_allocated":
+                       torch.cuda.max_memory_allocated()}
+            # a second, untimed-end-to-end run of the same mode with every
+            # op between device synchronises: the stage seconds
+            if run == "cold":
+                plan_cache().clear()
+            with op_seconds() as stages:
+                if intcount([path], ntop=10) != want:
+                    raise AssertionError(f"intcount-{cell} {run}: timed "
+                                         f"rerun differs")
+            rec["stages_s"] = stages
+            if fuse == "1":
+                group = next(g for e in reversed(plan_history())
+                             for g in e["groups"] if g["fused"])
+                rec.update(group_mode=group["mode"], table=group["table"])
+            runs[run] = rec
+    finally:
+        if saved is None:
+            os.environ.pop("MRTPU_FUSE", None)
+        else:
+            os.environ["MRTPU_FUSE"] = saved
+    name = segment_table.__name__
+    if runs["cold"]["launches"][name] != 0 or \
+            runs["warm"]["launches"][name] < 1 or not runs["warm"]["table"]:
+        raise AssertionError(f"intcount-{cell}: seg_table launches cold "
+                             f"{runs['cold']['launches'][name]}, warm "
+                             f"{runs['warm']['launches'][name]}")
+    return {"phase": f"intcount-{cell}", "card": smi, "nints": want[0],
+            "nunique": want[1], "top3": want[2][:3], **runs}
+
+
 def oracle_part_file(paths) -> str:
     """part-00000 from a regex over the raw files: one line per distinct
     URL, ascending unsigned u64 id, then the files that reference it."""
@@ -176,10 +497,13 @@ def main() -> int:
         return 2
     from gpu_mapreduce_tpu_torch import InvertedIndex
     from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.apps.invertedindex import _build_corpus
     from gpu_mapreduce_tpu_torch.ops import cuda as kcuda
-    from gpu_mapreduce_tpu_torch.ops.cuda import match
+    from gpu_mapreduce_tpu_torch.ops.cuda import group, match
 
-    kernels = [match.mark_words]      # every kernel wrapper of the path
+    # every kernel wrapper: the InvertedIndex path's, the fused count
+    # chain's, and the byte mark (off every entry point)
+    kernels = [match.mark_words, group.segment_table, match.mark]
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -210,6 +534,28 @@ def main() -> int:
         del words_main
         emit({"phase": "kernels", "mark_words": {**checked, **timing}})
 
+        corpus, _ = _build_corpus(paths)
+        bytes_checked = check_mark_bytes(corpus, device)
+        bytes_timing = time_mark_bytes(torch.from_numpy(corpus).to(device))
+        del corpus
+        emit({"phase": "kernels", "mark_bytes": {**bytes_checked,
+                                                 **bytes_timing}})
+
+        t0 = time.perf_counter()
+        int_dir = os.path.join(tmp, "intcount")
+        os.makedirs(int_dir)
+        int_paths, int_keys = intcount_files(int_dir)
+        emit({"phase": "intcount-files", "keys": INTCOUNT_KEYS,
+              "seconds": time.perf_counter() - t0})
+        shapes = {cell: table_shape(k, device)
+                  for cell, k in int_keys.items()}
+        table_checked = check_seg_table(shapes, device)
+        table_timing = {cell: time_seg_table(keys, T, gcap)
+                        for cell, (keys, T, gcap) in shapes.items()}
+        del shapes
+        emit({"phase": "kernels", "seg_table": {**table_checked,
+                                                **table_timing}})
+
         warm = InvertedIndex()
         warm.run(paths)
         for k in kernels:
@@ -225,7 +571,7 @@ def main() -> int:
         if (npairs, nunique) != (nref, nuniq):
             raise AssertionError(f"main path gave {(npairs, nunique)}, "
                                  f"the generator {(nref, nuniq)}")
-        if min(launches.values()) <= 0:
+        if launches["mark_words"] <= 0:     # the InvertedIndex path's kernel
             raise AssertionError(f"a kernel never launched on the main "
                                  f"path: {launches}")
         map_s = idx.timer.times["map_device"]
@@ -277,9 +623,16 @@ def main() -> int:
             raise AssertionError("part-00000 differs from the regex oracle")
         emit({"phase": "outdir", "lines": lines,
               "equals_cpu_and_oracle": True})
+
+        int_runs = {}
+        for cell, path in int_paths.items():
+            int_runs[cell] = run_intcount(cell, path, int_keys[cell],
+                                          kernels, smi)
+            emit(int_runs[cell])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    uni, zipf = table_timing["uniform"], table_timing["zipf"]
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
         "source": "gpu_mapreduce_tpu_torch/csrc/mark_words.cu",
@@ -290,6 +643,34 @@ def main() -> int:
         "max_abs_err": checked["max_abs_err"], "m": timing["m"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None}, {
+        "name": "seg_table", "route": "cuda",
+        "source": "gpu_mapreduce_tpu_torch/csrc/seg_table.cu",
+        "replaces": "gpu_mapreduce_tpu/ops/pallas/group.py:175",
+        "replaces_fn": "_seg_table_kernel",
+        "path": "intcount-uniform, MRTPU_FUSE=1, warm run",
+        "launches": int_runs["uniform"]["warm"]["launches"]["segment_table"],
+        "launches_zipf": int_runs["zipf"]["warm"]["launches"][
+            "segment_table"],
+        "max_abs_err": table_checked["max_abs_err"],
+        "n": uni["n"], "T": uni["T"],
+        "ms": uni["ms"], "plain_ms": uni["plain_ms"],
+        "bound_ms": uni["bound_ms"], "bound_by": uni["bound_by"],
+        "library_ms": uni["library_ms"],
+        "library_call": "torch.unique(keys, return_counts=True)",
+        "epilogue_ms": uni["epilogue_ms"],
+        "zipf": {k: zipf[k] for k in ("T", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "epilogue_ms")}}, {
+        "name": "mark_bytes", "route": "cuda",
+        "source": "gpu_mapreduce_tpu_torch/csrc/mark_bytes.cu",
+        "replaces": "gpu_mapreduce_tpu/ops/pallas/match.py:67",
+        "replaces_fn": "_mark_kernel",
+        "path": None, "launches": launches["mark"],
+        "max_abs_err": bytes_checked["max_abs_err"], "n": bytes_timing["n"],
+        "ms": bytes_timing["ms"], "plain_ms": bytes_timing["plain_ms"],
+        "bound_ms": bytes_timing["bound_ms"],
+        "bound_by": bytes_timing["bound_by"],
         "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,8 +6,9 @@ on the card unless the caller passes ``device="cpu"``; kernels are built
 from ``csrc/`` on first use, never at import.
 """
 
+from .apps.intcount import intcount
 from .apps.invertedindex import InvertedIndex
 from .core.mapreduce import MapReduce
 from .core.runtime import MRError
 
-__all__ = ["InvertedIndex", "MapReduce", "MRError"]
+__all__ = ["InvertedIndex", "MapReduce", "MRError", "intcount"]

@@ -34,6 +34,10 @@ class KVFrame:
     def to_host(self) -> "KVFrame":
         return self
 
+    def head(self, n: int) -> "KVFrame":
+        """The first ``n`` pairs."""
+        return KVFrame(self.key.data[:n], self.value.data[:n])
+
     def pairs(self) -> Iterator[Tuple[object, object]]:
         """(key, value) as Python scalars — the per-pair callback view."""
         yield from zip(self.key.tolist(), self.value.tolist())

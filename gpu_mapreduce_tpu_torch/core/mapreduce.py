@@ -1,24 +1,75 @@
-"""The MapReduce object: the subset of ops that InvertedIndex.run calls.
+"""The MapReduce object: the subset of ops the ported paths call.
 
 The counterpart of ``gpu_mapreduce_tpu/core/mapreduce.py``: ``map``,
-``aggregate``, ``convert``, ``reduce`` (per-group host form and
-``batch=True``), ``scan_kv`` and the ``kv``/``kmv`` datasets, with the
-reference's callback arities: ``map`` calls ``func(itask, kv, ptr)``,
-``reduce`` calls ``func(key, values, kv, ptr)`` per group or
-``func(frame, kv, ptr)`` per frame with ``batch=True``.
+``map_files``, ``aggregate``, ``convert``, ``reduce`` (per-group host form
+and ``batch=True``), ``gather``, ``sort_keys``/``sort_values`` (int
+flags), ``scan_kv`` and the ``kv``/``kmv`` datasets, with the reference's
+callback arities: ``map`` calls ``func(itask, kv, ptr)``, ``map_files``
+``func(itask, filename, kv, ptr)``, ``reduce`` ``func(key, values, kv,
+ptr)`` per group or ``func(frame, kv, ptr)`` per frame with
+``batch=True``.
 
 Datasets live on one device (``device=None`` → the card, ``MRError``
 when there is none; ``device="cpu"`` runs the plain path).  Map tasks run
 in task order under every ``mapstyle``.
+
+Fusion (``plan/``): under ``fuse=1`` (``MRTPU_FUSE``) or inside ``with
+mr.pipeline():`` aggregate, convert, int-flag sorts and registered-kernel
+reduces are recorded instead of run and return a lazy ``PendingCount``;
+every other op, and any read of ``mr.kv``/``mr.kmv``, is a barrier that
+runs the recorded chain first.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+import functools
+from typing import Callable, Optional, Sequence, Union
 
 from ..parallel.backend import DeviceBackend
+from ..utils.io import findfiles
 from .dataset import KeyMultiValue, KeyValue
 from .runtime import MRError, Settings, resolve_device
+
+
+def _fusible(fn):
+    """Defer this op into the plan recorder when one is active (an
+    explicit ``mr.pipeline()`` block or the ``fuse=1`` setting).  The
+    fuser replays a non-fused stage through the undeferred method;
+    ``_plan_replaying`` guards that re-entry."""
+    op = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kw):
+        if not self._plan_replaying:
+            if not _defer_ok(op, args, kw):
+                # a user callback may have side effects the caller reads
+                # right after the call: a barrier, never a stage
+                self._flush_plan()
+                return fn(self, *args, **kw)
+            rec = self._plan
+            if rec is None and self.settings.fuse:
+                from ..plan.recorder import PlanRecorder
+                rec = self._plan = PlanRecorder(self, auto=True)
+            if rec is not None:
+                return rec.record(op, args, kw)
+        return fn(self, *args, **kw)
+    return wrapper
+
+
+def _defer_ok(op: str, args: tuple, kw: dict) -> bool:
+    """Only ops that could fuse are deferred: aggregate, convert, int-flag
+    sorts and registered-kernel reduces without a ``ptr``."""
+    if op in ("sort_keys", "sort_values"):
+        arg = args[0] if args else kw.get("flag", 1)
+        return not callable(arg)
+    if op != "reduce":
+        return True          # aggregate / convert
+    if kw.get("ptr") is not None or (len(args) > 1 and args[1] is not None):
+        return False
+    fn = args[0] if args else kw.get("func")
+    from ..plan.fuser import _kernel_op
+    return fn is not None and _kernel_op(fn) is not None
 
 
 class MapReduce:
@@ -29,51 +80,160 @@ class MapReduce:
         self.settings.validate()
         self.device = resolve_device(device)
         self.backend = DeviceBackend(self.device)
-        self.kv: Optional[KeyValue] = None
-        self.kmv: Optional[KeyMultiValue] = None
+        self._kv_data: Optional[KeyValue] = None
+        self._kmv_data: Optional[KeyMultiValue] = None
+        self._plan = None              # active plan recorder (plan/)
+        self._plan_replaying = False   # the fuser is replaying a stage
+
+    # reading or writing a dataset is a plan barrier: pending deferred
+    # ops run first, so a reader never sees stale state under fuse=1
+    @property
+    def kv(self) -> Optional[KeyValue]:
+        self._flush_pending()
+        return self._kv_data
+
+    @kv.setter
+    def kv(self, value: Optional[KeyValue]) -> None:
+        self._flush_pending()
+        self._kv_data = value
+
+    @property
+    def kmv(self) -> Optional[KeyMultiValue]:
+        self._flush_pending()
+        return self._kmv_data
+
+    @kmv.setter
+    def kmv(self, value: Optional[KeyMultiValue]) -> None:
+        self._flush_pending()
+        self._kmv_data = value
+
+    def _flush_pending(self) -> None:
+        rec = self._plan
+        if rec is not None and rec.stages:
+            self._flush_plan()
+
+    def pipeline(self):
+        """Record the ops issued inside the block and run them fused at
+        its exit (or at any barrier inside it)::
+
+            with mr.pipeline():
+                mr.aggregate(); mr.convert(); mr.reduce(count, batch=True)
+        """
+        @contextlib.contextmanager
+        def _ctx():
+            from ..plan.recorder import PlanRecorder
+            prev = self._plan
+            rec = self._plan = PlanRecorder(self)
+            if prev is not None:
+                # adopt an auto recorder's pending stages so they run in
+                # issue order, and may fuse with ours
+                rec.stages, prev.stages = prev.stages, []
+                if prev.auto:
+                    prev = None
+            try:
+                yield rec
+            except BaseException:
+                # abort: the unflushed tail is discarded, not run
+                rec.stages.clear()
+                raise
+            finally:
+                if self._plan is rec:
+                    self._plan = prev
+                rec.flush()
+        return _ctx()
+
+    def _flush_plan(self) -> None:
+        """Run any pending recorded plan (the barrier hook).  An auto
+        recorder (fuse=1) uninstalls; an explicit ``pipeline()`` recorder
+        stays and keeps recording."""
+        rec = self._plan
+        if rec is None:
+            return
+        if rec.auto:
+            self._plan = None
+        rec.flush()
+
+    def discard_plan(self) -> None:
+        """Drop the pending recorded stages without running them; their
+        PendingCounts raise if ever read."""
+        rec = self._plan
+        if rec is not None:
+            self._plan = None
+            rec.stages.clear()
 
     def _new_kv(self) -> KeyValue:
         return KeyValue()
 
     def _require_kv(self, op: str) -> KeyValue:
-        if self.kv is None or not self.kv.complete_done:
+        kv = self.kv
+        if kv is None or not kv.complete_done:
             raise MRError(f"Cannot {op} without completed KeyValue")
-        return self.kv
+        return kv
 
     def _require_kmv(self, op: str) -> KeyMultiValue:
-        if self.kmv is None:
+        kmv = self.kmv
+        if kmv is None:
             raise MRError(f"Cannot {op} without KeyMultiValue")
-        return self.kmv
+        return kmv
 
-    def map(self, nmap: int, func: Callable, ptr=None) -> int:
-        """Task map: ``func(itask, kv, ptr)`` for each of ``nmap`` tasks;
-        returns the pair count."""
+    def _start_map(self) -> KeyValue:
         if self.kmv is not None:
             self.kmv.free()
             self.kmv = None
         if self.kv is not None:
             self.kv.free()
         self.kv = self._new_kv()
-        for itask in range(nmap):
-            func(itask, self.kv, ptr)
-        return self.kv.complete()
+        return self.kv
 
-    def aggregate(self) -> int:
-        """The shuffle; on one device, the nprocs == 1 early-out."""
+    def map(self, nmap: int, func: Callable, ptr=None) -> int:
+        """Task map: ``func(itask, kv, ptr)`` for each of ``nmap`` tasks;
+        returns the pair count."""
+        kv = self._start_map()
+        for itask in range(nmap):
+            func(itask, kv, ptr)
+        return kv.complete()
+
+    def map_files(self, files: Union[str, Sequence[str]], func: Callable,
+                  ptr=None) -> int:
+        """File map: ``func(itask, filename, kv, ptr)`` per file, files in
+        order (globs and directories expanded by ``findfiles``)."""
+        if isinstance(files, str):
+            files = [files]
+        names = findfiles(list(files))
+        kv = self._start_map()
+        for itask, name in enumerate(names):
+            func(itask, name, kv, ptr)
+        return kv.complete()
+
+    @_fusible
+    def aggregate(self, hash_fn: Optional[Callable] = None) -> int:
+        """The shuffle; on one device, the nprocs == 1 early-out (no
+        exchange, so ``hash_fn`` is not called)."""
         kv = self._require_kv("aggregate")
         self.backend.aggregate(self)
         return kv.nkv
 
+    def gather(self, nprocs: int) -> int:
+        """Funnel the KV onto the first ``nprocs`` procs: a no-op on one
+        device, and a plan barrier."""
+        kv = self._require_kv("gather")
+        if nprocs <= 0:
+            raise MRError("Cannot gather to fewer than 1 processor")
+        return kv.nkv
+
+    @_fusible
     def convert(self) -> int:
         """KV → KMV grouping (sort + segment on the device)."""
         from ..parallel.group import convert_sharded
         kv = self._require_kv("convert")
-        self.kmv = KeyMultiValue()
-        self.kmv.push(convert_sharded(self.backend.place(kv.one_frame())))
+        kmv = KeyMultiValue()
+        kmv.push(convert_sharded(self.backend.place(kv.one_frame())))
         kv.free()
         self.kv = None
-        return self.kmv.complete()
+        self.kmv = kmv
+        return kmv.complete()
 
+    @_fusible
     def reduce(self, func: Callable, ptr=None, batch: bool = False) -> int:
         """Callback per KMV group (or per frame with ``batch=True``) →
         a new KV."""
@@ -88,6 +248,30 @@ class MapReduce:
         kmv.free()
         self.kmv = None
         self.kv = kv
+        return kv.complete()
+
+    @_fusible
+    def sort_keys(self, flag: int = 1) -> int:
+        """Sort the KV by key: ascending for ``flag > 0``, descending for
+        ``flag < 0`` (|flag| picks the reference's comparator family,
+        moot for typed columns)."""
+        return self._sort_kv("key", flag)
+
+    @_fusible
+    def sort_values(self, flag: int = 1) -> int:
+        """Sort the KV by value (see :meth:`sort_keys`)."""
+        return self._sort_kv("value", flag)
+
+    def _sort_kv(self, by: str, flag: int) -> int:
+        from ..parallel.group import sort_sharded
+        if callable(flag):
+            raise MRError("comparator sorts are not ported yet; pass an "
+                          "int flag")
+        kv = self._require_kv(f"sort_{by}s")
+        out = sort_sharded(self.backend.place(kv.one_frame()), by,
+                           descending=flag < 0)
+        kv.free()
+        kv.add_frame(out)
         return kv.complete()
 
     def scan_kv(self, func: Callable, ptr=None, batch: bool = False) -> int:

@@ -1,8 +1,9 @@
 """Runtime state: errors, settings, counters and device resolution.
 
 The PyTorch counterpart of ``gpu_mapreduce_tpu/core/runtime.py``, cut to
-what the InvertedIndex path reads: ``MRError``, a ``Settings`` subset
-(memsize, mapstyle, verbosity) and ``Counters`` with ``bump_dispatch``.
+what the ported paths read: ``MRError``, a ``Settings`` subset
+(memsize, mapstyle, verbosity, fuse) and ``Counters`` with
+``bump_dispatch``.
 
 Device resolution is the port's own: an entry point given ``device=None``
 runs on the card, and raises ``MRError`` when there is none.  The CPU is
@@ -13,8 +14,9 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-
 import torch
+
+from ..utils.env import env_knob
 
 
 class MRError(RuntimeError):
@@ -26,12 +28,18 @@ class Settings:
     memsize: int = 64       # MB per frame (reference default 64)
     mapstyle: int = 0       # 0 chunk, 1 stride, 2 master-slave
     verbosity: int = 0
+    # 1 = defer op chains into the plan/ recorder and run them fused;
+    # MRTPU_FUSE flips the default, as in the JAX package
+    fuse: int = field(default_factory=lambda: env_knob("MRTPU_FUSE", int,
+                                                       0))
 
     def validate(self) -> None:
         if self.memsize <= 0:
             raise MRError("Invalid memsize setting")
         if self.mapstyle not in (0, 1, 2):
             raise MRError("Invalid mapstyle setting")
+        if self.fuse not in (0, 1):
+            raise MRError("Invalid fuse setting")
 
 
 @dataclass

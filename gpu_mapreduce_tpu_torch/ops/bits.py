@@ -63,6 +63,33 @@ _STORAGE = {np.dtype(np.uint16): np.dtype(np.int16),
             np.dtype(np.uint64): np.dtype(np.int64)}
 
 
+def storage_dtype(dtype) -> torch.dtype:
+    """The torch dtype that holds values of logical numpy ``dtype``."""
+    dt = np.dtype(dtype)
+    return torch.from_numpy(np.zeros(0, _STORAGE.get(dt, dt))).dtype
+
+
+def widen64(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Integer values of logical ``dtype`` → int64 holding the bits of
+    their 64-bit widening: unsigned zero-extends, signed sign-extends.
+    (A plain ``.to(torch.int64)`` would sign-extend a u32 held as
+    int32.)"""
+    dt = np.dtype(dtype)
+    if dt.itemsize == 8:
+        return x
+    w = x.to(torch.int64)
+    if dt.kind == "u":
+        w = w & ((1 << (8 * dt.itemsize)) - 1)
+    return w
+
+
+def narrow64(w: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of :func:`widen64`: the low bits in ``dtype``'s storage
+    type (a wrap mod 2^width, as the narrowing cast of a sum)."""
+    store = storage_dtype(dtype)
+    return w if store == torch.int64 else w.to(store)
+
+
 def to_torch(arr: np.ndarray, device) -> torch.Tensor:
     """Host array of any numeric dtype → tensor on ``device`` with the same
     bits (unsigned widths above 8 travel as the signed type of their

@@ -1,11 +1,19 @@
-"""Pattern matching over a u32-word corpus: the map stage's front half.
+"""Pattern matching over a corpus: the map stage's front half.
 
-The counterpart of ``gpu_mapreduce_tpu/ops/pallas/match.py``'s word-packed
-path.  :func:`mark_words` launches the hand-written kernel
-``csrc/mark_words.cu`` on a CUDA tensor; on a CPU tensor it runs
-:func:`mark_words_ref`, the same masked-compare math in plain PyTorch
-(the counterpart of ``mark_words_xla``).  The rest (compaction, unaligned
-URL windows, quote scan, length masking) is PyTorch on either device.
+The counterpart of ``gpu_mapreduce_tpu/ops/pallas/match.py``.  Two
+hand-written kernels, each with its plain PyTorch version beside it,
+which the wrapper runs only for a CPU tensor:
+
+* the word-packed tier (the map stage's): :func:`mark_words` launches
+  ``csrc/mark_words.cu``; :func:`mark_words_ref` is the same
+  masked-compare math (the counterpart of ``mark_words_xla``);
+* the byte-per-lane tier, for any pattern (a period below 4 included):
+  :func:`mark` launches ``csrc/mark_bytes.cu``; :func:`mark_ref` is the
+  counterpart of ``mark_xla``.  :func:`compact_matches` and
+  :func:`url_lengths` follow it.
+
+The rest (compaction, unaligned URL windows, quote scan, length masking)
+is PyTorch on either device.
 
 Word buffers are int32 tensors holding u32 bit patterns; the window
 helpers return u32 values in int64 lanes (``ops/bits``).
@@ -200,3 +208,98 @@ def mask_words_to_length(wu: torch.Tensor,
           - 4 * torch.arange(W, device=wu.device)[None, :]).clamp(0, 4)
     lut = torch.tensor(_LEN_LUT, dtype=torch.int64, device=wu.device)
     return to_u32_lanes(wu) & lut[nb]
+
+
+# ---------------------------------------------------------------------------
+# byte-per-lane tier
+# ---------------------------------------------------------------------------
+
+MAX_PAT = 64  # csrc/mark_bytes.cu
+
+
+def _check_byte_pattern(pattern: bytes) -> None:
+    if not 1 <= len(pattern) <= MAX_PAT:
+        raise ValueError(f"pattern of {len(pattern)} bytes: the byte mark "
+                         f"takes 1 to {MAX_PAT}")
+
+
+def mark_ref(buf: torch.Tensor, pattern: bytes) -> torch.Tensor:
+    """Plain PyTorch version of the byte mark: uint8 [n] → int8 [n], 1
+    where ``pattern`` starts at byte i.  Bytes past the end read as 0."""
+    _check_byte_pattern(pattern)
+    n = buf.shape[0]
+    acc = torch.ones(n, dtype=torch.bool, device=buf.device)
+    for j, p in enumerate(pattern):
+        shifted = torch.nn.functional.pad(buf[j:], (0, min(j, n))) \
+            if j else buf
+        acc &= shifted == p
+    return acc.to(torch.int8)
+
+
+def _bind_bytes(lib: ctypes.CDLL) -> None:
+    lib.mark_bytes_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_int64, ctypes.c_char_p,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.mark_bytes_launch.restype = ctypes.c_int
+
+
+def mark(buf: torch.Tensor, pattern: bytes) -> torch.Tensor:
+    """Byte mark over a contiguous uint8 buffer [n] → int8 [n] (see
+    :func:`mark_ref`).  A CUDA tensor launches ``csrc/mark_bytes.cu`` on
+    the current stream; a CPU tensor runs the plain version.  Anything
+    else raises."""
+    _check_byte_pattern(pattern)
+    if not isinstance(buf, torch.Tensor) or buf.dim() != 1 \
+            or buf.dtype != torch.uint8 or not buf.is_contiguous():
+        raise ValueError("mark takes a contiguous 1-D uint8 tensor")
+    if buf.device.type == "cpu":
+        return mark_ref(buf, pattern)
+    if buf.device.type != "cuda":
+        raise ValueError(f"mark: unsupported device {buf.device}")
+    n = buf.shape[0]
+    out = torch.empty(n, dtype=torch.int8, device=buf.device)
+    if n == 0:
+        return out
+    lib = library("mark_bytes", _bind_bytes)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    rc = lib.mark_bytes_launch(buf.data_ptr(), out.data_ptr(), n,
+                               bytes(pattern), len(pattern),
+                               buf.device.index or 0, stream)
+    if rc != 0:
+        raise MRError(f"mark_bytes kernel launch failed (CUDA error {rc})")
+    note_kernel_launch(mark)
+    return out
+
+
+mark.launches = 0
+
+
+def compact_matches(mask: torch.Tensor,
+                    max_hits: int) -> Tuple[torch.Tensor, int]:
+    """Byte mask → ascending start offsets [max_hits] int64 (fill
+    ``len(mask)``) and the total hit count, which may exceed
+    ``max_hits``."""
+    n = mask.shape[0]
+    idx = torch.nonzero(mask, as_tuple=True)[0]
+    starts = torch.full((max_hits,), n, dtype=torch.int64,
+                        device=mask.device)
+    k = min(max_hits, idx.numel())
+    starts[:k] = idx[:k]
+    return starts, int(idx.numel())
+
+
+def url_lengths(buf: torch.Tensor, starts: torch.Tensor, terminator: int,
+                max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per start offset, the distance to the first ``terminator`` byte
+    within ``max_len`` (int32; -1 if none), and the windows [k, max_len]
+    (uint8, zero past the buffer's end)."""
+    n = buf.shape[0]
+    pos = starts.to(torch.int64)[:, None] \
+        + torch.arange(max_len, device=buf.device)[None, :]
+    windows = buf[pos.clamp(max=n - 1)]
+    windows = torch.where(pos < n, windows, torch.zeros_like(windows))
+    hit = windows == terminator
+    first = hit.to(torch.uint8).argmax(dim=1)
+    length = torch.where(hit.any(dim=1), first, torch.full_like(first, -1))
+    return length.to(torch.int32), windows

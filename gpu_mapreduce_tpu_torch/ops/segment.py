@@ -1,4 +1,5 @@
-"""Segment ids and segment reductions over sorted rows.
+"""Segment ids and segment reductions over sorted rows, and the group
+table's epilogue.
 
 One code path serves sum, max and min: max and min reduce in the order-key
 domain of the column's logical dtype (``bits.order_key``), so u32 and u64
@@ -13,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bits import from_order_key, order_key
+from .bits import from_order_key, narrow64, order_key
+from .sort import argsort_slots
 
 
 def segment_ids_from_boundary(mask: torch.Tensor) -> torch.Tensor:
@@ -49,3 +51,33 @@ def segment_reduce(x: torch.Tensor, ids: torch.Tensor, nseg: int, op: str,
     out.scatter_reduce_(0, ids, k, "amax" if op == "max" else "amin",
                         include_self=True)
     return from_order_key(out[:nseg], dtype, x.dtype)
+
+
+def table_to_groups(table, T: int, gcap: int, reduce_op: str, key_dtype,
+                    value_dtype):
+    """Group-table slots → ``(ukey [gcap], uval [gcap], g, overflow)``,
+    the layout the sort path emits: ascending unique keys in the key's
+    logical order, zero-filled past the group count ``g``.
+
+    ``table`` is ``(tkey, occ, cnt, tsum)`` from
+    ``ops/cuda/group.segment_table``: slots [0, T) are live (keys and
+    sums as 64-bit widened bit patterns, ``tsum`` None for ``count``) and
+    ``cnt[T]`` counts the rows that found no slot.  Counts come out as
+    int64; sums narrow to the value dtype's width, the same wrap as the
+    sort path's segment sum.  ``g`` and ``overflow`` are host ints (one
+    device read each)."""
+    tkey, occ, cnt, tsum = table
+    key = narrow64(tkey[:T], key_dtype)
+    order = argsort_slots(order_key(key, key_dtype), occ[:T] == 1)
+    g = int(order.numel())
+    top = order[:gcap]
+    ukey = torch.zeros(gcap, dtype=key.dtype, device=key.device)
+    ukey[:top.numel()] = key[top]
+    if reduce_op == "count":
+        uval = torch.zeros(gcap, dtype=torch.int64, device=key.device)
+        uval[:top.numel()] = cnt[top].to(torch.int64)
+    else:
+        sums = narrow64(tsum[top], value_dtype)
+        uval = torch.zeros(gcap, dtype=sums.dtype, device=key.device)
+        uval[:top.numel()] = sums
+    return ukey, uval, g, int(cnt[T])

@@ -65,6 +65,12 @@ class ShardedKV:
             raise IndexError(f"shard {p} of a one-device frame")
         return self.to_host()
 
+    def head(self, n: int) -> KVFrame:
+        """The first ``n`` valid pairs on the host (one small copy)."""
+        n = min(n, len(self))
+        return KVFrame(to_numpy(self.key[:n], self.key_dtype),
+                       to_numpy(self.value[:n], self.value_dtype))
+
     def pairs(self) -> Iterator[Tuple[object, object]]:
         yield from self.to_host().pairs()
 
@@ -137,6 +143,8 @@ class ShardedKMV:
 
 
 def _pad(t: torch.Tensor, cap: int) -> torch.Tensor:
+    if t.shape[0] == cap:
+        return t
     out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
                       device=t.device)
     out[:t.shape[0]] = t

@@ -1,8 +1,10 @@
-"""The port's word-packed mark, compaction and URL-window helpers vs the
-JAX package (Pallas kernel in interpret mode and its XLA twin), exactly.
+"""The port's word-packed and byte-per-lane marks, compaction and
+URL-window helpers vs the JAX package (Pallas kernels in interpret mode
+and their XLA twins), exactly.
 
-The CUDA kernel itself runs only on a card: ``test_mark_words_kernel``
-carries the ``cuda`` marker and skips where there is none."""
+The CUDA kernels themselves run only on a card: ``test_mark_words_kernel``
+and ``test_mark_bytes_kernel`` carry the ``cuda`` marker and skip where
+there is none."""
 
 import numpy as np
 import pytest
@@ -152,3 +154,106 @@ def test_mark_words_kernel(cuda_device, m):
     torch.cuda.synchronize()
     assert tm.mark_words.launches == before + 1
     assert torch.equal(got, tm.mark_words_ref(words, PATTERN))
+
+
+# ---------------------------------------------------------------------------
+# byte-per-lane mark (csrc/mark_bytes.cu and its plain version)
+# ---------------------------------------------------------------------------
+
+HTML = (b'<html><body><a href="http://a.com/x">x</a>'
+        b'<p>no link</p><a href="http://b.org/long/path?q=1">y</a>'
+        b'<A HREF="http://case.sensitive/">skip</A>'
+        b'<a href="http://a.com/x">dup</a></body></html>')
+
+
+def _bytes_t(data: bytes):
+    return torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+
+
+def _jax_marks(data: bytes, pattern: bytes):
+    buf = jnp.asarray(np.frombuffer(data, np.uint8))
+    return (np.asarray(jm.mark_xla(buf, pattern)).astype(np.int8),
+            np.asarray(jm.mark_pallas(buf, pattern, interpret=True)))
+
+
+@pytest.mark.parametrize("pattern", [PATTERN, b"ab", b"aaa", b"\x00",
+                                     b"a\x00", b"<"])
+def test_mark_ref_matches_pallas_and_xla(pattern):
+    noise = np.random.default_rng(len(pattern)).integers(
+        0, 256, 70_000, dtype=np.uint8).tobytes()
+    data = noise + HTML * 7 + b"abababaaaa" + noise + b"a"
+    got = tm.mark_ref(_bytes_t(data), pattern).numpy()
+    want_x, want_k = _jax_marks(data, pattern)
+    np.testing.assert_array_equal(got, want_x)
+    np.testing.assert_array_equal(got, want_k)
+    # the wrapper takes the plain version for a CPU tensor
+    before = tm.mark.launches
+    np.testing.assert_array_equal(
+        tm.mark(_bytes_t(data), pattern).numpy(), got)
+    assert tm.mark.launches == before
+
+
+@pytest.mark.parametrize("off", [0, 1, 119, 120, 126, 127, 128, 255, 256,
+                                 1000, 32767, 32768])
+def test_mark_ref_cross_lane_boundaries(off):
+    data = b"x" * off + b'<a href="u">' + b"y" * 300
+    got = tm.mark_ref(_bytes_t(data), PATTERN).numpy()
+    np.testing.assert_array_equal(got, _jax_marks(data, PATTERN)[1])
+    assert got.sum() == 1 and got[off] == 1
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_mark_ref_tiny_buffers_and_zero_tail(n):
+    """Bytes past the end read as 0: ``a\\0`` matches at the last byte."""
+    data = b"a" * n
+    got = tm.mark_ref(_bytes_t(data), b"a\x00").numpy()
+    want_x, want_k = _jax_marks(data, b"a\x00")
+    np.testing.assert_array_equal(got, want_x)
+    np.testing.assert_array_equal(got, want_k)
+    assert got.tolist() == [0] * (n - 1) + [1]
+
+
+def test_mark_rejects_bad_input():
+    with pytest.raises(ValueError):
+        tm.mark(torch.zeros(8, dtype=torch.int8), b"a")
+    with pytest.raises(ValueError):
+        tm.mark(torch.zeros(8, dtype=torch.uint8), b"")
+    with pytest.raises(ValueError):
+        tm.mark(torch.zeros(8, dtype=torch.uint8), b"z" * (tm.MAX_PAT + 1))
+    with pytest.raises(ValueError):
+        tm.mark(torch.zeros((2, 4), dtype=torch.uint8), b"a")
+
+
+@pytest.mark.parametrize("max_hits", [2, 3, 16])
+def test_compact_matches_and_url_lengths_match_jax(max_hits):
+    data = HTML + b'<a href="unterminated'
+    buf = np.frombuffer(data, np.uint8)
+    mask = tm.mark_ref(_bytes_t(data), PATTERN)
+    starts, total = tm.compact_matches(mask, max_hits)
+    jstarts, jtotal = jm.compact_matches(jnp.asarray(mask.numpy()), max_hits)
+    np.testing.assert_array_equal(starts.numpy(), np.asarray(jstarts))
+    assert total == int(jtotal) == 4
+    for max_len in (4, 64):
+        lens, wins = tm.url_lengths(_bytes_t(data), starts + len(PATTERN),
+                                    ord('"'), max_len)
+        jlens, jwins = jm.url_lengths(jnp.asarray(buf),
+                                      jstarts + len(PATTERN), ord('"'),
+                                      max_len)
+        np.testing.assert_array_equal(lens.numpy(), np.asarray(jlens))
+        np.testing.assert_array_equal(wins.numpy(), np.asarray(jwins))
+        assert lens.dtype == torch.int32 and wins.dtype == torch.uint8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,pattern", [(1, b"a\x00"), (2, b"a\x00"),
+                                       (3, b"ab"), (1_000_003, PATTERN)])
+def test_mark_bytes_kernel(cuda_device, n, pattern):
+    rng = np.random.default_rng(n)
+    buf = _planted(rng, n, [o for o in (0, 1, n - 40) if 0 <= o <= n - 9])
+    buf[-1] = ord("a")
+    t = torch.from_numpy(buf).to(cuda_device)
+    before = tm.mark.launches
+    got = tm.mark(t, pattern)
+    torch.cuda.synchronize()
+    assert tm.mark.launches == before + 1
+    assert torch.equal(got, tm.mark_ref(t, pattern))
