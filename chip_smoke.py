@@ -14,10 +14,14 @@ nonzero):
               exactly, at the main path's shape and at edge shapes; then
               CUDA-event timings beside the kernel's bound and, where one
               PyTorch call computes the same function, that call's time:
-              mark_words (the map stage's word mark), seg_table (the group
-              table at both IntCount shapes, compared through its
-              epilogue) and mark_bytes (the byte mark, off every entry
-              point);
+              mark_words (the map stage's word mark; planted matches
+              across its 16-word tiles, a warp's span and the grid-stride
+              seam, ragged tails, views not 16-byte aligned), seg_table
+              (the group table at both IntCount shapes and at 2^20-row
+              hot-key and sentinel cases, compared through its epilogue;
+              one table + epilogue is profiled with torch.profiler for
+              the device time by op: ``group_device_ms``) and mark_bytes
+              (the byte mark, off every entry point);
 4. main     — InvertedIndex().run() on the benchmark's 256 MB, 4-file
               corpus (warm-up, then one timed run, with every launch
               count set to 0 just before it): pairs and unique URLs must
@@ -112,7 +116,11 @@ def corpus_words(paths, device):
 
 
 def check_mark_words(words_main, device) -> dict:
-    """mark_words vs mark_words_ref on the card, exactly."""
+    """mark_words vs mark_words_ref on the card, exactly: the main path's
+    buffer; every alignment; planted matches across a thread's 16-word
+    tile, a warp's 512-word span and the grid-stride seam; m = 1..17 and
+    m = 1..15 mod 16 (the ragged tail); and views words[1:], [2:], [3:]
+    whose data is not 16-byte aligned (the scalar head)."""
     import numpy as np
     import torch
     from gpu_mapreduce_tpu_torch.apps.invertedindex import PATTERN
@@ -121,15 +129,36 @@ def check_mark_words(words_main, device) -> dict:
                                                         mark_words_ref)
     rng = np.random.default_rng(0)
     cases = {"main_path": words_main}
+    planted = {}
     # every alignment, each at a few places across thread-block seams
-    offs = sorted(4 * (k + 10 * a) + a for a in range(4)
-                  for k in (0, 250, 65530, 131070))
-    cases["alignments"] = to_torch(planted_words(rng, 4 << 20, offs,
-                                                 PATTERN), device)
-    for m in (1, 2, 3, 1_000_003):       # m < nw, and not a block multiple
+    planted["alignments"] = sorted(4 * (k + 10 * a) + a for a in range(4)
+                                   for k in (0, 250, 65530, 131070))
+    # one grid-stride step of words: 8 blocks of 256 threads a SM, 16
+    # words a thread (csrc/mark_words.cu)
+    stride = torch.cuda.get_device_properties(device).multi_processor_count \
+        * 8 * 256 * 16
+    seams = set()
+    for w in [16 * k for k in range(1, 40)] + [512 * k for k in range(1, 9)] \
+            + [stride * k for k in range(1, 3)]:
+        seams |= {4 * w - 9, 4 * w - 6 - (w // 16) % 3, 4 * w + 1}
+    planted["seams"] = []                # starts at least 9 bytes apart
+    for o in sorted(seams):
+        if not planted["seams"] or o - planted["seams"][-1] >= len(PATTERN):
+            planted["seams"].append(o)
+    for name, nbytes in (("alignments", 4 << 20),
+                         ("seams", 4 * (2 * stride + 4096))):
+        cases[name] = to_torch(planted_words(rng, nbytes, planted[name],
+                                             PATTERN), device)
+    sizes = list(range(1, 18)) + [16 * 4099 + r for r in range(1, 16)] \
+        + [1_000_003]
+    for m in sizes:              # m < nw, tiles and a ragged tail
         cases[f"m={m}"] = to_torch(planted_words(
-            rng, 4 * m, [0] if 4 * m >= len(PATTERN) else [], PATTERN),
-            device)
+            rng, 4 * m, [0, 4 * m - 9] if 4 * m >= len(PATTERN) else [],
+            PATTERN), device)
+    base = to_torch(planted_words(rng, 4 * 70_001, range(0, 280_000, 997),
+                                  PATTERN), device)
+    for k in (1, 2, 3):          # not 16-byte aligned: the scalar head
+        cases[f"words[{k}:]"] = base[k:]
     err = 0
     for name, words in cases.items():
         got = mark_words(words, PATTERN)
@@ -141,12 +170,14 @@ def check_mark_words(words_main, device) -> dict:
                                  f"version on case {name} (max |err| "
                                  f"{diff})")
         err = max(err, diff)
-        if name == "alignments":
+        if name in planted:
             hits = torch.nonzero(got).flatten()
             starts = (4 * hits + got[hits].to(torch.int64) - 1).tolist()
-            if starts != offs:
-                raise AssertionError("mark_words missed planted matches")
-    return {"cases": list(cases), "max_abs_err": err}
+            if starts != planted[name]:
+                raise AssertionError(f"mark_words missed planted matches "
+                                     f"on case {name}")
+    return {"cases": len(cases), "max_abs_err": err,
+            "grid_stride_words": stride}
 
 
 def time_mark_words(words) -> dict:
@@ -215,6 +246,8 @@ def check_seg_table(shapes, device) -> dict:
                                                         segment_table_ref)
     from gpu_mapreduce_tpu_torch.ops.segment import table_to_groups
     rng = np.random.default_rng(1)
+    u64max = np.iinfo(np.uint64).max
+    rows = 1 << 20
     cases = []                  # (name, keys, values, T, gcap, dtypes)
     for cell, (keys, T, gcap) in shapes.items():
         vals = rng.integers(0, 1 << 32, keys.numel(), dtype=np.uint32)
@@ -222,21 +255,37 @@ def check_seg_table(shapes, device) -> dict:
                       None))
         cases.append((f"{cell}_sum", keys, to_torch(vals, device), T, gcap,
                       np.uint64, np.uint32))
-    k32 = rng.integers(-50_000, 50_000, 1 << 20).astype(np.int32)
-    v32 = rng.integers(-(1 << 31), 1 << 31, 1 << 20).astype(np.int32)
+    k32 = rng.integers(-50_000, 50_000, rows).astype(np.int32)
+    v32 = rng.integers(-(1 << 31), 1 << 31, rows).astype(np.int32)
     cases.append(("i32_negative_sum", to_torch(k32, device),
                   to_torch(v32, device), 1 << 18, 1 << 17, np.int32,
                   np.int32))
     k64 = rng.integers(0, 1 << 64, 1000, dtype=np.uint64)[
-        rng.integers(0, 1000, 1 << 20)]
+        rng.integers(0, 1000, rows)]
     k64[::3] = 0
-    k64[1::5] = np.iinfo(np.uint64).max
-    v64 = rng.integers(0, 1 << 64, 1 << 20, dtype=np.uint64)
+    k64[1::5] = u64max
+    v64 = rng.integers(0, 1 << 64, rows, dtype=np.uint64)
     cases.append(("zero_and_max_sum", to_torch(k64, device),
                   to_torch(v64, device), 2048, 1024, np.uint64, np.uint64))
     # nvalid < cap: only the first 700,001 of 2^20 rows
     cases.append(("nvalid_lt_cap_count", to_torch(k64, device)[:700_001],
                   None, 2048, 1024, np.uint64, None))
+    # hot keys and the sentinel, each as a count and as a sum
+    half = rng.integers(0, 1 << 64, rows, dtype=np.uint64)
+    half[::2] = u64max
+    new = {"one_key": (np.full(rows, 0x0123456789ABCDEF, np.uint64), 64, 8),
+           "all_max": (np.full(rows, u64max, np.uint64), 64, 8),
+           "half_max": (half, 1 << 21, 1 << 20),
+           "warp_runs": (np.repeat(rng.integers(0, 1 << 64, rows // 32,
+                                                dtype=np.uint64), 32),
+                         1 << 16, 1 << 15),
+           "beyond_front": (rng.integers(0, 300_000, rows).astype(np.uint64),
+                            1 << 20, 1 << 19)}
+    for name, (keys, T, gcap) in new.items():
+        kt = to_torch(keys, device)
+        cases.append((f"{name}_count", kt, None, T, gcap, np.uint64, None))
+        cases.append((f"{name}_sum", kt, to_torch(v64, device), T, gcap,
+                      np.uint64, np.uint64))
     over = (np.arange(50_000, dtype=np.uint64) * np.uint64(7919))
     cases.append(("overflow_count", to_torch(over, device), None, 1 << 14,
                   1 << 14, np.uint64, None))
@@ -245,9 +294,9 @@ def check_seg_table(shapes, device) -> dict:
         op = "count" if vals is None else "sum"
         k = widen64(keys, kd).contiguous()
         v = None if vals is None else widen64(vals, vd).contiguous()
-        got = table_to_groups(segment_table(k, v, T), T, gcap, op, kd, vd)
         ref = table_to_groups(segment_table_ref(k, v, T), T, gcap, op, kd,
                               vd)
+        got = table_to_groups(segment_table(k, v, T), T, gcap, op, kd, vd)
         torch.cuda.synchronize()
         if name == "overflow_count":
             # which keys won the full table's slots depends on the race,
@@ -258,9 +307,9 @@ def check_seg_table(shapes, device) -> dict:
                     and torch.equal(got[1], ref[1])
                     and got[2] == ref[2] and got[3] == ref[3] == 0)
         if not same:
-            raise AssertionError(f"seg_table differs from its plain version "
-                                 f"on case {name}: g {got[2]} vs {ref[2]}, "
-                                 f"overflow {got[3]} vs {ref[3]}")
+            raise AssertionError(
+                f"seg_table differs from its plain version on case {name}: "
+                f"g {got[2]} vs {ref[2]}, overflow {got[3]} vs {ref[3]}")
         done.append({"case": name, "rows": int(k.numel()), "T": T,
                      "groups": got[2], "overflow": got[3]})
     return {"cases": done, "max_abs_err": 0}
@@ -285,7 +334,8 @@ def time_seg_table(keys, T: int, gcap: int) -> dict:
     """The count table at one IntCount shape: the kernel (wrapper, table
     zeroing included), its plain version, one torch.unique call that
     computes the same groups and counts, and the bound; beside them the
-    epilogue (table_to_groups) that the warm group runs after it."""
+    epilogue (table_to_groups) that the warm group runs after it, and the
+    device time by op of one table + epilogue (torch.profiler)."""
     import numpy as np
     import torch
     from gpu_mapreduce_tpu_torch.ops.cuda.group import (segment_table,
@@ -299,8 +349,23 @@ def time_seg_table(keys, T: int, gcap: int) -> dict:
     table = segment_table(keys, None, T)
     epilogue_ms = cuda_ms(lambda: table_to_groups(
         table, T, gcap, "count", np.uint64, None), iters=5)
+    del table
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        table_to_groups(segment_table(keys, None, T), T, gcap, "count",
+                        np.uint64, None)
+        torch.cuda.synchronize()
+    # device ms by op (aten ops hold the kernels they launch, so the two
+    # levels overlap), largest first
+    ranked = sorted(prof.key_averages(),
+                    key=lambda r: -getattr(r, "device_time_total", 0))
+    by_op = {r.key[:90]: r.device_time_total / 1e3 for r in ranked[:12]
+             if getattr(r, "device_time_total", 0) > 0}
     return {"n": int(keys.numel()), "T": T, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "epilogue_ms": epilogue_ms,
+            "group_device_ms": by_op,
             **table_bound(int(keys.numel()), T, False)}
 
 
@@ -514,8 +579,14 @@ def main() -> int:
 
     os.environ["MRTPU_TORCH_PTXAS_VERBOSE"] = "1"
     built = kcuda.build_all()
+    # spill bytes (stores + loads) over every kernel of each source, from
+    # ptxas's report; None for a source already built before this run
+    spills = {n: None for n in kcuda.sources()}
+    spills.update({n: sum(map(int, re.findall(r"(\d+) bytes spill", out)))
+                   for n, out in built["output"].items()})
     emit({"phase": "build", "seconds": built["seconds"],
-          "sources": kcuda.sources(), "nvcc_output": built["output"]})
+          "sources": kcuda.sources(), "spill_bytes": spills,
+          "nvcc_output": built["output"]})
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -555,7 +626,6 @@ def main() -> int:
         del shapes
         emit({"phase": "kernels", "seg_table": {**table_checked,
                                                 **table_timing}})
-
         warm = InvertedIndex()
         warm.run(paths)
         for k in kernels:
@@ -643,7 +713,7 @@ def main() -> int:
         "max_abs_err": checked["max_abs_err"], "m": timing["m"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "spill_bytes": spills["mark_words"]}, {
         "name": "seg_table", "route": "cuda",
         "source": "gpu_mapreduce_tpu_torch/csrc/seg_table.cu",
         "replaces": "gpu_mapreduce_tpu/ops/pallas/group.py:175",
@@ -659,6 +729,7 @@ def main() -> int:
         "library_ms": uni["library_ms"],
         "library_call": "torch.unique(keys, return_counts=True)",
         "epilogue_ms": uni["epilogue_ms"],
+        "spill_bytes": spills["seg_table"],
         "zipf": {k: zipf[k] for k in ("T", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
                                       "epilogue_ms")}}, {
@@ -671,7 +742,7 @@ def main() -> int:
         "ms": bytes_timing["ms"], "plain_ms": bytes_timing["plain_ms"],
         "bound_ms": bytes_timing["bound_ms"],
         "bound_by": bytes_timing["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None, "spill_bytes": spills["mark_bytes"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

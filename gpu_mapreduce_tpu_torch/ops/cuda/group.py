@@ -10,16 +10,14 @@ table engine.
 
 One launch covers any row count, so the TPU kernel's paging
 (``page_rows_for``, ``MAX_PAGES``) is not carried over; the engine config
-is ``("tbl", T)``.  The table is ``(tkey, occ, cnt, tsum)``, each T+1
-slots: keys and sums as 64-bit widened bit patterns, ``cnt[T]`` the count
-of rows that found no slot (overflow, read only as ``> 0``).
+is ``("tbl", T)``.  The table's layout is :class:`GroupTable`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import warnings
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +37,9 @@ def table_group_enabled(device: torch.device) -> bool:
     time: ``auto`` (default) takes the table engine where its kernel runs
     (a CUDA device) and the sort path on the CPU; ``1`` forces the table
     (on the CPU through the plain version); ``0`` selects the sort
-    path.  ``auto`` matches the JAX package's choice; it is not picked
-    from a measurement (PERF.md, open questions)."""
+    path.  ``auto`` matches the JAX package's choice, and on an H100 the
+    table group is the faster one at both IntCount shapes, all keys
+    distinct and zipf (PERF.md, the kernel findings)."""
     if env_str("MRTPU_PALLAS_GROUP", "auto") == "auto":
         return device.type == "cuda"
     return env_flag("MRTPU_PALLAS_GROUP", False)
@@ -111,31 +110,58 @@ def slot_hash(hi: torch.Tensor, lo: torch.Tensor, T: int) -> torch.Tensor:
     return h & (T - 1)
 
 
-def _table(n_slots: int, with_sum: bool, device, key_fill):
-    tkey = key_fill(n_slots, dtype=torch.int64, device=device)
-    occ = torch.zeros(n_slots, dtype=torch.int32, device=device)
-    cnt = torch.zeros(n_slots, dtype=torch.int32, device=device)
-    tsum = torch.zeros(n_slots, dtype=torch.int64, device=device) \
-        if with_sum else None
-    return tkey, occ, cnt, tsum
+EMPTY = -1          # the empty slot's key, 2^64-1 as an int64 bit pattern
+
+
+class GroupTable(NamedTuple):
+    """The table of ``csrc/seg_table.cu`` over T main slots.
+
+    ``slots`` int32 [T+2, 4]: per 16-byte slot the key's (lo, hi) limbs
+    (one int64 through :func:`slot_keys`), the int32 row count and a spare
+    word.  Slots [0, T) hold keys by linear probing (``EMPTY`` when free);
+    slot T is the side slot of key 2^64-1, which never probes; slot T+1 is
+    the meta slot: its count is the rows that found no slot (overflow,
+    read only as ``> 0``), its spare the number of ``claimed`` entries.
+    ``sums`` int64 [T+2] beside them (None for a count).  ``claimed``
+    int32 [min(n, T) + 1] lists the slots that hold a group, in no order,
+    and ``claimed_keys`` int64 their keys."""
+    slots: torch.Tensor
+    sums: Optional[torch.Tensor]
+    claimed: torch.Tensor
+    claimed_keys: torch.Tensor
+
+
+def slot_keys(slots: torch.Tensor) -> torch.Tensor:
+    """The int64 key of every slot of ``GroupTable.slots``."""
+    return slots.view(torch.int64)[:, 0]
+
+
+def _table(T: int, n: int, with_sum: bool, device, fill) -> GroupTable:
+    room = min(n, T) + 1
+    return GroupTable(
+        fill((T + 2, 4), dtype=torch.int32, device=device),
+        fill(T + 2, dtype=torch.int64, device=device) if with_sum else None,
+        fill(room, dtype=torch.int32, device=device),
+        fill(room, dtype=torch.int64, device=device))
 
 
 def segment_table_ref(keys: torch.Tensor, values: Optional[torch.Tensor],
-                      T: int):
+                      T: int) -> GroupTable:
     """Plain PyTorch version of the kernel, with no per-row loop.
 
-    The distinct keys claim slots in rounds of linear probing: each round
-    every unplaced key proposes its next slot, and of the keys that
-    propose one empty slot the one whose first row comes first wins
-    (``scatter_reduce`` amin).  The losers and the keys that met an
-    occupied slot step on; a key that has probed all T slots overflows.
-    Then ``index_add_`` sends every row to its key's slot."""
+    Key 2^64-1 goes to the side slot.  The other distinct keys claim
+    slots in rounds of linear probing: each round every unplaced key
+    proposes its next slot, and of the keys that propose one empty slot
+    the one whose first row comes first wins (``scatter_reduce`` amin).
+    The losers and the keys that met an occupied slot step on; a key that
+    has probed all T slots overflows.  Then ``index_add_`` sends every
+    row to its key's slot."""
     n = keys.numel()
     dev = keys.device
-    tkey, occ, cnt, tsum = _table(T + 1, values is not None, dev,
-                                  torch.zeros)
+    table = _table(T, n, values is not None, dev, torch.zeros)
+    slot_keys(table.slots)[:] = EMPTY
     if n == 0:
-        return tkey, occ, cnt, tsum
+        return table
     uniq, inv = torch.unique(keys, return_inverse=True)
     nu = uniq.numel()
     first_row = torch.full((nu,), n, dtype=torch.int64, device=dev)
@@ -143,10 +169,11 @@ def segment_table_ref(keys: torch.Tensor, values: Optional[torch.Tensor],
     hi, lo = split_limbs(uniq, np.int64)
     slot0 = slot_hash(hi, lo, T)
     step = torch.zeros(nu, dtype=torch.int64, device=dev)
-    slot_of = torch.full((nu,), T, dtype=torch.int64, device=dev)
+    side = uniq == EMPTY
+    slot_of = torch.where(side, T, T + 1)        # side slot, else overflow
     taken = torch.zeros(T, dtype=torch.bool, device=dev)
     best = torch.full((T,), n, dtype=torch.int64, device=dev)
-    pending = torch.arange(nu, device=dev)
+    pending = torch.nonzero(~side, as_tuple=True)[0]
     placed = 0
     while pending.numel() and placed < T:
         s = (slot0[pending] + step[pending]) & (T - 1)
@@ -164,16 +191,21 @@ def segment_table_ref(keys: torch.Tensor, values: Optional[torch.Tensor],
         pending = pending[keep]
         step[pending] += 1
         pending = pending[step[pending] < T]
-    placed_keys = slot_of < T
-    tkey[slot_of[placed_keys]] = uniq[placed_keys]
-    occ[:T] = taken.to(torch.int32)
+    placed = slot_of <= T
+    groups = slot_of[placed]
+    slot_keys(table.slots)[groups] = uniq[placed]
+    table.claimed[:groups.numel()] = groups.to(torch.int32)
+    table.claimed_keys[:groups.numel()] = uniq[placed]
     row_slot = slot_of[inv]
-    cnt.index_add_(0, row_slot, torch.ones(n, dtype=torch.int32,
-                                           device=dev))
+    count = torch.zeros(T + 2, dtype=torch.int32, device=dev)
+    count.index_add_(0, row_slot, torch.ones(n, dtype=torch.int32,
+                                             device=dev))
+    table.slots[:, 2] = count
+    table.slots[T + 1, 3] = groups.numel()
     if values is not None:
-        ok = row_slot < T
-        tsum.index_add_(0, row_slot[ok], values[ok])
-    return tkey, occ, cnt, tsum
+        ok = row_slot <= T
+        table.sums.index_add_(0, row_slot[ok], values[ok])
+    return table
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -183,14 +215,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.seg_table_launch.restype = ctypes.c_int
 
 
-def segment_table(keys: torch.Tensor, values: Optional[torch.Tensor],
-                  T: int):
-    """The group table over ``keys`` [n] (int64, 64-bit widened bit
-    patterns) with, for a sum, ``values`` [n] (int64 likewise) →
-    ``(tkey, occ, cnt, tsum)`` of T+1 slots (``tsum`` None without
-    values).  A CUDA tensor launches ``csrc/seg_table.cu`` on the
-    current stream; a CPU tensor runs :func:`segment_table_ref`.
-    Anything else raises."""
+def _check(keys: torch.Tensor, values: Optional[torch.Tensor],
+           T: int) -> None:
     for t in (keys,) if values is None else (keys, values):
         if not isinstance(t, torch.Tensor) or t.dim() != 1 \
                 or t.dtype != torch.int64 or not t.is_contiguous():
@@ -203,23 +229,34 @@ def segment_table(keys: torch.Tensor, values: Optional[torch.Tensor],
     if T < 1 or T & (T - 1) or T > (1 << 31):
         raise ValueError(f"segment_table: T={T} is not a power of two "
                          f"in [1, 2^31]")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"segment_table: unsupported device {keys.device}")
+
+
+def segment_table(keys: torch.Tensor, values: Optional[torch.Tensor],
+                  T: int) -> GroupTable:
+    """The group table over ``keys`` [n] (int64, 64-bit widened bit
+    patterns) with, for a sum, ``values`` [n] (int64 likewise), T main
+    slots.  A CUDA tensor launches ``csrc/seg_table.cu`` on the current
+    stream; a CPU tensor runs :func:`segment_table_ref`.  Anything else
+    raises."""
+    _check(keys, values, T)
     if keys.device.type == "cpu":
         return segment_table_ref(keys, values, T)
-    if keys.device.type != "cuda":
-        raise ValueError(f"segment_table: unsupported device {keys.device}")
-    tkey, occ, cnt, tsum = _table(T + 1, values is not None, keys.device,
-                                  torch.empty)
+    table = _table(T, keys.numel(), values is not None, keys.device,
+                   torch.empty)
     lib = library("seg_table", _bind)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     rc = lib.seg_table_launch(
         keys.data_ptr(), None if values is None else values.data_ptr(),
-        keys.numel(), T, tkey.data_ptr(), occ.data_ptr(), cnt.data_ptr(),
-        None if tsum is None else tsum.data_ptr(),
+        keys.numel(), T, table.slots.data_ptr(),
+        None if table.sums is None else table.sums.data_ptr(),
+        table.claimed.data_ptr(), table.claimed_keys.data_ptr(),
         keys.device.index or 0, stream)
     if rc != 0:
         raise MRError(f"seg_table kernel launch failed (CUDA error {rc})")
     note_kernel_launch(segment_table)
-    return tkey, occ, cnt, tsum
+    return table
 
 
 segment_table.launches = 0

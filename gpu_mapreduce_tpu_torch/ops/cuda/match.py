@@ -114,6 +114,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mark_words_launch.restype = ctypes.c_int
 
 
+def mark_output(words: torch.Tensor) -> torch.Tensor:
+    """An empty int8 [m] for the mark of ``words`` [m], placed for the
+    kernel: its 16-byte tiles start at the first 16-byte boundary of
+    ``words`` (``head`` words in: 0, or 1 to 3 for a view such as
+    words[1:]) and store 16 codes at once, so out + head is on a 16-byte
+    boundary too (a view into 15 bytes more)."""
+    m = words.shape[0]
+    head = min(m, (-words.data_ptr() % 16) // 4)
+    buf = torch.empty(m + 15, dtype=torch.int8, device=words.device)
+    off = -(buf.data_ptr() + head) % 16
+    return buf[off:off + m]
+
+
 def mark_words(words: torch.Tensor, pattern: bytes) -> torch.Tensor:
     """Word-packed mark over a contiguous int32 word buffer [m] → int8
     [m] (see :func:`mark_words_ref`).  A CUDA tensor launches
@@ -128,7 +141,7 @@ def mark_words(words: torch.Tensor, pattern: bytes) -> torch.Tensor:
     if words.device.type != "cuda":
         raise ValueError(f"mark_words: unsupported device {words.device}")
     m = words.shape[0]
-    out = torch.empty(m, dtype=torch.int8, device=words.device)
+    out = mark_output(words)
     if m == 0:
         return out
     masks, vals = _alignment_tables(pattern)

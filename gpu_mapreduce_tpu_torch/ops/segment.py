@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from .bits import from_order_key, narrow64, order_key
-from .sort import argsort_slots
 
 
 def segment_ids_from_boundary(mask: torch.Tensor) -> torch.Tensor:
@@ -53,31 +52,57 @@ def segment_reduce(x: torch.Tensor, ids: torch.Tensor, nseg: int, op: str,
     return from_order_key(out[:nseg], dtype, x.dtype)
 
 
+def _narrow_order(ok: torch.Tensor):
+    """An int64 order key whose values span less than 2^32 → ``(int32
+    key of the same order, base)`` (value - base), which sorts in half
+    the radix passes; any other key → ``(ok, None)``.  One device read."""
+    if ok.dtype != torch.int64 or ok.numel() == 0:
+        return ok, None
+    lo, hi = torch.stack(torch.aminmax(ok)).tolist()
+    if hi - lo >= 1 << 32:
+        return ok, None
+    base = lo + (1 << 31)
+    if base >= 1 << 63:          # then hi - lo < 2^31: hi is a base too
+        base = hi
+    return (ok - base).to(torch.int32), base
+
+
 def table_to_groups(table, T: int, gcap: int, reduce_op: str, key_dtype,
                     value_dtype):
-    """Group-table slots → ``(ukey [gcap], uval [gcap], g, overflow)``,
-    the layout the sort path emits: ascending unique keys in the key's
+    """Group table → ``(ukey [gcap], uval [gcap], g, overflow)``, the
+    layout the sort path emits: ascending unique keys in the key's
     logical order, zero-filled past the group count ``g``.
 
-    ``table`` is ``(tkey, occ, cnt, tsum)`` from
-    ``ops/cuda/group.segment_table``: slots [0, T) are live (keys and
-    sums as 64-bit widened bit patterns, ``tsum`` None for ``count``) and
-    ``cnt[T]`` counts the rows that found no slot.  Counts come out as
-    int64; sums narrow to the value dtype's width, the same wrap as the
-    sort path's segment sum.  ``g`` and ``overflow`` are host ints (one
-    device read each)."""
-    tkey, occ, cnt, tsum = table
-    key = narrow64(tkey[:T], key_dtype)
-    order = argsort_slots(order_key(key, key_dtype), occ[:T] == 1)
-    g = int(order.numel())
-    top = order[:gcap]
-    ukey = torch.zeros(gcap, dtype=key.dtype, device=key.device)
-    ukey[:top.numel()] = key[top]
+    ``table`` is the ``GroupTable`` of ``ops/cuda/group.segment_table``
+    over T main slots (keys and sums as 64-bit widened bit patterns).
+    Only its g claimed groups are read: their keys from the claimed list,
+    one sort of their order keys (distinct, so it need not be stable; in
+    32 bits when they span less than 2^32), then one gather of their
+    counts or sums from the slots.  Counts come out as int64; sums narrow
+    to the value dtype's width, the same wrap as the sort path's segment
+    sum.  ``g`` and ``overflow`` are host ints (one device read of the
+    meta slot)."""
+    slots, sums, claimed, claimed_keys = table
+    _lo, _hi, overflow, g = slots[T + 1].tolist()
+    key = narrow64(claimed_keys[:g], key_dtype)
+    store, dev = key.dtype, key.device
+    ok, base = _narrow_order(order_key(key, key_dtype))
+    sorted_ok, perm = torch.sort(ok)
+    del key, ok
+    k = min(g, gcap)
+    sorted_ok = sorted_ok[:k]
+    if base is not None:
+        sorted_ok = sorted_ok.to(torch.int64).add_(base)
+    ukey = torch.empty(gcap, dtype=store, device=dev)
+    ukey[k:] = 0
+    ukey[:k] = from_order_key(sorted_ok, key_dtype, store)
+    src = claimed[perm[:k]]
     if reduce_op == "count":
-        uval = torch.zeros(gcap, dtype=torch.int64, device=key.device)
-        uval[:top.numel()] = cnt[top].to(torch.int64)
+        uval = torch.empty(gcap, dtype=torch.int64, device=dev)
+        uval[:k] = slots[:, 2][src]
     else:
-        sums = narrow64(tsum[top], value_dtype)
-        uval = torch.zeros(gcap, dtype=sums.dtype, device=key.device)
-        uval[:top.numel()] = sums
-    return ukey, uval, g, int(cnt[T])
+        vals = narrow64(sums[src], value_dtype)
+        uval = torch.empty(gcap, dtype=vals.dtype, device=dev)
+        uval[:k] = vals
+    uval[k:] = 0
+    return ukey, uval, g, overflow

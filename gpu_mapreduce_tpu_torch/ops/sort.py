@@ -25,13 +25,3 @@ def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
         order = o if order is None else order[o]
     return order
 
-
-def argsort_slots(sortval: torch.Tensor,
-                  occupied: torch.Tensor) -> torch.Tensor:
-    """Slot order for the group table (``ops/cuda/group.py``): the
-    occupied slots, ascending by ``sortval`` (already in native-order
-    form).  The JAX twin lexsorts every slot, occupied first; its empty
-    tail is zero-filled by the epilogue either way, so it is left out
-    here and only O(groups) values are sorted."""
-    slots = torch.nonzero(occupied, as_tuple=True)[0]
-    return slots[torch.sort(sortval[slots], stable=True).indices]

@@ -17,6 +17,7 @@ import torch
 from gpu_mapreduce_tpu.ops.pallas import group as jg
 from gpu_mapreduce_tpu_torch.ops.bits import to_numpy, to_torch
 from gpu_mapreduce_tpu_torch.ops.cuda import group as tg
+from gpu_mapreduce_tpu_torch.ops.segment import table_to_groups
 
 U64_MAX = np.iinfo(np.uint64).max
 
@@ -48,6 +49,40 @@ def _case(name, rng):
         vals = rng.integers(0, 1 << 62, cap, dtype=np.uint64)
         vals[::5] = U64_MAX                          # sums wrap mod 2^64
         return keys, vals, cap - 3, 32
+    if name == "one_key":                            # every row one key
+        keys = np.full(cap, 0xDEADBEEF12345678, np.uint64)
+        vals = rng.integers(0, 1 << 64, cap, dtype=np.uint64)
+        return keys, vals, cap, 8
+    if name == "all_max":                  # every row the sentinel's value
+        keys = np.full(cap, U64_MAX, np.uint64)
+        vals = rng.integers(-(1 << 62), 1 << 62, cap).astype(np.int64)
+        return keys, vals, cap - 5, 8
+    if name == "half_max":
+        keys = rng.integers(0, 300, cap).astype(np.uint64)
+        keys[::2] = U64_MAX
+        vals = rng.integers(0, 1 << 64, cap, dtype=np.uint64)
+        return keys, vals, cap - 1, 512
+    if name == "warp_runs":                 # runs of 32 equal keys (a warp)
+        keys = np.repeat(rng.integers(0, 1 << 40, cap // 32,
+                                      dtype=np.uint64), 32)
+        vals = rng.integers(-(1 << 40), 1 << 40, cap).astype(np.int64)
+        return keys, vals, cap - 7, 64
+    if name == "beyond_front":   # more distinct keys than a front table
+        pool = rng.integers(0, 1 << 64, 5000, dtype=np.uint64)
+        pick = rng.permutation(np.concatenate(
+            [np.arange(5000), rng.integers(0, 5000, 1000)]))
+        vals = rng.integers(0, 1 << 32, 6000, dtype=np.uint64).astype(
+            np.uint32)
+        return pool[pick], vals, 6000, 8192
+    if name == "u64_near_top":  # order keys near 2^63-1: 32-bit sort base
+        keys = U64_MAX - rng.integers(1, 3000, cap).astype(np.uint64)
+        vals = rng.integers(0, 1 << 64, cap, dtype=np.uint64)
+        return keys, vals, cap, 1024
+    if name == "i64_signed":              # negative int64 keys, 32-bit sort
+        keys = rng.integers(-(1 << 30), 1 << 30, 300)[
+            rng.integers(0, 300, cap)].astype(np.int64)
+        vals = rng.integers(-(1 << 62), 1 << 62, cap).astype(np.int64)
+        return keys, vals, cap - 2, 512
     raise KeyError(name)
 
 
@@ -66,8 +101,12 @@ def _port(keys, vals, nvalid, gcap, op, T):
     return to_numpy(ukey, keys.dtype), to_numpy(uval, vdt), g, overflow
 
 
-@pytest.mark.parametrize("name", ["u64_top_bit", "i32_wrapping",
-                                  "u32_as_int32", "zero_and_max"])
+CASES = ["u64_top_bit", "i32_wrapping", "u32_as_int32", "zero_and_max",
+         "one_key", "all_max", "half_max", "warp_runs", "beyond_front",
+         "u64_near_top", "i64_signed"]
+
+
+@pytest.mark.parametrize("name", CASES)
 @pytest.mark.parametrize("op", ["count", "sum"])
 def test_segment_group_reduce_matches_jax(name, op):
     rng = np.random.default_rng(sum(map(ord, name)))
@@ -146,12 +185,27 @@ def test_group_supported_matches_jax():
 
 
 def test_plain_version_counts_no_launch_and_checks_inputs():
+    """The plain version builds the kernel's layout (sentinel, side slot,
+    meta slot, claimed list) without a launch; its groups read through
+    the epilogue."""
     keys = torch.arange(10, dtype=torch.int64) % 3
+    keys[0] = -1                                # key 2^64-1: the side slot
     before = tg.segment_table.launches
-    tkey, occ, cnt, tsum = tg.segment_table(keys, keys.clone(), 16)
+    table = tg.segment_table(keys, keys.clone(), 16)
     assert tg.segment_table.launches == before
-    assert tsum is not None and int(occ.sum()) == 3 and int(cnt[16]) == 0
-    assert sorted(cnt[:16][occ[:16] == 1].tolist()) == [3, 3, 4]
+    assert table.slots.shape == (18, 4) and table.sums.shape == (18,)
+    skeys = tg.slot_keys(table.slots)
+    assert int((skeys[:16] == tg.EMPTY).sum()) == 16 - 3
+    assert table.slots[16].tolist() == [-1, -1, 1, 0]   # side: key, count 1
+    assert table.slots[17, 2:].tolist() == [0, 4]       # no overflow, 4 groups
+    assert sorted(table.claimed[:4].tolist())[-1] == 16
+    for op, want in (("count", [3, 3, 3, 1]), ("sum", [0, 3, 6, -1])):
+        ukey, uval, g, overflow = table_to_groups(table, 16, 8, op,
+                                                  np.uint64, np.uint64)
+        assert (g, overflow) == (4, 0)
+        assert to_numpy(ukey, np.uint64).tolist() == [0, 1, 2, U64_MAX] \
+            + [0] * 4
+        assert uval.tolist() == want + [0] * 4
     with pytest.raises(ValueError):
         tg.segment_table(keys.to(torch.int32), None, 16)
     with pytest.raises(ValueError):
@@ -169,10 +223,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", CASES)
 @pytest.mark.parametrize("op", ["count", "sum"])
-def test_seg_table_kernel(cuda_device, op):
+def test_seg_table_kernel(cuda_device, name, op):
     rng = np.random.default_rng(5)
-    keys, vals, nvalid, gcap = _case("zero_and_max", rng)
+    keys, vals, nvalid, gcap = _case(name, rng)
     T = tg.table_slots(gcap)
     dev = [tg.segment_group_reduce(to_torch(keys, d), to_torch(vals, d),
                                    nvalid, gcap, op, ("tbl", T), keys.dtype,

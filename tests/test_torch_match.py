@@ -86,6 +86,22 @@ def test_mark_words_rejects_bad_input():
         tm.mark_words(torch.zeros(8, dtype=torch.int32), b"q" + b"z" * 30)
 
 
+@pytest.mark.parametrize("start", [0, 1, 2, 3])
+@pytest.mark.parametrize("m", [0, 1, 3, 16, 17, 1001])
+def test_mark_output_is_placed_for_16_byte_stores(start, m):
+    """The kernel stores 16 codes at once from the first 16-byte boundary
+    of ``words``: the wrapper's output puts that word's code on a 16-byte
+    boundary too, for views that start off one."""
+    base = torch.zeros(m + 8, dtype=torch.int32)
+    assert base.data_ptr() % 16 == 0          # the allocator's alignment
+    words = base[start:start + m]
+    out = tm.mark_output(words)
+    assert out.shape == (m,) and out.dtype == torch.int8
+    assert out.is_contiguous()
+    head = min(m, (4 - start) % 4)            # words before the boundary
+    assert (out.data_ptr() + head) % 16 == 0
+
+
 @pytest.mark.parametrize("mode", ["scatter", "searchsorted", "blocked"])
 @pytest.mark.parametrize("max_hits", [4, 64])
 def test_compact_word_matches_matches_jax(mode, max_hits):
@@ -143,12 +159,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 2, 3, 4, 1_000_003])
-def test_mark_words_kernel(cuda_device, m):
+@pytest.mark.parametrize("start", [0, 1, 2, 3])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 15, 16, 17, 33, 16 * 4099 + 7,
+                               1_000_003])
+def test_mark_words_kernel(cuda_device, m, start):
+    """Ragged tails (m mod 16) and views words[start:] that do not start
+    on a 16-byte boundary (the kernel's scalar head)."""
     rng = np.random.default_rng(m)
-    n = 4 * m
-    offs = [a for a in (0, 1, 2, 3, n - 40, n - 9) if 0 <= a <= n - 9]
-    words = _t(_words(_planted(rng, n, offs))).to(cuda_device)
+    n = 4 * (m + start)
+    offs = [a for a in (0, 1, 2, 3, 61, 62, 2045, n - 40, n - 9)
+            if 0 <= a <= n - 9]
+    words = _t(_words(_planted(rng, n, offs))).to(cuda_device)[start:]
     before = tm.mark_words.launches
     got = tm.mark_words(words, PATTERN)
     torch.cuda.synchronize()
