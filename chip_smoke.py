@@ -9,7 +9,8 @@ nonzero):
 1. device   — the card's name and count, and nvidia-smi's name and power
               limit;
 2. build    — compile every kernel under gpu_mapreduce_tpu_torch/csrc/
-              with nvcc (ptxas's register/spill report included);
+              with nvcc (ptxas's report included: spill and stack-frame
+              bytes per source);
 3. kernels  — each kernel against its plain PyTorch version on the card,
               exactly, at the main path's shape and at edge shapes; then
               CUDA-event timings beside the kernel's bound and, where one
@@ -21,7 +22,12 @@ nonzero):
               hot-key and sentinel cases, compared through its epilogue;
               one table + epilogue is profiled with torch.profiler for
               the device time by op: ``group_device_ms``) and mark_bytes
-              (the byte mark, off every entry point);
+              (the byte mark, off every entry point: the corpus and its
+              views buf[1:]..buf[15:], planted matches across its 16-byte
+              chunks, 512-byte rows, a warp's 2 KB span and the
+              grid-stride seam, periods 1-3, patterns of 64 and 128
+              bytes, n = 1..3, a \\0 tail; timed also on buf[1:], at
+              other pattern lengths and beside one device copy);
 4. main     — InvertedIndex().run() on the benchmark's 256 MB, 4-file
               corpus (warm-up, then one timed run, with every launch
               count set to 0 just before it): pairs and unique URLs must
@@ -369,58 +375,147 @@ def time_seg_table(keys, T: int, gcap: int) -> dict:
             **table_bound(int(keys.numel()), T, False)}
 
 
-def check_mark_bytes(corpus, device) -> dict:
-    """mark vs mark_ref on the card, exactly: the main corpus, planted
-    matches across thread-block and grid-stride seams, n = 1, 2, 3, and a
-    pattern ending in \\0 that matches at the tail."""
+def byte_stride(device) -> int:
+    """One grid-stride step of bytes in csrc/mark_bytes.cu: 4 blocks of 8
+    warps a SM, a 2 KB span a warp (4 rows of 32 16-byte chunks)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count \
+        * 4 * 8 * 2048
+
+
+def host_bytes(t) -> bytes:
+    return t.cpu().numpy().tobytes()
+
+
+def spaced(starts, length: int):
+    """The sorted starts, dropping any closer than ``length`` to the one
+    kept before it (planted matches must not overlap)."""
+    kept = []
+    for o in sorted(starts):
+        if not kept or o - kept[-1] >= length:
+            kept.append(o)
+    return kept
+
+
+def check_mark_bytes(corpus_t, device) -> dict:
+    """mark vs mark_ref on the card, exactly: the main corpus and its views
+    buf[1:]..buf[15:] (off a 16-byte boundary: the scalar head); planted
+    matches of `<a href="` and of a 128-byte pattern across the kernel's
+    16-byte chunks, its 512-byte rows (lane 31's halo from lane 0 of the
+    next row), a warp's 2 KB span and the grid-stride seam; periods 1,
+    2 and 3 on `ab` data, where every byte is a candidate; 64- and
+    128-byte patterns taken from the corpus; n = 1, 2, 3 and a pattern
+    ending in \\0 that matches at the tail."""
     import numpy as np
     import torch
     from gpu_mapreduce_tpu_torch.apps.invertedindex import PATTERN
     from gpu_mapreduce_tpu_torch.ops.cuda.match import mark, mark_ref
     rng = np.random.default_rng(2)
-    n = 4 << 20
-    # one grid-stride step of bytes: 16 blocks of 256 threads a SM
-    stride = torch.cuda.get_device_properties(device).multi_processor_count \
-        * 16 * 256
-    offs = []                           # planted starts, 9+ bytes apart
-    for o in sorted({256 * k - (k % 9) for k in range(1, 400)}
-                    | {stride * m - 4 for m in range(1, 7)} | {n - 9}):
-        if not offs or o - offs[-1] >= len(PATTERN):
-            offs.append(o)
-    buf = rng.integers(0, 256, n, dtype=np.uint8)
-    for o in offs:
-        buf[o:o + len(PATTERN)] = np.frombuffer(PATTERN, np.uint8)
+    stride = byte_stride(device)
+    n = 2 * stride + (1 << 20)
+    long_pat = rng.integers(0, 256, 128, dtype=np.uint8).tobytes()
+    seams = ({16 * k - 4 - k % 5 for k in range(1, 200)}
+             | {512 * k - 3 - k % 4 for k in range(1, 40)}
+             | {2048 * k - 5 - k % 7 for k in range(1, 40)}
+             | {stride * m + d for m in (1, 2) for d in (-70, -5, 0)}
+             | {n - 128})
+    cases, planted = {}, {}
+    for name, pat in (("seams", PATTERN), ("seams_len128", long_pat)):
+        offs = spaced(seams, len(pat))
+        buf = rng.integers(0, 256, n, dtype=np.uint8)
+        for o in offs:
+            buf[o:o + len(pat)] = np.frombuffer(pat, np.uint8)
+        cases[name] = (torch.from_numpy(buf).to(device), pat)
+        planted[name] = offs
+    cases["main_path"] = (corpus_t, PATTERN)
+    for k in range(1, 16):
+        cases[f"main_path[{k}:]"] = (corpus_t[k:], PATTERN)
+    s = corpus_t.shape[0] // 2          # a link in the corpus's middle
+    s += int(torch.nonzero(mark(corpus_t[s:s + 4096], PATTERN))[0])
+    cases["len64_filler"] = (corpus_t, host_bytes(corpus_t[s - 70:s - 6]))
+    cases["len128_link"] = (corpus_t, host_bytes(corpus_t[s - 60:s + 68]))
+    ab = torch.from_numpy(rng.choice(np.frombuffer(b"ab", np.uint8),
+                                     (1 << 20) + 13)).to(device)
+    for name, pat in (("period_1", b"aaa"), ("period_2", b"abab"),
+                      ("period_3", b"abaaba")):
+        cases[name] = (ab[3:], pat)
     tail = rng.integers(0, 256, 1 << 20, dtype=np.uint8)
     tail[-1] = ord("a")
-    cases = {"main_path": (torch.from_numpy(corpus).to(device), PATTERN),
-             "seams": (torch.from_numpy(buf).to(device), PATTERN),
-             "tail_a0": (torch.from_numpy(tail).to(device), b"a\x00"),
-             "period_1": (torch.from_numpy(rng.choice(
-                 np.frombuffer(b"ab", np.uint8), 1 << 20)).to(device),
-                 b"aaa")}
+    cases["tail_a0"] = (torch.from_numpy(tail).to(device), b"a\x00")
     for k in (1, 2, 3):
         cases[f"n={k}"] = (torch.full((k,), ord("a"), dtype=torch.uint8,
                                       device=device), b"a\x00")
+    hits = {}
     for name, (b, pat) in cases.items():
         got, ref = mark(b, pat), mark_ref(b, pat)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"mark_bytes differs from its plain "
                                  f"version on case {name}")
-        if name == "seams" and \
-                torch.nonzero(got).flatten().tolist() != offs:
-            raise AssertionError("mark_bytes missed planted matches")
+        hits[name] = int(got.sum())
+        if name in planted and \
+                torch.nonzero(got).flatten().tolist() != planted[name]:
+            raise AssertionError(f"mark_bytes missed planted matches on "
+                                 f"case {name}")
         if pat.endswith(b"\x00") and int(got[-1]) != 1:
             raise AssertionError(f"mark_bytes: no tail match on {name}")
-    return {"cases": list(cases), "max_abs_err": 0}
+    return {"cases": hits, "max_abs_err": 0, "grid_stride_bytes": stride,
+            "refusals": check_mark_bytes_refusals(device)}
+
+
+def check_mark_bytes_refusals(device) -> dict:
+    """The launch refuses an output not placed for its 16-byte stores
+    (cudaErrorMisalignedAddress, 716) and a pattern past 128 bytes
+    (cudaErrorInvalidValue, 1); the wrapper raises on the latter before
+    any launch."""
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.cuda import library
+    from gpu_mapreduce_tpu_torch.ops.cuda.match import (
+        MAX_PAT, _bind_bytes, _c_tables, mark)
+    lib = library("mark_bytes", _bind_bytes)
+    buf = torch.zeros(4096, dtype=torch.uint8, device=device)
+    out = torch.empty(4096 + 16, dtype=torch.int8, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    cm, cv, _ = _c_tables(b"abc")
+    misaligned = lib.mark_bytes_launch(buf.data_ptr(), out.data_ptr() + 1,
+                                       4096, cm, cv, 3, device.index, stream)
+    cm, cv, _ = _c_tables(b"a" * (MAX_PAT + 1))
+    too_long = lib.mark_bytes_launch(buf.data_ptr(), out.data_ptr(), 4096,
+                                     cm, cv, MAX_PAT + 1, device.index,
+                                     stream)
+    try:
+        mark(buf, b"a" * (MAX_PAT + 1))
+        wrapper_raised = False
+    except ValueError:
+        wrapper_raised = True
+    if (misaligned, too_long, wrapper_raised) != (716, 1, True):
+        raise AssertionError(f"mark_bytes refusals: misaligned out rc "
+                             f"{misaligned}, {MAX_PAT + 1}-byte pattern rc "
+                             f"{too_long}, wrapper raised {wrapper_raised}")
+    return {"misaligned_out_rc": misaligned, "too_long_rc": too_long}
 
 
 def time_mark_bytes(buf) -> dict:
+    """The kernel, its plain version and its bound at the main path's n
+    (2n bytes, several times the 50 MB L2); beside them the kernel on the
+    view buf[1:] and at other pattern lengths, each pattern the corpus's
+    bytes from a link on, and one device copy of the n bytes (the same
+    bytes moved, no compute: what the memory system gives a kernel)."""
+    import torch
     from gpu_mapreduce_tpu_torch.apps.invertedindex import PATTERN
     from gpu_mapreduce_tpu_torch.ops.cuda.match import mark, mark_ref
     n = int(buf.numel())
     ms = cuda_ms(lambda: mark(buf, PATTERN), iters=50)
     plain_ms = cuda_ms(lambda: mark_ref(buf, PATTERN), iters=3, warmup=1)
+    view_ms = cuda_ms(lambda: mark(buf[1:], PATTERN), iters=50)
+    dst = torch.empty_like(buf)
+    copy_ms = cuda_ms(lambda: dst.copy_(buf), iters=50)
+    del dst
+    s = int(torch.nonzero(mark(buf[:4096], PATTERN))[0])
+    by_len = {}
+    for length in (1, 4, 17, 64, 128):
+        pat = host_bytes(buf[s:s + length])
+        by_len[length] = cuda_ms(lambda: mark(buf, pat), iters=20)
     nbytes = 2 * n                       # read each byte, write one int8
     ops = 2 * len(PATTERN) * n           # a compare and an AND a byte
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -428,7 +523,8 @@ def time_mark_bytes(buf) -> dict:
     return {"n": n, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops}
+            "bytes": nbytes, "ops": ops, "view1_ms": view_ms,
+            "copy_ms": copy_ms, "ms_by_pattern_len": by_len}
 
 
 def intcount_oracle(keys_u32, ntop: int):
@@ -584,9 +680,14 @@ def main() -> int:
     spills = {n: None for n in kcuda.sources()}
     spills.update({n: sum(map(int, re.findall(r"(\d+) bytes spill", out)))
                    for n, out in built["output"].items()})
+    # stack-frame bytes over every kernel of each source, likewise
+    frames = {n: None for n in kcuda.sources()}
+    frames.update({n: sum(map(int, re.findall(r"(\d+) bytes stack frame",
+                                              out)))
+                   for n, out in built["output"].items()})
     emit({"phase": "build", "seconds": built["seconds"],
           "sources": kcuda.sources(), "spill_bytes": spills,
-          "nvcc_output": built["output"]})
+          "stack_frame_bytes": frames, "nvcc_output": built["output"]})
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -606,9 +707,10 @@ def main() -> int:
         emit({"phase": "kernels", "mark_words": {**checked, **timing}})
 
         corpus, _ = _build_corpus(paths)
-        bytes_checked = check_mark_bytes(corpus, device)
-        bytes_timing = time_mark_bytes(torch.from_numpy(corpus).to(device))
-        del corpus
+        corpus_t = torch.from_numpy(corpus).to(device)
+        bytes_checked = check_mark_bytes(corpus_t, device)
+        bytes_timing = time_mark_bytes(corpus_t)
+        del corpus, corpus_t
         emit({"phase": "kernels", "mark_bytes": {**bytes_checked,
                                                  **bytes_timing}})
 
@@ -713,7 +815,8 @@ def main() -> int:
         "max_abs_err": checked["max_abs_err"], "m": timing["m"],
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None, "spill_bytes": spills["mark_words"]}, {
+        "library_ms": None, "spill_bytes": spills["mark_words"],
+        "stack_frame_bytes": frames["mark_words"]}, {
         "name": "seg_table", "route": "cuda",
         "source": "gpu_mapreduce_tpu_torch/csrc/seg_table.cu",
         "replaces": "gpu_mapreduce_tpu/ops/pallas/group.py:175",
@@ -730,6 +833,7 @@ def main() -> int:
         "library_call": "torch.unique(keys, return_counts=True)",
         "epilogue_ms": uni["epilogue_ms"],
         "spill_bytes": spills["seg_table"],
+        "stack_frame_bytes": frames["seg_table"],
         "zipf": {k: zipf[k] for k in ("T", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
                                       "epilogue_ms")}}, {
@@ -742,7 +846,11 @@ def main() -> int:
         "ms": bytes_timing["ms"], "plain_ms": bytes_timing["plain_ms"],
         "bound_ms": bytes_timing["bound_ms"],
         "bound_by": bytes_timing["bound_by"],
-        "library_ms": None, "spill_bytes": spills["mark_bytes"]}]})
+        "library_ms": None, "spill_bytes": spills["mark_bytes"],
+        "stack_frame_bytes": frames["mark_bytes"],
+        "view1_ms": bytes_timing["view1_ms"],
+        "copy_ms": bytes_timing["copy_ms"],
+        "ms_by_pattern_len": bytes_timing["ms_by_pattern_len"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

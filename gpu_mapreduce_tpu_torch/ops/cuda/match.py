@@ -7,8 +7,9 @@ which the wrapper runs only for a CPU tensor:
 * the word-packed tier (the map stage's): :func:`mark_words` launches
   ``csrc/mark_words.cu``; :func:`mark_words_ref` is the same
   masked-compare math (the counterpart of ``mark_words_xla``);
-* the byte-per-lane tier, for any pattern (a period below 4 included):
-  :func:`mark` launches ``csrc/mark_bytes.cu``; :func:`mark_ref` is the
+* the byte tier, for any pattern of 1 to 128 bytes (a period below 4
+  included): :func:`mark` launches ``csrc/mark_bytes.cu``, one code a
+  byte from the same alignment tables; :func:`mark_ref` is the
   counterpart of ``mark_xla``.  :func:`compact_matches` and
   :func:`url_lengths` follow it.
 
@@ -59,6 +60,14 @@ def _alignment_tables(pattern: bytes) -> Tuple[np.ndarray, np.ndarray]:
         masks[a] = np.frombuffer(bytes(mb), "<u4")
         vals[a] = np.frombuffer(bytes(vb), "<u4")
     return masks, vals
+
+
+def _c_tables(pattern: bytes):
+    """The alignment tables as two C arrays of u32 [4 * nw], and nw."""
+    masks, vals = _alignment_tables(pattern)
+    cm = (ctypes.c_uint32 * masks.size)(*masks.reshape(-1).tolist())
+    cv = (ctypes.c_uint32 * vals.size)(*vals.reshape(-1).tolist())
+    return cm, cv, masks.shape[1]
 
 
 def _check_pattern(pattern: bytes) -> None:
@@ -114,15 +123,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mark_words_launch.restype = ctypes.c_int
 
 
-def mark_output(words: torch.Tensor) -> torch.Tensor:
-    """An empty int8 [m] for the mark of ``words`` [m], placed for the
-    kernel: its 16-byte tiles start at the first 16-byte boundary of
-    ``words`` (``head`` words in: 0, or 1 to 3 for a view such as
-    words[1:]) and store 16 codes at once, so out + head is on a 16-byte
+def mark_output(src: torch.Tensor) -> torch.Tensor:
+    """An empty int8 [m] for the mark of ``src`` [m] (a word buffer, or a
+    byte buffer for :func:`mark`), one code an element, placed for the
+    kernel: its tiles start at the first 16-byte boundary of ``src``
+    (``head`` elements in: 0, or up to 3 words or 15 bytes for a view such
+    as src[1:]) and store 16 codes at once, so out + head is on a 16-byte
     boundary too (a view into 15 bytes more)."""
-    m = words.shape[0]
-    head = min(m, (-words.data_ptr() % 16) // 4)
-    buf = torch.empty(m + 15, dtype=torch.int8, device=words.device)
+    m = src.shape[0]
+    head = min(m, (-src.data_ptr() % 16) // src.element_size())
+    buf = torch.empty(m + 15, dtype=torch.int8, device=src.device)
     off = -(buf.data_ptr() + head) % 16
     return buf[off:off + m]
 
@@ -144,10 +154,7 @@ def mark_words(words: torch.Tensor, pattern: bytes) -> torch.Tensor:
     out = mark_output(words)
     if m == 0:
         return out
-    masks, vals = _alignment_tables(pattern)
-    nw = masks.shape[1]
-    cm = (ctypes.c_uint32 * masks.size)(*masks.reshape(-1).tolist())
-    cv = (ctypes.c_uint32 * vals.size)(*vals.reshape(-1).tolist())
+    cm, cv, nw = _c_tables(pattern)
     lib = library("mark_words", _bind)
     stream = torch.cuda.current_stream(words.device).cuda_stream
     rc = lib.mark_words_launch(words.data_ptr(), out.data_ptr(), m, cm, cv,
@@ -224,10 +231,10 @@ def mask_words_to_length(wu: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# byte-per-lane tier
+# byte tier
 # ---------------------------------------------------------------------------
 
-MAX_PAT = 64  # csrc/mark_bytes.cu
+MAX_PAT = 128  # csrc/mark_bytes.cu: the TPU kernel's one-row halo
 
 
 def _check_byte_pattern(pattern: bytes) -> None:
@@ -250,8 +257,9 @@ def mark_ref(buf: torch.Tensor, pattern: bytes) -> torch.Tensor:
 
 
 def _bind_bytes(lib: ctypes.CDLL) -> None:
+    u32p = ctypes.POINTER(ctypes.c_uint32)
     lib.mark_bytes_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_int64, ctypes.c_char_p,
+                                      ctypes.c_int64, u32p, u32p,
                                       ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p]
     lib.mark_bytes_launch.restype = ctypes.c_int
@@ -271,14 +279,14 @@ def mark(buf: torch.Tensor, pattern: bytes) -> torch.Tensor:
     if buf.device.type != "cuda":
         raise ValueError(f"mark: unsupported device {buf.device}")
     n = buf.shape[0]
-    out = torch.empty(n, dtype=torch.int8, device=buf.device)
+    out = mark_output(buf)
     if n == 0:
         return out
+    cm, cv, _ = _c_tables(pattern)
     lib = library("mark_bytes", _bind_bytes)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
-    rc = lib.mark_bytes_launch(buf.data_ptr(), out.data_ptr(), n,
-                               bytes(pattern), len(pattern),
-                               buf.device.index or 0, stream)
+    rc = lib.mark_bytes_launch(buf.data_ptr(), out.data_ptr(), n, cm, cv,
+                               len(pattern), buf.device.index or 0, stream)
     if rc != 0:
         raise MRError(f"mark_bytes kernel launch failed (CUDA error {rc})")
     note_kernel_launch(mark)

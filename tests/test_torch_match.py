@@ -1,4 +1,4 @@
-"""The port's word-packed and byte-per-lane marks, compaction and
+"""The port's word-packed and byte marks, compaction and
 URL-window helpers vs the JAX package (Pallas kernels in interpret mode
 and their XLA twins), exactly.
 
@@ -178,7 +178,7 @@ def test_mark_words_kernel(cuda_device, m, start):
 
 
 # ---------------------------------------------------------------------------
-# byte-per-lane mark (csrc/mark_bytes.cu and its plain version)
+# byte mark (csrc/mark_bytes.cu and its plain version)
 # ---------------------------------------------------------------------------
 
 HTML = (b'<html><body><a href="http://a.com/x">x</a>'
@@ -214,6 +214,57 @@ def test_mark_ref_matches_pallas_and_xla(pattern):
     assert tm.mark.launches == before
 
 
+# nw = (length + 6) // 4 words: the kernel's two-word prefilter decides
+# alone up to 5 bytes and checks words 2..nw-1 from 6 on; the lengths past
+# the former 64-byte cap run up to the TPU kernel's reach
+PATTERN_LENGTHS = [1, 4, 5, 6, 16, 17, 63, 64, 65, 100, 128]
+
+
+def _pattern_of(length: int) -> bytes:
+    """A pattern of ``length`` bytes from a seed; its first byte is '<' so
+    that one-byte patterns still mean something on text."""
+    rng = np.random.default_rng(1000 + length)
+    return b"<" + rng.integers(0, 256, length - 1, dtype=np.uint8).tobytes()
+
+
+def _length_offsets(n: int, length: int):
+    """Planted starts, at least ``length`` apart: across the 128-lane row
+    and the 32 KB Pallas block, across the kernel's 512-byte rows and a
+    warp's 2 KB span, and one ending at the last byte."""
+    offs = []
+    for o in (0, 1, 127 - length // 2, 128 - length // 2, 2048 - 3,
+              32768 - length // 2, n - length):
+        if 0 <= o <= n - length and (not offs or o - offs[-1] >= length):
+            offs.append(o)
+    return offs
+
+
+@pytest.mark.parametrize("length", PATTERN_LENGTHS)
+def test_mark_ref_matches_pallas_and_xla_at_pattern_lengths(length):
+    """40 KB crosses one 32 KB Pallas block; the planted starts are all
+    found, and a planted prefix one byte short is not."""
+    pattern = _pattern_of(length)
+    n = 40 * 1024
+    rng = np.random.default_rng(length)
+    offs = _length_offsets(n, length)
+    buf = _planted(rng, n, offs, pattern)
+    if length > 1:
+        short = 20_000
+        buf[short:short + length - 1] = np.frombuffer(pattern[:-1], np.uint8)
+        buf[short + length - 1] = pattern[-1] ^ 1
+    data = buf.tobytes()
+    got = tm.mark_ref(_bytes_t(data), pattern).numpy()
+    want_x, want_k = _jax_marks(data, pattern)
+    np.testing.assert_array_equal(got, want_x)
+    np.testing.assert_array_equal(got, want_k)
+    hits = set(np.nonzero(got)[0].tolist())
+    assert set(offs) <= hits
+    if length >= 4:
+        assert hits == set(offs)
+    np.testing.assert_array_equal(
+        tm.mark(_bytes_t(data), pattern).numpy(), got)
+
+
 @pytest.mark.parametrize("off", [0, 1, 119, 120, 126, 127, 128, 255, 256,
                                  1000, 32767, 32768])
 def test_mark_ref_cross_lane_boundaries(off):
@@ -245,6 +296,22 @@ def test_mark_rejects_bad_input():
         tm.mark(torch.zeros((2, 4), dtype=torch.uint8), b"a")
 
 
+@pytest.mark.parametrize("start", range(16))
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 64, 1001])
+def test_byte_mark_output_is_placed_for_16_byte_stores(start, n):
+    """The byte kernel stores 16 codes at once from the first 16-byte
+    boundary of ``buf``: the wrapper's output puts that byte's code on a
+    16-byte boundary too, for views buf[1:]..buf[15:]."""
+    base = torch.zeros(n + 16, dtype=torch.uint8)
+    assert base.data_ptr() % 16 == 0          # the allocator's alignment
+    buf = base[start:start + n]
+    out = tm.mark_output(buf)
+    assert out.shape == (n,) and out.dtype == torch.int8
+    assert out.is_contiguous()
+    head = min(n, (16 - start) % 16)          # bytes before the boundary
+    assert (out.data_ptr() + head) % 16 == 0
+
+
 @pytest.mark.parametrize("max_hits", [2, 3, 16])
 def test_compact_matches_and_url_lengths_match_jax(max_hits):
     data = HTML + b'<a href="unterminated'
@@ -265,16 +332,47 @@ def test_compact_matches_and_url_lengths_match_jax(max_hits):
         assert lens.dtype == torch.int32 and wins.dtype == torch.uint8
 
 
+def _kernel_cases():
+    """(n, start, pattern): the tiny buffers and the \\0 tail; views
+    buf[k:] off a 16-byte boundary (the scalar head); n = 1..80 (head, a
+    few 16-byte chunks and the scalar tail); a ragged tail of every n mod
+    64; the pattern lengths, 128 included."""
+    cases = [(1, 0, b"a\x00"), (2, 0, b"a\x00"), (3, 0, b"ab"),
+             (1_000_003, 0, PATTERN)]
+    cases += [(100_003, k, PATTERN) for k in range(1, 16)]
+    cases += [(n, 0, b"a\x00") for n in range(1, 81)]
+    cases += [(64 * 1000 + r, 5, PATTERN) for r in range(64)]
+    cases += [(300_001, 3, _pattern_of(L)) for L in PATTERN_LENGTHS]
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,pattern", [(1, b"a\x00"), (2, b"a\x00"),
-                                       (3, b"ab"), (1_000_003, PATTERN)])
-def test_mark_bytes_kernel(cuda_device, n, pattern):
-    rng = np.random.default_rng(n)
-    buf = _planted(rng, n, [o for o in (0, 1, n - 40) if 0 <= o <= n - 9])
+@pytest.mark.parametrize("n,start,pattern", _kernel_cases())
+def test_mark_bytes_kernel(cuda_device, n, start, pattern):
+    rng = np.random.default_rng(n + start)
+    L = len(pattern)
+    offs = [start + o for o in (0, 1, 13, 512 - L // 2, 2048 - 3, n - 40,
+                                n - L) if 0 <= o <= n - L]
+    buf = _planted(rng, n + start, offs, pattern)
     buf[-1] = ord("a")
-    t = torch.from_numpy(buf).to(cuda_device)
+    t = torch.from_numpy(buf).to(cuda_device)[start:]
     before = tm.mark.launches
     got = tm.mark(t, pattern)
     torch.cuda.synchronize()
     assert tm.mark.launches == before + 1
     assert torch.equal(got, tm.mark_ref(t, pattern))
+
+
+@pytest.mark.cuda
+def test_mark_bytes_launch_refuses_misaligned_output(cuda_device):
+    """The launch returns cudaErrorMisalignedAddress (716) for an output
+    that its 16-byte stores cannot use; the wrapper never passes one."""
+    from gpu_mapreduce_tpu_torch.ops.cuda import library
+    lib = library("mark_bytes", tm._bind_bytes)
+    buf = torch.zeros(4096, dtype=torch.uint8, device=cuda_device)
+    out = torch.empty(4096 + 16, dtype=torch.int8, device=cuda_device)
+    cm, cv, _ = tm._c_tables(b"abc")
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    rc = lib.mark_bytes_launch(buf.data_ptr(), out.data_ptr() + 1, 4096, cm,
+                               cv, 3, buf.device.index or 0, stream)
+    assert rc == 716
