@@ -45,6 +45,23 @@ nonzero):
               Each run is then repeated with every op, the plan and the
               fused group between device synchronises, for the stage
               seconds (``op_seconds``).
+7. graph    — the OINK script of ``graph_script``, through the port's
+              OinkScript on the card: rmat at Graph500's scale-22,
+              edgefactor-16 Kronecker parameters into a named MR,
+              degree_stats, pagerank, edge_upper, cc_find and cc_stats,
+              every launch count set to 0 just before the script (this
+              path runs no hand-written kernel; the counts are reported).
+              First one R-MAT round of 2^20 edges (and a noisy one of
+              2^16) must be bit-equal on the card and on the CPU; after
+              the script, host oracles (numpy, scipy) check the edge set
+              (2^26 unique rows, ids < 2^22), the degree histogram
+              (np.bincount), PageRank (sum 1 ± 1e-4, L1 ≤ 1e-4 from a
+              float64 power iteration with the same damping and step
+              count, the same top-100 set) and the components
+              (scipy connected_components, each named by its least
+              vertex id; cc_stats' sizes).  Seconds per command and per
+              engine stage, rounds, edges/s per PageRank step and peak
+              memory go into the ``graph`` line.
 
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
@@ -57,6 +74,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -651,6 +669,299 @@ def oracle_part_file(paths) -> str:
     return "".join(f"{u}\t{fs}\n" for _, u, fs in lines)
 
 
+GRAPH_SCALE = 22               # BASELINE.json's PageRank scale
+GRAPH_EDGEFACTOR = 16          # Graph500 spec, section 3
+GRAPH_ABCD = (0.57, 0.19, 0.19, 0.05)   # Graph500 Kronecker initiator
+GRAPH_SEED = 20260
+GRAPH_TOL = 1e-8               # above the f32 noise floor (PERF.md)
+GRAPH_MAXITER = 100
+GRAPH_DAMPING = 0.85
+
+
+def graph_script(scale: int, edgefactor: int) -> list:
+    """The graph phase's OINK script, one command a line."""
+    a, b, c, d = GRAPH_ABCD
+    return [
+        f"rmat {scale} {edgefactor} {a} {b} {c} {d} 0.0 {GRAPH_SEED} "
+        f"-o NULL mre",
+        "degree_stats 0 -i mre",
+        f"pagerank {GRAPH_TOL} {GRAPH_MAXITER} {GRAPH_DAMPING} -i mre "
+        f"-o NULL mrpr",
+        "edge_upper -i mre -o NULL mru",
+        "cc_find 0 -i mru -o NULL mrc",
+        "cc_stats -i mrc"]
+
+
+@contextlib.contextmanager
+def graph_spans(device):
+    """Wall seconds of each call of the graph engines' stages, between two
+    device synchronises (the engines read a host scalar every step
+    anyway): generation, collate, staging, the two fused loops and each
+    of their steps.  Yields {label: [seconds of each call]}."""
+    import torch
+    from gpu_mapreduce_tpu_torch.core.mapreduce import MapReduce
+    from gpu_mapreduce_tpu_torch.models import cc as cc_model
+    from gpu_mapreduce_tpu_torch.models import pagerank as pr_model
+    from gpu_mapreduce_tpu_torch.oink.commands import cc, pagerank, rmat
+    times = {}
+    spans = [(rmat, "rmat_edges", "rmat_generate"),
+             (MapReduce, "collate", "collate"),
+             (pagerank, "stage_graph", "pagerank_stage"),
+             (pagerank, "pagerank", "pagerank_loop"),
+             (pr_model, "pagerank_step", "pagerank_step"),
+             (cc, "stage_graph", "cc_stage"), (cc, "cc", "cc_loop"),
+             (cc_model, "_propagate", "cc_round")]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in spans]
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed(fn, label):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            times.setdefault(label, []).append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    for (owner, attr, label), (_, _, fn) in zip(spans, saved):
+        setattr(owner, attr, timed(fn, label))
+    try:
+        yield times
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def _histogram(lines) -> list:
+    """``  value count`` lines of degree_stats / cc_stats → pairs."""
+    return [tuple(int(w) for w in ln.split()) for ln in lines
+            if ln.startswith("  ")]
+
+
+def _desc_histogram(values) -> list:
+    """(value, how many) for each distinct value, value descending."""
+    import numpy as np
+    h = np.bincount(values)
+    nz = np.nonzero(h)[0][::-1]
+    return [(int(v), int(h[v])) for v in nz]
+
+
+def check_rmat_round(device, scale: int) -> dict:
+    """One R-MAT round of 2^20 edges (and a noisy round of 2^16) on the
+    device and on the CPU through the port: bit-equal."""
+    import torch
+    from gpu_mapreduce_tpu_torch.models.rmat import rmat_edges
+    from gpu_mapreduce_tpu_torch.ops import prng
+    key = prng.split(prng.PRNGKey(GRAPH_SEED))[1]
+    out = {}
+    for m, frac in ((1 << 20, 0.0), (1 << 16, 0.3)):
+        got = [torch.stack(rmat_edges(key, m, scale, GRAPH_ABCD, frac,
+                                      frac > 0.0, dev), 1).cpu()
+               for dev in (device, torch.device("cpu"))]
+        if not torch.equal(got[0], got[1]):
+            raise AssertionError(f"rmat_edges m={m} frac={frac}: the "
+                                 f"device and the CPU differ in "
+                                 f"{int((got[0] != got[1]).sum())} ids")
+        out[f"m{m}_frac{frac}"] = "bit-equal"
+    return out
+
+
+def _compressed(major, minor, data, n: int, fmt):
+    """A scipy CSC/CSR matrix with one entry per (major, minor) pair,
+    built straight from its index arrays (scipy's COO conversion sums
+    duplicates by sorting every row, far slower at 2^26 entries)."""
+    import numpy as np
+    if np.any(major[1:] < major[:-1]):
+        order = np.argsort(major, kind="stable")
+        minor, data = minor[order], data[order]
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(major, minlength=n), out=indptr[1:])
+    return fmt((data, minor, indptr), shape=(n, n))
+
+
+def graph_oracles(scale, edgefactor, edges, screens, pr, cc_out) -> dict:
+    """Host oracles independent of the port (numpy, scipy): the R-MAT
+    edge set, the degree histogram, PageRank by a float64 power
+    iteration (scipy.sparse) with the same damping and step count,
+    components by scipy's connected_components.  Raises on any
+    disagreement; returns what they found and their seconds by part."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+    part_s = {}
+    t0 = time.perf_counter()
+    ntotal = (1 << scale) * edgefactor
+    vi, vj = edges[:, 0], edges[:, 1]
+    if edges.shape != (ntotal, 2):
+        raise AssertionError(f"rmat: {edges.shape} edges, want {ntotal}")
+    if int(edges.max()) >= 1 << scale:
+        raise AssertionError(f"rmat: a vertex id >= 2^{scale}")
+    packed = (vi << np.uint64(scale)) | vj
+    packed.sort()
+    if np.any(packed[1:] == packed[:-1]):
+        raise AssertionError("rmat: duplicate edges")
+    del packed
+    part_s["rmat"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    flat = edges.reshape(-1).astype(np.int64)
+    deg = np.bincount(flat, minlength=1 << scale)
+    deg = deg[deg > 0]
+    want = _desc_histogram(deg)
+    head = screens["degree_stats"][0]
+    if head != f"DegreeStats: {len(deg)} vertices, {ntotal} edges" or \
+            _histogram(screens["degree_stats"]) != want:
+        raise AssertionError(f"degree_stats differs from np.bincount: "
+                             f"{head!r}")
+    part_s["degree_stats"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    present = np.zeros(1 << scale, bool)
+    present[flat] = True
+    del flat
+    verts = np.nonzero(present)[0].astype(np.uint64)
+    rank_of = np.cumsum(present) - 1
+    src, dst = rank_of[vi.astype(np.int64)], rank_of[vj.astype(np.int64)]
+    n = len(verts)
+    pverts, pranks, iters = pr
+    if not np.array_equal(pverts, verts):
+        raise AssertionError("pagerank: vertex table differs")
+    outdeg = np.bincount(src, minlength=n).astype(np.float64)
+    dangling = outdeg == 0
+    inv = np.where(dangling, 0.0, 1.0 / np.maximum(outdeg, 1.0))
+    a = _compressed(src, dst, inv[src], n, sp.csc_matrix)   # a[dst, src]
+    del src, dst
+    r = np.full(n, 1.0 / n)
+    d = GRAPH_DAMPING
+    for _ in range(iters):
+        r = (1.0 - d) / n + d * (a @ r + r[dangling].sum() / n)
+    del a
+    l1 = float(np.abs(pranks - r).sum())
+    total = float(pranks.sum())
+    top_port = set(np.argpartition(-pranks, 100)[:100].tolist())
+    top_ref = set(np.argpartition(-r, 100)[:100].tolist())
+    if abs(total - 1.0) > 1e-4 or l1 > 1e-4 or top_port != top_ref:
+        raise AssertionError(f"pagerank: sum {total}, L1 {l1} vs the "
+                             f"float64 iteration, top-100 overlap "
+                             f"{len(top_port & top_ref)}")
+    part_s["pagerank"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    keep = vi != vj
+    lo = np.minimum(vi, vj)[keep].astype(np.int64)
+    hi = np.maximum(vi, vj)[keep].astype(np.int64)
+    present[:] = False
+    present[lo] = True
+    present[hi] = True
+    verts2 = np.nonzero(present)[0].astype(np.uint64)
+    rank2 = np.cumsum(present) - 1
+    n2 = len(verts2)
+    g = _compressed(rank2[lo], rank2[hi], np.ones(len(lo), np.float64), n2,
+                    sp.csr_matrix)
+    del lo, hi
+    ncomp, labels = connected_components(g, directed=False)
+    del g
+    _, first = np.unique(labels, return_index=True)   # least rank each
+    zones = verts2[first[labels]]
+    cverts, czones, cmsg = cc_out
+    if not (np.array_equal(cverts, verts2) and np.array_equal(czones, zones)
+            and cmsg.startswith(f"CC_find: {ncomp} components in ")):
+        raise AssertionError(f"cc_find differs from scipy "
+                             f"connected_components ({ncomp}): {cmsg!r}")
+    sizes = np.bincount(labels)
+    head = screens["cc_stats"][0]
+    if head != f"CCStats: {ncomp} components, {n2} vertices" or \
+            _histogram(screens["cc_stats"]) != _desc_histogram(sizes):
+        raise AssertionError(f"cc_stats differs: {head!r}")
+    part_s["cc"] = time.perf_counter() - t0
+    return {"vertices": n, "cc_vertices": n2, "components": int(ncomp),
+            "largest_component": int(sizes.max()),
+            "pagerank_l1_vs_f64": l1, "pagerank_sum": total,
+            "top100_equal": True, "seconds_by_part": part_s}
+
+
+def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
+              edgefactor: int = GRAPH_EDGEFACTOR) -> dict:
+    """The graph phase: the OINK script of :func:`graph_script` through
+    the port's ``OinkScript`` on ``device``, each command timed between
+    device synchronises, then the host oracles."""
+    import io
+    import torch
+    from gpu_mapreduce_tpu_torch import OinkScript
+    from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
+    cuda = device.type == "cuda"
+    rmat_round = check_rmat_round(device, scale)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        s = OinkScript(device=device, screen=False, logfile=None)
+        seconds, screens = {}, {}
+        with graph_spans(device) as spans:
+            for line in graph_script(scale, edgefactor):
+                word = line.split()[0]
+                s.screen = buf = io.StringIO()
+                t0 = time.perf_counter()
+                s.one(line)
+                if cuda:
+                    torch.cuda.synchronize()
+                seconds[word] = time.perf_counter() - t0
+                screens[word] = buf.getvalue().splitlines()
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        named = s.obj.named
+        t0 = time.perf_counter()
+        edges, _ = mapreduce_to_numpy(named["mre"])
+        pr_verts, pr_ranks = mapreduce_to_numpy(named["mrpr"])
+        cverts, czones = mapreduce_to_numpy(named["mrc"])
+        pull_s = time.perf_counter() - t0
+        msgs = {w: lines[0] for w, lines in screens.items() if lines}
+        rounds = int(msgs["rmat"].split()[-2])
+        pr_iters = int(msgs["pagerank"].split()[-2])
+        cc_rounds = int(msgs["cc_find"].split()[-2])
+        del s, named
+        t0 = time.perf_counter()
+        found = graph_oracles(scale, edgefactor, edges, screens,
+                              (pr_verts, pr_ranks, pr_iters),
+                              (cverts, czones, msgs["cc_find"]))
+        oracle_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    nedges = len(edges)
+    step_s = statistics.median(spans["pagerank_step"])
+    return {"phase": "graph", "card": smi,
+            "config": {"scale": scale, "edgefactor": edgefactor,
+                       "abcd": GRAPH_ABCD, "seed": GRAPH_SEED,
+                       "pagerank": [GRAPH_TOL, GRAPH_MAXITER,
+                                    GRAPH_DAMPING]},
+            "script": graph_script(scale, edgefactor),
+            "edges": nedges, "edge_key_bytes": edges.nbytes,
+            "rmat_rounds": rounds, "pagerank_iterations": pr_iters,
+            "cc_rounds": cc_rounds, "command_s": seconds,
+            "stage_s": {k: sum(v) for k, v in spans.items()},
+            "stage_calls": {k: len(v) for k, v in spans.items()},
+            "pagerank_step_s": spans["pagerank_step"],
+            "cc_round_s": spans["cc_round"],
+            "pagerank_step_median_s": step_s,
+            "pagerank_edges_per_s_per_iteration": nedges / step_s,
+            "messages": msgs, "launches": launches,
+            "max_memory_allocated": peak, "pull_to_host_s": pull_s,
+            "oracle_s": oracle_s, "oracles": found,
+            "rmat_round_device_vs_cpu": rmat_round}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -801,6 +1112,9 @@ def main() -> int:
             int_runs[cell] = run_intcount(cell, path, int_keys[cell],
                                           kernels, smi)
             emit(int_runs[cell])
+        shutil.rmtree(int_dir)
+
+        emit(run_graph(device, smi, kernels))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -10,5 +10,7 @@ from .apps.intcount import intcount
 from .apps.invertedindex import InvertedIndex
 from .core.mapreduce import MapReduce
 from .core.runtime import MRError
+from .oink.script import OinkScript
 
-__all__ = ["InvertedIndex", "MapReduce", "MRError", "intcount"]
+__all__ = ["InvertedIndex", "MapReduce", "MRError", "OinkScript",
+           "intcount"]

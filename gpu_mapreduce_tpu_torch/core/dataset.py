@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Iterator, List
 
 import numpy as np
+import torch
 
 from .column import concat
 from .frame import KVFrame, empty_kv
@@ -31,6 +32,14 @@ def rows_to_array(rows: list) -> np.ndarray:
             for r in rows):
         arr = np.asarray(rows, dtype=np.uint64)
     return arr
+
+
+def _frame_nbytes(frame) -> int:
+    n = len(frame)
+    if isinstance(frame, KVFrame):
+        return frame.key.data[:n].nbytes + frame.value.data[:n].nbytes
+    return sum(t[:n].numel() * t.element_size()
+               for t in (frame.key, frame.value))
 
 
 def _merge_frames(frames: List[KVFrame]) -> KVFrame:
@@ -56,10 +65,19 @@ class KeyValue:
         self._buf_k.append(key)
         self._buf_v.append(value)
 
-    def add_batch(self, keys, values) -> None:
-        """Add a batch of pairs as arrays."""
+    def add_batch(self, keys, values, key_dtype=None,
+                  value_dtype=None) -> None:
+        """Add a batch of pairs as arrays.  Host arrays become a host
+        frame; torch tensors stay on their device as a device frame,
+        their logical dtypes given by ``key_dtype``/``value_dtype``
+        (default: the tensor's own, so pass ``np.uint64`` for u64 bit
+        patterns held in int64)."""
         self._flush_scalars()
-        frame = KVFrame(keys, values)
+        if isinstance(keys, torch.Tensor):
+            from ..parallel.sharded import tensor_frame
+            frame = tensor_frame(keys, values, key_dtype, value_dtype)
+        else:
+            frame = KVFrame(keys, values)
         if len(frame):
             self._batches.append(frame)
 
@@ -86,8 +104,16 @@ class KeyValue:
         self.complete_done = True
         return self.nkv
 
+    def append(self) -> None:
+        """Reopen a completed dataset for more adds (``addflag``)."""
+        self.complete_done = False
+
     def frames(self) -> Iterator[object]:
         yield from self._frames
+
+    def nbytes(self) -> int:
+        """Bytes of the valid key and value rows."""
+        return sum(_frame_nbytes(f) for f in self._frames)
 
     def one_frame(self):
         """The whole dataset as one frame: the sole frame itself; several

@@ -1,11 +1,14 @@
 """The MapReduce object: the subset of ops the ported paths call.
 
-The counterpart of ``gpu_mapreduce_tpu/core/mapreduce.py``: ``map``,
-``map_files``, ``aggregate``, ``convert``, ``reduce`` (per-group host form
-and ``batch=True``), ``gather``, ``sort_keys``/``sort_values`` (int
-flags), ``scan_kv`` and the ``kv``/``kmv`` datasets, with the reference's
-callback arities: ``map`` calls ``func(itask, kv, ptr)``, ``map_files``
-``func(itask, filename, kv, ptr)``, ``reduce`` ``func(key, values, kv,
+The counterpart of ``gpu_mapreduce_tpu/core/mapreduce.py``: ``map``
+(with ``addflag``), ``map_files``, ``map_mr``, ``aggregate``,
+``convert``, ``collate``, ``reduce`` (per-group host form and
+``batch=True``), ``gather``, ``add``, ``sort_keys``/``sort_values`` (int
+flags), ``scan_kv``, ``kv_stats`` and the ``kv``/``kmv`` datasets, with
+the reference's callback arities: ``map`` calls ``func(itask, kv, ptr)``,
+``map_files`` ``func(itask, filename, kv, ptr)``, ``map_mr``
+``func(itask, key, value, kv, ptr)`` per pair or ``func(frame, kv,
+ptr)`` per frame with ``batch=True``, ``reduce`` ``func(key, values, kv,
 ptr)`` per group or ``func(frame, kv, ptr)`` per frame with
 ``batch=True``.
 
@@ -176,21 +179,46 @@ class MapReduce:
             raise MRError(f"Cannot {op} without KeyMultiValue")
         return kmv
 
-    def _start_map(self) -> KeyValue:
+    def _start_map(self, addflag: int = 0) -> KeyValue:
+        """The KV a map writes: a new one, or with ``addflag`` the
+        existing one reopened so the new pairs append."""
         if self.kmv is not None:
             self.kmv.free()
             self.kmv = None
+        if addflag and self.kv is not None:
+            self.kv.append()
+            return self.kv
         if self.kv is not None:
             self.kv.free()
         self.kv = self._new_kv()
         return self.kv
 
-    def map(self, nmap: int, func: Callable, ptr=None) -> int:
+    def map(self, nmap: int, func: Callable, ptr=None,
+            addflag: int = 0) -> int:
         """Task map: ``func(itask, kv, ptr)`` for each of ``nmap`` tasks;
-        returns the pair count."""
-        kv = self._start_map()
+        returns the pair count (with ``addflag``, of the whole KV the new
+        pairs were appended to)."""
+        kv = self._start_map(addflag)
         for itask in range(nmap):
             func(itask, kv, ptr)
+        return kv.complete()
+
+    def map_mr(self, mr: "MapReduce", func: Callable, ptr=None,
+               addflag: int = 0, batch: bool = False) -> int:
+        """Map over an MR's KV pairs, ``mr`` may be this one (its frames
+        are taken before the map starts): ``func(itask, key, value, kv,
+        ptr)`` per pair, or ``func(frame, kv, ptr)`` per frame with
+        ``batch=True`` (a device frame stays on its device)."""
+        src_frames = list(mr._require_kv("map over").frames())
+        kv = self._start_map(addflag)
+        itask = 0
+        for fr in src_frames:
+            if batch:
+                func(fr, kv, ptr)
+                continue
+            for k, v in fr.pairs():
+                func(itask, k, v, kv, ptr)
+                itask += 1
         return kv.complete()
 
     def map_files(self, files: Union[str, Sequence[str]], func: Callable,
@@ -233,6 +261,11 @@ class MapReduce:
         self.kmv = kmv
         return kmv.complete()
 
+    def collate(self, hash_fn: Optional[Callable] = None) -> int:
+        """aggregate + convert; returns the group count."""
+        self.aggregate(hash_fn)
+        return self.convert()
+
     @_fusible
     def reduce(self, func: Callable, ptr=None, batch: bool = False) -> int:
         """Callback per KMV group (or per frame with ``batch=True``) →
@@ -273,6 +306,30 @@ class MapReduce:
         kv.free()
         kv.add_frame(out)
         return kv.complete()
+
+    def add(self, mr: "MapReduce") -> int:
+        """Append ``mr``'s KV pairs to this KV (frames are shared, not
+        copied: no op changes a frame in place)."""
+        src = list(mr._require_kv("add from").frames())
+        kv = self.kv
+        if kv is None:
+            kv = self.kv = self._new_kv()
+        else:
+            kv.append()
+        for fr in src:
+            kv.add_frame(fr)
+        return kv.complete()
+
+    def kv_stats(self, level: int = 0) -> tuple:
+        """(pairs, bytes) of the KV, (0, 0) without one; ``level >= 1``
+        also prints them."""
+        kv = self.kv
+        if kv is None:
+            return (0, 0)
+        n, nb = kv.nkv, kv.nbytes()
+        if level:
+            print(f"{n} pairs, {nb / (1 << 20):.3g} Mb of KV data")
+        return (n, nb)
 
     def scan_kv(self, func: Callable, ptr=None, batch: bool = False) -> int:
         """Read-only iteration over KV pairs: ``func(key, value, ptr)``, or

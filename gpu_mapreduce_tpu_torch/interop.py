@@ -49,3 +49,28 @@ def to_numpy(frame) -> dict:
             "voffsets": frame.voffsets.cpu().numpy(),
             "values": _tensor_to_numpy(frame.values, frame.value_dtype),
             "gcounts": frame.gcounts.copy(), "vcounts": frame.vcounts.copy()}
+
+
+def mapreduce_from_numpy(key: np.ndarray, value: np.ndarray, device=None,
+                         **settings):
+    """A port MapReduce whose KV holds these host pairs (for example a JAX
+    MapReduce's edge KV pulled out as numpy: ``[n, 2]`` u64 keys and
+    their values) as one frame on ``device``; register it by name in an
+    ``oink.objects.ObjectManager`` with ``name_mr``."""
+    from .core.frame import KVFrame
+    from .core.mapreduce import MapReduce
+    from .parallel.sharded import shard_frame
+    mr = MapReduce(device=device, **settings)
+    frame = shard_frame(KVFrame(key, value), mr.device)
+    mr.map(1, lambda itask, kv, ptr: kv.add_frame(frame))
+    return mr
+
+
+def mapreduce_to_numpy(mr) -> tuple:
+    """A port MapReduce's KV as host ``(key, value)`` arrays in logical
+    dtypes, frames in order."""
+    frames = [fr.to_host() for fr in mr.kv.frames()]
+    if not frames:
+        raise ValueError("the MapReduce holds no KV pairs")
+    return (np.concatenate([f.key.data for f in frames]),
+            np.concatenate([f.value.data for f in frames]))

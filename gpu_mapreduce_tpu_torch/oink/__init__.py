@@ -1,0 +1,2 @@
+"""OINK: the script layer and graph commands on top of the MapReduce
+object (the counterpart of ``gpu_mapreduce_tpu/oink``)."""

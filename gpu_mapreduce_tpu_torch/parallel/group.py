@@ -21,18 +21,35 @@ from ..ops.sort import lexsort
 from .sharded import ShardedKMV, ShardedKV, round_cap
 
 
+def _key_columns(key, key_dtype) -> list:
+    """Order keys for ``ops/sort.lexsort``: a 1-D key, or the columns of a
+    [n, k] key last to first (column 0 primary)."""
+    cols = [key] if key.dim() == 1 else \
+        [key[:, j] for j in range(key.shape[1] - 1, -1, -1)]
+    return [order_key(c, key_dtype) for c in cols]
+
+
 def _local_sort(key, value, count: int, key_dtype):
-    """Rows ordered by (invalid last, key ascending); ties keep their
-    row order."""
-    valid = torch.arange(key.shape[0], device=key.device) < count
-    order = lexsort((order_key(key, key_dtype), ~valid))
-    return key[order], value[order], valid
+    """Rows ordered by (invalid last, key ascending, a [n, k] key
+    lexicographically by column); ties keep their row order.  The valid
+    rows are the first ``count``, so only they are sorted and the
+    padding keeps its place after them."""
+    cap = key.shape[0]
+    order = lexsort(_key_columns(key[:count], key_dtype))
+    if count < cap:
+        order = torch.cat([order, torch.arange(count, cap,
+                                               device=key.device)])
+    sk, sv = key[order], value[order]
+    del order
+    return sk, sv, torch.arange(cap, device=key.device) < count
 
 
 def _boundary(skey, valid):
-    """First row of each group among the valid sorted rows."""
+    """First row of each group among the valid sorted rows (a [n, k] key
+    starts a group where any column differs)."""
     diff = torch.ones_like(valid)
-    diff[1:] = skey[1:] != skey[:-1]
+    ne = skey[1:] != skey[:-1]
+    diff[1:] = ne if ne.dim() == 1 else ne.any(dim=1)
     return valid & diff
 
 
@@ -164,9 +181,7 @@ def sort_sharded(skv: ShardedKV, by: str = "key",
         else (skv.value, skv.value_dtype)
     c, cap = int(skv.counts[0]), skv.cap
     r = torch.arange(cap, device=col.device)
-    cols = [col] if col.dim() == 1 else \
-        [col[:, j] for j in range(col.shape[1] - 1, -1, -1)]
-    order = lexsort([order_key(x, dt) for x in cols] + [~(r < c)])
+    order = lexsort(_key_columns(col, dt) + [~(r < c)])
     if descending:
         pos = torch.where(r < c, c - 1 - r, r)
         inv = torch.empty_like(order)

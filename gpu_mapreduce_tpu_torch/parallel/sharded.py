@@ -161,6 +161,29 @@ def shard_frame(frame: KVFrame, device) -> ShardedKV:
                      np.array([n], np.int32), k.dtype, v.dtype)
 
 
+def _logical_dtype(t: torch.Tensor, dtype) -> np.dtype:
+    if dtype is not None:
+        return np.dtype(dtype)
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def tensor_frame(key: torch.Tensor, value: torch.Tensor, key_dtype=None,
+                 value_dtype=None) -> ShardedKV:
+    """Key/value tensors (all rows valid) as a frame on their device,
+    padded to a power-of-two cap; a ``None`` logical dtype is the
+    tensor's own."""
+    if key.shape[0] != value.shape[0]:
+        from ..core.runtime import MRError
+        raise MRError(f"key/value lengths differ: {key.shape[0]} vs "
+                      f"{value.shape[0]}")
+    n = key.shape[0]
+    cap = round_cap(n)
+    return ShardedKV(_pad(key, cap), _pad(value, cap),
+                     np.array([n], np.int32),
+                     _logical_dtype(key, key_dtype),
+                     _logical_dtype(value, value_dtype))
+
+
 def concat_sharded(frames: Sequence[ShardedKV]) -> ShardedKV:
     """Valid rows of several device frames, in order, as one frame."""
     first = frames[0]

@@ -71,3 +71,52 @@ def test_mapreduce_errors():
         MapReduce(device="cpu", mapstyle=5)
     with pytest.raises(MRError):
         mr.map(1, lambda i, kv, p: kv.add_batch([b"a"], [1]))
+
+
+def test_map_mr_add_collate_match_jax():
+    """map with addflag, map_mr (batch on itself, and per pair), add,
+    kv_stats and collate: the same counts and pairs as the JAX package."""
+    from gpu_mapreduce_tpu.ops.reduces import count as j_count
+    from gpu_mapreduce_tpu_torch.ops.reduces import count as t_count
+    keys, vals = _pairs()
+    results = []
+    for make, count in ((lambda: MapReduce(device="cpu"), t_count),
+                        (lambda: JMapReduce(make_mesh(1)), j_count)):
+        mr, evens, pairs = make(), make(), make()
+        mr.map(1, lambda i, kv, p: kv.add_batch(keys[:100], vals[:100]))
+        n_add = mr.map(1, lambda i, kv, p: kv.add_batch(keys[100:],
+                                                         vals[100:]),
+                       addflag=1)
+        mr.aggregate()
+        n_self = mr.map_mr(mr, lambda fr, kv, p: kv.add_frame(fr), addflag=1,
+                           batch=True)
+        seen = []
+        n_pairs = pairs.map_mr(mr, lambda itask, k, v, kv, p: seen.append(
+            (itask, int(k), int(v))))
+        evens.map(1, lambda i, kv, p: kv.add_batch(keys[::2], vals[::2]))
+        n_total = mr.add(evens)
+        n_stats = mr.kv_stats(0)[0]
+        ngroups = mr.collate()
+        mr.reduce(count, batch=True)
+        results.append((n_add, n_self, n_pairs, seen, n_total, n_stats,
+                        int(ngroups), _scan(mr)))
+    assert results[0][:3] == (300, 600, 0) and results[0][4] == 750
+    assert results[0] == results[1]
+
+
+def test_add_batch_of_device_tensors():
+    """Tensors stay a device frame with the logical dtypes given; the
+    pairs and the byte count equal the host arrays'."""
+    import torch
+    keys, vals = _pairs()
+    host, dev = MapReduce(device="cpu"), MapReduce(device="cpu")
+    host.map(1, lambda i, kv, p: kv.add_batch(keys, vals))
+    dev.map(1, lambda i, kv, p: kv.add_batch(
+        torch.from_numpy(keys.view(np.int64)),
+        torch.from_numpy(vals.view(np.int32)), key_dtype=np.uint64,
+        value_dtype=np.uint32))
+    assert _scan(host) == _scan(dev)
+    assert host.kv_stats(0) == dev.kv_stats(0) == (300, 300 * 12)
+    with pytest.raises(MRError):
+        dev.map(1, lambda i, kv, p: kv.add_batch(torch.zeros(3),
+                                                 torch.zeros(2)))

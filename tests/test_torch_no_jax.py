@@ -28,7 +28,7 @@ SCRIPT = textwrap.dedent("""
     assert not leaked, leaked
     import torch
     if not torch.cuda.is_available():
-        for entry in (pkg.InvertedIndex, pkg.MapReduce,
+        for entry in (pkg.InvertedIndex, pkg.MapReduce, pkg.OinkScript,
                       lambda: pkg.intcount([])):
             try:
                 entry()
@@ -36,8 +36,13 @@ SCRIPT = textwrap.dedent("""
                 pass
             else:
                 raise SystemExit(f"{entry}() ran without a card")
-    print("OK", len(names))
+    print("OK", len(names), *names)
 """)
+
+NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
+                   "oink.commands.pagerank", "oink.commands.degree",
+                   "oink.commands.edges", "models.rmat", "models.pagerank",
+                   "models.cc", "ops.prng", "parallel.staging")
 
 
 def test_port_imports_no_jax():
@@ -46,4 +51,7 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("OK")
-    assert int(r.stdout.split()[1]) >= 33      # every module was imported
+    words = r.stdout.split()
+    assert int(words[1]) >= 51                 # every module was imported
+    for name in NEW_SUBPACKAGES:
+        assert "gpu_mapreduce_tpu_torch." + name in words[2:], name
