@@ -59,9 +59,26 @@ nonzero):
               float64 power iteration with the same damping and step
               count, the same top-100 set) and the components
               (scipy connected_components, each named by its least
-              vertex id; cc_stats' sizes).  Seconds per command and per
-              engine stage, rounds, edges/s per PageRank step and peak
-              memory go into the ``graph`` line.
+              vertex id; cc_stats' sizes).  The same script then runs
+              the mr builtin and named-MR lines into histo (the
+              count-of-counts equal to np.bincount's degree histogram),
+              luby_find on the edge_upper'd graph (independent and
+              maximal, by numpy) and sssp from two sources after
+              add_weight (dist equal to scipy's directed unweighted
+              shortest paths, every pred an in-neighbour one step
+              closer, each source's labeled count).  Seconds and peak
+              memory per command, seconds per engine stage and round,
+              rounds and edges/s per PageRank step go into the
+              ``graph`` line.
+8. tri      — rmat at scale 18 (cut from 22: the [t, 3] u64 triangle
+              rows would take tens of GB) → edge_upper → tri_find on the
+              card; the triangle count must equal a blockwise scipy
+              (L @ L) * L over the degree-oriented graph, the wedge count
+              numpy's, every row distinct and every row's three edges
+              canonical edges (all rows when that takes under 60 s on the
+              host, else 2^20 seeded rows).  Then neighbor → tri_find →
+              neigh_tri at scale 12 on the card and on the CPU: tmp.tri
+              and every per-vertex file byte-identical.
 
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
@@ -676,6 +693,12 @@ GRAPH_SEED = 20260
 GRAPH_TOL = 1e-8               # above the f32 noise floor (PERF.md)
 GRAPH_MAXITER = 100
 GRAPH_DAMPING = 0.85
+LUBY_SEED = 6789
+SSSP_SOURCES = 2
+SSSP_SEED = 12345
+TRI_SCALE = 18                 # cut from 22: the triangle rows' size
+TRI_CHECK_SCALE = 12           # the card-vs-CPU neigh_tri run
+TRI_MEMBERSHIP_BUDGET_S = 60.0
 
 
 def graph_script(scale: int, edgefactor: int) -> list:
@@ -689,28 +712,69 @@ def graph_script(scale: int, edgefactor: int) -> list:
         f"-o NULL mrpr",
         "edge_upper -i mre -o NULL mru",
         "cc_find 0 -i mru -o NULL mrc",
-        "cc_stats -i mrc"]
+        "cc_stats -i mrc",
+        "mr mrv",
+        "mrv map/mr mre edge_to_vertices",
+        "histo -i mrv",
+        f"luby_find {LUBY_SEED} -i mru -o NULL mrl",
+        "mre map/mr mre add_weight",
+        f"sssp {SSSP_SOURCES} {SSSP_SEED} -i mre -o NULL mrs"]
+
+
+def tri_script(scale: int) -> list:
+    """The tri phase's OINK script on the graph-rmat parameters."""
+    a, b, c, d = GRAPH_ABCD
+    return [f"rmat {scale} {GRAPH_EDGEFACTOR} {a} {b} {c} {d} 0.0 "
+            f"{GRAPH_SEED} -o NULL mre",
+            "edge_upper -i mre -o NULL mru",
+            "tri_find -i mru -o NULL mrt"]
+
+
+def neigh_tri_script(scale: int) -> list:
+    """neighbor → tri_find → neigh_tri into files under the cwd."""
+    a, b, c, d = GRAPH_ABCD
+    return [f"rmat {scale} {GRAPH_EDGEFACTOR} {a} {b} {c} {d} 0.0 "
+            f"{GRAPH_SEED} -o NULL mre",
+            "edge_upper -i mre -o tmp.upper NULL",
+            "neighbor -i tmp.upper -o tmp.nb NULL",
+            "tri_find -i tmp.upper -o tmp.tri NULL",
+            "neigh_tri tmp.nt -i tmp.nb tmp.tri"]
 
 
 @contextlib.contextmanager
-def graph_spans(device):
+def graph_spans(device, keep=()):
     """Wall seconds of each call of the graph engines' stages, between two
     device synchronises (the engines read a host scalar every step
-    anyway): generation, collate, staging, the two fused loops and each
-    of their steps.  Yields {label: [seconds of each call]}."""
+    anyway): generation, collate, each command's staging, the fused
+    loops and each of their rounds (the wedge batches for tri_find).
+    Yields ({label: [seconds of each call]}, {label: [what each call
+    returned]} for the labels in ``keep``)."""
     import torch
     from gpu_mapreduce_tpu_torch.core.mapreduce import MapReduce
     from gpu_mapreduce_tpu_torch.models import cc as cc_model
+    from gpu_mapreduce_tpu_torch.models import luby as luby_model
     from gpu_mapreduce_tpu_torch.models import pagerank as pr_model
-    from gpu_mapreduce_tpu_torch.oink.commands import cc, pagerank, rmat
-    times = {}
+    from gpu_mapreduce_tpu_torch.models import sssp as sssp_model
+    from gpu_mapreduce_tpu_torch.models import tri as tri_model
+    from gpu_mapreduce_tpu_torch.oink.commands import (cc, luby, pagerank,
+                                                       rmat, sssp, tri)
+    times, outputs = {}, {}
     spans = [(rmat, "rmat_edges", "rmat_generate"),
              (MapReduce, "collate", "collate"),
              (pagerank, "stage_graph", "pagerank_stage"),
              (pagerank, "pagerank", "pagerank_loop"),
              (pr_model, "pagerank_step", "pagerank_step"),
              (cc, "stage_graph", "cc_stage"), (cc, "cc", "cc_loop"),
-             (cc_model, "_propagate", "cc_round")]
+             (cc_model, "_propagate", "cc_round"),
+             (luby, "stage_graph", "luby_stage"),
+             (luby, "luby_mis", "luby_loop"),
+             (luby_model, "_round", "luby_round"),
+             (sssp, "stage_graph", "sssp_stage"),
+             (sssp, "bellman_ford", "sssp_loop"),
+             (sssp_model, "_round", "sssp_round"),
+             (tri, "stage_graph", "tri_stage"),
+             (tri, "triangles_ranked", "tri_loop"),
+             (tri_model, "wedge_batch", "tri_batch")]
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in spans]
 
     def sync():
@@ -725,13 +789,15 @@ def graph_spans(device):
             out = fn(*args, **kw)
             sync()
             times.setdefault(label, []).append(time.perf_counter() - t0)
+            if label in keep:
+                outputs.setdefault(label, []).append(out)
             return out
         return wrapper
 
     for (owner, attr, label), (_, _, fn) in zip(spans, saved):
         setattr(owner, attr, timed(fn, label))
     try:
-        yield times
+        yield times, outputs
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
@@ -784,17 +850,21 @@ def _compressed(major, minor, data, n: int, fmt):
     return fmt((data, minor, indptr), shape=(n, n))
 
 
-def graph_oracles(scale, edgefactor, edges, screens, pr, cc_out) -> dict:
+def graph_oracles(scale, edgefactor, screens, got) -> dict:
     """Host oracles independent of the port (numpy, scipy): the R-MAT
-    edge set, the degree histogram, PageRank by a float64 power
-    iteration (scipy.sparse) with the same damping and step count,
-    components by scipy's connected_components.  Raises on any
-    disagreement; returns what they found and their seconds by part."""
+    edge set, the degree histogram (degree_stats and histo), PageRank by
+    a float64 power iteration (scipy.sparse) with the same damping and
+    step count, sssp by scipy's directed unweighted shortest paths,
+    components by scipy's connected_components, and the Luby set's
+    independence and maximality.  ``got``: the result MRs pulled to the
+    host.  Raises on any disagreement; returns what they found and their
+    seconds by part."""
     import numpy as np
     import scipy.sparse as sp
-    from scipy.sparse.csgraph import connected_components
+    from scipy.sparse.csgraph import connected_components, shortest_path
     part_s = {}
     t0 = time.perf_counter()
+    edges = got["edges"]
     ntotal = (1 << scale) * edgefactor
     vi, vj = edges[:, 0], edges[:, 1]
     if edges.shape != (ntotal, 2):
@@ -805,7 +875,6 @@ def graph_oracles(scale, edgefactor, edges, screens, pr, cc_out) -> dict:
     packed.sort()
     if np.any(packed[1:] == packed[:-1]):
         raise AssertionError("rmat: duplicate edges")
-    del packed
     part_s["rmat"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -818,7 +887,11 @@ def graph_oracles(scale, edgefactor, edges, screens, pr, cc_out) -> dict:
             _histogram(screens["degree_stats"]) != want:
         raise AssertionError(f"degree_stats differs from np.bincount: "
                              f"{head!r}")
-    part_s["degree_stats"] = time.perf_counter() - t0
+    head = screens["histo"][0]
+    if head != f"Histo: {2 * ntotal} total keys, {len(deg)} unique" or \
+            _histogram(screens["histo"]) != want:
+        raise AssertionError(f"histo differs from np.bincount: {head!r}")
+    part_s["degree_stats+histo"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     present = np.zeros(1 << scale, bool)
@@ -828,14 +901,13 @@ def graph_oracles(scale, edgefactor, edges, screens, pr, cc_out) -> dict:
     rank_of = np.cumsum(present) - 1
     src, dst = rank_of[vi.astype(np.int64)], rank_of[vj.astype(np.int64)]
     n = len(verts)
-    pverts, pranks, iters = pr
+    pverts, pranks, iters = got["pagerank"]
     if not np.array_equal(pverts, verts):
         raise AssertionError("pagerank: vertex table differs")
     outdeg = np.bincount(src, minlength=n).astype(np.float64)
     dangling = outdeg == 0
     inv = np.where(dangling, 0.0, 1.0 / np.maximum(outdeg, 1.0))
     a = _compressed(src, dst, inv[src], n, sp.csc_matrix)   # a[dst, src]
-    del src, dst
     r = np.full(n, 1.0 / n)
     d = GRAPH_DAMPING
     for _ in range(iters):
@@ -850,6 +922,46 @@ def graph_oracles(scale, edgefactor, edges, screens, pr, cc_out) -> dict:
                              f"float64 iteration, top-100 overlap "
                              f"{len(top_port & top_ref)}")
     part_s["pagerank"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    g = _compressed(src, dst, np.ones(len(src), np.float64), n,
+                    sp.csr_matrix)
+    del src, dst
+    runs = [ln.split() for ln in screens["sssp"]]    # SSSP: source S: ...
+    sources = [int(w[2].rstrip(":")) for w in runs]
+    labeled = [int(w[5]) for w in runs]
+    if len(sources) != SSSP_SOURCES or \
+            len(got["sssp_runs"]) != SSSP_SOURCES:
+        raise AssertionError(f"sssp ran {len(sources)} sources")
+    ref = shortest_path(g, directed=True, unweighted=True,
+                        indices=rank_of[np.array(sources)])
+    del g
+    want_labeled = np.isfinite(ref).sum(axis=1).tolist()
+    if labeled != want_labeled:
+        raise AssertionError(f"sssp: labeled {labeled}, scipy "
+                             f"{want_labeled}")
+    npreds = 0
+    for (dist, pred), want in zip(got["sssp_runs"], ref):
+        # dist exactly scipy's; each pred an in-neighbour one step closer
+        reach = np.isfinite(dist) & (dist > 0)
+        p = pred[reach].astype(np.int64)
+        keys = (verts[p] << np.uint64(scale)) | verts[reach]
+        pos = np.minimum(np.searchsorted(packed, keys), len(packed) - 1)
+        ok = (packed[pos] == keys) & (dist[p] == dist[reach] - 1)
+        if not np.array_equal(dist, want) or not ok.all() or \
+                np.any(pred[~reach] != -1):
+            raise AssertionError(f"sssp differs from scipy: "
+                                 f"{int((~ok).sum())} bad preds")
+        npreds += int(reach.sum())
+    sverts, rows = got["sssp"]                # the last source's rows
+    last = np.where(pred >= 0, verts[np.maximum(pred, 0)].astype(
+        np.float64), -1.0)
+    if not (np.array_equal(sverts, verts) and np.array_equal(
+            rows[:, 2], dist) and np.array_equal(rows[:, 1], last)):
+        raise AssertionError("sssp: the named MR's rows differ from the "
+                             "last source's run")
+    del packed, keys, pos, ok, p
+    part_s["sssp"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     keep = vi != vj
@@ -868,7 +980,8 @@ def graph_oracles(scale, edgefactor, edges, screens, pr, cc_out) -> dict:
     del g
     _, first = np.unique(labels, return_index=True)   # least rank each
     zones = verts2[first[labels]]
-    cverts, czones, cmsg = cc_out
+    cverts, czones = got["cc"]
+    cmsg = screens["cc_find"][0]
     if not (np.array_equal(cverts, verts2) and np.array_equal(czones, zones)
             and cmsg.startswith(f"CC_find: {ncomp} components in ")):
         raise AssertionError(f"cc_find differs from scipy "
@@ -879,10 +992,76 @@ def graph_oracles(scale, edgefactor, edges, screens, pr, cc_out) -> dict:
             _histogram(screens["cc_stats"]) != _desc_histogram(sizes):
         raise AssertionError(f"cc_stats differs: {head!r}")
     part_s["cc"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    upper, mis = got["upper"], got["luby"]
+    lo, hi = upper[:, 0].astype(np.int64), upper[:, 1].astype(np.int64)
+    inset = np.zeros(1 << scale, bool)
+    inset[mis.astype(np.int64)] = True
+    covered = inset.copy()
+    covered[lo[inset[hi]]] = True
+    covered[hi[inset[lo]]] = True
+    independent = not np.any(inset[lo] & inset[hi])
+    maximal = not np.any(present & ~covered)
+    lmsg = screens["luby_find"][0]
+    if not (independent and maximal and not np.any(inset & ~present)
+            and lmsg.startswith(f"Luby_find: {len(mis)} MIS vertices")):
+        raise AssertionError(f"luby_find: independent {independent}, "
+                             f"maximal {maximal}: {lmsg!r}")
+    part_s["luby"] = time.perf_counter() - t0
     return {"vertices": n, "cc_vertices": n2, "components": int(ncomp),
             "largest_component": int(sizes.max()),
             "pagerank_l1_vs_f64": l1, "pagerank_sum": total,
-            "top100_equal": True, "seconds_by_part": part_s}
+            "top100_equal": True, "histo_equals_bincount": True,
+            "luby_set": len(mis), "luby_independent_and_maximal": True,
+            "sssp_sources": sources, "sssp_labeled": labeled,
+            "sssp_dist_equal_scipy": True, "sssp_preds_checked": npreds,
+            "seconds_by_part": part_s}
+
+
+def drive_script(device, lines, kernels) -> dict:
+    """The OINK ``lines`` through the port's OinkScript on ``device`` from
+    the cwd, each command between device synchronises, every launch
+    count set to 0 just before the first: the interpreter, and by command
+    its seconds, screen lines and peak device bytes, the launches and
+    the engine spans (``graph_spans``) over the run."""
+    import io
+    import torch
+    from gpu_mapreduce_tpu_torch import OinkScript
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    s = OinkScript(device=device, screen=False, logfile=None)
+    seconds, screens, peaks = {}, {}, {}
+    with graph_spans(device, keep=("sssp_loop",)) as (spans, outputs):
+        for line in lines:
+            words = line.split()
+            # a named-MR line is labelled by its MR and method
+            label = " ".join(words[:2]) if len(words) > 1 and \
+                words[1].startswith("map/") else words[0]
+            s.screen = buf = io.StringIO()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            s.one(line)
+            if cuda:
+                torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+            if cuda:
+                peaks[label] = torch.cuda.max_memory_allocated()
+            screens[label] = buf.getvalue().splitlines()
+    return {"interp": s, "seconds": seconds, "screens": screens,
+            "peak_bytes": peaks if cuda else None,
+            "launches": {k.__name__: k.launches for k in kernels},
+            "spans": spans, "outputs": outputs}
+
+
+def _span_record(spans) -> dict:
+    return {"stage_s": {k: sum(v) for k, v in spans.items()},
+            "stage_calls": {k: len(v) for k, v in spans.items()}}
 
 
 def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
@@ -890,76 +1069,232 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
     """The graph phase: the OINK script of :func:`graph_script` through
     the port's ``OinkScript`` on ``device``, each command timed between
     device synchronises, then the host oracles."""
-    import io
-    import torch
-    from gpu_mapreduce_tpu_torch import OinkScript
+    import numpy as np
     from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
-    cuda = device.type == "cuda"
     rmat_round = check_rmat_round(device, scale)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_graph_")
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        if cuda:
-            torch.cuda.empty_cache()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        for k in kernels:
-            k.launches = 0
-        s = OinkScript(device=device, screen=False, logfile=None)
-        seconds, screens = {}, {}
-        with graph_spans(device) as spans:
-            for line in graph_script(scale, edgefactor):
-                word = line.split()[0]
-                s.screen = buf = io.StringIO()
-                t0 = time.perf_counter()
-                s.one(line)
-                if cuda:
-                    torch.cuda.synchronize()
-                seconds[word] = time.perf_counter() - t0
-                screens[word] = buf.getvalue().splitlines()
-        launches = {k.__name__: k.launches for k in kernels}
-        peak = torch.cuda.max_memory_allocated() if cuda else None
-        named = s.obj.named
+        run = drive_script(device, graph_script(scale, edgefactor), kernels)
+        named = run["interp"].obj.named
+        screens, spans = run["screens"], run["spans"]
+        seconds, peaks = run["seconds"], run["peak_bytes"]
+        launches = run["launches"]
         t0 = time.perf_counter()
-        edges, _ = mapreduce_to_numpy(named["mre"])
+        got = {"edges": mapreduce_to_numpy(named["mre"])[0],
+               "upper": mapreduce_to_numpy(named["mru"])[0],
+               "cc": mapreduce_to_numpy(named["mrc"]),
+               "luby": mapreduce_to_numpy(named["mrl"])[0],
+               "sssp": mapreduce_to_numpy(named["mrs"]),
+               "sssp_runs": [(d.cpu().numpy(), p.cpu().numpy()) for d, p, _
+                             in run["outputs"].get("sssp_loop", [])]}
         pr_verts, pr_ranks = mapreduce_to_numpy(named["mrpr"])
-        cverts, czones = mapreduce_to_numpy(named["mrc"])
         pull_s = time.perf_counter() - t0
         msgs = {w: lines[0] for w, lines in screens.items() if lines}
         rounds = int(msgs["rmat"].split()[-2])
         pr_iters = int(msgs["pagerank"].split()[-2])
         cc_rounds = int(msgs["cc_find"].split()[-2])
-        del s, named
+        luby_rounds = int(msgs["luby_find"].split()[-2])
+        sssp_rounds = [int(ln.split()[3]) for ln in screens["sssp"]]
+        got["pagerank"] = (pr_verts, pr_ranks, pr_iters)
+        del run, named
         t0 = time.perf_counter()
-        found = graph_oracles(scale, edgefactor, edges, screens,
-                              (pr_verts, pr_ranks, pr_iters),
-                              (cverts, czones, msgs["cc_find"]))
+        found = graph_oracles(scale, edgefactor, screens, got)
         oracle_s = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
-    nedges = len(edges)
+    nedges = len(got["edges"])
     step_s = statistics.median(spans["pagerank_step"])
     return {"phase": "graph", "card": smi,
             "config": {"scale": scale, "edgefactor": edgefactor,
                        "abcd": GRAPH_ABCD, "seed": GRAPH_SEED,
                        "pagerank": [GRAPH_TOL, GRAPH_MAXITER,
-                                    GRAPH_DAMPING]},
+                                    GRAPH_DAMPING],
+                       "luby_seed": LUBY_SEED,
+                       "sssp": [SSSP_SOURCES, SSSP_SEED]},
             "script": graph_script(scale, edgefactor),
-            "edges": nedges, "edge_key_bytes": edges.nbytes,
+            "edges": nedges, "edge_key_bytes": got["edges"].nbytes,
+            "upper_edges": len(got["upper"]),
             "rmat_rounds": rounds, "pagerank_iterations": pr_iters,
-            "cc_rounds": cc_rounds, "command_s": seconds,
-            "stage_s": {k: sum(v) for k, v in spans.items()},
-            "stage_calls": {k: len(v) for k, v in spans.items()},
+            "cc_rounds": cc_rounds, "luby_rounds": luby_rounds,
+            "sssp_rounds": sssp_rounds, "command_s": seconds,
+            "peak_bytes_by_command": peaks,
+            "max_memory_allocated": max(peaks.values()) if peaks else None,
+            "launches": launches, **_span_record(spans),
             "pagerank_step_s": spans["pagerank_step"],
             "cc_round_s": spans["cc_round"],
+            "luby_round_s": spans["luby_round"],
+            "sssp_round_s": spans["sssp_round"],
             "pagerank_step_median_s": step_s,
             "pagerank_edges_per_s_per_iteration": nedges / step_s,
-            "messages": msgs, "launches": launches,
-            "max_memory_allocated": peak, "pull_to_host_s": pull_s,
+            "messages": msgs, "pull_to_host_s": pull_s,
             "oracle_s": oracle_s, "oracles": found,
             "rmat_round_device_vs_cpu": rmat_round}
+
+
+def tri_oracles(scale: int, upper, rows, message: str, nbatches: int
+                ) -> dict:
+    """Host oracles for tri_find (numpy, scipy): the triangle count by a
+    blockwise (L @ L) * L over the degree-oriented canonical graph, the
+    wedge count, every row distinct, every row's three edges canonical
+    edges (all rows when the projected time fits the budget, else a
+    seeded sample of 2^20 rows)."""
+    import numpy as np
+    import scipy.sparse as sp
+    part_s = {}
+    t0 = time.perf_counter()
+    nv = 1 << scale
+    s = np.uint64(scale)
+    lo = np.minimum(upper[:, 0], upper[:, 1])
+    hi = np.maximum(upper[:, 0], upper[:, 1])
+    canon = np.unique(((lo << s) | hi)[lo != hi])
+    lo, hi = (canon >> s).astype(np.int64), (canon & np.uint64(nv - 1)
+                                             ).astype(np.int64)
+    deg = np.bincount(lo, minlength=nv) + np.bincount(hi, minlength=nv)
+    swap = (deg[lo] > deg[hi]) | ((deg[lo] == deg[hi]) & (lo > hi))
+    a, b = np.where(swap, hi, lo), np.where(swap, lo, hi)
+    k = np.bincount(a, minlength=nv)
+    wedges = int((k * (k - 1) // 2).sum())
+    L = _compressed(a, b, np.ones(len(a), np.float64), nv, sp.csr_matrix)
+    del a, b, swap, deg
+    count = 0
+    block = 1 << 15
+    for r0 in range(0, nv, block):
+        part = L[r0:r0 + block]
+        count += int(round((part @ L).multiply(part).sum()))
+    del L, part
+    part_s["count"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    t = len(rows)
+    c0, c1, c2 = rows[:, 0], rows[:, 1], rows[:, 2]
+    x = np.minimum(np.minimum(c0, c1), c2)
+    z = np.maximum(np.maximum(c0, c1), c2)
+    y = c0 ^ c1 ^ c2 ^ x ^ z                  # the middle id
+    del c0, c1, c2
+    key = (x << (s + s)) | (y << s) | z
+    key.sort()
+    distinct = not np.any(key[1:] == key[:-1])
+    del key
+    part_s["distinct"] = time.perf_counter() - t0
+
+    def members(idx):
+        """Whether the rows ``idx`` have all three edges in ``canon``
+        (each edge column's keys sorted first: a search over ascending
+        keys walks ``canon`` in order)."""
+        for p, q in ((x, y), (x, z), (y, z)):
+            key = (p[idx] << s) | q[idx]
+            key.sort()
+            pos = np.minimum(np.searchsorted(canon, key), len(canon) - 1)
+            if not np.array_equal(canon[pos], key):
+                return False
+        return True
+
+    t0 = time.perf_counter()
+    sample = np.random.default_rng(GRAPH_SEED).choice(
+        t, min(t, 1 << 20), replace=False)
+    in_sample = members(sample)
+    sample_s = time.perf_counter() - t0
+    projected = sample_s * t / max(len(sample), 1)
+    checked = "sample of 2^20 seeded rows"
+    ok_edges = in_sample
+    if projected <= TRI_MEMBERSHIP_BUDGET_S:
+        t0 = time.perf_counter()
+        ok_edges = members(np.arange(t))
+        checked = "all rows"
+        part_s["membership_all"] = time.perf_counter() - t0
+    part_s["membership_sample"] = sample_s
+    batches = -(-wedges // (1 << 24))
+    if not (count == t and distinct and ok_edges
+            and message == f"Tri_find: {count} triangles"
+            and nbatches == batches):
+        raise AssertionError(f"tri_find: {t} rows vs scipy's {count}, "
+                             f"distinct {distinct}, edges {ok_edges} "
+                             f"({checked}), batches {nbatches} vs "
+                             f"{batches}: {message!r}")
+    return {"triangles": count, "wedges": wedges, "batches": batches,
+            "canonical_edges": len(canon), "rows_distinct": True,
+            "edges_checked": checked,
+            "membership_projected_s": projected, "seconds_by_part": part_s}
+
+
+def neigh_tri_files(device, scale: int) -> dict:
+    """neighbor → tri_find → neigh_tri on ``device`` in a fresh
+    directory: {path: bytes} of tmp.tri and every per-vertex file."""
+    from gpu_mapreduce_tpu_torch import OinkScript
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_neigh_tri_")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        s = OinkScript(device=device, screen=False, logfile=None)
+        for line in neigh_tri_script(scale):
+            s.one(line)
+        out = {"tmp.tri": open("tmp.tri", "rb").read()}
+        for name in os.listdir("tmp.nt"):
+            with open(os.path.join("tmp.nt", name), "rb") as f:
+                out["tmp.nt/" + name] = f.read()
+        return out
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_tri(device, smi: str, kernels=(), scale: int = TRI_SCALE,
+            check_scale: int = TRI_CHECK_SCALE) -> dict:
+    """The tri phase: :func:`tri_script` on ``device`` with each command
+    timed, the host oracles, then the card-vs-CPU neigh_tri files."""
+    import torch
+    from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tri_")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        run = drive_script(device, tri_script(scale), kernels)
+        named = run["interp"].obj.named
+        t0 = time.perf_counter()
+        upper = mapreduce_to_numpy(named["mru"])[0]
+        rows = mapreduce_to_numpy(named["mrt"])[0]
+        pull_s = time.perf_counter() - t0
+        screens, spans = run["screens"], run["spans"]
+        seconds, peaks = run["seconds"], run["peak_bytes"]
+        launches = run["launches"]
+        del run, named
+        t0 = time.perf_counter()
+        found = tri_oracles(scale, upper, rows, screens["tri_find"][0],
+                            len(spans.get("tri_batch", [])))
+        oracle_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    files = {dev.type: neigh_tri_files(dev, check_scale)
+             for dev in (device, torch.device("cpu"))}
+    if files[device.type] != files["cpu"] or len(files["cpu"]) < 100:
+        raise AssertionError(f"neigh_tri at scale {check_scale}: the card's "
+                             f"{len(files[device.type])} files differ from "
+                             f"the CPU's {len(files['cpu'])}")
+    check_s = time.perf_counter() - t0
+    return {"phase": "tri", "card": smi,
+            "config": {"scale": scale, "edgefactor": GRAPH_EDGEFACTOR,
+                       "abcd": GRAPH_ABCD, "seed": GRAPH_SEED,
+                       "cut": "scale 22 -> 18: the [t, 3] u64 rows"},
+            "script": tri_script(scale), "upper_edges": len(upper),
+            "triangles": found["triangles"], "wedges": found["wedges"],
+            "batches": found["batches"], "messages": {
+                w: lines[0] for w, lines in screens.items() if lines},
+            "command_s": seconds, "peak_bytes_by_command": peaks,
+            "max_memory_allocated": max(peaks.values()) if peaks else None,
+            "launches": launches,
+            "triangle_bytes": rows.nbytes, "pull_to_host_s": pull_s,
+            "oracle_s": oracle_s, "oracles": found,
+            "tri_batch_s": spans.get("tri_batch", []),
+            **_span_record(spans),
+            "neigh_tri_check": {"scale": check_scale,
+                                "files": len(files["cpu"]),
+                                "card_equals_cpu": True,
+                                "seconds": check_s}}
 
 
 def main() -> int:
@@ -1114,11 +1449,19 @@ def main() -> int:
             emit(int_runs[cell])
         shutil.rmtree(int_dir)
 
-        emit(run_graph(device, smi, kernels))
+        graph = run_graph(device, smi, kernels)
+        emit(graph)
+        tri = run_tri(device, smi, kernels)
+        emit(tri)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     uni, zipf = table_timing["uniform"], table_timing["zipf"]
+    # the graph and tri phases reach no hand-written kernel: their counts
+    # (0 expected) ride beside each kernel's main-path count
+    on_graph = {k: {"launches_graph": graph["launches"][k],
+                    "launches_tri": tri["launches"][k]}
+                for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
         "source": "gpu_mapreduce_tpu_torch/csrc/mark_words.cu",
@@ -1130,7 +1473,8 @@ def main() -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None, "spill_bytes": spills["mark_words"],
-        "stack_frame_bytes": frames["mark_words"]}, {
+        "stack_frame_bytes": frames["mark_words"],
+        **on_graph["mark_words"]}, {
         "name": "seg_table", "route": "cuda",
         "source": "gpu_mapreduce_tpu_torch/csrc/seg_table.cu",
         "replaces": "gpu_mapreduce_tpu/ops/pallas/group.py:175",
@@ -1150,7 +1494,8 @@ def main() -> int:
         "stack_frame_bytes": frames["seg_table"],
         "zipf": {k: zipf[k] for k in ("T", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
-                                      "epilogue_ms")}}, {
+                                      "epilogue_ms")},
+        **on_graph["segment_table"]}, {
         "name": "mark_bytes", "route": "cuda",
         "source": "gpu_mapreduce_tpu_torch/csrc/mark_bytes.cu",
         "replaces": "gpu_mapreduce_tpu/ops/pallas/match.py:67",
@@ -1164,7 +1509,8 @@ def main() -> int:
         "stack_frame_bytes": frames["mark_bytes"],
         "view1_ms": bytes_timing["view1_ms"],
         "copy_ms": bytes_timing["copy_ms"],
-        "ms_by_pattern_len": bytes_timing["ms_by_pattern_len"]}]})
+        "ms_by_pattern_len": bytes_timing["ms_by_pattern_len"],
+        **on_graph["mark"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

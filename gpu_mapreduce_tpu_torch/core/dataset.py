@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .column import concat
-from .frame import KVFrame, empty_kv
+from .frame import KMVFrame, KVFrame, empty_kv
 
 
 def rows_to_array(rows: list) -> np.ndarray:
@@ -40,6 +40,11 @@ def _frame_nbytes(frame) -> int:
         return frame.key.data[:n].nbytes + frame.value.data[:n].nbytes
     return sum(t[:n].numel() * t.element_size()
                for t in (frame.key, frame.value))
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    """Bytes of one row of a [cap, ...] tensor."""
+    return t.element_size() * (t.numel() // max(t.shape[0], 1))
 
 
 def _merge_frames(frames: List[KVFrame]) -> KVFrame:
@@ -158,6 +163,23 @@ class KeyMultiValue:
 
     def frames(self) -> Iterator[object]:
         yield from self._frames
+
+    def nvalues(self) -> int:
+        """Values over every group."""
+        return sum(f.nvalues_total for f in self._frames)
+
+    def nbytes(self) -> int:
+        """Bytes of the valid group keys, sizes (int32 on a device) and
+        values."""
+        total = 0
+        for f in self._frames:
+            if isinstance(f, KMVFrame):
+                total += (f.key.data.nbytes + f.nvalues.nbytes
+                          + f.values.data.nbytes)
+            else:
+                total += (len(f) * (_row_bytes(f.ukey) + 4)
+                          + f.nvalues_total * _row_bytes(f.values))
+        return total
 
     def free(self) -> None:
         self._frames = []

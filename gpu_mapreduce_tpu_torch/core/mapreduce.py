@@ -3,8 +3,9 @@
 The counterpart of ``gpu_mapreduce_tpu/core/mapreduce.py``: ``map``
 (with ``addflag``), ``map_files``, ``map_mr``, ``aggregate``,
 ``convert``, ``collate``, ``reduce`` (per-group host form and
-``batch=True``), ``gather``, ``add``, ``sort_keys``/``sort_values`` (int
-flags), ``scan_kv``, ``kv_stats`` and the ``kv``/``kmv`` datasets, with
+``batch=True``), ``gather``, ``add``, ``copy``, ``set``,
+``sort_keys``/``sort_values`` (int flags), ``scan_kv``, ``scan_kmv``,
+``kv_stats``, ``kmv_stats`` and the ``kv``/``kmv`` datasets, with
 the reference's callback arities: ``map`` calls ``func(itask, kv, ptr)``,
 ``map_files`` ``func(itask, filename, kv, ptr)``, ``map_mr``
 ``func(itask, key, value, kv, ptr)`` per pair or ``func(frame, kv,
@@ -26,6 +27,7 @@ runs the recorded chain first.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Callable, Optional, Sequence, Union
 
@@ -222,13 +224,14 @@ class MapReduce:
         return kv.complete()
 
     def map_files(self, files: Union[str, Sequence[str]], func: Callable,
-                  ptr=None) -> int:
+                  ptr=None, addflag: int = 0) -> int:
         """File map: ``func(itask, filename, kv, ptr)`` per file, files in
-        order (globs and directories expanded by ``findfiles``)."""
+        order (globs and directories expanded by ``findfiles``); with
+        ``addflag`` the pairs append to the existing KV."""
         if isinstance(files, str):
             files = [files]
         names = findfiles(list(files))
-        kv = self._start_map()
+        kv = self._start_map(addflag)
         for itask, name in enumerate(names):
             func(itask, name, kv, ptr)
         return kv.complete()
@@ -320,6 +323,41 @@ class MapReduce:
             kv.add_frame(fr)
         return kv.complete()
 
+    def copy(self) -> "MapReduce":
+        """A new MR on the same device with a copy of the settings and the
+        same KV and KMV frames (shared, not copied: no op changes a frame
+        in place)."""
+        self._flush_plan()
+        mr = MapReduce(device=self.device, **dataclasses.asdict(
+            self.settings))
+        if self.kv is not None:
+            mr.kv = mr._new_kv()
+            for fr in self.kv.frames():
+                mr.kv.add_frame(fr)
+            mr.kv.complete()
+        if self.kmv is not None:
+            mr.kmv = KeyMultiValue()
+            for fr in self.kmv.frames():
+                mr.kmv.push(fr)
+            mr.kmv.complete()
+        return mr
+
+    def set(self, **settings) -> "MapReduce":
+        """Change settings (the script's ``mr`` builtin and ``set``
+        method); a setting the port lacks raises."""
+        fields = {f.name for f in dataclasses.fields(Settings)}
+        for key in settings:
+            if key not in fields:
+                raise MRError(f"set parameter {key!r} is unknown or not "
+                              f"ported yet")
+        candidate = dataclasses.replace(self.settings, **settings)
+        candidate.validate()
+        # turning fusion off is a barrier for a fuse=1 auto recorder
+        if not candidate.fuse and self._plan is not None and self._plan.auto:
+            self._flush_plan()
+        self.settings = candidate
+        return self
+
     def kv_stats(self, level: int = 0) -> tuple:
         """(pairs, bytes) of the KV, (0, 0) without one; ``level >= 1``
         also prints them."""
@@ -330,6 +368,18 @@ class MapReduce:
         if level:
             print(f"{n} pairs, {nb / (1 << 20):.3g} Mb of KV data")
         return (n, nb)
+
+    def kmv_stats(self, level: int = 0) -> tuple:
+        """(groups, values, bytes) of the KMV, (0, 0, 0) without one;
+        ``level >= 1`` also prints them."""
+        kmv = self.kmv
+        if kmv is None:
+            return (0, 0, 0)
+        g, n, nb = kmv.nkmv, kmv.nvalues(), kmv.nbytes()
+        if level:
+            print(f"{g} pairs, {n} values, {nb / (1 << 20):.3g} Mb of KMV "
+                  f"data")
+        return (g, n, nb)
 
     def scan_kv(self, func: Callable, ptr=None, batch: bool = False) -> int:
         """Read-only iteration over KV pairs: ``func(key, value, ptr)``, or
@@ -342,3 +392,15 @@ class MapReduce:
                 for k, v in fr.pairs():
                     func(k, v, ptr)
         return kv.nkv
+
+    def scan_kmv(self, func: Callable, ptr=None, batch: bool = False) -> int:
+        """Read-only iteration over KMV groups: ``func(key, values, ptr)``
+        per group, or ``func(frame, ptr)`` with ``batch=True``."""
+        kmv = self._require_kmv("scan")
+        for fr in kmv.frames():
+            if batch:
+                func(fr, ptr)
+            else:
+                for k, vals in fr.groups():
+                    func(k, vals, ptr)
+        return kmv.nkmv

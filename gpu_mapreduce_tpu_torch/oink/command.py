@@ -8,7 +8,8 @@ command declares ``ninputs``/``noutputs`` and implements ``params(args)``
 
 from __future__ import annotations
 
-from typing import Dict, List, Type
+import os
+from typing import Dict, List, Optional, Type
 
 from ..core.runtime import MRError
 from .objects import ObjectManager
@@ -23,6 +24,21 @@ def command(name: str):
         COMMANDS[name] = cls
         return cls
     return deco
+
+
+def require_fused(engine: Optional[str], env: str, name: str) -> None:
+    """Refuse any engine of a fused graph command but ``fused``: the
+    command's ``engine`` attribute, else the environment variable ``env``,
+    else ``fused``.  The ``composed`` engines (the reference's MapReduce
+    compositions) need the JAX package's ``parallel/devkernels.py`` and
+    are not ported yet."""
+    engine = engine or os.environ.get(env, "fused")
+    if engine == "composed":
+        raise MRError(f"{name}: the composed engine is not ported yet "
+                      f"(use 'fused')")
+    if engine != "fused":
+        raise MRError(f"{name}: unknown engine {engine!r} "
+                      f"(use 'fused' or 'composed')")
 
 
 class Command:

@@ -12,15 +12,13 @@ reference's 9-stage MapReduce composition) needs the JAX package's
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
 from ...core.runtime import MRError
 from ...models.cc import cc
 from ...parallel.staging import stage_graph
-from ..command import Command, command
+from ..command import Command, command, require_fused
 from ..kernels import (count, invert, print_vertex_value, read_edge,
                        read_vertex_value, value_histogram)
 
@@ -41,13 +39,7 @@ class CCFind(Command):
         self.nthresh = int(args[0])
 
     def run(self):
-        engine = self.engine or os.environ.get("GPUMR_CC_ENGINE", "fused")
-        if engine == "composed":
-            raise MRError("cc_find: the composed engine is not ported yet "
-                          "(use 'fused')")
-        if engine != "fused":
-            raise MRError(f"cc_find: unknown engine {engine!r} "
-                          f"(use 'fused' or 'composed')")
+        require_fused(self.engine, "GPUMR_CC_ENGINE", "cc_find")
         obj = self.obj
         mre = obj.input(1, read_edge)
         mrv = obj.create_mr()

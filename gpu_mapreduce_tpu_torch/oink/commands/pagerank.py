@@ -7,7 +7,9 @@ vertex table and ranked edges, the same table and edge order as the JAX
 command's host ``np.unique``), then the fused loop of
 ``models/pagerank.py`` runs there.  Edge weights are accepted in the
 input ('vi vj [wt]') but rank follows link structure only.  Output:
-'v rank' per vertex, ascending v.
+'v rank' per vertex, ascending v.  ``ranks`` ({v: rank}, the JAX
+command's attribute) is built when first read; ``verts`` and
+``rank_values`` hold the same as tensors on the device.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 
 from ...core.runtime import MRError
 from ...models.pagerank import pagerank
+from ...ops.bits import to_numpy
 from ...parallel.staging import stage_graph
 from ..command import Command, command
 from ..kernels import read_edge, read_edge_weight
@@ -58,6 +61,8 @@ class PageRankCommand(Command):
         ranks, iters = pagerank(sg.src, sg.dst, sg.n, tol=self.tolerance,
                                 maxiter=self.maxiter, damping=self.alpha)
         self.niterate, self.nvert, self.nedge = iters, sg.n, len(sg.src)
+        self.verts, self.rank_values = sg.verts, ranks
+        self._ranks = None
         mrr = obj.create_mr()
         mrr.map(1, lambda i, kv, p: kv.add_batch(
             sg.verts, ranks.double(), key_dtype=np.uint64))
@@ -65,3 +70,13 @@ class PageRankCommand(Command):
         self.message(f"PageRank: {sg.n} vertices, {len(sg.src)} edges, "
                      f"{iters} iterations")
         obj.cleanup()
+
+    @property
+    def ranks(self) -> dict:
+        """{v: rank} over every vertex (the JAX command's dict), built on
+        first read from the ``verts``/``rank_values`` tensors."""
+        if self._ranks is None:
+            self._ranks = dict(zip(
+                to_numpy(self.verts, np.uint64).tolist(),
+                self.rank_values.double().tolist()))
+        return self._ranks

@@ -17,8 +17,11 @@ import numpy as np
 import torch
 
 from ..core.frame import KMVFrame, KVFrame
-from ..ops.bits import from_order_key, order_key
-from ..ops.reduces import count, cull  # noqa: F401  (the commands' reduces)
+from ..core.runtime import MRError
+from ..ops.bits import M32, from_order_key, order_key
+from ..ops.hash import hash_words32
+from ..ops.reduces import (count, cull, max_values, min_values,  # noqa: F401
+                           sum_values)
 
 # ---------------------------------------------------------------------------
 # file parsers (reference map_read_*.cpp)
@@ -148,6 +151,16 @@ def invert(fr, kv, ptr):
     kv.add_batch(v, k, key_dtype=fr.value_dtype, value_dtype=fr.key_dtype)
 
 
+def add_weight(fr, kv, ptr):
+    """Eij:NULL → Eij:1.0 (map_add_weight.cpp — unit edge weights)."""
+    if isinstance(fr, KVFrame):
+        kv.add_batch(fr.key.data, np.ones(len(fr), np.float64))
+        return
+    k, _ = _device_rows(fr)
+    kv.add_batch(k, torch.ones(k.shape[0], dtype=torch.float64,
+                               device=k.device), key_dtype=fr.key_dtype)
+
+
 def value_histogram(mr) -> list:
     """The shared histogram tail of degree_stats and cc_stats
     (oink/degree_stats.cpp:52-61): invert to value:key, group, count,
@@ -161,6 +174,71 @@ def value_histogram(mr) -> list:
     stats = []
     mr.scan_kv(lambda k, v, p: stats.append((int(k), int(v))))
     return stats
+
+
+# ---------------------------------------------------------------------------
+# name → kernel registries (the reference's generated style_map.h /
+# style_reduce.h): a script line like `mre map/mr mre add_weight` resolves
+# its callback here (reference oink/mrmpi.cpp:354-466)
+# ---------------------------------------------------------------------------
+
+def hash_lookup3(keys: torch.Tensor) -> torch.Tensor:
+    """lookup3 over a u64 key's little-endian bytes (a row of an [n, k]
+    key in column order) → u32 hashes in int64 lanes.  One device never
+    exchanges, so ``aggregate`` does not call it."""
+    k = keys.reshape(keys.shape[0], -1).to(torch.int64)
+    words = torch.stack([k & M32, (k >> 32) & M32], -1)
+    return hash_words32(words.reshape(keys.shape[0], -1))
+
+
+def hash_identity(keys: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of the key (of column 0 for an [n, k] key)."""
+    k = keys[:, 0] if keys.dim() > 1 else keys
+    return k.to(torch.int64) & M32
+
+
+MAP_FILE_KERNELS = {
+    "read_edge": read_edge,
+    "read_edge_weight": read_edge_weight,
+    "read_vertex_value": read_vertex_value,
+    "read_vertex_weight": read_vertex_weight,
+}
+
+MAP_MR_KERNELS = {
+    "edge_to_vertices": edge_to_vertices,
+    "edge_to_vertex": edge_to_vertex,
+    "edge_both_directions": edge_both_directions,
+    "edge_upper": edge_upper,
+    "invert": invert,
+    "add_weight": add_weight,
+}
+
+REDUCE_KERNELS = {
+    "count": count,
+    "cull": cull,
+    "sum": sum_values,
+    "min": min_values,
+    "max": max_values,
+}
+
+HASH_KERNELS = {
+    "lookup3": hash_lookup3,
+    "identity": hash_identity,
+}
+
+# names the JAX package registers whose callbacks are not ported yet
+_NOT_PORTED = {"map/file": ("read_edge_label", "read_words"),
+               "map/mr": ("edge_to_vertex_pair",)}
+
+
+def lookup(table: dict, name: str, what: str):
+    """The callback registered under ``name`` in ``table``."""
+    if name in _NOT_PORTED.get(what, ()):
+        raise MRError(f"{what} kernel {name!r} is not ported yet")
+    if name not in table:
+        raise MRError(f"unknown {what} kernel {name!r} (registered: "
+                      f"{sorted(table)})")
+    return table[name]
 
 
 # ---------------------------------------------------------------------------

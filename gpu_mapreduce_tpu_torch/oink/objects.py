@@ -71,6 +71,17 @@ class ObjectManager:
         self._temps.append(mr)
         return mr
 
+    def permanent(self, mr: MapReduce) -> bool:
+        """Whether mr is registered under a name (a command must not
+        consume a named input; it works on a copy)."""
+        return any(m is mr for m in self.named.values())
+
+    def copy_mr(self, mr: MapReduce) -> MapReduce:
+        """A temporary copy of mr (freed at :meth:`cleanup`)."""
+        cp = mr.copy()
+        self._temps.append(cp)
+        return cp
+
     def name_mr(self, name: str, mr: MapReduce):
         self.named[name] = mr
         self._temps = [m for m in self._temps if m is not mr]
@@ -79,6 +90,12 @@ class ObjectManager:
         if name not in self.named:
             raise MRError(f"no MapReduce object named {name!r}")
         return self.named[name]
+
+    def free_mr(self, mr: MapReduce):
+        """Free a temporary's data mid-command."""
+        _free(mr)
+        mr.kv = mr.kmv = None
+        self._temps = [m for m in self._temps if m is not mr]
 
     def delete_mr(self, name: str):
         mr = self.named.pop(name, None)

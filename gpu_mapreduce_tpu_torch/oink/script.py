@@ -4,15 +4,16 @@ The counterpart of ``gpu_mapreduce_tpu/oink/script.py`` (reference
 ``oink/input.{h,cpp}``): a line reader with ``&`` continuation,
 quote-aware ``#`` comments and ``$x``/``${x}`` substitution; the builtins
 clear, echo, if, include, jump, label, log, next, print and variable; the
-OINK commands input, output and set; registered commands with ``-i``/``-o``
-switches; and the ``oink.cpp`` command line (``-in``, ``-log``,
-``-screen``, ``-echo``, ``-var``).
+OINK commands input, output, set and ``mr``; named-MR method lines
+(``mrscript.py``); registered commands with ``-i``/``-o`` switches; and
+the ``oink.cpp`` command line (``-in``, ``-log``, ``-screen``, ``-echo``,
+``-var``).
 
 Every MR a script makes lives on its ``ObjectManager``'s device: the card
 unless the caller passes ``device="cpu"``.  Not ported yet (each raises
-``MRError``): the ``mr`` builtin and named-MR method lines (the JAX
-package's ``mrscript.py``), ``shell``, the ft journal's ``resume``, and
-multi-world runs (``-partition``).
+``MRError``): ``shell``, the ft journal's ``resume``, multi-world runs
+(``-partition``), the named-MR methods ``mrscript.py`` lists, and the
+settings the port's ``MapReduce`` lacks.
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ from typing import List, Optional, TextIO
 from ..core.runtime import MRError
 from . import commands  # noqa: F401  (registers the ported commands)
 from .command import COMMANDS
+from .mrscript import MRScriptDispatch, expand_path_variable
 from .objects import ObjectManager
 from .variables import Variables
 
-_NOT_PORTED = {"mr": "the mr builtin", "shell": "the shell builtin",
+_NOT_PORTED = {"shell": "the shell builtin",
                "resume": "the ft journal's resume"}
 
 
@@ -161,7 +163,7 @@ class OinkScript:
 
     # -- dispatch (reference Input::execute_command) -----------------------
     _BUILTINS = ("clear", "echo", "if", "include", "jump", "label", "log",
-                 "next", "print", "variable", "input", "output", "set")
+                 "next", "print", "variable", "input", "output", "set", "mr")
 
     def _execute(self, command: str, args: List[str]):
         if command in self._BUILTINS:
@@ -171,8 +173,9 @@ class OinkScript:
         elif command in _NOT_PORTED:
             raise MRError(f"{_NOT_PORTED[command]} is not ported yet")
         elif command in self.obj.named:
-            raise MRError(f"named-MR commands ({command} ...) are not "
-                          f"ported yet")
+            t0 = _time.perf_counter()
+            MRScriptDispatch(self.obj, self.variables).run(command, args)
+            self.deltatime = _time.perf_counter() - t0
         else:
             raise MRError(f"Unknown command: {command}")
 
@@ -237,14 +240,9 @@ class OinkScript:
         if arg in self.obj.named:
             self.obj.add_input(arg)
             return
-        vname = arg[2:] if arg.startswith("v_") else None
-        if vname is not None and self.variables.find(vname) is not None:
-            if self.variables.equal_style(vname):
-                raise MRError("Command input is equal-style variable")
-            n = self.variables.retrieve_count(vname)
-            self.obj.add_input([
-                self._expandpath(self.variables.retrieve_single(vname, i))
-                for i in range(n)])
+        paths = expand_path_variable(self.variables, arg)
+        if paths is not None:
+            self.obj.add_input([self._expandpath(p) for p in paths])
             return
         self.obj.add_input(self._expandpath(arg))
 
@@ -345,6 +343,23 @@ class OinkScript:
 
     def cmd_variable(self, args):
         self.variables.set(args)
+
+    def cmd_mr(self, args):
+        """mr ID [verbosity [timer [memsize [outofcore]]]]
+        (object.cpp add_mr): a named MR with the manager's defaults."""
+        if not 1 <= len(args) <= 5:
+            raise MRError("Illegal mr command")
+        name = args[0]
+        if not all(c.isalnum() or c == "_" for c in name):
+            raise MRError("MR ID must be alphanumeric or underscore "
+                          "characters")
+        if name in self.obj.named:
+            raise MRError("ID in mr command is already in use")
+        mr = self.obj.create_mr()
+        for key, val in zip(("verbosity", "timer", "memsize", "outofcore"),
+                            args[1:]):
+            mr.set(**{key: int(val)})
+        self.obj.name_mr(name, mr)
 
     def cmd_set(self, args):
         """set keyword value ... (object.cpp Object::set): MR defaults,

@@ -245,6 +245,24 @@ def test_pagerank_command_on_carried_edges():
     assert abs(tr.sum() - 1.0) < 1e-4
 
 
+def test_pagerank_command_ranks_match_jax():
+    """The port's ``ranks`` ({v: rank}, built when first read) against the
+    JAX command's dict on the same edges, ids past 2^63 included."""
+    e, v = _edges(34)
+    jcmd = j_run("pagerank", ["1e-7", "60", "0.85"],
+                 obj=JObjects(comm=make_mesh(1)), inputs=[_jax_mr(e, v)],
+                 screen=False)
+    tcmd = t_run("pagerank", ["1e-7", "60", "0.85"],
+                 obj=ObjectManager(device="cpu"), inputs=[_port_mr(e, v)],
+                 screen=False)
+    assert tcmd._ranks is None                  # not built by the run
+    assert sorted(tcmd.ranks) == sorted(jcmd.ranks)
+    assert max(tcmd.ranks) > 1 << 63
+    np.testing.assert_allclose([tcmd.ranks[k] for k in jcmd.ranks],
+                               list(jcmd.ranks.values()), rtol=1e-5)
+    assert tcmd.rank_values.shape == tcmd.verts.shape == (tcmd.nvert,)
+
+
 def test_interop_round_trip():
     """JAX MR → numpy → port MR → numpy is bit-identical."""
     e, _ = _edges(41)

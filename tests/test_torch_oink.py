@@ -52,6 +52,25 @@ vertex_extract -i tmp.dw -o tmp.vx NULL
 cc_find 0 -i tmp.upper -o tmp.cc2 NULL
 cc_stats -i tmp.cc2
 pagerank 1e-5 50 0.85 -i tmp.dw -o tmp.pr2 NULL
+mr mrv
+mrv map/mr mre edge_to_vertices
+histo -i mrv -o tmp.histo NULL
+tri_find -i tmp.upper -o tmp.tri NULL
+neigh_tri tmp.nt -i tmp.nb tmp.tri
+"""
+
+# ids at the u64 edges (2^64-1 is the JAX mesh staging's padding
+# sentinel, an ordinary id on one device and in the serial interpreter)
+EDGE_IDS = [1, 2, 3, 2**63 - 1, 2**63, 2**63 + 5, 2**64 - 2, 2**64 - 1]
+
+BIG_IDS = """\
+cc_find 0 -i tmp.edges -o tmp.cc NULL
+luby_find 7 -i tmp.edges -o tmp.luby NULL
+tri_find -i tmp.edges -o tmp.tri NULL
+mr w
+w map/file tmp.edges read_edge
+w map/mr w add_weight
+sssp 3 5 -i w -o tmp.sssp NULL
 """
 
 
@@ -74,8 +93,9 @@ def _run(tmp_path, side, script, files=(), mesh=True):
         os.chdir(cwd)
     lines = [ln for ln in buf.getvalue().splitlines()
              if "secs" not in ln and "took" not in ln]
-    outs = {p.name: p.read_bytes() for p in d.iterdir()
-            if p.name.startswith("tmp.")}
+    outs = {p.name: ({f.name: f.read_bytes() for f in p.iterdir()}
+                     if p.is_dir() else p.read_bytes())
+            for p in d.iterdir() if p.name.startswith("tmp.")}
     return lines, outs
 
 
@@ -98,16 +118,24 @@ def _compare(tmp_path, script, files=(), ranks=(), mesh=True):
 
 @pytest.mark.parametrize("example, ranks", [("in.rmat", ()),
                                             ("in.cc", ()),
-                                            ("in.pagerank", ("tmp.pr",))])
+                                            ("in.pagerank", ("tmp.pr",)),
+                                            ("in.luby", ()), ("in.tri", ()),
+                                            ("in.sssp", ())])
 def test_example_scripts_match_jax(tmp_path, example, ranks):
     with open(os.path.join(ROOT, "examples", example)) as f:
         script = f.read()
     lines, outs = _compare(tmp_path, script, ranks=ranks)
     word = {"in.rmat": "DegreeStats:", "in.cc": "CCStats:",
-            "in.pagerank": "PageRank:"}[example]
+            "in.pagerank": "PageRank:", "in.luby": "Luby_find:",
+            "in.tri": "Tri_find:", "in.sssp": "SSSP:"}[example]
     assert any(ln.startswith(word) for ln in lines)
     if example == "in.cc":
         assert "tmp.cc" in outs and outs["tmp.cc"].count(b"\n") > 60000
+    if example == "in.tri":
+        assert outs["tmp.tri"].count(b"\n") == int(lines[-1].split()[1]) \
+            > 100
+    if example == "in.sssp":
+        assert sorted(outs) == [f"tmp.sssp.{i}" for i in range(10)]
 
 
 def test_control_flow_script_matches_jax(tmp_path):
@@ -121,15 +149,98 @@ def test_control_flow_script_matches_jax(tmp_path):
 def test_graph_commands_match_jax(tmp_path):
     lines, outs = _compare(tmp_path, GRAPH, ranks=("tmp.pr2",), mesh=False)
     for word in ("RMAT2:", "Degree:", "DegreeStats:", "EdgeUpper:",
-                 "DegreeWeight:", "CC_find:", "CCStats:", "PageRank:"):
+                 "DegreeWeight:", "CC_find:", "CCStats:", "PageRank:",
+                 "Histo:", "Tri_find:", "Neigh_tri:"):
         assert any(ln.startswith(word) for ln in lines), word
+    nvert = int(next(ln for ln in lines if ln.startswith("Neigh_tri:"))
+                .split()[1])
+    assert len(outs["tmp.nt"]) == nvert > 100
 
 
-@pytest.mark.parametrize("line", ["mr foo", "shell mkdir x",
-                                  "resume somewhere"])
+def test_big_ids_match_serial_jax(tmp_path):
+    """Ids near 2^63 and 2^64 (2^64-1 included), with duplicate rows and
+    self-loops, through cc_find, luby_find, tri_find and sssp: the port
+    on the CPU against the serial JAX interpreter (whose mesh staging
+    refuses 2^64-1), byte for byte."""
+    rng = np.random.default_rng(64)
+    ids = np.array(EDGE_IDS, np.uint64)
+    pairs = np.array([(a, b) for a in range(8) for b in range(8)
+                      if a != b and rng.random() < 0.6] +
+                     [(k, k) for k in (0, 4, 7)])      # self-loops
+    pairs = np.concatenate([pairs, pairs[rng.integers(0, len(pairs), 9)]])
+    pairs = pairs[rng.permutation(len(pairs))]
+    text = "".join(f"{ids[a]} {ids[b]}\n" for a, b in pairs)
+    lines, outs = _compare(tmp_path, BIG_IDS, files=[("tmp.edges", text)],
+                           mesh=False)
+    assert str(2**64 - 1).encode() in outs["tmp.cc"]
+    assert outs["tmp.tri"] and outs["tmp.luby"] and outs["tmp.sssp.0"]
+    assert any(ln.startswith("Luby_find:") for ln in lines)
+
+
+@pytest.mark.parametrize("line", ["shell mkdir x", "resume somewhere"])
 def test_unported_builtins_raise(line):
     s = OinkScript(device="cpu", screen=False)
     with pytest.raises(MRError, match="not ported yet"):
+        s.one(line)
+
+
+MR_LINES = """\
+rmat 7 4 0.45 0.15 0.15 0.25 0.0 31 -o NULL mre
+mr x
+x map/mr mre edge_to_vertices
+x collate NULL
+x reduce count
+x copy y
+y sort_values -1
+histo -i x -o tmp.h NULL
+degree_stats 0 -i mre
+"""
+
+
+def test_mr_builtin_and_lines_match_jax(tmp_path):
+    """The mr builtin and named-MR lines (map/mr, collate, reduce, copy,
+    sort_values) against the JAX interpreter: equal lines and outputs,
+    and the same pairs in x and y."""
+    got = {}
+    for side in ("port", "jax"):
+        d = tmp_path / side
+        d.mkdir()
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            buf = io.StringIO()
+            s = OinkScript(device="cpu", screen=buf) if side == "port" \
+                else JOinkScript(comm=make_mesh(1), screen=buf)
+            s.run_string(MR_LINES)
+            pairs = {}
+            for name in ("x", "y"):
+                out = []
+                s.obj.named[name].scan_kv(
+                    lambda k, v, p: out.append((int(k), int(v))))
+                pairs[name] = out
+            got[side] = (buf.getvalue(), pairs, (d / "tmp.h").read_bytes())
+        finally:
+            os.chdir(cwd)
+    assert got["port"] == got["jax"]
+    x, y = got["port"][1]["x"], got["port"][1]["y"]
+    assert sorted(x) == sorted(y) and len(x) > 50
+    assert [v for _, v in y] == sorted((v for _, v in x), reverse=True)
+
+
+@pytest.mark.parametrize("line, match", [
+    ("x compress count", "not ported yet"),
+    ("x map/file f read_words", "not ported yet"),
+    ("x map/mr x edge_to_vertex_pair", "not ported yet"),
+    ("x clone", "not ported yet"),
+    ("x set timer 1", "not ported yet"),
+    ("mr z 0 1", "not ported yet"),
+    ("x reduce nosuch", "unknown reduce kernel 'nosuch'"),
+    ("x frobnicate", "Unknown MR object method"),
+    ("mr x", "already in use")])
+def test_unported_mr_lines_raise(line, match):
+    s = OinkScript(device="cpu", screen=False)
+    s.one("mr x")
+    with pytest.raises(MRError, match=match):
         s.one(line)
 
 
@@ -140,6 +251,22 @@ def test_composed_cc_engine_raises(tmp_path, monkeypatch):
     s.one("rmat 5 2 0.25 0.25 0.25 0.25 0.0 1 -o NULL mre")
     with pytest.raises(MRError, match="not ported yet"):
         s.one("cc_find 0 -i mre")
+
+
+@pytest.mark.parametrize("env, line", [
+    ("GPUMR_LUBY_ENGINE", "luby_find 5 -i mre"),
+    ("GPUMR_TRI_ENGINE", "tri_find -i mre"),
+    ("GPUMR_SSSP_ENGINE", "sssp 1 5 -i mre")])
+def test_composed_graph_engines_raise(tmp_path, monkeypatch, env, line):
+    monkeypatch.chdir(tmp_path)
+    s = OinkScript(device="cpu", screen=False)
+    s.one("rmat 5 2 0.25 0.25 0.25 0.25 0.0 1 -o NULL mre")
+    s.one("mre map/mr mre add_weight")
+    monkeypatch.setenv(env, "composed")
+    with pytest.raises(MRError, match="not ported yet"):
+        s.one(line)
+    monkeypatch.setenv(env, "fused")
+    s.one(line)
 
 
 def test_main_runs_a_script_on_the_cpu(tmp_path, monkeypatch):
