@@ -699,6 +699,8 @@ SSSP_SEED = 12345
 TRI_SCALE = 18                 # cut from 22: the triangle rows' size
 TRI_CHECK_SCALE = 12           # the card-vs-CPU neigh_tri run
 TRI_MEMBERSHIP_BUDGET_S = 60.0
+COMPOSED_CHECK_SCALE = 12      # the composed engines, card vs CPU
+COMPOSED = ("cc_find", "luby_find", "tri_find", "sssp")
 
 
 def graph_script(scale: int, edgefactor: int) -> list:
@@ -719,6 +721,15 @@ def graph_script(scale: int, edgefactor: int) -> list:
         f"luby_find {LUBY_SEED} -i mru -o NULL mrl",
         "mre map/mr mre add_weight",
         f"sssp {SSSP_SOURCES} {SSSP_SEED} -i mre -o NULL mrs"]
+
+
+def composed_graph_lines() -> list:
+    """The composed engines on the graph script's named MRs, after it:
+    (line, engine) pairs."""
+    return [("cc_find 0 -i mru -o NULL mrcc", "composed"),
+            (f"luby_find {LUBY_SEED} -i mru -o NULL mrlc", "composed"),
+            (f"sssp {SSSP_SOURCES} {SSSP_SEED} -i mre -o NULL mrsc",
+             "composed")]
 
 
 def tri_script(scale: int) -> list:
@@ -742,13 +753,18 @@ def neigh_tri_script(scale: int) -> list:
 
 
 @contextlib.contextmanager
-def graph_spans(device, keep=()):
+def graph_spans(device, keep=(), keep_args=()):
     """Wall seconds of each call of the graph engines' stages, between two
     device synchronises (the engines read a host scalar every step
     anyway): generation, collate, each command's staging, the fused
-    loops and each of their rounds (the wedge batches for tri_find).
-    Yields ({label: [seconds of each call]}, {label: [what each call
-    returned]} for the labels in ``keep``)."""
+    loops and each of their rounds (the wedge batches for tri_find), and
+    the composed engines' callbacks that open each round (cc's
+    ``edge_vert_tagged``, luby's ``edge_winner``, sssp's
+    ``pick_shortest``) or a stage (tri's).  Yields ({label: [seconds of
+    each call]}, {label: [what each call returned, or its positional
+    arguments for the labels in ``keep_args``]} for the labels in
+    ``keep`` and ``keep_args``, {label: [perf_counter at each call's
+    start]})."""
     import torch
     from gpu_mapreduce_tpu_torch.core.mapreduce import MapReduce
     from gpu_mapreduce_tpu_torch.models import cc as cc_model
@@ -758,7 +774,7 @@ def graph_spans(device, keep=()):
     from gpu_mapreduce_tpu_torch.models import tri as tri_model
     from gpu_mapreduce_tpu_torch.oink.commands import (cc, luby, pagerank,
                                                        rmat, sssp, tri)
-    times, outputs = {}, {}
+    times, outputs, starts = {}, {}, {}
     spans = [(rmat, "rmat_edges", "rmat_generate"),
              (MapReduce, "collate", "collate"),
              (pagerank, "stage_graph", "pagerank_stage"),
@@ -774,7 +790,14 @@ def graph_spans(device, keep=()):
              (sssp_model, "_round", "sssp_round"),
              (tri, "stage_graph", "tri_stage"),
              (tri, "triangles_ranked", "tri_loop"),
-             (tri_model, "wedge_batch", "tri_batch")]
+             (tri_model, "wedge_batch", "tri_batch"),
+             (cc, "edge_vert_tagged", "cc_composed_round"),
+             (luby, "edge_winner", "luby_composed_round"),
+             (sssp, "pick_shortest", "sssp_composed_round"),
+             (sssp.SSSPCommand, "_finish_source", "sssp_source"),
+             (tri, "first_degree", "tri_composed_first_degree"),
+             (tri, "nsq_angles", "tri_composed_angles"),
+             (tri, "emit_triangles", "tri_composed_emit")]
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in spans]
 
     def sync():
@@ -789,18 +812,34 @@ def graph_spans(device, keep=()):
             out = fn(*args, **kw)
             sync()
             times.setdefault(label, []).append(time.perf_counter() - t0)
+            starts.setdefault(label, []).append(t0)
             if label in keep:
                 outputs.setdefault(label, []).append(out)
+            if label in keep_args:
+                outputs.setdefault(label, []).append(args)
             return out
         return wrapper
 
     for (owner, attr, label), (_, _, fn) in zip(spans, saved):
         setattr(owner, attr, timed(fn, label))
     try:
-        yield times, outputs
+        yield times, outputs, starts
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
+
+
+@contextlib.contextmanager
+def engine(name: str, value):
+    """Set a graph command's ``engine`` attribute for the block."""
+    from gpu_mapreduce_tpu_torch.oink.command import COMMANDS
+    cls = COMMANDS[name]
+    saved = cls.__dict__.get("engine")
+    cls.engine = value
+    try:
+        yield
+    finally:
+        cls.engine = saved
 
 
 def _histogram(lines) -> list:
@@ -856,9 +895,10 @@ def graph_oracles(scale, edgefactor, screens, got) -> dict:
     a float64 power iteration (scipy.sparse) with the same damping and
     step count, sssp by scipy's directed unweighted shortest paths,
     components by scipy's connected_components, and the Luby set's
-    independence and maximality.  ``got``: the result MRs pulled to the
-    host.  Raises on any disagreement; returns what they found and their
-    seconds by part."""
+    independence and maximality; the composed engines' runs too (cc's
+    count, luby's set, sssp's distances equal to the fused run's and its
+    preds).  ``got``: the result MRs pulled to the host.  Raises on any
+    disagreement; returns what they found and their seconds by part."""
     import numpy as np
     import scipy.sparse as sp
     from scipy.sparse.csgraph import connected_components, shortest_path
@@ -953,6 +993,27 @@ def graph_oracles(scale, edgefactor, screens, got) -> dict:
             raise AssertionError(f"sssp differs from scipy: "
                                  f"{int((~ok).sum())} bad preds")
         npreds += int(reach.sum())
+    # the composed engine's runs: the same sources and labeled counts,
+    # the distances equal to the fused run's, each pred (an id, 0 for
+    # none) an in-neighbour one step closer
+    cruns = [ln.split() for ln in screens["sssp/composed"]]
+    if [int(w[2].rstrip(":")) for w in cruns] != sources or \
+            [int(w[5]) for w in cruns] != labeled or \
+            len(got["sssp_composed_runs"]) != SSSP_SOURCES:
+        raise AssertionError(f"sssp/composed: {screens['sssp/composed']}")
+    ncpreds = 0
+    for (cverts, cdist, cpred), (dist, _) in zip(got["sssp_composed_runs"],
+                                                 got["sssp_runs"]):
+        reach = np.isfinite(cdist) & (cdist > 0)
+        p = rank_of[cpred[reach].astype(np.int64)]
+        keys = (verts[p] << np.uint64(scale)) | verts[reach]
+        pos = np.minimum(np.searchsorted(packed, keys), len(packed) - 1)
+        ok = (packed[pos] == keys) & (cdist[p] == cdist[reach] - 1)
+        if not (np.array_equal(cverts, verts) and np.array_equal(cdist, dist)
+                and ok.all()):
+            raise AssertionError(f"sssp/composed differs from the fused "
+                                 f"run: {int((~ok).sum())} bad preds")
+        ncpreds += int(reach.sum())
     sverts, rows = got["sssp"]                # the last source's rows
     last = np.where(pred >= 0, verts[np.maximum(pred, 0)].astype(
         np.float64), -1.0)
@@ -983,7 +1044,9 @@ def graph_oracles(scale, edgefactor, screens, got) -> dict:
     cverts, czones = got["cc"]
     cmsg = screens["cc_find"][0]
     if not (np.array_equal(cverts, verts2) and np.array_equal(czones, zones)
-            and cmsg.startswith(f"CC_find: {ncomp} components in ")):
+            and cmsg.startswith(f"CC_find: {ncomp} components in ")
+            and screens["cc_find/composed"][0].startswith(
+                f"CC_find: {ncomp} components in ")):
         raise AssertionError(f"cc_find differs from scipy "
                              f"connected_components ({ncomp}): {cmsg!r}")
     sizes = np.bincount(labels)
@@ -994,37 +1057,46 @@ def graph_oracles(scale, edgefactor, screens, got) -> dict:
     part_s["cc"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    upper, mis = got["upper"], got["luby"]
+    upper = got["upper"]
     lo, hi = upper[:, 0].astype(np.int64), upper[:, 1].astype(np.int64)
-    inset = np.zeros(1 << scale, bool)
-    inset[mis.astype(np.int64)] = True
-    covered = inset.copy()
-    covered[lo[inset[hi]]] = True
-    covered[hi[inset[lo]]] = True
-    independent = not np.any(inset[lo] & inset[hi])
-    maximal = not np.any(present & ~covered)
-    lmsg = screens["luby_find"][0]
-    if not (independent and maximal and not np.any(inset & ~present)
-            and lmsg.startswith(f"Luby_find: {len(mis)} MIS vertices")):
-        raise AssertionError(f"luby_find: independent {independent}, "
-                             f"maximal {maximal}: {lmsg!r}")
+    for label, mis in (("luby_find", got["luby"]),
+                       ("luby_find/composed", got["luby_composed"])):
+        inset = np.zeros(1 << scale, bool)
+        inset[mis.astype(np.int64)] = True
+        covered = inset.copy()
+        covered[lo[inset[hi]]] = True
+        covered[hi[inset[lo]]] = True
+        independent = not np.any(inset[lo] & inset[hi])
+        maximal = not np.any(present & ~covered)
+        lmsg = screens[label][0]
+        if not (independent and maximal and not np.any(inset & ~present)
+                and lmsg.startswith(f"Luby_find: {len(mis)} MIS vertices")):
+            raise AssertionError(f"{label}: independent {independent}, "
+                                 f"maximal {maximal}: {lmsg!r}")
     part_s["luby"] = time.perf_counter() - t0
     return {"vertices": n, "cc_vertices": n2, "components": int(ncomp),
             "largest_component": int(sizes.max()),
             "pagerank_l1_vs_f64": l1, "pagerank_sum": total,
             "top100_equal": True, "histo_equals_bincount": True,
-            "luby_set": len(mis), "luby_independent_and_maximal": True,
+            "luby_set": len(got["luby"]),
+            "luby_composed_set": len(got["luby_composed"]),
+            "luby_independent_and_maximal": True,
             "sssp_sources": sources, "sssp_labeled": labeled,
             "sssp_dist_equal_scipy": True, "sssp_preds_checked": npreds,
+            "sssp_composed_dist_equal_fused": True,
+            "sssp_composed_preds_checked": ncpreds,
             "seconds_by_part": part_s}
 
 
-def drive_script(device, lines, kernels) -> dict:
+def drive_script(device, lines, kernels, interp=None) -> dict:
     """The OINK ``lines`` through the port's OinkScript on ``device`` from
-    the cwd, each command between device synchronises, every launch
-    count set to 0 just before the first: the interpreter, and by command
-    its seconds, screen lines and peak device bytes, the launches and
-    the engine spans (``graph_spans``) over the run."""
+    the cwd (or through ``interp``, to go on with its named MRs), each
+    command between device synchronises, every launch count set to 0
+    just before the first: the interpreter, and by command its seconds,
+    screen lines, peak device bytes and end time, the launches and the
+    engine spans (``graph_spans``) over the run.  A line may be a pair
+    (line, engine): the command runs with its ``engine`` attribute set,
+    labelled ``<command>/<engine>``."""
     import io
     import torch
     from gpu_mapreduce_tpu_torch import OinkScript
@@ -1034,29 +1106,52 @@ def drive_script(device, lines, kernels) -> dict:
         torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
-    s = OinkScript(device=device, screen=False, logfile=None)
-    seconds, screens, peaks = {}, {}, {}
-    with graph_spans(device, keep=("sssp_loop",)) as (spans, outputs):
+    s = interp or OinkScript(device=device, screen=False, logfile=None)
+    seconds, screens, peaks, ends = {}, {}, {}, {}
+    with graph_spans(device, keep=("sssp_loop",),
+                     keep_args=("sssp_source",)) as (spans, outputs,
+                                                     starts):
         for line in lines:
+            line, eng = (line, None) if isinstance(line, str) else line
             words = line.split()
             # a named-MR line is labelled by its MR and method
             label = " ".join(words[:2]) if len(words) > 1 and \
                 words[1].startswith("map/") else words[0]
+            label += f"/{eng}" if eng else ""
             s.screen = buf = io.StringIO()
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            s.one(line)
+            with engine(words[0], eng) if eng else contextlib.nullcontext():
+                s.one(line)
             if cuda:
                 torch.cuda.synchronize()
-            seconds[label] = time.perf_counter() - t0
+            ends[label] = time.perf_counter()
+            seconds[label] = ends[label] - t0
             if cuda:
                 peaks[label] = torch.cuda.max_memory_allocated()
             screens[label] = buf.getvalue().splitlines()
     return {"interp": s, "seconds": seconds, "screens": screens,
-            "peak_bytes": peaks if cuda else None,
+            "peak_bytes": peaks if cuda else None, "ends": ends,
             "launches": {k.__name__: k.launches for k in kernels},
-            "spans": spans, "outputs": outputs}
+            "spans": spans, "outputs": outputs, "starts": starts}
+
+
+def round_seconds(run, marker: str, label: str) -> list:
+    """Seconds from each call of a composed engine's round-opening
+    callback ``marker`` to the next, the last to the command's end."""
+    marks = run["starts"].get(marker, []) + [run["ends"][label]]
+    return [b - a for a, b in zip(marks, marks[1:])]
+
+
+def composed_record(run, label: str, marker: str) -> dict:
+    """Seconds, peak bytes and per-round seconds of one composed
+    command."""
+    peaks = run["peak_bytes"]
+    return {"seconds": run["seconds"][label],
+            "peak_bytes": peaks[label] if peaks else None,
+            "message": run["screens"][label][0],
+            "round_s": round_seconds(run, marker, label)}
 
 
 def _span_record(spans) -> dict:
@@ -1064,23 +1159,54 @@ def _span_record(spans) -> dict:
             "stage_calls": {k: len(v) for k, v in spans.items()}}
 
 
+def same_pairs_on_card(a, b) -> bool:
+    """Whether two MRs hold the same pairs, their keys distinct (cc's
+    (v, zone)): each KV sorted by key on its device, then compared."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.bits import order_key
+    fa, fb = a.kv.one_frame(), b.kv.one_frame()
+    if len(fa) != len(fb):
+        return False
+    n = len(fa)
+    sa, sb = (torch.sort(order_key(f.key[:n], np.uint64)).indices
+              for f in (fa, fb))
+    return torch.equal(fa.key[:n][sa], fb.key[:n][sb]) and \
+        torch.equal(fa.value[:n][sa], fb.value[:n][sb])
+
+
 def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
               edgefactor: int = GRAPH_EDGEFACTOR) -> dict:
     """The graph phase: the OINK script of :func:`graph_script` through
     the port's ``OinkScript`` on ``device``, each command timed between
-    device synchronises, then the host oracles."""
+    device synchronises, then the composed engines on its named MRs
+    (:func:`composed_graph_lines`; composed cc's pairs compared with the
+    fused run's on the card), then the host oracles."""
     import numpy as np
     from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
+    from gpu_mapreduce_tpu_torch.ops.bits import to_numpy
     rmat_round = check_rmat_round(device, scale)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_graph_")
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
         run = drive_script(device, graph_script(scale, edgefactor), kernels)
+        comp = drive_script(device, composed_graph_lines(), kernels,
+                            interp=run["interp"])
         named = run["interp"].obj.named
-        screens, spans = run["screens"], run["spans"]
+        screens, spans = {**run["screens"], **comp["screens"]}, run["spans"]
         seconds, peaks = run["seconds"], run["peak_bytes"]
-        launches = run["launches"]
+        launches, comp_launches = run["launches"], comp["launches"]
+        t0 = time.perf_counter()
+        if not same_pairs_on_card(named["mrc"], named["mrcc"]):
+            raise AssertionError("cc_find/composed: the (v, zone) pairs "
+                                 "differ from the fused run's")
+        compare_s = time.perf_counter() - t0
+        composed = {
+            name: composed_record(comp, f"{name}/composed", marker)
+            for name, marker in (("cc_find", "cc_composed_round"),
+                                 ("luby_find", "luby_composed_round"),
+                                 ("sssp", "sssp_composed_round"))}
         t0 = time.perf_counter()
         got = {"edges": mapreduce_to_numpy(named["mre"])[0],
                "upper": mapreduce_to_numpy(named["mru"])[0],
@@ -1088,7 +1214,12 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
                "luby": mapreduce_to_numpy(named["mrl"])[0],
                "sssp": mapreduce_to_numpy(named["mrs"]),
                "sssp_runs": [(d.cpu().numpy(), p.cpu().numpy()) for d, p, _
-                             in run["outputs"].get("sssp_loop", [])]}
+                             in run["outputs"].get("sssp_loop", [])],
+               "luby_composed": mapreduce_to_numpy(named["mrlc"])[0],
+               "sssp_composed_runs": [
+                   (to_numpy(v, np.uint64), d.cpu().numpy(),
+                    to_numpy(p, np.uint64)) for _cmd, _cnt, _src, _it, v,
+                   d, p in comp["outputs"].get("sssp_source", [])]}
         pr_verts, pr_ranks = mapreduce_to_numpy(named["mrpr"])
         pull_s = time.perf_counter() - t0
         msgs = {w: lines[0] for w, lines in screens.items() if lines}
@@ -1098,7 +1229,7 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
         luby_rounds = int(msgs["luby_find"].split()[-2])
         sssp_rounds = [int(ln.split()[3]) for ln in screens["sssp"]]
         got["pagerank"] = (pr_verts, pr_ranks, pr_iters)
-        del run, named
+        del run, comp, named
         t0 = time.perf_counter()
         found = graph_oracles(scale, edgefactor, screens, got)
         oracle_s = time.perf_counter() - t0
@@ -1131,7 +1262,10 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
             "pagerank_edges_per_s_per_iteration": nedges / step_s,
             "messages": msgs, "pull_to_host_s": pull_s,
             "oracle_s": oracle_s, "oracles": found,
-            "rmat_round_device_vs_cpu": rmat_round}
+            "rmat_round_device_vs_cpu": rmat_round,
+            "composed": composed, "launches_composed": comp_launches,
+            "composed_cc_equal_fused_on_card": True,
+            "composed_cc_compare_s": compare_s}
 
 
 def tri_oracles(scale: int, upper, rows, message: str, nbatches: int
@@ -1241,10 +1375,92 @@ def neigh_tri_files(device, scale: int) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def same_triangles_on_card(a, b, scale: int) -> bool:
+    """Whether two MRs of [t, 3] triangle rows (ids < 2^scale) hold the
+    same triangles: each row's ids sorted and packed into one int64,
+    the packed keys sorted and compared, on the device."""
+    fa, fb = a.kv.one_frame(), b.kv.one_frame()
+    if len(fa) != len(fb) or 3 * scale > 63:
+        return False
+    import torch
+    keys = []
+    for f in (fa, fb):
+        r = torch.sort(f.key[:len(f)], dim=1).values
+        keys.append(torch.sort((r[:, 0] << (2 * scale)) | (r[:, 1] << scale)
+                               | r[:, 2]).values)
+        del r
+    return torch.equal(keys[0], keys[1])
+
+
+def composed_script(scale: int) -> list:
+    """The four composed commands on one graph, into files under the
+    cwd (each command's engine set by the caller)."""
+    a, b, c, d = GRAPH_ABCD
+    return [f"rmat {scale} {GRAPH_EDGEFACTOR} {a} {b} {c} {d} 0.0 "
+            f"{GRAPH_SEED} -o NULL mre",
+            "edge_upper -i mre -o NULL mru",
+            "mre map/mr mre add_weight",
+            "cc_find 0 -i mru -o tmp.cc NULL",
+            f"luby_find {LUBY_SEED} -i mru -o tmp.luby NULL",
+            "tri_find -i mru -o tmp.tri NULL",
+            f"sssp {SSSP_SOURCES} {SSSP_SEED} -i mre -o tmp.sssp NULL"]
+
+
+def composed_outputs(device, scale: int) -> dict:
+    """:func:`composed_script` on ``device`` with every graph command on
+    its composed engine, in a fresh directory: the screen lines and each
+    output file's lines, sorted."""
+    import io
+    from gpu_mapreduce_tpu_torch import OinkScript
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_composed_")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        with contextlib.ExitStack() as stack:
+            for name in COMPOSED:
+                stack.enter_context(engine(name, "composed"))
+            buf = io.StringIO()
+            s = OinkScript(device=device, screen=buf, logfile=None)
+            for line in composed_script(scale):
+                s.one(line)
+        out = {"screen": buf.getvalue().splitlines()}
+        for name in sorted(os.listdir(".")):
+            with open(name) as f:
+                out[name] = sorted(f.read().splitlines())
+        return out
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_composed_check(device, smi: str,
+                       scale: int = COMPOSED_CHECK_SCALE) -> dict:
+    """The four composed engines at ``scale`` on the card and on the CPU:
+    equal screen lines and equal output lines, sorted."""
+    import torch
+    got, seconds = {}, {}
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        got[dev.type] = composed_outputs(dev, scale)
+        seconds[dev.type] = time.perf_counter() - t0
+    card, cpu = got[device.type], got["cpu"]
+    if card != cpu or len(card) != 6 or len(card["tmp.tri"]) < 100:
+        raise AssertionError(f"composed engines at scale {scale}: the "
+                             f"card's {sorted(card)} differ from the "
+                             f"CPU's")
+    return {"phase": "composed-check", "card": smi, "scale": scale,
+            "script": composed_script(scale), "engines": list(COMPOSED),
+            "messages": card["screen"],
+            "lines": {k: len(v) for k, v in card.items()},
+            "card_equals_cpu": True, "seconds": seconds}
+
+
 def run_tri(device, smi: str, kernels=(), scale: int = TRI_SCALE,
             check_scale: int = TRI_CHECK_SCALE) -> dict:
     """The tri phase: :func:`tri_script` on ``device`` with each command
-    timed, the host oracles, then the card-vs-CPU neigh_tri files."""
+    timed, the composed tri_find on the same edges (its triangles
+    compared with the fused rows on the card), the host oracles, then
+    the card-vs-CPU neigh_tri files."""
     import torch
     from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tri_")
@@ -1252,7 +1468,24 @@ def run_tri(device, smi: str, kernels=(), scale: int = TRI_SCALE,
     os.chdir(tmp)
     try:
         run = drive_script(device, tri_script(scale), kernels)
+        comp = drive_script(device, [("tri_find -i mru -o NULL mrtc",
+                                      "composed")], kernels,
+                            interp=run["interp"])
         named = run["interp"].obj.named
+        t0 = time.perf_counter()
+        if not same_triangles_on_card(named["mrt"], named["mrtc"], scale):
+            raise AssertionError("tri_find/composed: the triangles differ "
+                                 "from the fused rows")
+        compare_s = time.perf_counter() - t0
+        composed = composed_record(comp, "tri_find/composed",
+                                   "tri_composed_first_degree")
+        composed["stage_s"] = _span_record(comp["spans"])["stage_s"]
+        if composed["message"] != run["screens"]["tri_find"][0]:
+            raise AssertionError(f"tri_find/composed: "
+                                 f"{composed['message']!r}")
+        named.pop("mrtc").kv.free()
+        comp_launches = comp["launches"]
+        del comp
         t0 = time.perf_counter()
         upper = mapreduce_to_numpy(named["mru"])[0]
         rows = mapreduce_to_numpy(named["mrt"])[0]
@@ -1290,7 +1523,10 @@ def run_tri(device, smi: str, kernels=(), scale: int = TRI_SCALE,
             "triangle_bytes": rows.nbytes, "pull_to_host_s": pull_s,
             "oracle_s": oracle_s, "oracles": found,
             "tri_batch_s": spans.get("tri_batch", []),
-            **_span_record(spans),
+            **_span_record(spans), "composed": composed,
+            "launches_composed": comp_launches,
+            "composed_equal_fused_on_card": True,
+            "composed_compare_s": compare_s,
             "neigh_tri_check": {"scale": check_scale,
                                 "files": len(files["cpu"]),
                                 "card_equals_cpu": True,
@@ -1453,14 +1689,18 @@ def main() -> int:
         emit(graph)
         tri = run_tri(device, smi, kernels)
         emit(tri)
+        emit(run_composed_check(device, smi))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     uni, zipf = table_timing["uniform"], table_timing["zipf"]
     # the graph and tri phases reach no hand-written kernel: their counts
-    # (0 expected) ride beside each kernel's main-path count
+    # (0 expected) ride beside each kernel's main-path count, the
+    # composed engines' (graph and tri together) apart
     on_graph = {k: {"launches_graph": graph["launches"][k],
-                    "launches_tri": tri["launches"][k]}
+                    "launches_tri": tri["launches"][k],
+                    "launches_composed": graph["launches_composed"][k]
+                    + tri["launches_composed"][k]}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",

@@ -55,9 +55,11 @@ def _merge_frames(frames: List[KVFrame]) -> KVFrame:
 
 
 class KeyValue:
-    """Append-only KV dataset."""
+    """Append-only KV dataset.  ``device`` is where its MapReduce keeps
+    data: a callback that is handed a host frame places it there."""
 
-    def __init__(self):
+    def __init__(self, device=None):
+        self.device = device
         self._buf_k: list = []
         self._buf_v: list = []
         self._batches: list = []
@@ -122,17 +124,21 @@ class KeyValue:
 
     def one_frame(self):
         """The whole dataset as one frame: the sole frame itself; several
-        device frames concatenate on the device; a mix compacts to the
-        host."""
+        host frames merge on the host; once any frame is on a device, the
+        host frames move to that device and all concatenate there."""
         frames = self._frames
         if not frames:
             return empty_kv()
         if len(frames) == 1:
             return frames[0]
-        from ..parallel.sharded import ShardedKV, concat_sharded
-        if all(isinstance(f, ShardedKV) for f in frames):
-            return concat_sharded(frames)
-        return _merge_frames([f.to_host() for f in frames])
+        device = next((f.device for f in frames
+                       if not isinstance(f, KVFrame)), None)
+        if device is None:
+            return _merge_frames(frames)
+        from ..parallel.sharded import concat_sharded, shard_frame
+        return concat_sharded([shard_frame(f, device)
+                               if isinstance(f, KVFrame) else f
+                               for f in frames])
 
     def replace_frames(self, frame) -> None:
         """Swap the dataset's frames for one frame holding the same pairs."""

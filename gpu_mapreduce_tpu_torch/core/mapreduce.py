@@ -2,8 +2,9 @@
 
 The counterpart of ``gpu_mapreduce_tpu/core/mapreduce.py``: ``map``
 (with ``addflag``), ``map_files``, ``map_mr``, ``aggregate``,
-``convert``, ``collate``, ``reduce`` (per-group host form and
-``batch=True``), ``gather``, ``add``, ``copy``, ``set``,
+``convert``, ``collate``, ``clone``, ``reduce`` (per-group host form
+and ``batch=True``), ``compress``, ``gather``, ``add``, ``copy``,
+``open``/``close``, ``set``,
 ``sort_keys``/``sort_values`` (int flags), ``scan_kv``, ``scan_kmv``,
 ``kv_stats``, ``kmv_stats`` and the ``kv``/``kmv`` datasets, with
 the reference's callback arities: ``map`` calls ``func(itask, kv, ptr)``,
@@ -89,6 +90,7 @@ class MapReduce:
         self._kmv_data: Optional[KeyMultiValue] = None
         self._plan = None              # active plan recorder (plan/)
         self._plan_replaying = False   # the fuser is replaying a stage
+        self._open = False             # between open() and close()
 
     # reading or writing a dataset is a plan barrier: pending deferred
     # ops run first, so a reader never sees stale state under fuse=1
@@ -167,7 +169,15 @@ class MapReduce:
             rec.stages.clear()
 
     def _new_kv(self) -> KeyValue:
-        return KeyValue()
+        return KeyValue(self.device)
+
+    def _finish_kv(self) -> int:
+        """Complete the KV an op wrote and return its pair count; while
+        the MR is open, its KV stays open for other MRs' adds and the
+        count is of the pairs so far."""
+        if self._open:
+            return self.kv.nkv
+        return self.kv.complete()
 
     def _require_kv(self, op: str) -> KeyValue:
         kv = self.kv
@@ -203,7 +213,7 @@ class MapReduce:
         kv = self._start_map(addflag)
         for itask in range(nmap):
             func(itask, kv, ptr)
-        return kv.complete()
+        return self._finish_kv()
 
     def map_mr(self, mr: "MapReduce", func: Callable, ptr=None,
                addflag: int = 0, batch: bool = False) -> int:
@@ -221,7 +231,7 @@ class MapReduce:
             for k, v in fr.pairs():
                 func(itask, k, v, kv, ptr)
                 itask += 1
-        return kv.complete()
+        return self._finish_kv()
 
     def map_files(self, files: Union[str, Sequence[str]], func: Callable,
                   ptr=None, addflag: int = 0) -> int:
@@ -234,7 +244,7 @@ class MapReduce:
         kv = self._start_map(addflag)
         for itask, name in enumerate(names):
             func(itask, name, kv, ptr)
-        return kv.complete()
+        return self._finish_kv()
 
     @_fusible
     def aggregate(self, hash_fn: Optional[Callable] = None) -> int:
@@ -269,6 +279,18 @@ class MapReduce:
         self.aggregate(hash_fn)
         return self.convert()
 
+    def clone(self) -> int:
+        """KV → KMV with every pair its own one-value group (reference
+        src/mapreduce.cpp:631-652), on the device."""
+        from ..parallel.devkernels import clone_sharded
+        kv = self._require_kv("clone")
+        kmv = KeyMultiValue()
+        kmv.push(clone_sharded(self.backend.place(kv.one_frame())))
+        kv.free()
+        self.kv = None
+        self.kmv = kmv
+        return kmv.complete()
+
     @_fusible
     def reduce(self, func: Callable, ptr=None, batch: bool = False) -> int:
         """Callback per KMV group (or per frame with ``batch=True``) →
@@ -284,7 +306,13 @@ class MapReduce:
         kmv.free()
         self.kmv = None
         self.kv = kv
-        return kv.complete()
+        return self._finish_kv()
+
+    def compress(self, func: Callable, ptr=None, batch: bool = False) -> int:
+        """Local convert + reduce, KV → KV: the combiner (reference
+        src/mapreduce.cpp:749-851)."""
+        self.convert()
+        return self.reduce(func, ptr, batch=batch)
 
     @_fusible
     def sort_keys(self, flag: int = 1) -> int:
@@ -321,7 +349,7 @@ class MapReduce:
             kv.append()
         for fr in src:
             kv.add_frame(fr)
-        return kv.complete()
+        return self._finish_kv()
 
     def copy(self) -> "MapReduce":
         """A new MR on the same device with a copy of the settings and the
@@ -341,6 +369,22 @@ class MapReduce:
                 mr.kmv.push(fr)
             mr.kmv.complete()
         return mr
+
+    def open(self, addflag: int = 0) -> KeyValue:
+        """Begin cross-MR adds: until :meth:`close`, other MRs' callbacks
+        add pairs to this KV (reference src/mapreduce.cpp:1648-1664); with
+        ``addflag`` the existing pairs stay."""
+        self._start_map(addflag)
+        self._open = True
+        return self.kv
+
+    def close(self) -> int:
+        """End cross-MR adds and return the KV's pair count (reference
+        src/mapreduce.cpp:658-672)."""
+        if not self._open:
+            raise MRError("Cannot close without open")
+        self._open = False
+        return self._finish_kv()
 
     def set(self, **settings) -> "MapReduce":
         """Change settings (the script's ``mr`` builtin and ``set``

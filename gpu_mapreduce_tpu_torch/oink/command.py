@@ -26,19 +26,16 @@ def command(name: str):
     return deco
 
 
-def require_fused(engine: Optional[str], env: str, name: str) -> None:
-    """Refuse any engine of a fused graph command but ``fused``: the
-    command's ``engine`` attribute, else the environment variable ``env``,
-    else ``fused``.  The ``composed`` engines (the reference's MapReduce
-    compositions) need the JAX package's ``parallel/devkernels.py`` and
-    are not ported yet."""
+def select_engine(engine: Optional[str], env: str, name: str) -> str:
+    """The engine a graph command runs: its ``engine`` attribute, else
+    the environment variable ``env``, else ``fused``.  ``fused`` runs the
+    device model (``models/``), ``composed`` the reference's MapReduce
+    composition over the device bodies of ``parallel/devkernels.py``."""
     engine = engine or os.environ.get(env, "fused")
-    if engine == "composed":
-        raise MRError(f"{name}: the composed engine is not ported yet "
-                      f"(use 'fused')")
-    if engine != "fused":
+    if engine not in ("fused", "composed"):
         raise MRError(f"{name}: unknown engine {engine!r} "
                       f"(use 'fused' or 'composed')")
+    return engine
 
 
 class Command:

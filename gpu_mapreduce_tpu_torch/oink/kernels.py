@@ -6,8 +6,9 @@ edge a ``[n, 2]`` u64 row, a weight a float64, a NULL value a u8 zero.
 
 Readers are file-map callbacks that parse text on the host.  Edge maps
 are batch callbacks (``mr.map_mr(..., batch=True)``): a host ``KVFrame``
-is mapped with numpy, a device ``ShardedKV`` with torch on its device, so
-a graph that lives on the card stays there.  Printers write one output
+is mapped with numpy, a device ``ShardedKV`` by its body in
+``parallel/devkernels.py`` on its device, so a graph that lives on the
+card stays there.  Printers write one output
 line per pair.
 """
 
@@ -18,8 +19,10 @@ import torch
 
 from ..core.frame import KMVFrame, KVFrame
 from ..core.runtime import MRError
-from ..ops.bits import M32, from_order_key, order_key
+from ..ops.bits import M32
 from ..ops.hash import hash_words32
+from ..parallel import devkernels as dk
+from ..parallel.devkernels import skv_map
 from ..ops.reduces import (count, cull, max_values, min_values,  # noqa: F401
                            sum_values)
 
@@ -78,14 +81,12 @@ def host_kmv(fr) -> KMVFrame:
     return fr if isinstance(fr, KMVFrame) else fr.to_host()
 
 
-def _device_rows(fr):
-    """(key, value) valid rows of a device frame."""
-    n = len(fr)
-    return fr.key[:n], fr.value[:n]
-
-
-def _device_null(k: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(k.shape[0], dtype=torch.uint8, device=k.device)
+def _map_device(fr, kv, body, **kw) -> None:
+    """Map a device frame through a ``parallel/devkernels.py`` body; an
+    empty result adds nothing, as ``add_batch`` of no rows does."""
+    out = skv_map(fr, body, **kw)
+    if len(out):
+        kv.add_frame(out)
 
 
 def edge_to_vertices(fr, kv, ptr):
@@ -95,9 +96,7 @@ def edge_to_vertices(fr, kv, ptr):
         both = np.concatenate([e[:, 0], e[:, 1]])
         kv.add_batch(both, _null(len(both)))
         return
-    e, _ = _device_rows(fr)
-    both = torch.cat([e[:, 0], e[:, 1]])
-    kv.add_batch(both, _device_null(both), key_dtype=fr.key_dtype)
+    _map_device(fr, kv, dk.edge_to_vertices_dev, key_dtype=fr.key_dtype)
 
 
 def edge_to_vertex(fr, kv, ptr):
@@ -106,9 +105,17 @@ def edge_to_vertex(fr, kv, ptr):
         e = fr.key.data
         kv.add_batch(e[:, 0], _null(len(e)))
         return
-    e, _ = _device_rows(fr)
-    kv.add_batch(e[:, 0].contiguous(), _device_null(e),
-                 key_dtype=fr.key_dtype)
+    _map_device(fr, kv, dk.edge_to_vertex_dev, key_dtype=fr.key_dtype)
+
+
+def edge_to_vertex_pair(fr, kv, ptr):
+    """Eij:NULL → Vi:Vj (map_edge_to_vertex_pair.cpp)."""
+    if isinstance(fr, KVFrame):
+        e = fr.key.data
+        kv.add_batch(e[:, 0], e[:, 1])
+        return
+    _map_device(fr, kv, dk.edge_to_vertex_pair_dev, key_dtype=fr.key_dtype,
+                value_dtype=fr.key_dtype)
 
 
 def edge_both_directions(fr, kv, ptr):
@@ -119,9 +126,8 @@ def edge_both_directions(fr, kv, ptr):
         kv.add_batch(np.concatenate([e[:, 0], e[:, 1]]),
                      np.concatenate([e[:, 1], e[:, 0]]))
         return
-    e, _ = _device_rows(fr)
-    kv.add_batch(torch.cat([e[:, 0], e[:, 1]]), torch.cat([e[:, 1], e[:, 0]]),
-                 key_dtype=fr.key_dtype, value_dtype=fr.key_dtype)
+    _map_device(fr, kv, dk.edge_both_directions_dev, key_dtype=fr.key_dtype,
+                value_dtype=fr.key_dtype)
 
 
 def edge_upper(fr, kv, ptr):
@@ -133,13 +139,8 @@ def edge_upper(fr, kv, ptr):
         hi = np.maximum(e[:, 0], e[:, 1])
         kv.add_batch(np.stack([lo, hi], 1), _null(len(e)))
         return
-    e, _ = _device_rows(fr)
-    e = e[e[:, 0] != e[:, 1]]
-    dt = fr.key_dtype
-    a, b = order_key(e[:, 0], dt), order_key(e[:, 1], dt)
-    lo = from_order_key(torch.minimum(a, b), dt, e.dtype)
-    hi = from_order_key(torch.maximum(a, b), dt, e.dtype)
-    kv.add_batch(torch.stack([lo, hi], 1), _device_null(e), key_dtype=dt)
+    _map_device(fr, kv, dk.edge_upper_dev, extra=(fr.key_dtype,),
+                key_dtype=fr.key_dtype)
 
 
 def invert(fr, kv, ptr):
@@ -147,8 +148,8 @@ def invert(fr, kv, ptr):
     if isinstance(fr, KVFrame):
         kv.add_batch(fr.value.data, fr.key.data)
         return
-    k, v = _device_rows(fr)
-    kv.add_batch(v, k, key_dtype=fr.value_dtype, value_dtype=fr.key_dtype)
+    _map_device(fr, kv, dk.invert_dev, key_dtype=fr.value_dtype,
+                value_dtype=fr.key_dtype)
 
 
 def add_weight(fr, kv, ptr):
@@ -156,9 +157,7 @@ def add_weight(fr, kv, ptr):
     if isinstance(fr, KVFrame):
         kv.add_batch(fr.key.data, np.ones(len(fr), np.float64))
         return
-    k, _ = _device_rows(fr)
-    kv.add_batch(k, torch.ones(k.shape[0], dtype=torch.float64,
-                               device=k.device), key_dtype=fr.key_dtype)
+    _map_device(fr, kv, dk.add_weight_dev, key_dtype=fr.key_dtype)
 
 
 def value_histogram(mr) -> list:
@@ -209,6 +208,7 @@ MAP_MR_KERNELS = {
     "edge_to_vertex": edge_to_vertex,
     "edge_both_directions": edge_both_directions,
     "edge_upper": edge_upper,
+    "edge_to_vertex_pair": edge_to_vertex_pair,
     "invert": invert,
     "add_weight": add_weight,
 }
@@ -227,8 +227,7 @@ HASH_KERNELS = {
 }
 
 # names the JAX package registers whose callbacks are not ported yet
-_NOT_PORTED = {"map/file": ("read_edge_label", "read_words"),
-               "map/mr": ("edge_to_vertex_pair",)}
+_NOT_PORTED = {"map/file": ("read_edge_label", "read_words")}
 
 
 def lookup(table: dict, name: str, what: str):

@@ -4,9 +4,9 @@ The counterpart of ``gpu_mapreduce_tpu/oink/mrscript.py`` (reference
 ``oink/mrmpi.cpp:37-349``): a method table over the ``MapReduce`` ops the
 port has, with callbacks named through the registries of
 :mod:`.kernels` (``oink/mrmpi.cpp:354-466``).  Ported methods: delete,
-copy, add, aggregate, collate, convert, gather, map/file, map/mr,
-reduce, sort_keys, sort_values, stats and set.  The JAX package's other
-methods raise ``MRError`` (not ported yet).
+copy, add, aggregate, clone, close, collate, compress, convert, gather,
+map/file, map/mr, open, reduce, sort_keys, sort_values, stats and set.
+The JAX package's other methods raise ``MRError`` (not ported yet).
 """
 
 from __future__ import annotations
@@ -17,9 +17,8 @@ from ..core.runtime import MRError
 from . import kernels
 from .objects import ObjectManager
 
-_NOT_PORTED = ("broadcast", "clone", "close", "collapse", "compress",
-               "load", "map/task", "open", "print", "save", "scan_kmv",
-               "scan_kv", "scrunch", "sort_multivalues")
+_NOT_PORTED = ("broadcast", "collapse", "load", "map/task", "print",
+               "save", "scan_kmv", "scan_kv", "scrunch", "sort_multivalues")
 
 
 def expand_path_variable(variables, arg: str) -> Optional[List[str]]:
@@ -80,6 +79,15 @@ class MRScriptDispatch:
         return None if arg == "NULL" else \
             kernels.lookup(kernels.HASH_KERNELS, arg, "hash")
 
+    def m_clone(self, name, mr, a):
+        mr.clone()
+
+    def m_open(self, name, mr, a):
+        mr.open(addflag=1 if a else 0)
+
+    def m_close(self, name, mr, a):
+        mr.close()
+
     def m_aggregate(self, name, mr, a):
         if len(a) != 1:
             raise MRError("Illegal MR object aggregate command")
@@ -119,6 +127,12 @@ class MRScriptDispatch:
             raise MRError("Illegal MR object reduce command")
         mr.reduce(kernels.lookup(kernels.REDUCE_KERNELS, a[0], "reduce"),
                   batch=True)
+
+    def m_compress(self, name, mr, a):
+        if len(a) != 1:
+            raise MRError("Illegal MR object compress command")
+        mr.compress(kernels.lookup(kernels.REDUCE_KERNELS, a[0], "reduce"),
+                    batch=True)
 
     # -- sorts -------------------------------------------------------------
     def m_sort_keys(self, name, mr, a):

@@ -37,16 +37,20 @@ def _fill(x: torch.Tensor, dtype, op: str) -> torch.Tensor:
 
 def segment_reduce(x: torch.Tensor, ids: torch.Tensor, nseg: int, op: str,
                    dtype) -> torch.Tensor:
-    """Reduce rows of ``x`` (logical ``dtype``) into ``nseg`` segments by
-    ``ids``; an id equal to ``nseg`` drops its row."""
+    """Reduce rows of ``x`` (logical ``dtype``; a ``[n, w]`` column
+    lane by lane) into ``nseg`` segments by ``ids``; an id equal to
+    ``nseg`` drops its row."""
+    shape = (nseg + 1,) + tuple(x.shape[1:])
     if op == "sum":
-        out = torch.zeros(nseg + 1, dtype=x.dtype, device=x.device)
+        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
         return out.index_add_(0, ids, x)[:nseg]
     if op not in ("max", "min"):
         raise ValueError(op)
     k = order_key(x, dtype)
     fill = order_key(_fill(x, dtype, op), dtype).item()
-    out = torch.full((nseg + 1,), fill, dtype=k.dtype, device=x.device)
+    out = torch.full(shape, fill, dtype=k.dtype, device=x.device)
+    if k.dim() > 1:              # a [n, w] column reduces each lane
+        ids = ids.reshape((-1,) + (1,) * (k.dim() - 1)).expand_as(k)
     out.scatter_reduce_(0, ids, k, "amax" if op == "max" else "amin",
                         include_self=True)
     return from_order_key(out[:nseg], dtype, x.dtype)

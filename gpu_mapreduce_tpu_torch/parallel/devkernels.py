@@ -1,0 +1,263 @@
+"""Device bodies of the OINK graph callbacks, and the helpers they share.
+
+The one-device counterpart of ``gpu_mapreduce_tpu/parallel/devkernels.py``.
+A callback of the composed graph engines maps or reduces a device frame
+with one torch body: it receives the frame's padded tensors and its valid
+counts and returns ``(key_rows, value_rows, valid)``;
+:func:`skv_map`/:func:`skmv_map` pack the valid rows to the front, in
+order, into a new frame on the same device.  The only host traffic is the
+packed row count, one read an op (the scalar the reference Allreduces
+after every op, ``src/mapreduce.cpp:557-558``).  A body returns
+``valid=None`` when every row it returns is valid (a map whose valid
+rows are the first ``count`` takes just those): the rows are then taken
+as they are, with no compaction.
+
+There is no jit: a body runs eagerly, and where the JAX package needs a
+static cap (tri's angle expansion) the caller computes the exact size.
+u64 ids travel as int64 bit patterns (``ops/bits.py``): every min, max
+and compare of a u64 column goes through ``order_key``, and
+:data:`U64MAX` (2^64 - 1, the identity of an unsigned min) is -1 here.
+A body's int64 output columns are u64 unless the caller names another
+logical dtype.  The frames carry no intern tables yet (byte and object
+columns come with a later slice), so the JAX package's decode-table
+guard and domain alignment have no counterpart.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.frame import KMVFrame, KVFrame
+from ..core.runtime import bump_dispatch
+from ..ops.bits import from_order_key, order_key, to_torch
+from ..ops.segment import segment_reduce
+from .group import _local_segment_ids
+from .sharded import ShardedKMV, ShardedKV, pad_rows, round_cap, shard_frame
+
+U64MAX = -1          # 2^64 - 1 as the int64 that holds its bits
+_U64 = np.dtype(np.uint64)
+
+
+# ---------------------------------------------------------------------------
+# unsigned compares of u64 columns held as int64
+# ---------------------------------------------------------------------------
+
+def u64_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b as unsigned 64-bit integers."""
+    return order_key(a, _U64) < order_key(b, _U64)
+
+
+def u64_min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return from_order_key(torch.minimum(order_key(a, _U64),
+                                        order_key(b, _U64)), _U64, a.dtype)
+
+
+def u64_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return from_order_key(torch.maximum(order_key(a, _U64),
+                                        order_key(b, _U64)), _U64, a.dtype)
+
+
+def f64_to_u64(x: torch.Tensor) -> torch.Tensor:
+    """Float64 values → u64 bit patterns in int64, as XLA's
+    ``astype(uint64)`` converts them: truncated toward zero, NaN and
+    values below 0 to 0, values from 2^64 up to 2^64 - 1."""
+    x = torch.nan_to_num(x, nan=0.0).clamp(min=0.0)
+    top, big = x >= 2.0 ** 64, x >= 2.0 ** 63
+    low = torch.where(big, x - 2.0 ** 63, x).masked_fill(top, 0.0)
+    low = low.to(torch.int64)
+    out = torch.where(big, low + torch.iinfo(torch.int64).min, low)
+    return out.masked_fill(top, U64MAX)
+
+
+# ---------------------------------------------------------------------------
+# frames in, frames out
+# ---------------------------------------------------------------------------
+
+def place_kv(fr, device) -> ShardedKV:
+    """A host KVFrame → the same pairs on ``device``; a device frame as
+    it is."""
+    return shard_frame(fr, device) if isinstance(fr, KVFrame) else fr
+
+
+def place_kmv(fr, device) -> ShardedKMV:
+    """A host KMVFrame → the same groups on ``device`` (each group's run
+    at its offset); a device frame as it is."""
+    if not isinstance(fr, KMVFrame):
+        return fr
+    g, n = len(fr), len(fr.values)
+    gcap, vcap = round_cap(g), round_cap(n)
+    key, vals = fr.key.data, fr.values.data
+    nv = np.zeros(gcap, np.int32)
+    vo = np.full(gcap, vcap, np.int32)
+    nv[:g] = fr.nvalues
+    vo[:g] = fr.offsets[:-1]
+    return ShardedKMV(pad_rows(to_torch(key, device), gcap),
+                      to_torch(nv, device), to_torch(vo, device),
+                      pad_rows(to_torch(vals, device), vcap),
+                      np.array([g], np.int32), np.array([n], np.int32),
+                      key.dtype, vals.dtype)
+
+
+def _logical(t: torch.Tensor, dtype) -> np.dtype:
+    if dtype is not None:
+        return np.dtype(dtype)
+    if t.dtype == torch.int64:
+        return _U64
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def _pack(ok, ov, valid, key_dtype=None, value_dtype=None) -> ShardedKV:
+    """The valid rows of a body's output, in order, as a frame padded to
+    a power-of-two cap (one device→host read: their count)."""
+    if valid is not None:
+        idx = torch.nonzero(valid).squeeze(1)
+        ok, ov = ok[idx], ov[idx]
+        del idx
+    ok, ov = ok.contiguous(), ov.contiguous()
+    n = ok.shape[0]
+    cap = round_cap(n)
+    return ShardedKV(pad_rows(ok, cap), pad_rows(ov, cap),
+                     np.array([n], np.int32), _logical(ok, key_dtype),
+                     _logical(ov, value_dtype))
+
+
+def skv_map(fr, fn, extra=(), key_dtype=None, value_dtype=None,
+            device=None) -> ShardedKV:
+    """Run a KV body ``fn(key, value, count, *extra) → (okey, ovalue,
+    valid)`` over a frame (a host frame is placed on ``device`` first) and
+    pack its valid rows into a new frame."""
+    fr = place_kv(fr, device)
+    bump_dispatch()
+    ok, ov, valid = fn(fr.key, fr.value, int(fr.counts[0]), *extra)
+    return _pack(ok, ov, valid, key_dtype, value_dtype)
+
+
+def skmv_map(kmv, fn, extra=(), key_dtype=None, value_dtype=None,
+             device=None) -> ShardedKV:
+    """Run a KMV body ``fn(ukey, nvalues, voffsets, values, gcount,
+    vcount, *extra) → (okey, ovalue, valid)`` (a vectorised reduce) over
+    a grouped frame and pack its valid rows into a new frame."""
+    kmv = place_kmv(kmv, device)
+    bump_dispatch()
+    ok, ov, valid = fn(kmv.ukey, kmv.nvalues, kmv.voffsets, kmv.values,
+                       int(kmv.gcounts[0]), int(kmv.vcounts[0]), *extra)
+    return _pack(ok, ov, valid, key_dtype, value_dtype)
+
+
+def clone_sharded(skv: ShardedKV) -> ShardedKMV:
+    """KV → KMV with every row its own one-value group (the device path
+    of ``MapReduce::clone``, src/mapreduce.cpp:631-652)."""
+    r = torch.arange(skv.cap, dtype=torch.int32, device=skv.device)
+    nv = (r < int(skv.counts[0])).to(torch.int32)
+    return ShardedKMV(skv.key, nv, r, skv.value, skv.counts.copy(),
+                      skv.counts.copy(), skv.key_dtype, skv.value_dtype)
+
+
+# ---------------------------------------------------------------------------
+# segment helpers shared by the KMV bodies
+# ---------------------------------------------------------------------------
+
+def kmv_row_state(nv, vo, vals, gc: int, vc: int):
+    """The common prologue: (segment id of each value row [vcap], row
+    valid [vcap], group valid [gcap])."""
+    vcap = vals.shape[0]
+    # the first gc groups hold every value row; the padding groups past
+    # them would all add to one counter
+    seg = _local_segment_ids(vo[:gc], nv[:gc], vcap)
+    rows_valid = (torch.arange(vcap, device=seg.device) < vc) & (seg >= 0)
+    groups_valid = torch.arange(nv.shape[0], device=seg.device) < gc
+    return seg, rows_valid, groups_valid
+
+
+_SPARE = 1024        # slots past gcap that the dropped rows spread over
+
+
+def _ids(seg, valid, gcap: int):
+    """Segment ids with every dropped row sent to one of the ``_SPARE``
+    slots past ``gcap`` by its row index: one slot for all of them would
+    serialise their atomic updates on one address."""
+    spare = torch.arange(seg.shape[0], device=seg.device)
+    spare.bitwise_and_(_SPARE - 1).add_(gcap)
+    return torch.where(valid, seg, spare)
+
+
+def seg_min_u64(x, seg, valid, gcap: int):
+    """Unsigned min of the valid rows of each segment; U64MAX where a
+    segment has none."""
+    return segment_reduce(x, _ids(seg, valid, gcap), gcap + _SPARE, "min",
+                          _U64)[:gcap]
+
+
+def seg_max_u64(x, seg, valid, gcap: int):
+    """Unsigned max of the valid rows of each segment; 0 where a segment
+    has none."""
+    return segment_reduce(x, _ids(seg, valid, gcap), gcap + _SPARE, "max",
+                          _U64)[:gcap]
+
+
+def seg_any(cond, seg, valid, gcap: int):
+    """Whether any valid row of each segment meets ``cond``."""
+    return seg_max_u64(cond.to(torch.int64), seg, valid, gcap) > 0
+
+
+def seg_min_with(x, seg, valid, gcap: int, identity):
+    """Segment min with an explicit identity (float64 paths use +inf)."""
+    out = torch.full((gcap + _SPARE,), identity, dtype=x.dtype,
+                     device=x.device)
+    out.scatter_reduce_(0, _ids(seg, valid, gcap), x, "amin",
+                        include_self=True)
+    return out[:gcap]
+
+
+def seg_lex_min2(a, b, seg, valid, gcap: int, ident_a, ident_b):
+    """Per-segment lexicographic min of (a, b) rows: (amin, bmin) with
+    amin the least a and bmin the least b among the rows attaining amin
+    (an exact float64 compare) — sssp's best (dist, pred) per vertex."""
+    amin = seg_min_with(a, seg, valid, gcap, ident_a)
+    att = valid & (a == amin[seg.clamp(min=0)])
+    return amin, seg_min_with(b, seg, att, gcap, ident_b)
+
+
+# ---------------------------------------------------------------------------
+# edge/vertex bodies (the device halves of oink/kernels.py's edge maps)
+# ---------------------------------------------------------------------------
+
+def _null_like(k):
+    return torch.zeros(k.shape[0], dtype=torch.uint8, device=k.device)
+
+
+def edge_to_vertices_dev(k, v, c):
+    okey = torch.cat([k[:c, 0], k[:c, 1]])
+    return okey, _null_like(okey), None
+
+
+def edge_to_vertex_dev(k, v, c):
+    return k[:c, 0], _null_like(k[:c]), None
+
+
+def edge_to_vertex_pair_dev(k, v, c):
+    return k[:c, 0], k[:c, 1], None
+
+
+def edge_both_directions_dev(k, v, c):
+    k = k[:c]
+    return (torch.cat([k[:, 0], k[:, 1]]), torch.cat([k[:, 1], k[:, 0]]),
+            None)
+
+
+def edge_upper_dev(k, v, c, key_dtype=_U64):
+    k = k[:c]
+    valid = k[:, 0] != k[:, 1]
+    a, b = order_key(k[:, 0], key_dtype), order_key(k[:, 1], key_dtype)
+    lo = from_order_key(torch.minimum(a, b), key_dtype, k.dtype)
+    hi = from_order_key(torch.maximum(a, b), key_dtype, k.dtype)
+    return torch.stack([lo, hi], 1), _null_like(k), valid
+
+
+def invert_dev(k, v, c):
+    return v[:c], k[:c], None
+
+
+def add_weight_dev(k, v, c):
+    return k[:c], torch.ones(c, dtype=torch.float64, device=k.device), None

@@ -142,7 +142,9 @@ class ShardedKMV:
                 f"n={self.nvalues_total}, device={self.device})")
 
 
-def _pad(t: torch.Tensor, cap: int) -> torch.Tensor:
+def pad_rows(t: torch.Tensor, cap: int) -> torch.Tensor:
+    """``t`` with zero rows appended up to ``cap`` rows (itself when it
+    has them already)."""
     if t.shape[0] == cap:
         return t
     out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
@@ -156,8 +158,8 @@ def shard_frame(frame: KVFrame, device) -> ShardedKV:
     n = len(frame)
     cap = round_cap(n)
     k, v = frame.key.data, frame.value.data
-    return ShardedKV(_pad(to_torch(k, device), cap),
-                     _pad(to_torch(v, device), cap),
+    return ShardedKV(pad_rows(to_torch(k, device), cap),
+                     pad_rows(to_torch(v, device), cap),
                      np.array([n], np.int32), k.dtype, v.dtype)
 
 
@@ -178,7 +180,7 @@ def tensor_frame(key: torch.Tensor, value: torch.Tensor, key_dtype=None,
                       f"{value.shape[0]}")
     n = key.shape[0]
     cap = round_cap(n)
-    return ShardedKV(_pad(key, cap), _pad(value, cap),
+    return ShardedKV(pad_rows(key, cap), pad_rows(value, cap),
                      np.array([n], np.int32),
                      _logical_dtype(key, key_dtype),
                      _logical_dtype(value, value_dtype))
@@ -189,7 +191,13 @@ def concat_sharded(frames: Sequence[ShardedKV]) -> ShardedKV:
     first = frames[0]
     n = sum(len(f) for f in frames)
     cap = round_cap(n)
-    key = _pad(torch.cat([f.key[:len(f)] for f in frames]), cap)
-    value = _pad(torch.cat([f.value[:len(f)] for f in frames]), cap)
+    key = first.key.new_zeros((cap,) + tuple(first.key.shape[1:]))
+    value = first.value.new_zeros((cap,) + tuple(first.value.shape[1:]))
+    at = 0
+    for f in frames:           # straight into the padded result: one copy
+        m = len(f)
+        key[at:at + m] = f.key[:m]
+        value[at:at + m] = f.value[:m]
+        at += m
     return ShardedKV(key, value, np.array([n], np.int32), first.key_dtype,
                      first.value_dtype)

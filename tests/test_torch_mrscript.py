@@ -5,7 +5,8 @@ directory, and every named MR must hold the same pairs (a KMV the same
 groups, each group's values as a multiset, as ``jnp.lexsort`` promises
 no order inside a group).  Also: the registries' names, the hash
 callbacks against the JAX ``default_hash``/``hash_identity``, and
-``MapReduce.copy``/``set``/``scan_kmv``/``kmv_stats``."""
+``MapReduce.copy``/``set``/``scan_kmv``/``kmv_stats``; the clone,
+compress, open and close lines and ``edge_to_vertex_pair``."""
 
 import io
 import os
@@ -73,6 +74,27 @@ mr w
 w map/mr a add_weight
 w map/mr w invert
 """,
+    "clone_compress_open_close": """\
+mr a
+a map/file tmp.e read_edge
+a map/file tmp.e2 read_edge add
+a copy c
+c map/mr c edge_to_vertex_pair
+c copy q
+q clone
+c clone
+c reduce count
+mr k
+k map/mr a edge_to_vertices
+k compress count
+k copy o
+o open 1
+o close
+mr z
+z map/mr a edge_to_vertex_pair
+z open
+z close
+""",
     "kmv_and_delete": """\
 mr a
 a map/file tmp.e read_edge
@@ -128,6 +150,11 @@ def test_named_mr_lines_match_jax(tmp_path, name):
     ref = _run(tmp_path, "jax", SCRIPTS[name])
     assert port == ref
     assert port[1] and all(c is not None for c in port[1].values())
+    if name == "clone_compress_open_close":
+        mrs = port[1]
+        assert mrs["q"][0] == "kmv" and all(len(v) == 1 for _, v in
+                                             mrs["q"][1])
+        assert mrs["o"] == mrs["k"] and mrs["z"] == ("kv", [])
     if name == "kmv_and_delete":
         assert "d" not in port[1] and port[1]["a"][0] == "kmv"
 
@@ -154,8 +181,7 @@ def test_registries_against_jax():
                 missing.append(name)
         with pytest.raises(MRError, match=f"unknown {what} kernel 'zz'"):
             kernels.lookup(tt, "zz", what)
-    assert sorted(missing) == ["edge_to_vertex_pair", "read_edge_label",
-                               "read_words"]
+    assert sorted(missing) == ["read_edge_label", "read_words"]
 
 
 @pytest.mark.parametrize("cols", [1, 2])

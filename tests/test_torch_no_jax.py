@@ -46,7 +46,7 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "oink.mrscript", "models.luby", "models.tri",
                    "models.sssp", "oink.commands.histo",
                    "oink.commands.luby", "oink.commands.tri",
-                   "oink.commands.sssp")
+                   "oink.commands.sssp", "parallel.devkernels")
 
 
 def test_port_imports_no_jax():
@@ -56,6 +56,6 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("OK")
     words = r.stdout.split()
-    assert int(words[1]) >= 59                 # every module was imported
+    assert int(words[1]) >= 60                 # every module was imported
     for name in NEW_SUBPACKAGES:
         assert "gpu_mapreduce_tpu_torch." + name in words[2:], name

@@ -228,10 +228,10 @@ def test_mr_builtin_and_lines_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("line, match", [
-    ("x compress count", "not ported yet"),
+    ("x collapse int 7", "not ported yet"),
     ("x map/file f read_words", "not ported yet"),
-    ("x map/mr x edge_to_vertex_pair", "not ported yet"),
-    ("x clone", "not ported yet"),
+    ("x scrunch 1 int 7", "not ported yet"),
+    ("x broadcast 0", "not ported yet"),
     ("x set timer 1", "not ported yet"),
     ("mr z 0 1", "not ported yet"),
     ("x reduce nosuch", "unknown reduce kernel 'nosuch'"),
@@ -245,12 +245,18 @@ def test_unported_mr_lines_raise(line, match):
 
 
 def test_composed_cc_engine_raises(tmp_path, monkeypatch):
+    """An engine name other than fused or composed raises, as the JAX
+    command's does; composed itself runs (against JAX in
+    test_torch_composed.py)."""
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("GPUMR_CC_ENGINE", "composed")
+    monkeypatch.setenv("GPUMR_CC_ENGINE", "composd")
     s = OinkScript(device="cpu", screen=False)
     s.one("rmat 5 2 0.25 0.25 0.25 0.25 0.0 1 -o NULL mre")
-    with pytest.raises(MRError, match="not ported yet"):
+    with pytest.raises(MRError, match="unknown engine 'composd' "
+                                      r"\(use 'fused' or 'composed'\)"):
         s.one("cc_find 0 -i mre")
+    monkeypatch.setenv("GPUMR_CC_ENGINE", "composed")
+    s.one("cc_find 0 -i mre")
 
 
 @pytest.mark.parametrize("env, line", [
@@ -258,15 +264,18 @@ def test_composed_cc_engine_raises(tmp_path, monkeypatch):
     ("GPUMR_TRI_ENGINE", "tri_find -i mre"),
     ("GPUMR_SSSP_ENGINE", "sssp 1 5 -i mre")])
 def test_composed_graph_engines_raise(tmp_path, monkeypatch, env, line):
+    """As above for luby_find, tri_find and sssp: an unknown engine name
+    raises; fused and composed run."""
     monkeypatch.chdir(tmp_path)
     s = OinkScript(device="cpu", screen=False)
     s.one("rmat 5 2 0.25 0.25 0.25 0.25 0.0 1 -o NULL mre")
     s.one("mre map/mr mre add_weight")
-    monkeypatch.setenv(env, "composed")
-    with pytest.raises(MRError, match="not ported yet"):
+    monkeypatch.setenv(env, "serial")
+    with pytest.raises(MRError, match="unknown engine 'serial'"):
         s.one(line)
-    monkeypatch.setenv(env, "fused")
-    s.one(line)
+    for engine in ("fused", "composed"):
+        monkeypatch.setenv(env, engine)
+        s.one(line)
 
 
 def test_main_runs_a_script_on_the_cpu(tmp_path, monkeypatch):
