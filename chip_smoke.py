@@ -45,7 +45,25 @@ nonzero):
               Each run is then repeated with every op, the plan and the
               fused group between device synchronises, for the stage
               seconds (``op_seconds``).
-7. graph    — the OINK script of ``graph_script``, through the port's
+7. text     — wordfreq-zipf: 256 MB of text in 4 files generated from
+              seed 20261017 (2^20 lowercase words of 2-12 bytes, one in
+              1,024 of 64-512, Zipf ranks ∝ 1/r over a seeded permutation,
+              the six ASCII whitespace separators and runs of them); the
+              OINK ``wordfreq 10 -i v_files -o <out> NULL`` three times on
+              the card (fuse 0, fuse 1 cold, fuse 1 warm), each against
+              the generator's counts (message lines exactly, the -o file
+              as sorted lines), the three identical, seg_table launched
+              on the warm run only; stage seconds (read, split, intern,
+              the group, top-N, output), tokens/s, peak memory.  Then
+              seg_table against its plain version at the zipf cell's
+              interned ids with 0, 2^63 and 2^64-1 planted (count and
+              sum), timed beside its bound and torch.unique; the same
+              three runs on the main cell's HTML corpus against a
+              collections.Counter oracle (wordfreq-html); and 2 MB of the
+              generator on the card and on the CPU: the wordfreq lines,
+              the -o file, ``sort_keys 5`` then ``print``, and a
+              comparator sort_keys, byte-identical (text-check).
+8. graph    — the OINK script of ``graph_script``, through the port's
               OinkScript on the card: rmat at Graph500's scale-22,
               edgefactor-16 Kronecker parameters into a named MR,
               degree_stats, pagerank, edge_upper, cc_find and cc_stats,
@@ -70,7 +88,7 @@ nonzero):
               memory per command, seconds per engine stage and round,
               rounds and edges/s per PageRank step go into the
               ``graph`` line.
-8. tri      — rmat at scale 18 (cut from 22: the [t, 3] u64 triangle
+9. tri      — rmat at scale 18 (cut from 22: the [t, 3] u64 triangle
               rows would take tens of GB) → edge_upper → tri_find on the
               card; the triangle count must equal a blockwise scipy
               (L @ L) * L over the degree-oriented graph, the wedge count
@@ -573,14 +591,15 @@ def intcount_oracle(keys_u32, ntop: int):
 
 
 @contextlib.contextmanager
-def op_seconds():
-    """Wall seconds per MapReduce op, fused group and plan, each between
-    two device synchronises, into the dict the block yields.  The smoke
-    wraps the library's methods for the block's length; the library never
-    waits on the card to time itself.  Spans nest: a barrier op (gather,
-    scan_kv) holds the plan it runs, the plan holds the replayed
-    aggregate (the H2D) and the fused group; under fuse=1 the recorded
-    call of a deferred op takes only microseconds."""
+def op_seconds(extra=()):
+    """Wall seconds per MapReduce op, fused group and plan (and each
+    ``(owner, attribute, label)`` of ``extra``), each between two device
+    synchronises, into the dict the block yields.  The smoke wraps the
+    library's methods for the block's length; the library never waits on
+    the card to time itself.  Spans nest: a barrier op (gather, scan_kv)
+    holds the plan it runs, the plan holds the replayed aggregate (the
+    H2D) and the fused group; under fuse=1 the recorded call of a
+    deferred op takes only microseconds."""
     import torch
     from gpu_mapreduce_tpu_torch.core.mapreduce import MapReduce
     from gpu_mapreduce_tpu_torch.plan import fuser
@@ -590,6 +609,7 @@ def op_seconds():
               "sort_values", "scan_kv")]
     spans += [(fuser, "execute_plan", "plan"),
               (fuser, "_exec_local_group", "fused_group")]
+    spans += list(extra)
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in spans]
 
     def timed(fn, label):
@@ -684,6 +704,395 @@ def oracle_part_file(paths) -> str:
     lines = sorted((hash_bytes64(u), u.decode(errors="replace"),
                     " ".join(sorted(fs))) for u, fs in refs.items())
     return "".join(f"{u}\t{fs}\n" for _, u, fs in lines)
+
+
+WF_SEED = 20261017
+WF_MB = 256                    # the main cell's corpus size
+WF_VOCAB = 1 << 20             # distinct words of the zipf cell
+WF_LONG_EVERY = 1024           # one vocabulary word in 1,024 is long
+WF_CHECK_MB = 2                # the card-vs-CPU check's corpus
+WF_NTOP = 10
+WF_SEPS = b" \n\t\r\x0b\x0c"
+WF_SEP_P = (0.84, 0.12, 0.02, 0.01, 0.005, 0.005)
+WF_RUN_P = 0.01                # a run of 2-3 separators instead of one
+
+
+def zipf_vocab(rng, nvocab: int):
+    """``nvocab`` distinct words, packed: (uint8 buffer, int64 offsets
+    [nvocab+1]).  One word in WF_LONG_EVERY is 64-512 random lowercase
+    bytes, at seeded places; the rest are lowercase words of 2-12 bytes,
+    lengths drawn uniformly and duplicates dropped (so the lengths 2 and
+    3, which hold only 676 and 17,576 words, end up rarer)."""
+    import numpy as np
+    nlong = nvocab // WF_LONG_EVERY
+    nshort = nvocab - nlong
+    keys = np.zeros(0, np.int64)          # base-26 value * 16 + length
+    while len(keys) < nshort:
+        m = 2 * (nshort - len(keys)) + 1024
+        lens = rng.integers(2, 13, m)
+        vals = (rng.random(m) * (26.0 ** lens)).astype(np.int64)
+        keys = np.concatenate([keys, vals * 16 + lens])
+        _, first = np.unique(keys, return_index=True)
+        keys = keys[np.sort(first)]       # first draws, in draw order
+    keys = keys[:nshort]
+    lens, vals = keys & 15, keys >> 4
+    digits = np.empty((nshort, 12), np.uint8)
+    for j in range(12):
+        digits[:, j] = 97 + vals % 26
+        vals = vals // 26
+    short = digits[np.arange(12)[None, :] < lens[:, None]]
+    long_lens = rng.integers(64, 513, nlong)
+    all_lens = np.concatenate([lens, long_lens])
+    src = np.zeros(nvocab + 1, np.int64)
+    np.cumsum(all_lens, out=src[1:])
+    buf_in = np.concatenate([short, rng.integers(
+        97, 123, int(long_lens.sum())).astype(np.uint8)])
+    order = rng.permutation(nvocab)       # long words among the short
+    lens_out = all_lens[order]
+    offs = np.zeros(nvocab + 1, np.int64)
+    np.cumsum(lens_out, out=offs[1:])
+    idx = np.repeat(src[:-1][order] - offs[:-1], lens_out) \
+        + np.arange(int(offs[-1]))
+    return buf_in[idx], offs
+
+
+def zipf_corpus(d: str, total_mb: int, nfiles: int = 4, seed: int = WF_SEED,
+                nvocab: int = WF_VOCAB):
+    """The wordfreq-zipf corpus: ``nfiles`` files of about ``total_mb``
+    MB in all.  Each token is the vocabulary word of Zipf rank r, drawn
+    with probability ∝ 1/r (the ranks a seeded permutation of the
+    vocabulary, so rank is not tied to length), followed by one
+    separator (space 84%, \\n 12%, \\t 2%, \\r 1%, \\x0b and \\x0c 0.5%
+    each) or, in 1% of places, by a run of 2-3 of them.  Returns (paths,
+    each word's count in the draws, vocabulary buffer, offsets)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    vbuf, voffs = zipf_vocab(rng, nvocab)
+    vlens = np.diff(voffs)
+    word_of_rank = rng.permutation(nvocab)
+    p = 1.0 / np.arange(1, nvocab + 1)
+    p /= p.sum()
+    cdf = np.cumsum(p)
+    per_token = float(p @ vlens[word_of_rank]) + 1.0 + 1.5 * WF_RUN_P
+    ntok = int(((total_mb << 20) // nfiles) / per_token)
+    sep_cdf = np.cumsum(WF_SEP_P)
+    seps = np.frombuffer(WF_SEPS, np.uint8)
+    counts = np.zeros(nvocab, np.int64)
+    paths = []
+    for i in range(nfiles):
+        rank = np.searchsorted(cdf, rng.random(ntok) * cdf[-1])
+        w = word_of_rank[np.minimum(rank, nvocab - 1)]
+        del rank
+        counts += np.bincount(w, minlength=nvocab)
+        nsep = np.where(rng.random(ntok) < WF_RUN_P,
+                        rng.integers(2, 4, ntok), 1)
+        wl = vlens[w]
+        start = np.zeros(ntok + 1, np.int64)
+        np.cumsum(wl + nsep, out=start[1:])
+        out = np.empty(int(start[-1]), np.uint8)
+        before = np.cumsum(wl) - wl            # word bytes before token
+        ar = np.arange(int(wl.sum()))
+        out[np.repeat(start[:-1] - before, wl) + ar] = \
+            vbuf[np.repeat(voffs[:-1][w] - before, wl) + ar]
+        del ar, before
+        for j in range(3):
+            has = nsep > j
+            kind = np.searchsorted(sep_cdf, rng.random(int(has.sum()))
+                                   * sep_cdf[-1])
+            out[(start[:-1] + wl + j)[has]] = \
+                seps[np.minimum(kind, len(seps) - 1)]
+        path = os.path.join(d, f"zipf-{i:02d}.txt")
+        out.tofile(path)
+        paths.append(path)
+    return paths, counts, vbuf, voffs
+
+
+def wordfreq_oracle(words, counts, nfiles: int, ntop: int = WF_NTOP):
+    """What the wordfreq command must print and write, from the counts of
+    the draws (never from the port): the message lines — count
+    descending, equal counts by u64 id descending, the id being
+    lookup3's hash_bytes64 of the word — and the -o file's lines,
+    sorted."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.ops.hash import hash_bytes64
+    counts = np.asarray(counts, np.int64)
+    nz = np.nonzero(counts)[0]
+    nwords, nunique = int(counts.sum()), len(nz)
+    k = min(ntop, nunique)
+    kth = np.sort(counts[nz])[::-1][k - 1] if k else 0
+    cand = [i for i in nz[counts[nz] >= kth]]
+    cand.sort(key=lambda i: (-int(counts[i]), -hash_bytes64(words[i])))
+    top = [(words[i], int(counts[i])) for i in cand[:k]]
+    lines = [f"WordFreq: {nfiles} files, {nwords} words, {nunique} unique"]
+    lines += [f"  {c} {w.decode(errors='replace')}" for w, c in top]
+    out = sorted(f"{words[i].decode(errors='replace')} {int(counts[i])}"
+                 for i in nz)
+    return {"nwords": nwords, "nunique": nunique, "top": top,
+            "message": lines, "out_lines": out}
+
+
+def counter_oracle(paths, ntop: int = WF_NTOP):
+    """wordfreq_oracle over collections.Counter of bytes.split() of each
+    file (the HTML cell's oracle)."""
+    from collections import Counter
+    c = Counter()
+    for p in paths:
+        with open(p, "rb") as f:
+            c.update(f.read().split())
+    words = list(c)
+    return wordfreq_oracle(words, [c[w] for w in words], len(paths), ntop)
+
+
+def text_spans():
+    """The stage spans of a wordfreq run beside op_seconds' own: the
+    device split, the intern (hash, id sort and collision check on the
+    card — ``intern_device`` — then the host's decode table), the top-N
+    and the -o file."""
+    from gpu_mapreduce_tpu_torch.core.column import BytesColumn
+    from gpu_mapreduce_tpu_torch.oink import kernels as okernels
+    from gpu_mapreduce_tpu_torch.oink.commands import wordfreq as wcmd
+    from gpu_mapreduce_tpu_torch.oink.objects import ObjectManager
+    from gpu_mapreduce_tpu_torch.ops import hash as ohash
+    return [(okernels, "split_words", "split"),
+            (BytesColumn, "intern", "intern"),
+            (ohash, "intern_packed", "intern_device"),
+            (wcmd, "top_n", "top_n"),
+            (ObjectManager, "output", "output")]
+
+
+def wordfreq_script(paths, out: str, fuse: int) -> list:
+    return [f"set fuse {fuse}",
+            f"variable files index {' '.join(paths)}",
+            f"wordfreq {WF_NTOP} -i v_files -o {out} NULL"]
+
+
+def run_wordfreq_script(device, paths, out: str, fuse: int):
+    """One OINK wordfreq run → (message lines, -o file text)."""
+    import io
+    from gpu_mapreduce_tpu_torch import OinkScript
+    screen = io.StringIO()
+    script = OinkScript(device=device, screen=screen)
+    for line in wordfreq_script(paths, out, fuse):
+        script.one(line)
+    message = [ln for ln in screen.getvalue().splitlines()
+               if ln.startswith(("WordFreq:", "  "))]
+    with open(out) as f:
+        return message, f.read()
+
+
+def run_wordfreq(cell: str, paths, oracle: dict, tmp: str, kernels,
+                 smi: str, device=None) -> dict:
+    """The OINK wordfreq on the card three times — fuse 0, fuse 1 cold,
+    fuse 1 warm — each with every launch count set to 0 just before it
+    and its stages timed between device synchronises.  Each must equal
+    the oracle (message lines, -o file as sorted lines), the three must
+    be identical, and seg_table must launch on the warm run only."""
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.cuda.group import segment_table
+    from gpu_mapreduce_tpu_torch.plan import plan_cache, plan_history
+    runs, outputs = {}, []
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    for run, fuse in (("eager", 0), ("cold", 1), ("warm", 1)):
+        if run == "cold":
+            plan_cache().clear()
+        out = os.path.join(tmp, f"{cell}-{run}.out")
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with op_seconds(text_spans()) as stages:
+            t0 = time.perf_counter()
+            message, text = run_wordfreq_script(device, paths, out, fuse)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if message != oracle["message"]:
+            raise AssertionError(f"{cell} {run}: {message[:3]} != oracle "
+                                 f"{oracle['message'][:3]}")
+        if sorted(text.splitlines()) != oracle["out_lines"]:
+            raise AssertionError(f"{cell} {run}: the -o file differs from "
+                                 f"the oracle")
+        outputs.append((message, text))
+        os.remove(out)
+        rec = {"end_to_end_s": dt, "tokens_per_s": oracle["nwords"] / dt,
+               "bytes_per_s": nbytes / dt,
+               "stages_s": {**stages, "read": stages.get("map_files", 0.0)
+                            - stages.get("split", 0.0)},
+               "launches": {k.__name__: k.launches for k in kernels},
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if fuse:
+            group = next(g for e in reversed(plan_history())
+                         for g in e["groups"] if g["fused"])
+            rec.update(group_mode=group["mode"], table=group["table"])
+        runs[run] = rec
+    if any(o != outputs[0] for o in outputs):
+        raise AssertionError(f"{cell}: the three runs differ")
+    name = segment_table.__name__
+    if runs["eager"]["launches"][name] or runs["cold"]["launches"][name] \
+            or runs["warm"]["launches"][name] < 1 \
+            or not runs["warm"]["table"]:
+        raise AssertionError(
+            f"{cell}: seg_table launches eager "
+            f"{runs['eager']['launches'][name]}, cold "
+            f"{runs['cold']['launches'][name]}, warm "
+            f"{runs['warm']['launches'][name]}")
+    return {"phase": cell, "card": smi, "files": len(paths),
+            "bytes": nbytes, "nwords": oracle["nwords"],
+            "nunique": oracle["nunique"],
+            "top3": [(w.decode(errors="replace"), c)
+                     for w, c in oracle["top"][:3]], **runs}
+
+
+def interned_ids(paths, device):
+    """The wordfreq path's keys for ``paths``: every word split and
+    interned on ``device`` (u64 ids as int64 bits)."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.core.column import concat
+    from gpu_mapreduce_tpu_torch.utils.io import split_words
+    col = concat([split_words(np.fromfile(p, np.uint8), device)
+                  for p in paths])
+    return col.intern(device)[0]
+
+
+def check_seg_table_text(ids, device) -> dict:
+    """seg_table against segment_table_ref at interned-id keys: the
+    wordfreq-zipf ids with the keys 0, 2^63 and 2^64-1 planted, as a
+    count and as a sum, at the T the warm group arms; compared through
+    table_to_groups (groups exactly).  Then the count table timed."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.cuda.group import (segment_table,
+                                                        segment_table_ref,
+                                                        table_slots)
+    from gpu_mapreduce_tpu_torch.ops.segment import table_to_groups
+    from gpu_mapreduce_tpu_torch.parallel.sharded import round_cap
+    from gpu_mapreduce_tpu_torch.plan.fuser import _gcap_for
+    planted = torch.tensor([0, -(1 << 63), -1] * 3, dtype=torch.int64,
+                           device=device)
+    keys = torch.cat([ids, planted]).contiguous()
+    g = int(torch.unique(keys).numel())
+    gcap = _gcap_for(g, round_cap(keys.numel()))
+    T = table_slots(gcap)
+    vals = torch.arange(keys.numel(), dtype=torch.int64,
+                        device=device) * 2654435761
+    cases = []
+    for op, v in (("count", None), ("sum", vals)):
+        vd = None if v is None else np.uint64
+        ref = table_to_groups(segment_table_ref(keys, v, T), T, gcap, op,
+                              np.uint64, vd)
+        got = table_to_groups(segment_table(keys, v, T), T, gcap, op,
+                              np.uint64, vd)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                and got[2] == ref[2] == g and got[3] == ref[3] == 0):
+            raise AssertionError(f"seg_table differs from its plain "
+                                 f"version at interned ids ({op}): g "
+                                 f"{got[2]} vs {ref[2]}, overflow {got[3]} "
+                                 f"vs {ref[3]}")
+        cases.append({"case": f"interned_{op}", "rows": int(keys.numel()),
+                      "T": T, "groups": g})
+    return {"cases": cases, "max_abs_err": 0,
+            **time_seg_table(keys, T, gcap)}
+
+
+def _by_length_then_bytes(a, b):
+    ka, kb = (len(a), a), (len(b), b)
+    return (ka > kb) - (ka < kb)
+
+
+def text_outputs(device, paths, d: str) -> dict:
+    """Everything the card-vs-CPU check compares, from one device: the
+    wordfreq message lines and -o file, the script's ``sort_keys 5`` then
+    ``print`` of the counted words, and a comparator sort_keys printed
+    to a file."""
+    import contextlib as ctx
+    import io
+    from gpu_mapreduce_tpu_torch import MapReduce, OinkScript
+    from gpu_mapreduce_tpu_torch.oink.kernels import read_words
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    out = {}
+    out["message"], out["o_file"] = run_wordfreq_script(
+        device, paths, os.path.join(d, f"wf-{device}.out"), 0)
+    script = OinkScript(device=device, screen=io.StringIO())
+    printed = io.StringIO()
+    with ctx.redirect_stdout(printed):
+        for line in (f"variable files index {' '.join(paths)}", "mr x",
+                     "x map/file v_files read_words", "x collate NULL",
+                     "x reduce count", "x sort_keys 5", "x print"):
+            script.one(line)
+    out["sort_keys_5_print"] = printed.getvalue()
+    mr = MapReduce(device=device)
+    mr.map_files(paths, read_words)
+    mr.collate()
+    mr.reduce(count, batch=True)
+    mr.sort_keys(_by_length_then_bytes)
+    path = os.path.join(d, f"cmp-{device}.txt")
+    mr.print(file=path)
+    with open(path) as f:
+        out["comparator_sort_print"] = f.read()
+    return out
+
+
+def run_text(html_paths, tmp: str, device, kernels, smi: str):
+    """The text phases: wordfreq-zipf (its corpus generated here),
+    seg_table at its interned ids, wordfreq-html on the main cell's
+    corpus, then the card-vs-CPU check.  Returns (the wordfreq phase
+    records by cell, the seg_table record)."""
+    t0 = time.perf_counter()
+    zdir = os.path.join(tmp, "zipf")
+    os.makedirs(zdir)
+    zpaths, counts, vbuf, voffs = zipf_corpus(zdir, WF_MB)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    words = [vbuf[voffs[i]:voffs[i + 1]].tobytes()
+             for i in range(len(voffs) - 1)]
+    oracle = wordfreq_oracle(words, counts, len(zpaths))
+    del words, counts, vbuf, voffs
+    emit({"phase": "wordfreq-zipf-corpus", "mb": WF_MB,
+          "bytes": sum(os.path.getsize(p) for p in zpaths),
+          "vocab": WF_VOCAB, "seed": WF_SEED, "generate_s": gen_s,
+          "oracle_s": time.perf_counter() - t0})
+    wf = {"wordfreq-zipf": run_wordfreq("wordfreq-zipf", zpaths, oracle,
+                                        tmp, kernels, smi)}
+    emit(wf["wordfreq-zipf"])
+    ids = interned_ids(zpaths, device)
+    text_table = check_seg_table_text(ids, device)
+    del ids
+    emit({"phase": "kernels", "seg_table_text": text_table})
+    shutil.rmtree(zdir)
+    t0 = time.perf_counter()
+    oracle = counter_oracle(html_paths)
+    oracle_s = time.perf_counter() - t0
+    wf["wordfreq-html"] = run_wordfreq("wordfreq-html", html_paths, oracle,
+                                       tmp, kernels, smi)
+    wf["wordfreq-html"]["oracle_s"] = oracle_s
+    emit(wf["wordfreq-html"])
+    t0 = time.perf_counter()
+    check = run_text_check(tmp, smi)
+    check["seconds"] = time.perf_counter() - t0
+    emit(check)
+    return wf, text_table
+
+
+def run_text_check(tmp: str, smi: str) -> dict:
+    """2 MB of the zipf generator through the port on the card and on the
+    CPU: every text output byte-identical."""
+    d = os.path.join(tmp, "text-check")
+    os.makedirs(d)
+    paths, counts, vbuf, voffs = zipf_corpus(d, WF_CHECK_MB, nfiles=2)
+    got = {dev: text_outputs(dev, paths, d) for dev in ("cuda", "cpu")}
+    for key in got["cpu"]:
+        if got["cuda"][key] != got["cpu"][key]:
+            raise AssertionError(f"text-check: {key} differs between "
+                                 f"cuda and cpu")
+    words = [vbuf[voffs[i]:voffs[i + 1]].tobytes()
+             for i in range(len(voffs) - 1)]
+    oracle = wordfreq_oracle(words, counts, len(paths))
+    if got["cuda"]["message"] != oracle["message"]:
+        raise AssertionError("text-check: wordfreq differs from the oracle")
+    shutil.rmtree(d)
+    return {"phase": "text-check", "card": smi, "mb": WF_CHECK_MB,
+            "nwords": oracle["nwords"], "nunique": oracle["nunique"],
+            "compared": sorted(got["cpu"]), "cuda_equals_cpu": True}
 
 
 GRAPH_SCALE = 22               # BASELINE.json's PageRank scale
@@ -1637,7 +2046,7 @@ def main() -> int:
               "end_to_end_s": dt, "stages_s": idx.timer.times,
               "stats": idx.stats, "launches": launches,
               "max_memory_allocated": torch.cuda.max_memory_allocated()})
-        shutil.rmtree(main_dir)
+
 
         for kind, mb, flags in (("dense", 16, {"dense": True}),
                                 ("skew", 32, {"skew": True})):
@@ -1685,6 +2094,9 @@ def main() -> int:
             emit(int_runs[cell])
         shutil.rmtree(int_dir)
 
+        wf, text_table = run_text(paths, tmp, device, kernels, smi)
+        shutil.rmtree(main_dir)
+
         graph = run_graph(device, smi, kernels)
         emit(graph)
         tri = run_tri(device, smi, kernels)
@@ -1700,7 +2112,12 @@ def main() -> int:
     on_graph = {k: {"launches_graph": graph["launches"][k],
                     "launches_tri": tri["launches"][k],
                     "launches_composed": graph["launches_composed"][k]
-                    + tri["launches_composed"][k]}
+                    + tri["launches_composed"][k],
+                    # per wordfreq cell, per run (eager, cold, warm)
+                    "launches_text": {
+                        cell: {run: rec[run]["launches"][k]
+                               for run in ("eager", "cold", "warm")}
+                        for cell, rec in wf.items()}}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -1735,6 +2152,10 @@ def main() -> int:
         "zipf": {k: zipf[k] for k in ("T", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
                                       "epilogue_ms")},
+        # at interned-id keys: the wordfreq-zipf ids, 0, 2^63, 2^64-1
+        "text": {k: text_table[k] for k in ("n", "T", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms", "epilogue_ms")},
         **on_graph["segment_table"]}, {
         "name": "mark_bytes", "route": "cuda",
         "source": "gpu_mapreduce_tpu_torch/csrc/mark_bytes.cu",

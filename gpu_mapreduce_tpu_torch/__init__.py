@@ -8,9 +8,10 @@ from ``csrc/`` on first use, never at import.
 
 from .apps.intcount import intcount
 from .apps.invertedindex import InvertedIndex
+from .apps.wordfreq import wordfreq, wordfreq_interned
 from .core.mapreduce import MapReduce
 from .core.runtime import MRError
 from .oink.script import OinkScript
 
 __all__ = ["InvertedIndex", "MapReduce", "MRError", "OinkScript",
-           "intcount"]
+           "intcount", "wordfreq", "wordfreq_interned"]

@@ -9,7 +9,7 @@ def top_n(mr, ntop: int) -> List[Tuple[object, object]]:
     """Gather to one proc, sort by value descending, take the first ntop
     (key, value) pairs — the reference's top-N tail (gather(1) +
     sort_values + bounded print, examples/wordfreq.cpp:100-116).  Only
-    the first ntop pairs leave the device."""
+    the first ntop pairs leave the device, and only they decode."""
     mr.gather(1)
     mr.sort_values(-1)
     top: List[Tuple[object, object]] = []

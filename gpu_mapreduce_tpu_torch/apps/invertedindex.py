@@ -40,7 +40,7 @@ from ..ops.bits import to_numpy, to_torch, unsigned_order_key
 from ..ops.cuda.match import (bytes_view_u32, compact_word_matches,
                               first_byte_pos, mark_words,
                               mask_words_to_length, unaligned_words)
-from ..ops.hash import hash_bytes64_masked
+from ..ops.hash import ALT_SEEDS, hash_bytes64_masked
 from ..ops.sort import lexsort
 from ..parallel.group import reduce_sharded
 from ..parallel.sharded import ShardedKV
@@ -55,7 +55,7 @@ _GAP = MAX_URL + len(PATTERN)  # zero gap between files: no cross-file
                                # matches, and a URL window never bleeds
                                # into the next file
 _W_SHORT = 16                  # 64-byte first-tier URL window
-_ALT_HI, _ALT_LO = 0x9E3779B9, 0x85EBCA6B   # alt-id seed family
+_ALT_HI, _ALT_LO = ALT_SEEDS      # alt-id seed family
 
 
 def _build_corpus(files: Sequence[str]):

@@ -3,7 +3,9 @@ protocol, held in core (out-of-core spill comes with a later slice).
 
 The in-core subset of ``gpu_mapreduce_tpu/core/dataset.py``.  A dataset's
 frames are host ``KVFrame``/``KMVFrame``s or device-resident
-``ShardedKV``/``ShardedKMV`` (``parallel/sharded.py``).
+``ShardedKV``/``ShardedKMV`` (``parallel/sharded.py``).  Byte counts
+follow the JAX package: a host frame counts its rows (text by its
+length, objects by their pickles), a device frame its padded tensors.
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ from typing import Iterator, List
 import numpy as np
 import torch
 
-from .column import concat
-from .frame import KMVFrame, KVFrame, empty_kv
+from .column import BytesColumn, DenseColumn, ObjectColumn, concat
+from .frame import KVFrame, empty_kv
 
 
 def rows_to_array(rows: list) -> np.ndarray:
@@ -34,17 +36,28 @@ def rows_to_array(rows: list) -> np.ndarray:
     return arr
 
 
-def _frame_nbytes(frame) -> int:
-    n = len(frame)
-    if isinstance(frame, KVFrame):
-        return frame.key.data[:n].nbytes + frame.value.data[:n].nbytes
-    return sum(t[:n].numel() * t.element_size()
-               for t in (frame.key, frame.value))
-
-
-def _row_bytes(t: torch.Tensor) -> int:
-    """Bytes of one row of a [cap, ...] tensor."""
-    return t.element_size() * (t.numel() // max(t.shape[0], 1))
+def _coerce_rows(rows: list):
+    """A Python add buffer → a column: bytes/str → BytesColumn; None →
+    u8 zeros (the NULL value); numbers and uniform tuples → DenseColumn;
+    anything else (mixed types, ragged tuples, dicts, ...) → ObjectColumn,
+    the pickle tier (reference python/mrmpi.py:17-45)."""
+    first = rows[0]
+    if isinstance(first, (bytes, str, bytearray)):
+        if all(isinstance(r, (bytes, str, bytearray, memoryview))
+               for r in rows):
+            return BytesColumn(rows)
+        # mixed with non-string rows: arbitrary objects
+        return ObjectColumn(rows)
+    if first is None:
+        return DenseColumn(np.zeros(len(rows), dtype=np.uint8))
+    try:
+        arr = rows_to_array(rows)
+    except (ValueError, OverflowError):
+        return ObjectColumn(rows)
+    if arr.dtype == object or arr.dtype.kind in "USV":
+        # numpy stringifies mixed tuples like ('a', 1): keep the rows
+        return ObjectColumn(rows)
+    return DenseColumn(arr)
 
 
 def _merge_frames(frames: List[KVFrame]) -> KVFrame:
@@ -95,8 +108,8 @@ class KeyValue:
 
     def _flush_scalars(self) -> None:
         if self._buf_k:
-            self._batches.append(KVFrame(rows_to_array(self._buf_k),
-                                         rows_to_array(self._buf_v)))
+            self._batches.append(KVFrame(_coerce_rows(self._buf_k),
+                                         _coerce_rows(self._buf_v)))
             self._buf_k, self._buf_v = [], []
 
     def complete(self) -> int:
@@ -119,13 +132,15 @@ class KeyValue:
         yield from self._frames
 
     def nbytes(self) -> int:
-        """Bytes of the valid key and value rows."""
-        return sum(_frame_nbytes(f) for f in self._frames)
+        """Bytes of the frames: a host frame's rows, a device frame's
+        padded tensors."""
+        return sum(f.nbytes() for f in self._frames)
 
     def one_frame(self):
         """The whole dataset as one frame: the sole frame itself; several
         host frames merge on the host; once any frame is on a device, the
-        host frames move to that device and all concatenate there."""
+        host frames move to that device (text columns interning there) and
+        all concatenate there, intern tables merged."""
         frames = self._frames
         if not frames:
             return empty_kv()
@@ -175,17 +190,9 @@ class KeyMultiValue:
         return sum(f.nvalues_total for f in self._frames)
 
     def nbytes(self) -> int:
-        """Bytes of the valid group keys, sizes (int32 on a device) and
-        values."""
-        total = 0
-        for f in self._frames:
-            if isinstance(f, KMVFrame):
-                total += (f.key.data.nbytes + f.nvalues.nbytes
-                          + f.values.data.nbytes)
-            else:
-                total += (len(f) * (_row_bytes(f.ukey) + 4)
-                          + f.nvalues_total * _row_bytes(f.values))
-        return total
+        """Bytes of the frames: a host frame's groups (keys, int64 sizes
+        and values), a device frame's padded tensors."""
+        return sum(f.nbytes() for f in self._frames)
 
     def free(self) -> None:
         self._frames = []

@@ -1,6 +1,8 @@
 """KV and KMV frames on the host: the in-memory unit of data.
 
-The dense subset of ``gpu_mapreduce_tpu/core/frame.py``.  KMV layout:
+The counterpart of ``gpu_mapreduce_tpu/core/frame.py``, over dense, byte
+and object columns (``core/column.py``): ``pairs()`` and ``groups()``
+yield Python scalars, tuples, ``bytes`` or the objects.  KMV layout:
 unique keys ``[g]``, per-group counts ``[g]``, exclusive offsets
 ``[g+1]`` and a flat value column whose rows are grouped contiguously.
 """
@@ -31,12 +33,30 @@ class KVFrame:
     def __len__(self) -> int:
         return len(self.key)
 
+    def nbytes(self) -> int:
+        """Bytes of the rows: numbers by their width, byte rows by their
+        length, objects by their pickle's."""
+        return self.key.nbytes() + self.value.nbytes()
+
+    def is_dense(self) -> bool:
+        return isinstance(self.key, DenseColumn) and \
+            isinstance(self.value, DenseColumn)
+
     def to_host(self) -> "KVFrame":
-        return self
+        """The frame with every column on the host (a byte column split
+        on a device comes back)."""
+        return KVFrame(self.key.to_host(), self.value.to_host())
+
+    def take(self, idx) -> "KVFrame":
+        return KVFrame(self.key.take(idx), self.value.take(idx))
+
+    def slice(self, start: int, stop: int) -> "KVFrame":
+        return KVFrame(self.key.slice(start, stop),
+                       self.value.slice(start, stop))
 
     def head(self, n: int) -> "KVFrame":
         """The first ``n`` pairs."""
-        return KVFrame(self.key.data[:n], self.value.data[:n])
+        return self.slice(0, n)
 
     def pairs(self) -> Iterator[Tuple[object, object]]:
         """(key, value) as Python scalars — the per-pair callback view."""
@@ -68,10 +88,19 @@ class KMVFrame:
     def nvalues_total(self) -> int:
         return len(self.values)
 
-    def to_host(self) -> "KMVFrame":
-        return self
+    def nbytes(self) -> int:
+        return self.key.nbytes() + self.values.nbytes() + \
+            int(self.nvalues.nbytes)
 
-    def group_values(self, i: int) -> DenseColumn:
+    def is_dense(self) -> bool:
+        return isinstance(self.key, DenseColumn) and \
+            isinstance(self.values, DenseColumn)
+
+    def to_host(self) -> "KMVFrame":
+        return KMVFrame(self.key.to_host(), self.nvalues, self.offsets,
+                        self.values.to_host())
+
+    def group_values(self, i: int):
         return self.values.slice(int(self.offsets[i]),
                                  int(self.offsets[i + 1]))
 

@@ -4,9 +4,10 @@ The counterpart of ``gpu_mapreduce_tpu/core/mapreduce.py``: ``map``
 (with ``addflag``), ``map_files``, ``map_mr``, ``aggregate``,
 ``convert``, ``collate``, ``clone``, ``reduce`` (per-group host form
 and ``batch=True``), ``compress``, ``gather``, ``add``, ``copy``,
-``open``/``close``, ``set``,
-``sort_keys``/``sort_values`` (int flags), ``scan_kv``, ``scan_kmv``,
-``kv_stats``, ``kmv_stats`` and the ``kv``/``kmv`` datasets, with
+``open``/``close``, ``set``, ``sort_keys``/``sort_values`` (int flags,
+or a comparator ``cmp(a, b)`` on the host), ``sort_multivalues``,
+``print``, ``scan_kv``, ``scan_kmv``, ``kv_stats``, ``kmv_stats`` and the
+``kv``/``kmv`` datasets, with
 the reference's callback arities: ``map`` calls ``func(itask, kv, ptr)``,
 ``map_files`` ``func(itask, filename, kv, ptr)``, ``map_mr``
 ``func(itask, key, value, kv, ptr)`` per pair or ``func(frame, kv,
@@ -16,7 +17,10 @@ ptr)`` per group or ``func(frame, kv, ptr)`` per frame with
 
 Datasets live on one device (``device=None`` → the card, ``MRError``
 when there is none; ``device="cpu"`` runs the plain path).  Map tasks run
-in task order under every ``mapstyle``.
+in task order under every ``mapstyle``.  Keys and values may be numbers,
+bytes/str or arbitrary Python objects: text columns intern to u64 ids
+when they move to the device (``core/column.py``), and sorts of an
+interned column order by the rows' bytes, never by their ids.
 
 Fusion (``plan/``): under ``fuse=1`` (``MRTPU_FUSE``) or inside ``with
 mr.pipeline():`` aggregate, convert, int-flag sorts and registered-kernel
@@ -30,7 +34,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import sys
 from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
 
 from ..parallel.backend import DeviceBackend
 from ..utils.io import findfiles
@@ -315,28 +322,104 @@ class MapReduce:
         return self.reduce(func, ptr, batch=batch)
 
     @_fusible
-    def sort_keys(self, flag: int = 1) -> int:
+    def sort_keys(self, flag=1) -> int:
         """Sort the KV by key: ascending for ``flag > 0``, descending for
         ``flag < 0`` (|flag| picks the reference's comparator family,
-        moot for typed columns)."""
+        moot for typed columns), or by a comparator ``flag(a, b) →
+        -1/0/1``."""
         return self._sort_kv("key", flag)
 
     @_fusible
-    def sort_values(self, flag: int = 1) -> int:
+    def sort_values(self, flag=1) -> int:
         """Sort the KV by value (see :meth:`sort_keys`)."""
         return self._sort_kv("value", flag)
 
-    def _sort_kv(self, by: str, flag: int) -> int:
-        from ..parallel.group import sort_sharded
-        if callable(flag):
-            raise MRError("comparator sorts are not ported yet; pass an "
-                          "int flag")
+    def _sort_kv(self, by: str, flag) -> int:
+        """Dense columns sort on the device; an interned column sorts by
+        its rows' byte order (``sort_interned_sharded``); a comparator
+        sorts on the host."""
+        from ..core.column import DenseColumn
+        from ..core.frame import KVFrame
+        from ..ops.sort import argsort_column
+        from ..parallel.group import sort_interned_sharded, sort_sharded
         kv = self._require_kv(f"sort_{by}s")
-        out = sort_sharded(self.backend.place(kv.one_frame()), by,
-                           descending=flag < 0)
+        fr = kv.one_frame()
+        if callable(flag):
+            # comparator callbacks run on the host (appcompare)
+            fr = fr.to_host()
+            order = argsort_column(fr.key if by == "key" else fr.value,
+                                   cmp=flag)
+            fr = fr.take(order)
+            kv.free()
+            kv.add_batch(fr.key, fr.value)
+            return kv.complete()
+        # a host text column sorts as Python's sorted() does: equal rows
+        # keep their order when descending
+        stable = isinstance(fr, KVFrame) and not isinstance(
+            fr.key if by == "key" else fr.value, DenseColumn)
+        skv = self.backend.place(fr)
+        if (skv.key_decode if by == "key" else skv.value_decode) is None:
+            out = sort_sharded(skv, by, descending=flag < 0)
+        else:
+            out = sort_interned_sharded(skv, by, descending=flag < 0,
+                                        stable_descending=stable)
         kv.free()
         kv.add_frame(out)
         return kv.complete()
+
+    def sort_multivalues(self, flag=1) -> int:
+        """Sort the values inside each group (reference
+        src/mapreduce.cpp:2210-2352): dense values on the device; a
+        comparator, or interned values (ids are hashes, not byte order),
+        on the host."""
+        from ..core.frame import KMVFrame
+        from ..parallel.group import sort_multivalues_sharded
+        kmv = self._require_kmv("sort_multivalues")
+        new = KeyMultiValue()
+        for fr in kmv.frames():
+            if not isinstance(fr, KMVFrame):
+                if callable(flag) or fr.value_decode is not None:
+                    fr = fr.to_host()
+                else:
+                    new.push(sort_multivalues_sharded(fr,
+                                                      descending=flag < 0))
+                    continue
+            new.push(KMVFrame(fr.key, fr.nvalues, fr.offsets,
+                              _sort_groups(fr, flag)))
+        kmv.free()
+        self.kmv = new
+        return new.complete()
+
+    def print(self, nstride: int = 1, kflag: int = -1, vflag: int = -1,
+              file=None, fflag: int = 0) -> int:
+        """Formatted dump of the KV pairs or KMV groups, one a line
+        (reference src/mapreduce.cpp:1671-1761): every ``nstride``-th
+        pair, to stdout or to ``file`` (appended with ``fflag``).  Columns
+        know their types, so ``kflag``/``vflag`` only force float
+        formatting (3, 4)."""
+        self._flush_plan()
+        if self.kv is None and self.kmv is None:
+            raise MRError("Cannot print without KeyValue or KeyMultiValue")
+        out = sys.stdout if file is None else \
+            open(file, "a" if fflag else "w")
+        try:
+            if self.kv is not None:
+                count = 0
+                for fr in self.kv.frames():
+                    for k, v in fr.pairs():
+                        if count % nstride == 0:
+                            out.write(f"{_fmt(k, kflag)} {_fmt(v, vflag)}\n")
+                        count += 1
+                return self.kv.nkv
+            for fr in self.kmv.frames():
+                for k, vals in fr.groups():
+                    out.write(f"{_fmt(k, kflag)} "
+                              + " ".join(_fmt(v, vflag) for v in vals)
+                              + "\n")
+            return self.kmv.nkmv
+        finally:
+            if file is not None:
+                out.close()
 
     def add(self, mr: "MapReduce") -> int:
         """Append ``mr``'s KV pairs to this KV (frames are shared, not
@@ -448,3 +531,43 @@ class MapReduce:
                 for k, vals in fr.groups():
                     func(k, vals, ptr)
         return kmv.nkmv
+
+
+def _sort_groups(fr, flag):
+    """The values of a host KMVFrame sorted inside every group.  Dense
+    scalar values sort in one stable lexsort over (group, value); a
+    comparator and text or [n, w] values sort group by group."""
+    from ..core.column import DenseColumn, concat
+    from ..ops.sort import argsort_column
+    if not callable(flag) and isinstance(fr.values, DenseColumn) \
+            and fr.values.data.ndim == 1:
+        vals = fr.values.data
+        seg = np.repeat(np.arange(len(fr), dtype=np.int64), fr.nvalues)
+        order = np.lexsort((vals, seg))
+        if flag < 0:
+            # reverse each group's slice of the ascending order
+            off = fr.offsets
+            pos = np.arange(len(vals), dtype=np.int64)
+            order = order[off[seg] + off[seg + 1] - 1 - pos]
+        return DenseColumn(vals[order])
+    pieces = []
+    for i in range(len(fr)):
+        col = fr.group_values(i)
+        order = argsort_column(col, cmp=flag) if callable(flag) \
+            else argsort_column(col, descending=flag < 0)
+        pieces.append(col.take(order))
+    return concat(pieces) if pieces else fr.values
+
+
+def _fmt(x, flag: int) -> str:
+    """One printed field (reference keyvalue.cpp:773-835)."""
+    if isinstance(x, bytes):
+        try:
+            return x.decode()
+        except UnicodeDecodeError:
+            return repr(x)
+    if isinstance(x, tuple):
+        return " ".join(_fmt(e, flag) for e in x)
+    if isinstance(x, float) or flag in (3, 4):
+        return f"{x:g}"
+    return str(x)

@@ -1,0 +1,55 @@
+"""wordfreq command (oink/wordfreq.cpp:28-100): word counts + top-N.
+
+The counterpart of ``gpu_mapreduce_tpu/oink/commands/wordfreq.py``:
+``read_words`` splits each input file on the device, collate interns the
+words there and groups their ids, a count reduce gives each word's count.
+Output 1 gets the whole word:count KV; ``self.top`` holds the top
+``ntop`` (word, count) pairs, of which only those rows come back from
+the device.
+"""
+
+from __future__ import annotations
+
+from ...apps.common import top_n
+from ...core.runtime import MRError
+from ..command import Command, command
+from ..kernels import count, read_words
+
+
+@command("wordfreq")
+class WordFreq(Command):
+    ninputs = 1
+    noutputs = 1
+
+    def params(self, args):
+        if len(args) != 1:
+            raise MRError("Illegal wordfreq command")
+        self.ntop = int(args[0])
+
+    def run(self):
+        obj = self.obj
+        files: list = []
+        mr = obj.input(1, read_words, files)
+        nwords = mr.kv_stats(0)[0]
+        if obj.permanent(mr):
+            mr = obj.copy_mr(mr)
+        mr.collate()
+        nunique = mr.reduce(count, batch=True)
+        obj.output(1, mr, _print_word_count)
+
+        self.top = []
+        if self.ntop:
+            if obj.permanent(mr):
+                mr = obj.copy_mr(mr)
+            self.top = [(k, int(v)) for k, v in top_n(mr, self.ntop)]
+        self.nfiles, self.nwords, self.nunique = len(files), nwords, nunique
+        self.message(f"WordFreq: {len(files)} files, {nwords} words, "
+                     f"{nunique} unique")
+        for w, c in self.top:
+            self.message(f"  {c} {w.decode(errors='replace')}")
+        obj.cleanup()
+
+
+def _print_word_count(k, v, fp):
+    word = k.decode(errors="replace") if isinstance(k, bytes) else k
+    fp.write(f"{word} {v}\n")

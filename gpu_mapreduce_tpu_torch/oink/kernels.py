@@ -4,7 +4,9 @@ The counterpart of ``gpu_mapreduce_tpu/oink/kernels.py``.  Data
 conventions (reference ``oink/typedefs.h:22-40``): a vertex is a u64, an
 edge a ``[n, 2]`` u64 row, a weight a float64, a NULL value a u8 zero.
 
-Readers are file-map callbacks that parse text on the host.  Edge maps
+Readers are file-map callbacks that parse text on the host, except
+``read_words``, which splits a file on the MR's device straight into a
+packed byte column (no Python object per word).  Edge maps
 are batch callbacks (``mr.map_mr(..., batch=True)``): a host ``KVFrame``
 is mapped with numpy, a device ``ShardedKV`` by its body in
 ``parallel/devkernels.py`` on its device, so a graph that lives on the
@@ -21,6 +23,7 @@ from ..core.frame import KMVFrame, KVFrame
 from ..core.runtime import MRError
 from ..ops.bits import M32
 from ..ops.hash import hash_words32
+from ..utils.io import split_words
 from ..parallel import devkernels as dk
 from ..parallel.devkernels import skv_map
 from ..ops.reduces import (count, cull, max_values, min_values,  # noqa: F401
@@ -58,6 +61,24 @@ def read_edge_weight(itask, filename, kv, ptr):
     (map_read_edge_weight.cpp)."""
     vi, vj, w = _parse_cols(filename, (np.uint64, np.uint64, np.float64))
     kv.add_batch(np.stack([vi, vj], 1), w)
+
+
+def read_edge_label(itask, filename, kv, ptr):
+    """'vi vj label' lines → key=[vi,vj], value=int label
+    (map_read_edge_label.cpp)."""
+    vi, vj, lab = _parse_cols(filename, (np.uint64, np.uint64, np.int64))
+    kv.add_batch(np.stack([vi, vj], 1), lab)
+
+
+def read_words(itask, filename, kv, ptr):
+    """Whitespace words → key=word bytes, value=NULL
+    (map_read_words.cpp); a list ``ptr`` collects the file names (the
+    reference's nfiles counter).  The words split on the KV's device
+    into a packed BytesColumn (``utils/io.split_words``)."""
+    col = split_words(np.fromfile(filename, np.uint8), kv.device or "cpu")
+    if isinstance(ptr, list):
+        ptr.append(filename)
+    kv.add_batch(col, _null(len(col)))
 
 
 def read_vertex_value(itask, filename, kv, ptr):
@@ -198,9 +219,11 @@ def hash_identity(keys: torch.Tensor) -> torch.Tensor:
 
 MAP_FILE_KERNELS = {
     "read_edge": read_edge,
+    "read_edge_label": read_edge_label,
     "read_edge_weight": read_edge_weight,
     "read_vertex_value": read_vertex_value,
     "read_vertex_weight": read_vertex_weight,
+    "read_words": read_words,
 }
 
 MAP_MR_KERNELS = {
@@ -226,14 +249,8 @@ HASH_KERNELS = {
     "identity": hash_identity,
 }
 
-# names the JAX package registers whose callbacks are not ported yet
-_NOT_PORTED = {"map/file": ("read_edge_label", "read_words")}
-
-
 def lookup(table: dict, name: str, what: str):
     """The callback registered under ``name`` in ``table``."""
-    if name in _NOT_PORTED.get(what, ()):
-        raise MRError(f"{what} kernel {name!r} is not ported yet")
     if name not in table:
         raise MRError(f"unknown {what} kernel {name!r} (registered: "
                       f"{sorted(table)})")

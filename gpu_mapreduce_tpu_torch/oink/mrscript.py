@@ -5,8 +5,10 @@ The counterpart of ``gpu_mapreduce_tpu/oink/mrscript.py`` (reference
 port has, with callbacks named through the registries of
 :mod:`.kernels` (``oink/mrmpi.cpp:354-466``).  Ported methods: delete,
 copy, add, aggregate, clone, close, collate, compress, convert, gather,
-map/file, map/mr, open, reduce, sort_keys, sort_values, stats and set.
-The JAX package's other methods raise ``MRError`` (not ported yet).
+map/file, map/mr, open, print, reduce, scan_kv and scan_kmv (which print
+the dataset, as the reference's script does), sort_keys, sort_values,
+sort_multivalues, stats and set.  The JAX package's other methods raise
+``MRError`` (not ported yet).
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ from ..core.runtime import MRError
 from . import kernels
 from .objects import ObjectManager
 
-_NOT_PORTED = ("broadcast", "collapse", "load", "map/task", "print",
-               "save", "scan_kmv", "scan_kv", "scrunch", "sort_multivalues")
+_NOT_PORTED = ("broadcast", "collapse", "load", "map/task", "save",
+               "scrunch")
 
 
 def expand_path_variable(variables, arg: str) -> Optional[List[str]]:
@@ -128,6 +130,22 @@ class MRScriptDispatch:
         mr.reduce(kernels.lookup(kernels.REDUCE_KERNELS, a[0], "reduce"),
                   batch=True)
 
+    def m_scan_kv(self, name, mr, a):
+        mr.print()
+
+    def m_scan_kmv(self, name, mr, a):
+        mr.print()
+
+    def m_print(self, name, mr, a):
+        """print [proc nstride kflag vflag] (reference mrmpi.cpp print;
+        one process here, so proc is accepted and ignored)."""
+        if len(a) not in (0, 4):
+            raise MRError("Illegal MR object print command")
+        if a:
+            mr.print(nstride=int(a[1]), kflag=int(a[2]), vflag=int(a[3]))
+        else:
+            mr.print()
+
     def m_compress(self, name, mr, a):
         if len(a) != 1:
             raise MRError("Illegal MR object compress command")
@@ -144,6 +162,11 @@ class MRScriptDispatch:
         if len(a) != 1:
             raise MRError("Illegal MR object sort_values command")
         mr.sort_values(int(a[0]))
+
+    def m_sort_multivalues(self, name, mr, a):
+        if len(a) != 1:
+            raise MRError("Illegal MR object sort_multivalues command")
+        mr.sort_multivalues(int(a[0]))
 
     # -- stats / settings --------------------------------------------------
     def m_stats(self, name, mr, a):

@@ -138,11 +138,15 @@ def hash_words32(words: torch.Tensor, initval: int = 0) -> torch.Tensor:
 
 
 def _hashlittle_masked_seeds(words: torch.Tensor, lengths: torch.Tensor,
-                             seeds: Sequence[int]) -> torch.Tensor:
+                             seeds: Sequence[int],
+                             first_tail: int = -1) -> torch.Tensor:
     """hashlittle over variable-length keys for several seeds in one
     pass: → u32 hashes [len(seeds), ...] (int64 lanes).  Each row of
     ``words`` [..., T] is a key's bytes as little-endian u32 words,
-    zeroed beyond its length (lookup3's tail padding)."""
+    zeroed beyond its length (lookup3's tail padding).  When every row's
+    last block is block ``first_tail`` or later, the blocks before it
+    are full in every row: they mix with no per-row select and no
+    final."""
     words = to_u32_lanes(words)
     T = words.shape[-1]
     pad = (-T) % 3
@@ -155,19 +159,20 @@ def _hashlittle_masked_seeds(words: torch.Tensor, lengths: torch.Tensor,
     seed = seed.reshape((len(seeds),) + (1,) * lengths.dim())
     init = (seed + lengths) & _M32
     a = b = c = out = init     # length 0: hashlittle returns c == init
+    last = (lengths + 11) // 12 - 1      # each key's tail block
     for t in range(T // 3):
-        rem = lengths - 12 * t
-        is_full = rem > 12            # another block follows → mix
-        is_tail = (rem > 0) & (rem <= 12)   # this block is the tail
         a0 = (a + words[..., 3 * t]) & _M32
         b0 = (b + words[..., 3 * t + 1]) & _M32
         c0 = (c + words[..., 3 * t + 2]) & _M32
         am, bm, cm = _tmix(a0, b0, c0)
-        cf = _tfinal(a0, b0, c0)[2]
+        if t < first_tail:
+            a, b, c = am, bm, cm
+            continue
+        is_full = last > t            # another block follows → mix
         a = torch.where(is_full, am, a)
         b = torch.where(is_full, bm, b)
         c = torch.where(is_full, cm, c)
-        out = torch.where(is_tail, cf, out)
+        out = torch.where(last == t, _tfinal(a0, b0, c0)[2], out)
     return out
 
 
@@ -195,3 +200,108 @@ def hash_u64(keys: torch.Tensor, initval: int = 0) -> torch.Tensor:
     lo = keys & _M32
     hi = (keys >> 32) & _M32
     return hash_words32(torch.stack([lo, hi], dim=-1), initval)
+
+
+# ---------------------------------------------------------------------------
+# interning packed byte rows
+# ---------------------------------------------------------------------------
+
+ALT_SEEDS = (0x9E3779B9, 0x85EBCA6B)    # the collision check's id family
+_WINDOW_BYTES = 1 << 26      # window bytes gathered per chunk of rows
+_CHUNK_ROWS = 1 << 22
+
+
+def _length_buckets(nblocks: torch.Tensor) -> torch.Tensor:
+    """Bucket of each row by its count of 12-byte blocks: 0 for at most
+    one block, else ceil(log2(blocks)) — a bucket's rows need at most
+    twice the blocks of its shortest row."""
+    lg = torch.ceil(torch.log2(nblocks.clamp(min=1).to(torch.float64)))
+    return lg.to(torch.int64)
+
+
+def _hash_window(buf: torch.Tensor, starts: torch.Tensor,
+                 lengths: torch.Tensor, blocks: int, first_tail: int,
+                 seed_hi: int, seed_lo: int) -> torch.Tensor:
+    """hash_bytes64 of rows of at most ``blocks`` 12-byte blocks: each
+    row's bytes gathered into a zero-padded window of little-endian u32
+    words (lookup3 reads zeros past a key's end)."""
+    width = 12 * max(blocks, 1)     # an all-empty bucket reads zeros
+    idt = torch.int32 if buf.numel() < (1 << 31) else torch.int64
+    lane = torch.arange(width, dtype=idt, device=buf.device)
+    pos = starts.to(idt)[:, None] + lane
+    pos.clamp_(min=0, max=max(buf.numel() - 1, 0))
+    if buf.numel():
+        win = buf.index_select(0, pos.reshape(-1)).reshape(-1, width)
+    else:
+        win = torch.zeros(pos.shape, dtype=torch.uint8, device=buf.device)
+    del pos
+    win.masked_fill_(lane[None, :] >= lengths.to(idt)[:, None], 0)
+    hi, lo = _hashlittle_masked_seeds(win.view(torch.int32), lengths,
+                                      (seed_hi, seed_lo), first_tail)
+    return (hi << 32) | lo
+
+
+def hash_rows(buf: torch.Tensor, starts: torch.Tensor,
+              lengths: torch.Tensor, seed_hi: int = 0,
+              seed_lo: int = 0xDEADBEEF) -> torch.Tensor:
+    """hash_bytes64 of the rows ``buf[starts[i]:starts[i]+lengths[i]]``
+    (int64 bits), on the buffer's device.  Rows are bucketed by length,
+    so a bucket's lookup3 loop runs only as many blocks as its longest
+    row (never thirty million short rows at the length of one long one),
+    and each bucket is hashed in chunks of bounded window size."""
+    n = lengths.numel()
+    out = torch.empty(n, dtype=torch.int64, device=buf.device)
+    if n == 0:
+        return out
+    nblocks = (lengths + 11) // 12
+    bucket = _length_buckets(nblocks)
+    for b in torch.unique(bucket).tolist():
+        rows = torch.nonzero(bucket == b).squeeze(1)
+        nb = nblocks[rows]
+        blocks, first_tail = int(nb.max()), int(nb.min()) - 1
+        step = max(1, min(_CHUNK_ROWS, _WINDOW_BYTES // max(12 * blocks, 1)))
+        for lo in range(0, rows.numel(), step):
+            r = rows[lo:lo + step]
+            out[r] = _hash_window(buf, starts[r], lengths[r], blocks,
+                                  first_tail, seed_hi, seed_lo)
+    return out
+
+
+def _row_bytes(buf: torch.Tensor, offsets: torch.Tensor, i: int) -> bytes:
+    return buf[int(offsets[i]):int(offsets[i + 1])].cpu().numpy().tobytes()
+
+
+def intern_packed(buf: torch.Tensor, offsets: torch.Tensor):
+    """Intern the rows of a packed byte column on its device → (ids [n],
+    unique ids [u] in unsigned order, first-occurrence row of each
+    [u]); ids are int64 bit patterns of ``hash_bytes64``.  One stable
+    sort of the ids gives the unique ids and first rows; when an id
+    repeats, the rows of repeated ids hash again in the alternate family
+    (:data:`ALT_SEEDS`), and two rows with one id but different alternate
+    ids are a real 64-bit collision (``ValueError``)."""
+    from .bits import unsigned_order_key
+    starts = offsets[:-1]
+    lengths = offsets[1:] - starts
+    ids = hash_rows(buf, starts, lengths)
+    n = ids.numel()
+    order = torch.sort(unsigned_order_key(ids), stable=True).indices
+    si = ids[order]
+    head = torch.ones(n, dtype=torch.bool, device=ids.device)
+    head[1:] = si[1:] != si[:-1]
+    if n and not bool(head.all()):
+        # the rows of repeated ids, in sorted order: a repeat and the
+        # row before it are neighbours here too
+        member = ~head
+        member[:-1] |= ~head[1:]
+        rows = order[member]
+        sa = hash_rows(buf, starts[rows], lengths[rows], *ALT_SEEDS)
+        hd = head[member]
+        bad = ~hd[1:] & (sa[1:] != sa[:-1])
+        del sa
+        if bool(bad.any()):
+            i = int(torch.nonzero(bad)[0, 0])
+            raise ValueError(
+                "64-bit intern collision between %r and %r"
+                % (_row_bytes(buf, offsets, int(rows[i])),
+                   _row_bytes(buf, offsets, int(rows[i + 1]))))
+    return ids, si[head], order[head]

@@ -18,16 +18,26 @@ u64 ids travel as int64 bit patterns (``ops/bits.py``): every min, max
 and compare of a u64 column goes through ``order_key``, and
 :data:`U64MAX` (2^64 - 1, the identity of an unsigned min) is -1 here.
 A body's int64 output columns are u64 unless the caller names another
-logical dtype.  The frames carry no intern tables yet (byte and object
-columns come with a later slice), so the JAX package's decode-table
-guard and domain alignment have no counterpart.
+logical dtype.
+
+A frame whose keys or values are interned text (``key_decode`` /
+``value_decode``) is refused by :func:`skv_map`/:func:`skmv_map`: a
+numeric body over hash ids is meaningless, unless the caller passes
+``preserve_decodes=True`` to assert that its body keeps the ids opaque.
+Concatenation aligns intern domains (:func:`_align_domains`): a
+bytes-kind table hashes raw bytes, an object-kind one pickles, so the
+bytes side re-interns through the pickle domain and one logical key keeps
+one id.
 """
 
 from __future__ import annotations
 
+import pickle
+
 import numpy as np
 import torch
 
+from ..core.column import InternTable
 from ..core.frame import KMVFrame, KVFrame
 from ..core.runtime import bump_dispatch
 from ..ops.bits import from_order_key, order_key, to_torch
@@ -107,7 +117,8 @@ def _logical(t: torch.Tensor, dtype) -> np.dtype:
     return torch.empty(0, dtype=t.dtype).numpy().dtype
 
 
-def _pack(ok, ov, valid, key_dtype=None, value_dtype=None) -> ShardedKV:
+def _pack(ok, ov, valid, key_dtype=None, value_dtype=None,
+          decodes=(None, None)) -> ShardedKV:
     """The valid rows of a body's output, in order, as a frame padded to
     a power-of-two cap (one device→host read: their count)."""
     if valid is not None:
@@ -117,32 +128,124 @@ def _pack(ok, ov, valid, key_dtype=None, value_dtype=None) -> ShardedKV:
     ok, ov = ok.contiguous(), ov.contiguous()
     n = ok.shape[0]
     cap = round_cap(n)
+    kd, vd = decodes
     return ShardedKV(pad_rows(ok, cap), pad_rows(ov, cap),
-                     np.array([n], np.int32), _logical(ok, key_dtype),
-                     _logical(ov, value_dtype))
+                     np.array([n], np.int32),
+                     _logical(ok, np.uint64 if kd is not None
+                              else key_dtype),
+                     _logical(ov, np.uint64 if vd is not None
+                              else value_dtype), kd, vd)
+
+
+def _check_decodes(fr, preserve_decodes: bool, what: str):
+    """The decode tables the output keeps: both with
+    ``preserve_decodes``; else a frame with any raises, since its ids
+    look like plain numbers to a body."""
+    if preserve_decodes:
+        return fr.key_decode, fr.value_decode
+    if fr.key_decode is not None or fr.value_decode is not None:
+        which = [n for n, t in (("key", fr.key_decode),
+                                ("value", fr.value_decode)) if t is not None]
+        raise ValueError(
+            f"{what}: {'/'.join(which)} entries are interned byte/object "
+            f"ids — a numeric kernel over them is meaningless; decode to "
+            f"host first, or pass preserve_decodes=True if the kernel "
+            f"treats them as opaque ids")
+    return None, None
 
 
 def skv_map(fr, fn, extra=(), key_dtype=None, value_dtype=None,
-            device=None) -> ShardedKV:
+            device=None, preserve_decodes: bool = False) -> ShardedKV:
     """Run a KV body ``fn(key, value, count, *extra) → (okey, ovalue,
     valid)`` over a frame (a host frame is placed on ``device`` first) and
-    pack its valid rows into a new frame."""
+    pack its valid rows into a new frame.  Interned frames are refused
+    unless ``preserve_decodes`` (:func:`_check_decodes`)."""
     fr = place_kv(fr, device)
+    decodes = _check_decodes(fr, preserve_decodes, "skv_map")
     bump_dispatch()
     ok, ov, valid = fn(fr.key, fr.value, int(fr.counts[0]), *extra)
-    return _pack(ok, ov, valid, key_dtype, value_dtype)
+    return _pack(ok, ov, valid, key_dtype, value_dtype, decodes)
 
 
 def skmv_map(kmv, fn, extra=(), key_dtype=None, value_dtype=None,
-             device=None) -> ShardedKV:
+             device=None, preserve_decodes: bool = False) -> ShardedKV:
     """Run a KMV body ``fn(ukey, nvalues, voffsets, values, gcount,
     vcount, *extra) → (okey, ovalue, valid)`` (a vectorised reduce) over
-    a grouped frame and pack its valid rows into a new frame."""
+    a grouped frame and pack its valid rows into a new frame; the decode
+    guard as in :func:`skv_map`."""
     kmv = place_kmv(kmv, device)
+    decodes = _check_decodes(kmv, preserve_decodes, "skmv_map")
     bump_dispatch()
     ok, ov, valid = fn(kmv.ukey, kmv.nvalues, kmv.voffsets, kmv.values,
                        int(kmv.gcounts[0]), int(kmv.vcounts[0]), *extra)
-    return _pack(ok, ov, valid, key_dtype, value_dtype)
+    return _pack(ok, ov, valid, key_dtype, value_dtype, decodes)
+
+
+# ---------------------------------------------------------------------------
+# intern domains (MapReduce.add, one_frame)
+# ---------------------------------------------------------------------------
+
+def _merge_decode(tables, what: str):
+    """Union of id → row tables of one domain (None: plain ids; mixing
+    plain with interned would merge two incompatible spaces)."""
+    if all(t is None for t in tables):
+        return None
+    if any(t is None for t in tables):
+        raise ValueError(
+            f"cannot add an interned byte/object-{what}ed mesh dataset "
+            f"to a plain one: the merge would span two {what} spaces")
+    if len(tables) == 1:
+        return tables[0]
+    kind = "object" if any(t.kind == "object" for t in tables) \
+        else "bytes"
+    out = InternTable(kind=kind)
+    for t in tables:
+        out.update(t)
+    return out
+
+
+def _reintern_pickle_domain(col: torch.Tensor, table: InternTable):
+    """A bytes-kind id column and its table → the same rows in the
+    PICKLE id domain (the object tier's): every row of the table
+    re-interns over its pickle, and the column remaps old → new id by one
+    sorted lookup on its device; ids absent from the table (padding rows)
+    pass through.  Returns (new column, object-kind table)."""
+    from ..core.column import pack_rows
+    from ..ops.hash import intern_packed
+    if not table:
+        return col, InternTable(kind="object")
+    old_ids = np.fromiter(table.keys(), np.uint64, len(table))
+    rows = list(table.values())
+    buf, off = pack_rows([pickle.dumps(r, protocol=4) for r in rows])
+    new_ids, uniq, first = intern_packed(
+        torch.from_numpy(buf).to(col.device),
+        torch.from_numpy(off).to(col.device))
+    newt = InternTable(zip(new_ids[first].cpu().numpy().view(np.uint64)
+                           .tolist(), [rows[i] for i in first.tolist()]),
+                       kind="object")
+    old = order_key(to_torch(old_ids, col.device), _U64)
+    old, order = torch.sort(old)
+    new_by_old = new_ids[order]
+    key = order_key(col, _U64)
+    pos = torch.searchsorted(old, key).clamp(max=old.numel() - 1)
+    hit = old[pos] == key
+    return torch.where(hit, new_by_old[pos], col), newt
+
+
+def _align_domains(frames, which: str):
+    """(columns, merged table) of several frames' ``which`` side: when
+    bytes-kind and object-kind tables meet, each bytes-kind side
+    re-interns through the pickle domain first, so equal logical rows
+    carry one id and group together after the concat."""
+    cols = [f.key if which == "key" else f.value for f in frames]
+    tables = [f.key_decode if which == "key" else f.value_decode
+              for f in frames]
+    kinds = {t.kind for t in tables if t is not None}
+    if kinds == {"bytes", "object"}:
+        for i, t in enumerate(tables):
+            if t is not None and t.kind == "bytes":
+                cols[i], tables[i] = _reintern_pickle_domain(cols[i], t)
+    return cols, _merge_decode(tables, which)
 
 
 def clone_sharded(skv: ShardedKV) -> ShardedKMV:
@@ -151,7 +254,8 @@ def clone_sharded(skv: ShardedKV) -> ShardedKMV:
     r = torch.arange(skv.cap, dtype=torch.int32, device=skv.device)
     nv = (r < int(skv.counts[0])).to(torch.int32)
     return ShardedKMV(skv.key, nv, r, skv.value, skv.counts.copy(),
-                      skv.counts.copy(), skv.key_dtype, skv.value_dtype)
+                      skv.counts.copy(), skv.key_dtype, skv.value_dtype,
+                      skv.key_decode, skv.value_decode)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ column's logical order), marks group boundaries and lays the groups out;
 reduce computes one output row per group.  :func:`fused_group_body` is
 convert(+reduce) in one call for the plan fuser, with the group table
 (``ops/cuda/group.py``) as its second engine.  :func:`sort_sharded`
-sorts a frame by key or value.
+sorts a frame by key or value; :func:`sort_interned_sharded` sorts an
+interned byte/object column by the rows' bytes (their ids are hashes, not
+lexicographic order); :func:`sort_multivalues_sharded` sorts the values
+inside each group.  Intern tables ride along on every output.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core.runtime import bump_dispatch
-from ..ops.bits import order_key
+from ..ops.bits import order_key, to_torch
 from ..ops.segment import segment_ids_from_boundary, segment_reduce
 from ..ops.sort import lexsort
 from .sharded import ShardedKMV, ShardedKV, round_cap
@@ -93,7 +96,8 @@ def convert_sharded(skv: ShardedKV) -> ShardedKMV:
     gcap = round_cap(g) if g else 8
     ukey, sizes, voff, _seg, _g = grouped_layout(sk, mask, count, gcap)
     return ShardedKMV(ukey, sizes, voff, sv, np.array([g], np.int32),
-                      skv.counts.copy(), skv.key_dtype, skv.value_dtype)
+                      skv.counts.copy(), skv.key_dtype, skv.value_dtype,
+                      skv.key_decode, skv.value_decode)
 
 
 def _local_segment_ids(voff, nval, vcap: int):
@@ -106,19 +110,25 @@ def _local_segment_ids(voff, nval, vcap: int):
 
 
 def reduce_sharded(kmv: ShardedKMV, op: str = "sum") -> ShardedKV:
-    """One output pair per group: count, sum, max or min of its values."""
+    """One output pair per group: count, sum, max or min of its values
+    (only the count of interned values: arithmetic on ids is refused)."""
+    if kmv.value_decode is not None and op != "count":
+        raise ValueError(
+            f"reduce_sharded({op!r}): values are interned byte/object "
+            f"ids — arithmetic on them is meaningless; decode to host "
+            f"first (only 'count' is value-agnostic)")
     bump_dispatch()
     if op == "count":
         return ShardedKV(kmv.ukey, kmv.nvalues.to(torch.int64),
                          kmv.gcounts.copy(), kmv.key_dtype,
-                         np.dtype(np.int64))
+                         np.dtype(np.int64), kmv.key_decode)
     vcap = kmv.vcap
     seg = _local_segment_ids(kmv.voffsets, kmv.nvalues, vcap)
     valid = torch.arange(vcap, device=seg.device) < int(kmv.vcounts[0])
     out = segment_reduce_rows(kmv.values, seg, valid, kmv.gcap, op,
                               kmv.value_dtype)
     return ShardedKV(kmv.ukey, out, kmv.gcounts.copy(), kmv.key_dtype,
-                     kmv.value_dtype)
+                     kmv.value_dtype, kmv.key_decode)
 
 
 def fused_group_body(key, value, nrecv: int, gcap: int, out_kind: str,
@@ -167,7 +177,8 @@ def first_sharded(kmv: ShardedKMV) -> ShardedKV:
     bump_dispatch()
     idx = kmv.voffsets.to(torch.int64).clamp(max=kmv.vcap - 1)
     return ShardedKV(kmv.ukey, kmv.values[idx], kmv.gcounts.copy(),
-                     kmv.key_dtype, kmv.value_dtype)
+                     kmv.key_dtype, kmv.value_dtype, kmv.key_decode,
+                     kmv.value_decode)
 
 
 def sort_sharded(skv: ShardedKV, by: str = "key",
@@ -179,13 +190,96 @@ def sort_sharded(skv: ShardedKV, by: str = "key",
     bump_dispatch()
     col, dt = (skv.key, skv.key_dtype) if by == "key" \
         else (skv.value, skv.value_dtype)
-    c, cap = int(skv.counts[0]), skv.cap
-    r = torch.arange(cap, device=col.device)
-    order = lexsort(_key_columns(col, dt) + [~(r < c)])
+    order = lexsort(_key_columns(col, dt)
+                    + [~(torch.arange(skv.cap, device=col.device)
+                         < int(skv.counts[0]))])
     if descending:
-        pos = torch.where(r < c, c - 1 - r, r)
-        inv = torch.empty_like(order)
-        inv[pos] = r
-        order = order[inv]
+        order = _reverse_valid(order, int(skv.counts[0]))
+    return _take_rows(skv, order)
+
+
+def _reverse_valid(order: torch.Tensor, c: int) -> torch.Tensor:
+    """``order`` with its first ``c`` entries (the valid rows) reversed."""
+    r = torch.arange(order.numel(), device=order.device)
+    pos = torch.where(r < c, c - 1 - r, r)
+    inv = torch.empty_like(order)
+    inv[pos] = r
+    return order[inv]
+
+
+def _take_rows(skv: ShardedKV, order: torch.Tensor) -> ShardedKV:
     return ShardedKV(skv.key[order], skv.value[order], skv.counts.copy(),
-                     skv.key_dtype, skv.value_dtype)
+                     skv.key_dtype, skv.value_dtype, skv.key_decode,
+                     skv.value_decode)
+
+
+def _rank_lookup(table, device):
+    """(ids in unsigned order as order keys, rank of each) for an intern
+    table: rank = the row's place in byte order (pickle order for
+    objects).  Built once on the host from the table and memoised on it
+    (rebuilt only when the table grows)."""
+    from ..ops.sort import argsort_column
+    from .sharded import _decode_col
+    cached = getattr(table, "_rank_cache", None)
+    if cached is None or cached[0] != len(table):
+        ids = np.fromiter(table.keys(), np.uint64, len(table))
+        rank = np.empty(len(ids), np.int64)
+        rank[argsort_column(_decode_col(table, ids))] = np.arange(len(ids))
+        by_id = np.argsort(ids, kind="stable")
+        cached = (len(table), ids[by_id], rank[by_id])
+        table._rank_cache = cached
+    _, ids, rank = cached
+    return (order_key(to_torch(ids, device), np.uint64),
+            to_torch(rank, device))
+
+
+def sort_interned_sharded(skv: ShardedKV, by: str = "key",
+                          descending: bool = False,
+                          stable_descending: bool = False) -> ShardedKV:
+    """The frame's rows sorted by an interned byte/object column in the
+    rows' byte order (pickle order for objects), valid rows first: an id
+    → rank surrogate from the decode table, then one device sort.
+    Descending reverses the valid prefix of the ascending order (the
+    JAX package's device order: equal rows in reverse row order); with
+    ``stable_descending`` equal rows keep their row order (its host
+    order, Python's ``sorted(reverse=True)``)."""
+    table = skv.key_decode if by == "key" else skv.value_decode
+    col = skv.key if by == "key" else skv.value
+    c, cap = int(skv.counts[0]), skv.cap
+    bump_dispatch()
+    ids, rank_of = _rank_lookup(table, col.device)
+    key = order_key(col, np.uint64)
+    pos = torch.searchsorted(ids, key).clamp(max=max(ids.numel() - 1, 0))
+    rank = rank_of[pos] if ids.numel() else torch.zeros_like(key)
+    if descending and stable_descending:
+        rank = -rank
+    invalid = ~(torch.arange(cap, device=col.device) < c)
+    order = lexsort([rank, invalid])
+    if descending and not stable_descending:
+        order = _reverse_valid(order, c)
+    return _take_rows(skv, order)
+
+
+def sort_multivalues_sharded(kmv: ShardedKMV,
+                             descending: bool = False) -> ShardedKMV:
+    """Sort the values inside each group (reference
+    src/mapreduce.cpp:2210-2352): one stable sort by (valid, group,
+    value) keeps every group in its own run, so sizes and offsets stay.
+    A [n, w] value sorts by its first column, as in the JAX package;
+    descending orders by the complement (unsigned) or the negation."""
+    bump_dispatch()
+    vcap = kmv.vcap
+    seg = _local_segment_ids(kmv.voffsets, kmv.nvalues, vcap)
+    valid = torch.arange(vcap, device=seg.device) < int(kmv.vcounts[0])
+    v = kmv.values if kmv.values.dim() == 1 else kmv.values[:, 0]
+    dt = np.dtype(kmv.value_dtype)
+    if dt.kind == "u":
+        keyv = order_key(v, dt)
+        keyv = ~keyv if descending else keyv
+    else:
+        keyv = -v if descending else v
+    order = lexsort([keyv, seg, ~valid])
+    return ShardedKMV(kmv.ukey, kmv.nvalues, kmv.voffsets,
+                      kmv.values[order], kmv.gcounts.copy(),
+                      kmv.vcounts.copy(), kmv.key_dtype, kmv.value_dtype,
+                      kmv.key_decode, kmv.value_decode)

@@ -9,6 +9,12 @@ two (min 8).
 Torch has no u64 arithmetic, so a u64 key column is held as int64 with
 the same bits; ``key_dtype``/``value_dtype`` name the logical numpy dtype
 and the host copies (``to_host``) are reinterpreted as it.
+
+Byte and object columns live on the device as interned u64 ids
+(``core/column.py``): ``key_decode``/``value_decode`` hold the id → row
+:class:`~..core.column.InternTable`, and the host copies decode through it
+(``head(n)`` decodes only its n rows).  A frame's ``nbytes`` is that of
+its padded tensors, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,8 +25,30 @@ from typing import Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.column import (BytesColumn, DenseColumn, InternTable,
+                           ObjectColumn, TEXT_COLUMNS)
 from ..core.frame import KMVFrame, KVFrame
 from ..ops.bits import to_numpy, to_torch
+
+
+def _decode_col(table: InternTable, ids: np.ndarray):
+    """id → row decode; the table's kind (never a first-row guess) picks
+    a byte or an object column."""
+    rows = table.decode_batch(ids)
+    return ObjectColumn(rows) if table.kind == "object" \
+        else BytesColumn(rows)
+
+
+def _host_col(t: torch.Tensor, dtype, table):
+    """Device rows → a host column in the logical dtype, decoded when the
+    column is interned."""
+    arr = to_numpy(t, dtype)
+    return _decode_col(table, arr) if table is not None \
+        else DenseColumn(arr)
+
+
+def _tensor_nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def round_cap(n: int) -> int:
@@ -40,6 +68,8 @@ class ShardedKV:
     counts: np.ndarray
     key_dtype: np.dtype = np.dtype(np.uint64)
     value_dtype: np.dtype = np.dtype(np.uint64)
+    key_decode: InternTable = None      # id → key row (interned keys)
+    value_decode: InternTable = None    # id → value row (interned values)
 
     nprocs = 1
 
@@ -54,11 +84,20 @@ class ShardedKV:
     def __len__(self) -> int:
         return int(self.counts.sum())
 
+    def nbytes(self) -> int:
+        """Bytes of the padded key and value tensors."""
+        return _tensor_nbytes(self.key, self.value)
+
     def to_host(self) -> KVFrame:
-        """Exact host KVFrame of the valid rows, in logical dtypes."""
-        n = len(self)
-        return KVFrame(to_numpy(self.key[:n], self.key_dtype),
-                       to_numpy(self.value[:n], self.value_dtype))
+        """Exact host KVFrame of the valid rows, in logical dtypes,
+        interned columns decoded."""
+        return self._host_rows(len(self))
+
+    def _host_rows(self, n: int) -> KVFrame:
+        return KVFrame(_host_col(self.key[:n], self.key_dtype,
+                                 self.key_decode),
+                       _host_col(self.value[:n], self.value_dtype,
+                                 self.value_decode))
 
     def shard_to_host(self, p: int) -> KVFrame:
         if p != 0:
@@ -66,10 +105,9 @@ class ShardedKV:
         return self.to_host()
 
     def head(self, n: int) -> KVFrame:
-        """The first ``n`` valid pairs on the host (one small copy)."""
-        n = min(n, len(self))
-        return KVFrame(to_numpy(self.key[:n], self.key_dtype),
-                       to_numpy(self.value[:n], self.value_dtype))
+        """The first ``n`` valid pairs on the host (one small copy; only
+        those rows decode)."""
+        return self._host_rows(min(n, len(self)))
 
     def pairs(self) -> Iterator[Tuple[object, object]]:
         yield from self.to_host().pairs()
@@ -92,6 +130,8 @@ class ShardedKMV:
     vcounts: np.ndarray       # host [1]
     key_dtype: np.dtype = np.dtype(np.uint64)
     value_dtype: np.dtype = np.dtype(np.uint64)
+    key_decode: InternTable = None      # see ShardedKV
+    value_decode: InternTable = None
 
     nprocs = 1
 
@@ -114,17 +154,27 @@ class ShardedKMV:
     def nvalues_total(self) -> int:
         return int(self.vcounts.sum())
 
+    def nbytes(self) -> int:
+        """Bytes of the padded tensors: group keys, sizes, offsets and
+        values."""
+        return _tensor_nbytes(self.ukey, self.nvalues, self.voffsets,
+                              self.values)
+
     def to_host(self) -> KMVFrame:
-        """Exact host KMVFrame: one ragged gather of each group's run."""
+        """Exact host KMVFrame: one ragged gather of each group's run,
+        interned columns decoded."""
         g = len(self)
-        key = to_numpy(self.ukey[:g], self.key_dtype)
         nv = self.nvalues[:g].cpu().numpy().astype(np.int64)
         vo = self.voffsets[:g].cpu().numpy().astype(np.int64)
         vals = to_numpy(self.values[:self.nvalues_total], self.value_dtype)
         offsets = np.concatenate([[0], np.cumsum(nv)]).astype(np.int64)
         idx = (np.repeat(vo - offsets[:-1], nv)
                + np.arange(int(offsets[-1]), dtype=np.int64))
-        return KMVFrame(key, nv, offsets, vals[idx])
+        vals = vals[idx]
+        values = _decode_col(self.value_decode, vals) \
+            if self.value_decode is not None else DenseColumn(vals)
+        return KMVFrame(_host_col(self.ukey[:g], self.key_dtype,
+                                  self.key_decode), nv, offsets, values)
 
     def shard_to_host(self, p: int) -> KMVFrame:
         if p != 0:
@@ -153,14 +203,24 @@ def pad_rows(t: torch.Tensor, cap: int) -> torch.Tensor:
     return out
 
 
+def place_column(col, device):
+    """A host column → (tensor on ``device``, logical dtype, intern table
+    or None): a byte or object column interns on the device."""
+    if isinstance(col, TEXT_COLUMNS):
+        ids, table = col.intern(device)
+        return ids, np.dtype(np.uint64), table
+    return to_torch(col.data, device), col.data.dtype, None
+
+
 def shard_frame(frame: KVFrame, device) -> ShardedKV:
-    """Place a host KVFrame on ``device`` (padded to a power-of-two cap)."""
+    """Place a host KVFrame on ``device`` (padded to a power-of-two cap),
+    interning byte and object columns."""
     n = len(frame)
     cap = round_cap(n)
-    k, v = frame.key.data, frame.value.data
-    return ShardedKV(pad_rows(to_torch(k, device), cap),
-                     pad_rows(to_torch(v, device), cap),
-                     np.array([n], np.int32), k.dtype, v.dtype)
+    k, kd, kt = place_column(frame.key, device)
+    v, vd, vt = place_column(frame.value, device)
+    return ShardedKV(pad_rows(k, cap), pad_rows(v, cap),
+                     np.array([n], np.int32), kd, vd, kt, vt)
 
 
 def _logical_dtype(t: torch.Tensor, dtype) -> np.dtype:
@@ -187,17 +247,22 @@ def tensor_frame(key: torch.Tensor, value: torch.Tensor, key_dtype=None,
 
 
 def concat_sharded(frames: Sequence[ShardedKV]) -> ShardedKV:
-    """Valid rows of several device frames, in order, as one frame."""
+    """Valid rows of several device frames, in order, as one frame.
+    Interned columns align their id domains first and their tables merge
+    (``parallel/devkernels._align_domains``)."""
+    from .devkernels import _align_domains
     first = frames[0]
+    keys, kt = _align_domains(frames, "key")
+    values, vt = _align_domains(frames, "value")
     n = sum(len(f) for f in frames)
     cap = round_cap(n)
-    key = first.key.new_zeros((cap,) + tuple(first.key.shape[1:]))
-    value = first.value.new_zeros((cap,) + tuple(first.value.shape[1:]))
+    key = keys[0].new_zeros((cap,) + tuple(keys[0].shape[1:]))
+    value = values[0].new_zeros((cap,) + tuple(values[0].shape[1:]))
     at = 0
-    for f in frames:           # straight into the padded result: one copy
-        m = len(f)
-        key[at:at + m] = f.key[:m]
-        value[at:at + m] = f.value[:m]
+    for f, k, v in zip(frames, keys, values):
+        m = len(f)             # straight into the padded result: one copy
+        key[at:at + m] = k[:m]
+        value[at:at + m] = v[:m]
         at += m
     return ShardedKV(key, value, np.array([n], np.int32), first.key_dtype,
-                     first.value_dtype)
+                     first.value_dtype, kt, vt)

@@ -16,6 +16,12 @@ reduce(kernel, batch)]`` over a device frame runs as one local group,
   the groups outgrew gcap, the result is thrown away, the entry popped,
   and the group runs again cold.
 
+A host frame reaching a group is placed on the device first, byte and
+object columns interned (``_as_sharded``, as the eager aggregate does);
+a group whose reduce would do arithmetic on interned values replays
+eagerly so the eager refusal raises (``_reduce_value_ok``).  Intern tables
+ride on the group's output.
+
 Every other stage replays through the ordinary op.  Left out against the
 JAX fuser: the exchange and megafused groups (P>1), the wire codec, the
 persistent plan tier, buffer donation, the fault-retry wrapper and the
@@ -67,6 +73,25 @@ def _device_state(mr):
     return frame if len(frame) else None
 
 
+def _as_sharded(mr, frame):
+    """A host frame → the same pairs on mr's device (byte and object
+    columns interned), installed as the KV's frame: the eager
+    aggregate's placement."""
+    from ..core.frame import KVFrame
+    if not isinstance(frame, KVFrame):
+        return frame
+    skv = mr.backend.place(frame)
+    mr._kv_data.replace_frames(skv)
+    return skv
+
+
+def _reduce_value_ok(frame, rop: str) -> bool:
+    """Arithmetic on interned value ids is meaningless: the eager
+    reduce refuses it, so such a group replays eagerly and the same
+    error surfaces from the same code path."""
+    return rop in ("count", "first") or frame.value_decode is None
+
+
 def _match_group(mr, stages, i):
     """(n_stages, reduce_op, frame) of the local group starting at stage
     i, or (1, None, None) → eager replay."""
@@ -74,7 +99,9 @@ def _match_group(mr, stages, i):
     if stages[i].op == "convert" and i + 1 < len(stages):
         rop = _reduce_stage_op(stages[i + 1])
         frame = _device_state(mr) if rop is not None else None
-        if isinstance(frame, ShardedKV):
+        if frame is not None:
+            frame = _as_sharded(mr, frame)
+        if isinstance(frame, ShardedKV) and _reduce_value_ok(frame, rop):
             return 2, rop, frame
     return 1, None, None
 
@@ -155,7 +182,9 @@ def _exec_local_group(mr, stages, reduce_op, compiled: CompiledPlan,
         compiled.mega[gidx] = ("l", _gcap_for(g, cap))
     vdt = np.dtype(np.int64) if reduce_op == "count" else skv.value_dtype
     _install_kv(mr, ShardedKV(ukey, uval, np.array([g], np.int32),
-                              skv.key_dtype, vdt))
+                              skv.key_dtype, vdt, skv.key_decode,
+                              skv.value_decode if reduce_op == "first"
+                              else None))
     stages[0].result = g
     stages[1].result = g
     return ("local" if gcap is None else "local1"), cfg is not None

@@ -71,11 +71,17 @@ def snapshot_settings(settings):
 def frame_signature(frame) -> tuple:
     """Shape/dtype identity of the dataset the plan will run over, the
     second component of the plan-cache key: for each column its padded
-    shape and its logical dtype."""
+    shape and its logical dtype (``bytes``/``object`` for a host text
+    column, its row count as its shape)."""
+    from ..core.column import BytesColumn, ObjectColumn
     sig = [type(frame).__name__]
     for name in ("key", "value"):
         col = getattr(frame, name, None)
         if col is None:
+            continue
+        if isinstance(col, (BytesColumn, ObjectColumn)):
+            kind = "bytes" if isinstance(col, BytesColumn) else "object"
+            sig.append((name, (len(col),), kind))
             continue
         data = col if isinstance(col, torch.Tensor) else np.asarray(col.data)
         dtype = getattr(frame, f"{name}_dtype", data.dtype)

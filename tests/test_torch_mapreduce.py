@@ -69,8 +69,10 @@ def test_mapreduce_errors():
         mr.reduce(lambda *a: None)      # no KeyMultiValue yet
     with pytest.raises(MRError):
         MapReduce(device="cpu", mapstyle=5)
-    with pytest.raises(MRError):
-        mr.map(1, lambda i, kv, p: kv.add_batch([b"a"], [1]))
+    with pytest.raises(MRError, match="key/value lengths differ"):
+        mr.map(1, lambda i, kv, p: kv.add_batch([b"a", b"b"], [1]))
+    # byte keys are a column of their own now, not an error
+    assert mr.map(1, lambda i, kv, p: kv.add_batch([b"a"], [1])) == 1
 
 
 def test_map_mr_add_collate_match_jax():
@@ -106,7 +108,9 @@ def test_map_mr_add_collate_match_jax():
 
 def test_add_batch_of_device_tensors():
     """Tensors stay a device frame with the logical dtypes given; the
-    pairs and the byte count equal the host arrays'."""
+    pairs equal the host arrays', and the byte count that of the host
+    frame once aggregated onto the device: its padded tensors (512 rows
+    of 12 bytes), as the JAX package counts a device frame."""
     import torch
     keys, vals = _pairs()
     host, dev = MapReduce(device="cpu"), MapReduce(device="cpu")
@@ -116,7 +120,13 @@ def test_add_batch_of_device_tensors():
         torch.from_numpy(vals.view(np.int32)), key_dtype=np.uint64,
         value_dtype=np.uint32))
     assert _scan(host) == _scan(dev)
-    assert host.kv_stats(0) == dev.kv_stats(0) == (300, 300 * 12)
+    jmr = JMapReduce(make_mesh(1))
+    jmr.map(1, lambda i, kv, p: kv.add_batch(keys, vals))
+    assert host.kv_stats(0) == jmr.kv_stats(0) == (300, 300 * 12)
+    host.aggregate()
+    jmr.aggregate()
+    assert host.kv_stats(0) == dev.kv_stats(0) == jmr.kv_stats(0) == \
+        (300, 512 * 12)
     with pytest.raises(MRError):
         dev.map(1, lambda i, kv, p: kv.add_batch(torch.zeros(3),
                                                  torch.zeros(2)))

@@ -29,7 +29,8 @@ SCRIPT = textwrap.dedent("""
     import torch
     if not torch.cuda.is_available():
         for entry in (pkg.InvertedIndex, pkg.MapReduce, pkg.OinkScript,
-                      lambda: pkg.intcount([])):
+                      lambda: pkg.intcount([]), lambda: pkg.wordfreq([]),
+                      lambda: pkg.wordfreq_interned([])):
             try:
                 entry()
             except pkg.MRError:
@@ -46,7 +47,9 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "oink.mrscript", "models.luby", "models.tri",
                    "models.sssp", "oink.commands.histo",
                    "oink.commands.luby", "oink.commands.tri",
-                   "oink.commands.sssp", "parallel.devkernels")
+                   "oink.commands.sssp", "parallel.devkernels",
+                   "core.column", "utils.io", "apps.wordfreq",
+                   "oink.commands.wordfreq")
 
 
 def test_port_imports_no_jax():

@@ -229,7 +229,7 @@ def test_mr_builtin_and_lines_match_jax(tmp_path):
 
 @pytest.mark.parametrize("line, match", [
     ("x collapse int 7", "not ported yet"),
-    ("x map/file f read_words", "not ported yet"),
+    ("x save d", "not ported yet"),
     ("x scrunch 1 int 7", "not ported yet"),
     ("x broadcast 0", "not ported yet"),
     ("x set timer 1", "not ported yet"),
