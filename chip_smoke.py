@@ -98,6 +98,30 @@ nonzero):
               neigh_tri at scale 12 on the card and on the CPU: tmp.tri
               and every per-vertex file byte-identical.
 
+10. host    — the host tier, its pieces run where their data is: after
+              the intcount phase, the intcount-uniform file's 2^25 u32
+              keys as (u64, u32) pairs through ``MapReduce(outofcore=1,
+              memsize=64, maxpage=2)`` — map_files (host pages, the ones
+              past the 128 MB budget spilled), aggregate, convert (the
+              device KV over the budget demoted, sorted runs on the card,
+              a k-way merge) and reduce(count) — equal to
+              np.unique(return_counts=True) in ascending unsigned order,
+              beside the same chain in core; then sort_keys(-1) over the
+              budget, equal to the keys sorted non-increasing.  In the
+              graph script, right after rmat, examples/in.checkpoint's
+              lines (save, mr, load, degree on both MRs): the degrees
+              equal on the card, save and load GB/s, and a copy with one
+              flipped byte refused with IntegrityError.  In the text
+              phases, the Zipf corpus through map_file_char(64, ...,
+              "\\n", 80) under mapstyle 2, split on the card and
+              collated there, against the generator's counts; and in the
+              2 MB card-vs-CPU check, collapse / scrunch 1 / broadcast 0,
+              the interned KV and its KMV saved on one device and loaded
+              on the other, and the chunk maps ("\\n", "\\n\\n") under
+              mapstyle 0 and 2.  One ``host`` line holds the seconds,
+              bytes, counters (wsize, rsize, msizemax), runs, spill
+              files, peaks and launches.
+
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
 result when no CUDA device is present.  Imports nothing of JAX.
@@ -1033,10 +1057,11 @@ def text_outputs(device, paths, d: str) -> dict:
 
 
 def run_text(html_paths, tmp: str, device, kernels, smi: str):
-    """The text phases: wordfreq-zipf (its corpus generated here),
-    seg_table at its interned ids, wordfreq-html on the main cell's
-    corpus, then the card-vs-CPU check.  Returns (the wordfreq phase
-    records by cell, the seg_table record)."""
+    """The text phases: wordfreq-zipf (its corpus generated here), the
+    same corpus through map_file_char under mapstyle 2, seg_table at its
+    interned ids, wordfreq-html on the main cell's corpus, then the
+    card-vs-CPU check.  Returns (the wordfreq phase records by cell, the
+    seg_table record, the chunk-map record, the text-check record)."""
     t0 = time.perf_counter()
     zdir = os.path.join(tmp, "zipf")
     os.makedirs(zdir)
@@ -1054,6 +1079,7 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     wf = {"wordfreq-zipf": run_wordfreq("wordfreq-zipf", zpaths, oracle,
                                         tmp, kernels, smi)}
     emit(wf["wordfreq-zipf"])
+    chunks = run_chunk_wordfreq(zpaths, oracle, device, kernels)
     ids = interned_ids(zpaths, device)
     text_table = check_seg_table_text(ids, device)
     del ids
@@ -1070,7 +1096,7 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     check = run_text_check(tmp, smi)
     check["seconds"] = time.perf_counter() - t0
     emit(check)
-    return wf, text_table
+    return wf, text_table, chunks, check
 
 
 def run_text_check(tmp: str, smi: str) -> dict:
@@ -1080,19 +1106,363 @@ def run_text_check(tmp: str, smi: str) -> dict:
     os.makedirs(d)
     paths, counts, vbuf, voffs = zipf_corpus(d, WF_CHECK_MB, nfiles=2)
     got = {dev: text_outputs(dev, paths, d) for dev in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        got[dev].update(host_text_outputs(dev, paths, d))
     for key in got["cpu"]:
         if got["cuda"][key] != got["cpu"][key]:
             raise AssertionError(f"text-check: {key} differs between "
                                  f"cuda and cpu")
+    loads = check_cross_loads(d, got)
     words = [vbuf[voffs[i]:voffs[i + 1]].tobytes()
              for i in range(len(voffs) - 1)]
     oracle = wordfreq_oracle(words, counts, len(paths))
     if got["cuda"]["message"] != oracle["message"]:
         raise AssertionError("text-check: wordfreq differs from the oracle")
+    want = sorted((words[i], int(counts[i]))
+                  for i in range(len(words)) if counts[i])
+    for key in got["cuda"]:
+        if "/" in key and got["cuda"][key][2] != want:
+            raise AssertionError(f"text-check: {key} word counts differ "
+                                 f"from the generator's")
+    host_s = time.perf_counter() - t0
     shutil.rmtree(d)
     return {"phase": "text-check", "card": smi, "mb": WF_CHECK_MB,
             "nwords": oracle["nwords"], "nunique": oracle["nunique"],
-            "compared": sorted(got["cpu"]), "cuda_equals_cpu": True}
+            "compared": sorted(got["cpu"]), "cuda_equals_cpu": True,
+            "cross_loads": loads, "host_s": host_s}
+
+
+OOC_MEMSIZE = 64               # MB a page: the reference's default
+OOC_MAXPAGE = 2                # pages resident: a 128 MB budget
+CKPT_DIR = "ckpt.rmat"         # examples/in.checkpoint's directory
+
+
+@contextlib.contextmanager
+def counting(owner, attr: str):
+    """Count the calls of ``owner.attr`` (a module function or method)
+    for the block's length into the list the block yields."""
+    calls = [0]
+    fn = getattr(owner, attr)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        calls[0] += 1
+        return fn(*args, **kw)
+
+    setattr(owner, attr, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(owner, attr, fn)
+
+
+def read_u32_keys(itask, fname, kv, ptr):
+    """A file of u32 keys → (u64 key, u32 value 1) pairs: 12 bytes a
+    pair, 384 MiB for the 2^25-key IntCount file."""
+    import numpy as np
+    keys = np.fromfile(fname, np.uint32)
+    kv.add_batch(keys.astype(np.uint64), np.ones(len(keys), np.uint32))
+
+
+def timed_ops(device, ops) -> dict:
+    """Run ``(label, call)`` pairs in order, each between two device
+    synchronises: seconds by label."""
+    import torch
+    secs = {}
+    for label, call in ops:
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+    return secs
+
+
+def kv_arrays(mr):
+    """A KV's keys and values as host arrays, frames in order (spilled
+    pages read back one at a time)."""
+    import numpy as np
+    ks, vs = [], []
+    for fr in mr.kv.frames():
+        fr = fr.to_host()
+        ks.append(fr.key.data)
+        vs.append(fr.value.data)
+    return np.concatenate(ks), np.concatenate(vs)
+
+
+def run_ooc(path, keys_u32, tmp: str, device, kernels) -> dict:
+    """The out-of-core chain at real size: the 2^25 u32 keys of the
+    intcount-uniform file through ``MapReduce(outofcore=1, memsize=64,
+    maxpage=2)`` — map_files (host pages, the ones past the budget
+    spilled), aggregate (onto the card), convert (the device KV is over
+    the 128 MB budget: demoted to host pages, sorted runs on the card,
+    a k-way merge) and reduce(count) — then the same chain in core, then
+    sort_keys(-1) over the budget.  The (key, count) pairs must equal
+    np.unique's exactly, in ascending unsigned order; the sorted keys
+    must be non-increasing and the input's multiset."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.core import dataset, external
+    from gpu_mapreduce_tpu_torch.core.runtime import global_counters
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    t_phase = time.perf_counter()
+    spill = os.path.join(tmp, "ooc-spill")
+    settings = dict(outofcore=1, memsize=OOC_MEMSIZE, maxpage=OOC_MAXPAGE,
+                    fpath=spill, fuse=0)
+    keys = keys_u32.astype(np.uint64)
+    t0 = time.perf_counter()
+    want_k, want_c = np.unique(keys, return_counts=True)
+    oracle_s = time.perf_counter() - t0
+    c = global_counters()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w0, r0 = c.wsize, c.rsize
+    base = c.msize
+    c.msizemax = c.msize
+    mr = MapReduce(device=device, **settings)
+    with counting(external, "_write_run") as runs, \
+            counting(dataset, "_write_spill") as spills:
+        pages = {}
+
+        def map_step():
+            mr.map_files([path], read_u32_keys)
+            pages["map"] = (mr.kv.nframes, len(os.listdir(spill)))
+
+        ooc_s = timed_ops(device, [
+            ("map_files", map_step), ("aggregate", mr.aggregate),
+            ("convert", mr.convert),
+            ("reduce", lambda: mr.reduce(count, batch=True))])
+    counters = {"wsize": c.wsize - w0, "rsize": c.rsize - r0,
+                "msizemax": c.msizemax - base}
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.__name__: k.launches for k in kernels}
+    got_k, got_c = kv_arrays(mr)
+    if not (np.array_equal(got_k, want_k) and np.array_equal(got_c, want_c)):
+        raise AssertionError("ooc: (key, count) pairs differ from np.unique")
+    result_pages, nunique = mr.kv.nframes, len(want_k)
+    mr.kv.free()
+    if counters["wsize"] <= 0 or counters["rsize"] <= 0 or runs[0] < 2:
+        raise AssertionError(f"ooc: nothing spilled ({counters}, "
+                             f"{runs[0]} runs)")
+    torch.cuda.reset_peak_memory_stats()
+    incore = MapReduce(device=device, fuse=0)
+    core_s = timed_ops(device, [
+        ("map_files", lambda: incore.map_files([path], read_u32_keys)),
+        ("aggregate", incore.aggregate), ("convert", incore.convert),
+        ("reduce", lambda: incore.reduce(count, batch=True))])
+    core_peak = torch.cuda.max_memory_allocated()
+    got_k, got_c = kv_arrays(incore)
+    if not (np.array_equal(got_k, want_k) and np.array_equal(got_c, want_c)):
+        raise AssertionError("ooc: the in-core chain differs from np.unique")
+    incore.kv.free()
+    del got_k, got_c, want_k, want_c
+    srt = MapReduce(device=device, **settings)
+    srt.map_files([path], read_u32_keys)
+    with counting(external, "_write_run") as sort_runs:
+        sort_s = timed_ops(device, [("sort_keys", lambda: srt.sort_keys(-1))])
+    got_k, _ = kv_arrays(srt)
+    srt.kv.free()
+    t0 = time.perf_counter()
+    if not np.array_equal(got_k, np.sort(keys)[::-1]):
+        raise AssertionError("ooc: sort_keys(-1) is not the input's keys "
+                             "in non-increasing unsigned order")
+    oracle_s += time.perf_counter() - t0
+    shutil.rmtree(spill, ignore_errors=True)
+    return {"keys": len(keys), "pair_bytes": len(keys) * 12,
+            "settings": {k: v for k, v in settings.items() if k != "fpath"},
+            "op_s": ooc_s, "incore_op_s": core_s,
+            "sort_keys_desc_s": sort_s["sort_keys"],
+            "pages_after_map": pages["map"][0],
+            "spill_files_after_map": pages["map"][1],
+            "spill_files_written": spills[0], "runs": runs[0],
+            "sort_runs": sort_runs[0], "result_pages": result_pages,
+            **counters, "max_memory_allocated": peak,
+            "incore_max_memory_allocated": core_peak,
+            "launches": launches, "unique": nunique,
+            "oracle_s": oracle_s, "seconds": time.perf_counter() - t_phase}
+
+
+def checkpoint_lines() -> list:
+    """examples/in.checkpoint's lines on the graph script's edge MR."""
+    return [f"mre save {CKPT_DIR}", "mr mrb", f"mrb load {CKPT_DIR}",
+            "degree 0 -i mrb -o NULL mrdb", "degree 0 -i mre -o NULL mrde"]
+
+
+def check_checkpoint(run, device) -> dict:
+    """After the graph script's checkpoint lines (cwd: the phase's
+    directory): the degrees of the reloaded edges equal those of the
+    original, on the card; save and load seconds and GB/s; then a copy
+    of the checkpoint with one byte of one frame flipped must refuse to
+    load with IntegrityError."""
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.utils.integrity import (IntegrityError,
+                                                         verify_enabled)
+    named = run["interp"].obj.named
+    if not verify_enabled():
+        raise AssertionError("checkpoint: MRTPU_VERIFY is off")
+    if not same_pairs_on_card(named["mrdb"], named["mrde"]):
+        raise AssertionError("checkpoint: the degrees of the reloaded "
+                             "edges differ from the original's")
+    files = sorted(os.listdir(CKPT_DIR))
+    nbytes = sum(os.path.getsize(os.path.join(CKPT_DIR, f)) for f in files)
+    save_s = run["seconds"]["mre save"]
+    load_s = run["seconds"]["mrb load"]
+    bad = CKPT_DIR + ".flipped"
+    os.makedirs(bad)
+    for f in files:
+        if f == "frame-00000.npz":
+            shutil.copyfile(os.path.join(CKPT_DIR, f), os.path.join(bad, f))
+        else:
+            os.link(os.path.join(CKPT_DIR, f), os.path.join(bad, f))
+    frame = os.path.join(bad, "frame-00000.npz")
+    with open(frame, "r+b") as fh:
+        fh.seek(os.path.getsize(frame) // 2)
+        b = fh.read(1)
+        fh.seek(-1, 1)
+        fh.write(bytes([b[0] ^ 0x01]))
+    t0 = time.perf_counter()
+    try:
+        MapReduce(device=device).load(bad)
+    except IntegrityError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("checkpoint: a flipped byte loaded")
+    refuse_s = time.perf_counter() - t0
+    shutil.rmtree(bad)
+    shutil.rmtree(CKPT_DIR)
+    return {"lines": checkpoint_lines(), "files": len(files),
+            "bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "save_gb_per_s": nbytes / save_s / 1e9,
+            "load_gb_per_s": nbytes / load_s / 1e9,
+            "degree_equal_on_card": True, "digests_verified": True,
+            "flipped_byte_refused": refused[:120],
+            "flipped_refuse_s": refuse_s}
+
+
+def kmv_rows(mr) -> list:
+    """A KMV's groups on the host: (key, value rows) per frame."""
+    import numpy as np
+    out = []
+    for fr in mr.kmv.frames():
+        fr = fr.to_host()
+        out.append((fr.key.tolist(), np.asarray(fr.nvalues).tolist(),
+                    fr.values.tolist()))
+    return out
+
+
+def kv_rows(mr) -> list:
+    return [(fr.key.tolist(), fr.value.tolist())
+            for fr in (f.to_host() for f in mr.kv.frames())]
+
+
+def host_text_outputs(device, paths, d: str) -> dict:
+    """The host tier's card-vs-CPU outputs from one device: collapse,
+    scrunch 1 and broadcast 0 of the text KV (each word as key and
+    value); the interned KV and its
+    KMV after collate, saved under ``d``; and the chunk maps ("\n" with
+    map_file_char, "\n\n" with map_file_str) under mapstyle 0 and 2,
+    their chunks concatenated and their words counted."""
+    from collections import Counter
+    import numpy as np
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.utils.io import split_words
+
+    def word_pairs(itask, fname, kv, ptr):       # (word, word): text both
+        col = split_words(np.fromfile(fname, np.uint8), kv.device)
+        kv.add_batch(col, col)
+
+    out = {}
+    base = MapReduce(device=device)
+    base.map_files(paths, word_pairs)
+    for op, call in (("collapse", lambda m: m.collapse(b"all")),
+                     ("scrunch", lambda m: m.scrunch(1, b"all"))):
+        m = base.copy()
+        out[op] = (call(m), kmv_rows(m))
+    out["broadcast"] = (base.copy().broadcast(0), kv_rows(base))
+    base.aggregate()
+    base.save(os.path.join(d, f"kv-{device}"))
+    out["interned_kv"] = kv_rows(base)
+    base.collate()
+    base.save(os.path.join(d, f"kmv-{device}"))
+    out["interned_kmv"] = kmv_rows(base)
+    data = b"".join(open(p, "rb").read() for p in paths)
+    for method, sep in (("map_file_char", "\n"), ("map_file_str", "\n\n")):
+        for style in (0, 2):
+            m = MapReduce(device=device, mapstyle=style)
+            n = getattr(m, method)(16, paths, 0, 0, sep, 80,
+                                   lambda i, chunk, kv, p: kv.add(i, chunk))
+            chunks = [v for _, vs in kv_rows(m) for v in vs]
+            if b"".join(chunks) != data:
+                raise AssertionError(f"text-check {device}: {method} "
+                                     f"mapstyle {style} chunks differ "
+                                     f"from the files' bytes")
+            words = Counter(w for ch in chunks for w in ch.split())
+            out[f"{method}/{style}"] = (n, kv_rows(m), sorted(words.items()))
+    return out
+
+
+def check_cross_loads(d: str, got: dict) -> list:
+    """Each device's saved interned KV and KMV, loaded on the other
+    device, must give that device's rows."""
+    from gpu_mapreduce_tpu_torch import MapReduce
+    done = []
+    for writer, reader in (("cuda", "cpu"), ("cpu", "cuda")):
+        for kind, rows in (("kv", kv_rows), ("kmv", kmv_rows)):
+            m = MapReduce(device=reader)
+            m.load(os.path.join(d, f"{kind}-{writer}"))
+            if rows(m) != got[reader][f"interned_{kind}"]:
+                raise AssertionError(f"text-check: the {kind} saved on "
+                                     f"{writer} loads differently on "
+                                     f"{reader}")
+            done.append(f"{kind} {writer}->{reader}")
+    return done
+
+
+def run_chunk_wordfreq(paths, oracle: dict, device, kernels) -> dict:
+    """The wordfreq-zipf corpus through map_file_char(64, files, 0, 0,
+    "\n", 80) under mapstyle 2: each chunk split into words on the card
+    (utils/io.split_words, no Python object per word) as a packed byte
+    column, then one collate on the card (the words intern there once).
+    Words and distinct words must equal the generator's."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.utils.io import split_words
+
+    def per_chunk(itask, chunk, kv, ptr):
+        col = split_words(chunk, kv.device)
+        kv.add_batch(col, np.zeros(len(col), np.uint8))
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mr = MapReduce(device=device, mapstyle=2, fuse=0)
+    got = {}
+    secs = timed_ops(device, [
+        ("map_file_char", lambda: got.__setitem__(
+            "nwords", mr.map_file_char(64, paths, 0, 0, "\n", 80,
+                                       per_chunk))),
+        ("collate", lambda: got.__setitem__("nunique", mr.collate()))])
+    if (got["nwords"], got["nunique"]) != (oracle["nwords"],
+                                           oracle["nunique"]):
+        raise AssertionError(f"wordfreq chunks: {got} != the generator's "
+                             f"{oracle['nwords']} words, "
+                             f"{oracle['nunique']} unique")
+    mr.kmv.free()
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    total = sum(secs.values())
+    return {"files": len(paths), "bytes": nbytes, "mapstyle": 2,
+            "nmap": 64, **got, "op_s": secs,
+            "bytes_per_s": nbytes / total,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": {k.__name__: k.launches for k in kernels}}
 
 
 GRAPH_SCALE = 22               # BASELINE.json's PageRank scale
@@ -1118,6 +1488,7 @@ def graph_script(scale: int, edgefactor: int) -> list:
     return [
         f"rmat {scale} {edgefactor} {a} {b} {c} {d} 0.0 {GRAPH_SEED} "
         f"-o NULL mre",
+        *checkpoint_lines(), "mrb delete",
         "degree_stats 0 -i mre",
         f"pagerank {GRAPH_TOL} {GRAPH_MAXITER} {GRAPH_DAMPING} -i mre "
         f"-o NULL mrpr",
@@ -1523,10 +1894,14 @@ def drive_script(device, lines, kernels, interp=None) -> dict:
         for line in lines:
             line, eng = (line, None) if isinstance(line, str) else line
             words = line.split()
-            # a named-MR line is labelled by its MR and method
-            label = " ".join(words[:2]) if len(words) > 1 and \
-                words[1].startswith("map/") else words[0]
+            # a named-MR line is labelled by its MR and method, a
+            # repeated label by its count
+            label = " ".join(words[:2]) if len(words) > 1 and (
+                words[1].startswith("map/")
+                or words[1] in ("save", "load", "delete")) else words[0]
             label += f"/{eng}" if eng else ""
+            if label in seconds:
+                label += f"#{sum(k.split('#')[0] == label for k in seconds) + 1}"
             s.screen = buf = io.StringIO()
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
@@ -1600,6 +1975,7 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
     os.chdir(tmp)
     try:
         run = drive_script(device, graph_script(scale, edgefactor), kernels)
+        ckpt = check_checkpoint(run, device)
         comp = drive_script(device, composed_graph_lines(), kernels,
                             interp=run["interp"])
         named = run["interp"].obj.named
@@ -1674,7 +2050,7 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
             "rmat_round_device_vs_cpu": rmat_round,
             "composed": composed, "launches_composed": comp_launches,
             "composed_cc_equal_fused_on_card": True,
-            "composed_cc_compare_s": compare_s}
+            "composed_cc_compare_s": compare_s, "checkpoint": ckpt}
 
 
 def tri_oracles(scale: int, upper, rows, message: str, nbatches: int
@@ -2092,9 +2468,12 @@ def main() -> int:
             int_runs[cell] = run_intcount(cell, path, int_keys[cell],
                                           kernels, smi)
             emit(int_runs[cell])
+        ooc = run_ooc(int_paths["uniform"], int_keys["uniform"], tmp,
+                      device, kernels)
         shutil.rmtree(int_dir)
 
-        wf, text_table = run_text(paths, tmp, device, kernels, smi)
+        wf, text_table, chunks, check = run_text(paths, tmp, device,
+                                                 kernels, smi)
         shutil.rmtree(main_dir)
 
         graph = run_graph(device, smi, kernels)
@@ -2102,6 +2481,16 @@ def main() -> int:
         tri = run_tri(device, smi, kernels)
         emit(tri)
         emit(run_composed_check(device, smi))
+        host = {"phase": "host", "card": smi, "ooc": ooc,
+                "checkpoint": graph["checkpoint"],
+                "text_check": {k: check[k] for k in (
+                    "compared", "cross_loads", "host_s")},
+                "wordfreq_chunks": chunks}
+        host["seconds"] = (ooc["seconds"] + graph["checkpoint"]["save_s"]
+                           + graph["checkpoint"]["load_s"]
+                           + graph["checkpoint"]["flipped_refuse_s"]
+                           + check["host_s"] + sum(chunks["op_s"].values()))
+        emit(host)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2113,6 +2502,10 @@ def main() -> int:
                     "launches_tri": tri["launches"][k],
                     "launches_composed": graph["launches_composed"][k]
                     + tri["launches_composed"][k],
+                    # the host phase: the out-of-core chain and the
+                    # chunk-map wordfreq
+                    "launches_host": ooc["launches"][k]
+                    + chunks["launches"][k],
                     # per wordfreq cell, per run (eager, cold, warm)
                     "launches_text": {
                         cell: {run: rec[run]["launches"][k]

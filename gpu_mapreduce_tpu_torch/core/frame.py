@@ -5,6 +5,8 @@ and object columns (``core/column.py``): ``pairs()`` and ``groups()``
 yield Python scalars, tuples, ``bytes`` or the objects.  KMV layout:
 unique keys ``[g]``, per-group counts ``[g]``, exclusive offsets
 ``[g+1]`` and a flat value column whose rows are grouped contiguously.
+:class:`BlockedMultivalue` hands a reduce callback one large group in
+blocks (the reference's multi-page "extended" KMV).
 """
 
 from __future__ import annotations
@@ -111,9 +113,53 @@ class KMVFrame:
         for i, k in enumerate(keys):
             yield k, vals[int(self.offsets[i]):int(self.offsets[i + 1])]
 
+    def blocks_of(self, i: int, block_rows: int) -> Iterator[object]:
+        """Group ``i``'s values in blocks of at most ``block_rows`` rows
+        (reference multivalue_blocks()/multivalue_block(),
+        src/mapreduce.cpp:1874-1925)."""
+        start, stop = int(self.offsets[i]), int(self.offsets[i + 1])
+        for s in range(start, stop, block_rows):
+            yield self.values.slice(s, min(s + block_rows, stop))
+
     def __repr__(self):
         return (f"KMVFrame(g={len(self)}, n={self.nvalues_total}, "
                 f"key={self.key!r}, values={self.values!r})")
+
+
+class BlockedMultivalue:
+    """What a reduce callback gets instead of a value list for a group of
+    more than ``block_rows`` values (the reference signals it with
+    ``nvalues == 0`` and the callback pulls the pages,
+    src/mapreduce.cpp:1874-1925): iterating yields one value list per
+    block."""
+
+    __slots__ = ("_frame", "_i", "block_rows")
+
+    def __init__(self, frame: KMVFrame, i: int, block_rows: int):
+        self._frame = frame
+        self._i = i
+        self.block_rows = block_rows
+
+    @property
+    def nvalues_total(self) -> int:
+        return int(self._frame.nvalues[self._i])
+
+    def __len__(self) -> int:
+        return self.nvalues_total
+
+    def __iter__(self):
+        for col in self._frame.blocks_of(self._i, self.block_rows):
+            yield col.tolist()
+
+
+def iter_blocks(multivalue) -> Iterator[list]:
+    """Value-list blocks of a reduce callback's multivalue, whether it is
+    a plain list or a :class:`BlockedMultivalue` (oink/blockmacros.h's
+    block loop as one generator)."""
+    if isinstance(multivalue, BlockedMultivalue):
+        yield from multivalue
+    else:
+        yield multivalue
 
 
 def empty_kv() -> KVFrame:

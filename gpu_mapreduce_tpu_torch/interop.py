@@ -2,9 +2,11 @@
 
 This system has no weights; what stands in for them is its key/value
 state.  These helpers turn frames pulled out of the JAX package as numpy
-arrays into the port's device frames and back, bit for bit: a u64 column
-is reinterpreted as int64 without changing a bit, and its logical dtype
-travels with the frame.
+arrays into the port's device frames or host pages and back, bit for bit:
+a u64 column is reinterpreted as int64 without changing a bit, and its
+logical dtype travels with the frame.  The second carrier of state across
+the packages is a checkpoint directory (``core/checkpoint.py``), which
+either package loads.
 """
 
 from __future__ import annotations
@@ -52,23 +54,27 @@ def to_numpy(frame) -> dict:
 
 
 def mapreduce_from_numpy(key: np.ndarray, value: np.ndarray, device=None,
-                         **settings):
+                         host: bool = False, **settings):
     """A port MapReduce whose KV holds these host pairs (for example a JAX
     MapReduce's edge KV pulled out as numpy: ``[n, 2]`` u64 keys and
-    their values) as one frame on ``device``; register it by name in an
+    their values): one frame on ``device``, or with ``host`` host pages
+    of at most ``memsize`` MB (spilled past ``maxpage`` under
+    ``outofcore=1``).  Register it by name in an
     ``oink.objects.ObjectManager`` with ``name_mr``."""
     from .core.frame import KVFrame
     from .core.mapreduce import MapReduce
     from .parallel.sharded import shard_frame
     mr = MapReduce(device=device, **settings)
-    frame = shard_frame(KVFrame(key, value), mr.device)
+    frame = KVFrame(key, value)
+    if not host:
+        frame = shard_frame(frame, mr.device)
     mr.map(1, lambda itask, kv, ptr: kv.add_frame(frame))
     return mr
 
 
 def mapreduce_to_numpy(mr) -> tuple:
     """A port MapReduce's KV as host ``(key, value)`` arrays in logical
-    dtypes, frames in order."""
+    dtypes, frames in order (spilled pages read back one at a time)."""
     frames = [fr.to_host() for fr in mr.kv.frames()]
     if not frames:
         raise ValueError("the MapReduce holds no KV pairs")

@@ -41,9 +41,11 @@ class OutputDescriptor:
 class ObjectManager:
     """Holds named MRs, temporaries, descriptors, and MR defaults."""
 
-    # the settings `set` may change; the JAX package's others (timer,
-    # outofcore, paging, fpath, onfault) are not ported yet
-    MR_SETTINGS = ("verbosity", "memsize", "fuse")
+    # the settings `set` may change (oinkdoc/set.txt; `fuse` and
+    # `onfault` are the JAX package's own)
+    MR_SETTINGS = ("verbosity", "timer", "memsize", "outofcore", "minpage",
+                   "maxpage", "freepage", "zeropage", "fpath", "fuse",
+                   "onfault")
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -61,8 +63,7 @@ class ObjectManager:
 
     def set_default(self, name: str, value):
         if name not in self.MR_SETTINGS:
-            raise MRError(f"set parameter {name!r} is unknown or not "
-                          f"ported yet")
+            raise MRError(f"unknown set parameter {name!r}")
         self.defaults[name] = value
 
     # -- MR lifecycle ------------------------------------------------------

@@ -362,13 +362,19 @@ class OinkScript:
         self.obj.name_mr(name, mr)
 
     def cmd_set(self, args):
-        """set keyword value ... (object.cpp Object::set): MR defaults,
-        and ``prepend``/``substitute`` for -i/-o path resolution."""
+        """set keyword value ... (object.cpp Object::set): MR defaults
+        (``scratch`` sets the spill directory ``fpath``, ``onfault`` is
+        string-valued), and ``prepend``/``substitute`` for -i/-o path
+        resolution."""
         if len(args) % 2:
             raise MRError("Illegal set command")
         for i in range(0, len(args), 2):
             key, val = args[i], args[i + 1]
-            if key == "prepend":
+            if key == "scratch":              # the spill directory
+                self.obj.set_default("fpath", val)
+            elif key == "onfault":            # string-valued
+                self.obj.set_default("onfault", val)
+            elif key == "prepend":
                 self._path_prepend = val
             elif key == "substitute":
                 self._path_substitute = int(val)

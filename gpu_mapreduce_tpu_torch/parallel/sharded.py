@@ -28,7 +28,7 @@ import torch
 from ..core.column import (BytesColumn, DenseColumn, InternTable,
                            ObjectColumn, TEXT_COLUMNS)
 from ..core.frame import KMVFrame, KVFrame
-from ..ops.bits import to_numpy, to_torch
+from ..ops.bits import storage_dtype, to_numpy, to_torch
 
 
 def _decode_col(table: InternTable, ids: np.ndarray):
@@ -221,6 +221,27 @@ def shard_frame(frame: KVFrame, device) -> ShardedKV:
     v, vd, vt = place_column(frame.value, device)
     return ShardedKV(pad_rows(k, cap), pad_rows(v, cap),
                      np.array([n], np.int32), kd, vd, kt, vt)
+
+
+def shard_frames(frames: Sequence[KVFrame], device) -> ShardedKV:
+    """Host frames of dense columns of one dtype and row shape → one
+    frame on ``device``: each frame's rows copy straight into its place
+    in the padded tensors (no concatenation on the host)."""
+    n = sum(len(f) for f in frames)
+    cap = round_cap(n)
+    cols = []
+    for name in ("key", "value"):
+        first = getattr(frames[0], name).data
+        out = torch.zeros((cap,) + first.shape[1:],
+                          dtype=storage_dtype(first.dtype), device=device)
+        at = 0
+        for f in frames:
+            data = getattr(f, name).data
+            out[at:at + len(data)] = to_torch(data, "cpu")
+            at += len(data)
+        cols.append(out)
+    return ShardedKV(cols[0], cols[1], np.array([n], np.int32),
+                     frames[0].key.data.dtype, frames[0].value.data.dtype)
 
 
 def _logical_dtype(t: torch.Tensor, dtype) -> np.dtype:

@@ -17,12 +17,14 @@ reduce(kernel, batch)]`` over a device frame runs as one local group,
   and the group runs again cold.
 
 A host frame reaching a group is placed on the device first, byte and
-object columns interned (``_as_sharded``, as the eager aggregate does);
+object columns interned (``_device_state``, as the eager aggregate does);
 a group whose reduce would do arithmetic on interned values replays
 eagerly so the eager refusal raises (``_reduce_value_ok``).  Intern tables
 ride on the group's output.
 
-Every other stage replays through the ordinary op.  Left out against the
+Under ``outofcore=1`` nothing fuses (``_device_state``): the page
+budget's spill and external paths are eager.  Every other stage replays
+through the ordinary op.  Left out against the
 JAX fuser: the exchange and megafused groups (P>1), the wire codec, the
 persistent plan tier, buffer donation, the fault-retry wrapper and the
 tracer spans.
@@ -65,23 +67,22 @@ def _reduce_stage_op(st: PlanStage) -> Optional[str]:
 
 
 def _device_state(mr):
-    """The live frame a fused group would consume, or None (eager)."""
+    """The live frame a fused group would consume, placed on mr's device
+    (byte and object columns interned) and installed as the KV's frame,
+    as the eager aggregate places it; or None (eager).  The fuser never
+    fuses across a spill boundary, so under ``outofcore=1`` (where pages
+    spill and a device KV over the budget demotes) every stage runs
+    eagerly."""
     kv = mr._kv_data
-    if kv is None or not kv.complete_done:
+    if kv is None or not kv.complete_done or mr._open \
+            or mr.settings.outofcore == 1 or not kv.nkv:
         return None
-    frame = kv.one_frame()
-    return frame if len(frame) else None
-
-
-def _as_sharded(mr, frame):
-    """A host frame → the same pairs on mr's device (byte and object
-    columns interned), installed as the KV's frame: the eager
-    aggregate's placement."""
-    from ..core.frame import KVFrame
-    if not isinstance(frame, KVFrame):
-        return frame
-    skv = mr.backend.place(frame)
-    mr._kv_data.replace_frames(skv)
+    from ..parallel.sharded import ShardedKV
+    frames = kv._frames
+    if len(frames) == 1 and isinstance(frames[0], ShardedKV):
+        return frames[0]
+    skv = mr.backend.place_kv(kv)
+    kv.replace_frames(skv)
     return skv
 
 
@@ -99,8 +100,6 @@ def _match_group(mr, stages, i):
     if stages[i].op == "convert" and i + 1 < len(stages):
         rop = _reduce_stage_op(stages[i + 1])
         frame = _device_state(mr) if rop is not None else None
-        if frame is not None:
-            frame = _as_sharded(mr, frame)
         if isinstance(frame, ShardedKV) and _reduce_value_ok(frame, rop):
             return 2, rop, frame
     return 1, None, None

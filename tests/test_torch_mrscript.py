@@ -219,7 +219,7 @@ def test_copy_set_scan_kmv_and_stats(capsys):
     assert cp.kv_stats() == mr.kv_stats() == (6, 96)
     cp.set(memsize=16, verbosity=1)
     assert (cp.settings.memsize, mr.settings.memsize) == (16, 8)
-    for bad in ({"timer": 1}, {"outofcore": 1}, {"fpath": "x"}):
+    for bad in ({"onfault": "retry"}, {"onfault": "skip"}):
         with pytest.raises(MRError, match="not ported yet"):
             cp.set(**bad)
     with pytest.raises(MRError, match="Invalid memsize"):

@@ -49,7 +49,9 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "oink.commands.luby", "oink.commands.tri",
                    "oink.commands.sssp", "parallel.devkernels",
                    "core.column", "utils.io", "apps.wordfreq",
-                   "oink.commands.wordfreq")
+                   "oink.commands.wordfreq", "core.external",
+                   "core.checkpoint", "exec", "exec.spill",
+                   "exec.prefetch", "utils.fsio", "utils.integrity")
 
 
 def test_port_imports_no_jax():
