@@ -122,6 +122,26 @@ nonzero):
               bytes, counters (wsize, rsize, msizemax), runs, spill
               files, peaks and launches.
 
+11. mesh    — the data plane over ``make_mesh(4, devices=[cuda:0] * 4)``:
+              four shards on the one card, driven by this process.
+              main-p4: InvertedIndex(comm=mesh).run() on the main cell's
+              corpus (one file a shard; warm-up, then a timed run after
+              the launch counts are set to 0): the generator's pairs and
+              unique URLs, mark_words launched once a shard a pass.
+              intcount-p4: each intcount cell's keys as four files through
+              intcount(paths, ntop=10, comm=mesh), equal to numpy's counts
+              (ties in the mesh's order), seg_table never launched; the
+              aggregate's count matrix, bytes, pad bytes and device
+              seconds beside its bytes bound.  wordfreq-p4:
+              wordfreq_interned over the zipf cell's four files against
+              the generator's counts, beside the one-device call.
+              mesh-check: a 2 MB skewed corpus's four part files on the
+              card and on CPU shards byte-identical (their lines the
+              one-device part file's), and a 2^16-key IntCount at P = 3
+              through gather(1), broadcast(0), sort_keys(-1) equal on the
+              card and the CPU.  With two cards or more, intcount-p4 runs
+              again with one shard a card.  One ``mesh`` line sums it.
+
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
 result when no CUDA device is present.  Imports nothing of JAX.
@@ -1060,8 +1080,10 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     """The text phases: wordfreq-zipf (its corpus generated here), the
     same corpus through map_file_char under mapstyle 2, seg_table at its
     interned ids, wordfreq-html on the main cell's corpus, then the
-    card-vs-CPU check.  Returns (the wordfreq phase records by cell, the
-    seg_table record, the chunk-map record, the text-check record)."""
+    card-vs-CPU check; wordfreq-p4 (the mesh phase's) runs on the zipf
+    corpus.  Returns (the wordfreq phase records by cell, the seg_table
+    record, the chunk-map record, the text-check record, the wordfreq-p4
+    record)."""
     t0 = time.perf_counter()
     zdir = os.path.join(tmp, "zipf")
     os.makedirs(zdir)
@@ -1079,6 +1101,8 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     wf = {"wordfreq-zipf": run_wordfreq("wordfreq-zipf", zpaths, oracle,
                                         tmp, kernels, smi)}
     emit(wf["wordfreq-zipf"])
+    mesh_wf = run_mesh_wordfreq(zpaths, oracle, kernels, smi)
+    emit(mesh_wf)
     chunks = run_chunk_wordfreq(zpaths, oracle, device, kernels)
     ids = interned_ids(zpaths, device)
     text_table = check_seg_table_text(ids, device)
@@ -1096,7 +1120,7 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     check = run_text_check(tmp, smi)
     check["seconds"] = time.perf_counter() - t0
     emit(check)
-    return wf, text_table, chunks, check
+    return wf, text_table, chunks, check, mesh_wf
 
 
 def run_text_check(tmp: str, smi: str) -> dict:
@@ -2318,6 +2342,363 @@ def run_tri(device, smi: str, kernels=(), scale: int = TRI_SCALE,
                                 "seconds": check_s}}
 
 
+# ---------------------------------------------------------------------------
+# 11. mesh — the data plane over P shards driven by one process
+# ---------------------------------------------------------------------------
+
+MESH_P = 4                     # the reference's four ranks
+MESH_CHECK_MB = 2              # the card-vs-CPU InvertedIndex check
+MESH_CHECK_KEYS = 1 << 16      # the card-vs-CPU IntCount check
+MESH_CHECK_P = 3
+
+
+def mesh_devices(ndev: int = MESH_P) -> list:
+    """``ndev`` shards on the first card, as a one-card machine holds
+    them."""
+    import torch
+    return [torch.device("cuda", 0)] * ndev
+
+
+def sync_all() -> None:
+    """Wait for every card's queued work (a mesh may span several)."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def reset_peaks() -> None:
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def peak_bytes() -> list:
+    """Peak bytes allocated on each card since :func:`reset_peaks`."""
+    import torch
+    return [torch.cuda.max_memory_allocated(i)
+            for i in range(torch.cuda.device_count())]
+
+
+def mesh_rounds(idx, paths, P: int) -> int:
+    """Batch rounds of a mesh InvertedIndex run: the most batches any
+    shard's file slice takes."""
+    from gpu_mapreduce_tpu_torch.parallel.ingest import balance_by_bytes
+    return max((len(idx._file_batches(files, sizes))
+                for _, files, sizes in balance_by_bytes(paths, P) if files),
+               default=0)
+
+
+def run_mesh_main(paths, nref: int, nuniq: int, one_device: dict, kernels,
+                  smi: str, devices=None) -> dict:
+    """main-p4: InvertedIndex(comm=mesh).run() on the main cell's corpus,
+    one file a shard: warm-up, then one timed run with every launch count
+    set to 0 just before it.  Pairs and unique URLs must equal the
+    generator's, and mark_words must launch once a shard a pass (each
+    batch round, cap retry and wide fallback)."""
+    from gpu_mapreduce_tpu_torch import InvertedIndex
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(MESH_P, devices=devices or mesh_devices())
+    InvertedIndex(comm=mesh).run(paths)
+    for k in kernels:
+        k.launches = 0
+    sync_all()
+    reset_peaks()
+    idx = InvertedIndex(comm=mesh)
+    t0 = time.perf_counter()
+    got = idx.run(paths)
+    sync_all()
+    dt = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    if got != (nref, nuniq):
+        raise AssertionError(f"main-p4 gave {got}, the generator "
+                             f"{(nref, nuniq)}")
+    rounds = mesh_rounds(idx, paths, MESH_P)
+    passes = rounds + idx.stats["cap_retries"] + idx.stats["wide_fallbacks"]
+    if launches["mark_words"] != MESH_P * passes or \
+            launches["mark_words"] < MESH_P:
+        raise AssertionError(f"main-p4: mark_words launched "
+                             f"{launches['mark_words']} times, not "
+                             f"{MESH_P} x {passes} passes")
+    times = idx.timer.times
+    ex = idx.mr.last_exchange
+    keys = ("map_device", "aggregate", "convert", "reduce")
+    return {"phase": "mesh-main-p4", "card": smi, "p": MESH_P,
+            "devices": [str(d) for d in mesh.devices],
+            "npairs": got[0], "nunique": got[1], "rounds": rounds,
+            "passes": passes, "stats": idx.stats, "launches": launches,
+            "end_to_end_s": dt, "stages_s": times,
+            "seconds": {k: times.get(k) for k in keys},
+            "p1_seconds": {**{k: one_device["stages_s"].get(k)
+                              for k in keys},
+                           "end_to_end": one_device["end_to_end_s"]},
+            "exchange": vars(ex) if ex is not None else None,
+            "max_memory_allocated": peak_bytes()}
+
+
+@contextlib.contextmanager
+def exchange_spans():
+    """Every exchange of the block (aggregate's and gather's) with its
+    stats and its seconds between two synchronises of every card, into
+    the list the block yields."""
+    from gpu_mapreduce_tpu_torch.parallel import collectives, shuffle
+    out = []
+    saved = [(m, m.exchange) for m in (shuffle, collectives)]
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def timed(*args, **kw):
+            sync_all()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            sync_all()
+            out.append({**vars(res.exchange_stats),
+                        "seconds": time.perf_counter() - t0})
+            return res
+        return timed
+
+    for m, fn in saved:
+        m.exchange = wrap(fn)
+    try:
+        yield out
+    finally:
+        for m, fn in saved:
+            m.exchange = fn
+
+
+def lookup3_u64(keys):
+    """hashlittle(key, 8, 0) of each u64 key's little-endian bytes by
+    numpy: the reference's lookup3 (src/hash.cpp) for an 8-byte key is
+    a = low word, b = high word over 0xdeadbeef + 8, then the final mix;
+    the aggregate's destination is this % P."""
+    import numpy as np
+    k = np.asarray(keys, np.uint64)
+    a = np.full(len(k), 0xDEADBEEF + 8, np.uint32)
+    b, c = a.copy(), a.copy()
+    a += (k & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    b += (k >> np.uint64(32)).astype(np.uint32)
+
+    def rot(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+    for x, y, r in (("c", "b", 14), ("a", "c", 11), ("b", "a", 25),
+                    ("c", "b", 16), ("a", "c", 4), ("b", "a", 14),
+                    ("c", "b", 24)):
+        v = {"a": a, "b": b, "c": c}
+        v[x] ^= v[y]
+        v[x] -= rot(v[y], r)
+    return c
+
+
+def intcount_oracle_mesh(keys_u32, ntop: int, P: int):
+    """intcount_oracle for a mesh of P shards: the same (nints, nunique)
+    and top counts; among equal counts the top-N takes them in the mesh
+    layout's reverse row order — the gather to shard 0 lays the groups
+    out by destination shard, each shard's keys ascending, and the
+    descending value sort reverses ties — so destination descending,
+    then key descending."""
+    import numpy as np
+    uk, c = np.unique(keys_u32, return_counts=True)
+    dest = lookup3_u64(uk.astype(np.uint64)) % np.uint32(P)
+    order = np.lexsort((-uk.astype(np.int64), -dest.astype(np.int64),
+                        -c))[:ntop]
+    return len(keys_u32), len(uk), [(int(uk[i]), int(c[i])) for i in order]
+
+
+def split_files(keys_u32, d: str, nfiles: int) -> list:
+    """The keys in ``nfiles`` contiguous files (the same keys, one file a
+    shard)."""
+    import numpy as np
+    os.makedirs(d, exist_ok=True)
+    paths = []
+    for i, part in enumerate(np.array_split(keys_u32, nfiles)):
+        paths.append(os.path.join(d, f"part-{i}.bin"))
+        part.tofile(paths[-1])
+    return paths
+
+
+def run_mesh_intcount(cell: str, keys_u32, tmp: str, kernels, smi: str,
+                      devices=None) -> dict:
+    """intcount-p4: the intcount cell's keys as four files, one a shard,
+    through intcount(paths, ntop=10, comm=mesh) eagerly; (nints, nunique,
+    top) must equal the numpy oracle and seg_table must not launch.  A
+    second run times each exchange between device synchronises."""
+    from gpu_mapreduce_tpu_torch import intcount
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    devices = devices or mesh_devices()
+    mesh = make_mesh(len(devices), devices=devices)
+    paths = split_files(keys_u32, os.path.join(tmp, f"mesh-{cell}"),
+                        mesh.size)
+    want = intcount_oracle_mesh(keys_u32, 10, mesh.size)
+    saved = os.environ.pop("MRTPU_FUSE", None)
+    try:
+        for k in kernels:
+            k.launches = 0
+        sync_all()
+        reset_peaks()
+        t0 = time.perf_counter()
+        got = intcount(paths, ntop=10, comm=mesh)
+        sync_all()
+        dt = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = peak_bytes()
+        if got != want:
+            raise AssertionError(f"intcount-p4-{cell}: {got[:2]} top "
+                                 f"{got[2][:3]} != oracle {want[:2]} top "
+                                 f"{want[2][:3]}")
+        if launches["segment_table"] != 0:
+            raise AssertionError(f"intcount-p4-{cell}: seg_table "
+                                 f"launched {launches['segment_table']}")
+        with exchange_spans() as ex, op_seconds() as stages:
+            if intcount(paths, ntop=10, comm=mesh) != want:
+                raise AssertionError(f"intcount-p4-{cell}: timed rerun "
+                                     f"differs")
+    finally:
+        if saved is not None:
+            os.environ["MRTPU_FUSE"] = saved
+    shutil.rmtree(os.path.dirname(paths[0]))
+    agg = ex[0]
+    moved = agg["sent_bytes"]
+    return {"phase": f"mesh-intcount-p4-{cell}", "card": smi,
+            "p": mesh.size, "devices": [str(d) for d in mesh.devices],
+            "cards": len(set(mesh.devices)), "nints": want[0],
+            "nunique": want[1], "top3": want[2][:3], "end_to_end_s": dt,
+            "launches": launches, "max_memory_allocated": peak,
+            "stages_s": stages,
+            "count_matrix": {"min": agg["bucket_min"],
+                             "max": agg["bucket_max"]},
+            "rows": agg["rows"], "cssize": moved, "cspad": agg["pad_bytes"],
+            "exchange_s": agg["seconds"],
+            "exchange_bound_ms": 2 * moved / HBM_BYTES_PER_S * 1e3,
+            "exchange": agg, "gather_exchange": ex[1:]}
+
+
+def run_mesh_wordfreq(paths, oracle: dict, kernels, smi: str,
+                      devices=None) -> dict:
+    """wordfreq-p4: wordfreq_interned(paths, 10, comm=mesh) over the
+    wordfreq-zipf cell's four files, one a shard: words, distinct words
+    and the top 10 must equal the generator's counts.  The same call on
+    one device first, for the P = 1 seconds beside it."""
+    from gpu_mapreduce_tpu_torch import wordfreq_interned
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(MESH_P, devices=devices or mesh_devices())
+    sync_all()
+    t0 = time.perf_counter()
+    one = wordfreq_interned(paths, WF_NTOP, device=mesh.devices[0])
+    sync_all()
+    p1_s = time.perf_counter() - t0
+    for k in kernels:
+        k.launches = 0
+    sync_all()
+    reset_peaks()
+    t0 = time.perf_counter()
+    nwords, nunique, top = wordfreq_interned(paths, WF_NTOP, comm=mesh)
+    sync_all()
+    dt = time.perf_counter() - t0
+    for got in (one, (nwords, nunique, top)):
+        if (got[0], got[1]) != (oracle["nwords"], oracle["nunique"]) or \
+                sorted(got[2]) != sorted(oracle["top"]) or \
+                [c for _, c in got[2]] != [c for _, c in oracle["top"]]:
+            raise AssertionError(
+                f"wordfreq-p4: {got[0]} words, {got[1]} unique, top "
+                f"{got[2][:3]} != the generator's {oracle['nwords']}, "
+                f"{oracle['nunique']}, {oracle['top'][:3]}")
+    return {"phase": "mesh-wordfreq-p4", "card": smi, "p": MESH_P,
+            "nwords": nwords, "nunique": nunique, "end_to_end_s": dt,
+            "p1_end_to_end_s": p1_s,
+            "tokens_per_s": nwords / dt,
+            "launches": {k.__name__: k.launches for k in kernels},
+            "max_memory_allocated": peak_bytes()}
+
+
+def mesh_intcount_frames(paths, devices) -> dict:
+    """The 2^16-key IntCount chain on a mesh over ``devices``, each
+    frame after aggregate, convert+reduce, gather(1), broadcast(0) and
+    sort_keys(-1) as host arrays."""
+    from gpu_mapreduce_tpu_torch import MapReduce, interop
+    from gpu_mapreduce_tpu_torch.apps.intcount import _map_file
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    mr = MapReduce(comm=make_mesh(len(devices), devices=devices))
+    mr.map_files(paths, _map_file)
+    out = {}
+    for name, op in (("aggregate", mr.aggregate),
+                     ("reduce", lambda: (mr.convert(),
+                                         mr.reduce(count, batch=True))),
+                     ("gather", lambda: mr.gather(1)),
+                     ("broadcast", lambda: mr.broadcast(0)),
+                     ("sort_keys", lambda: mr.sort_keys(-1))):
+        op()
+        (frame,) = list(mr.kv.frames())
+        out[name] = {k: v.tolist() for k, v in
+                     interop.to_numpy(frame).items()}
+    return out
+
+
+def run_mesh_check(tmp: str, smi: str, devices=None,
+                   cpu_devices=None) -> dict:
+    """mesh-check: the 2 MB skewed corpus at P = 4 with outdir on the
+    card and on CPU shards (the four part files byte-identical; their
+    lines the P = 1 part file's), and a 2^16-key IntCount at P = 3
+    through gather(1), broadcast(0) and sort_keys(-1) (every frame equal
+    on the card and on the CPU)."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch import InvertedIndex
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "mesh-check")
+    os.makedirs(d)
+    paths, nref, nuniq = make_corpus(d, MESH_CHECK_MB, skew=True)
+    card = devices or mesh_devices()
+    cpu = cpu_devices or ["cpu"] * MESH_P
+    parts = {}
+    for name, devs in (("card", card), ("cpu", cpu)):
+        out = os.path.join(d, f"out-{name}")
+        got = InvertedIndex(comm=make_mesh(MESH_P, devices=devs)).run(
+            paths, outdir=out)
+        if got != (nref, nuniq):
+            raise AssertionError(f"mesh-check/{name}: {got}")
+        parts[name] = {f: open(os.path.join(out, f), "rb").read()
+                       for f in sorted(os.listdir(out))}
+    if list(parts["card"]) != [f"part-{p:05d}" for p in range(MESH_P)]:
+        raise AssertionError(f"mesh-check: part files {list(parts['card'])}")
+    if parts["card"] != parts["cpu"]:
+        raise AssertionError("mesh-check: part files differ between the "
+                             "card and the CPU")
+    one = os.path.join(d, "out-one")
+    InvertedIndex(device=card[0]).run(paths, outdir=one)
+    with open(os.path.join(one, "part-00000"), "rb") as f:
+        one_lines = sorted(f.read().splitlines())
+    mesh_lines = sorted(line for body in parts["card"].values()
+                        for line in body.splitlines())
+    if mesh_lines != one_lines:
+        raise AssertionError("mesh-check: the part files' lines are not "
+                             "the P = 1 part file's")
+    rng = np.random.default_rng(11)
+    keys = rng.integers(0, 1 << 12, MESH_CHECK_KEYS).astype(np.uint32)
+    kpaths = split_files(keys, os.path.join(d, "keys"), 6)
+    frames = {name: mesh_intcount_frames(kpaths, devs[:1] * MESH_CHECK_P)
+              for name, devs in (("card", card), ("cpu", cpu))}
+    for op in frames["card"]:
+        if frames["card"][op] != frames["cpu"][op]:
+            raise AssertionError(f"mesh-check: IntCount at P = "
+                                 f"{MESH_CHECK_P} differs after {op}")
+    uk, c = np.unique(keys, return_counts=True)
+    final = frames["card"]["sort_keys"]
+    n0 = final["counts"][0]
+    if final["counts"] != [len(uk)] * MESH_CHECK_P or \
+            final["key"][0][:n0] != uk[::-1].tolist() or \
+            final["value"][0][:n0] != c[::-1].tolist():
+        raise AssertionError("mesh-check: IntCount differs from "
+                             "np.unique")
+    shutil.rmtree(d)
+    return {"phase": "mesh-check", "card": smi, "mb": MESH_CHECK_MB,
+            "npairs": nref, "nunique": nuniq,
+            "part_files": len(parts["card"]), "card_equals_cpu": True,
+            "union_equals_p1": True, "intcount_keys": MESH_CHECK_KEYS,
+            "intcount_p": MESH_CHECK_P, "intcount_ops": list(frames["card"]),
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2414,14 +2795,19 @@ def main() -> int:
             raise AssertionError(f"a kernel never launched on the main "
                                  f"path: {launches}")
         map_s = idx.timer.times["map_device"]
-        emit({"phase": "main", "card": smi, "npairs": npairs,
+        main_rec = {"phase": "main", "card": smi, "npairs": npairs,
               "nunique": nunique, "bytes": nbytes,
               "map_device_s": map_s,
               "map_device_pairs_per_s": npairs / map_s,
               "map_device_bytes_per_s": nbytes / map_s,
               "end_to_end_s": dt, "stages_s": idx.timer.times,
               "stats": idx.stats, "launches": launches,
-              "max_memory_allocated": torch.cuda.max_memory_allocated()})
+              "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        emit(main_rec)
+        t_mesh = time.perf_counter()
+        mesh_main = run_mesh_main(paths, nref, nuniq, main_rec, kernels, smi)
+        emit(mesh_main)
+        mesh_s = time.perf_counter() - t_mesh
 
 
         for kind, mb, flags in (("dense", 16, {"dense": True}),
@@ -2471,10 +2857,29 @@ def main() -> int:
         ooc = run_ooc(int_paths["uniform"], int_keys["uniform"], tmp,
                       device, kernels)
         shutil.rmtree(int_dir)
+        t_mesh = time.perf_counter()
+        mesh_int = {}
+        for cell, keys in int_keys.items():
+            mesh_int[cell] = run_mesh_intcount(cell, keys, tmp, kernels,
+                                               smi)
+            emit(mesh_int[cell])
+        if count >= 2:
+            # one shard a card: the same cell across distinct cards
+            cards = [torch.device("cuda", i) for i in range(min(4, count))]
+            mesh_cards = run_mesh_intcount("uniform", int_keys["uniform"],
+                                           tmp, kernels, smi, devices=cards)
+            emit(mesh_cards)
+        else:
+            mesh_cards = {"cards": 1}
+        mesh_s += time.perf_counter() - t_mesh
 
-        wf, text_table, chunks, check = run_text(paths, tmp, device,
-                                                 kernels, smi)
+        wf, text_table, chunks, check, mesh_wf = run_text(paths, tmp, device,
+                                                          kernels, smi)
         shutil.rmtree(main_dir)
+        mesh_s += mesh_wf["end_to_end_s"] + mesh_wf["p1_end_to_end_s"]
+        mesh_check = run_mesh_check(tmp, smi)
+        emit(mesh_check)
+        mesh_s += mesh_check["seconds"]
 
         graph = run_graph(device, smi, kernels)
         emit(graph)
@@ -2491,6 +2896,31 @@ def main() -> int:
                            + graph["checkpoint"]["flipped_refuse_s"]
                            + check["host_s"] + sum(chunks["op_s"].values()))
         emit(host)
+        emit({"phase": "mesh", "card": smi, "p": MESH_P,
+              "devices": mesh_main["devices"], "seconds": mesh_s,
+              "main_p4": {k: mesh_main[k] for k in (
+                  "npairs", "nunique", "rounds", "passes", "launches",
+                  "seconds", "p1_seconds", "end_to_end_s",
+                  "max_memory_allocated")},
+              "intcount_p4": {cell: {k: rec[k] for k in (
+                  "nints", "nunique", "end_to_end_s", "count_matrix",
+                  "rows", "cssize", "cspad", "exchange_s",
+                  "exchange_bound_ms", "max_memory_allocated",
+                  "launches")} for cell, rec in mesh_int.items()},
+              "intcount_p1_end_to_end_s": {
+                  cell: int_runs[cell]["eager"]["end_to_end_s"]
+                  for cell in mesh_int},
+              "wordfreq_p4": {k: mesh_wf[k] for k in (
+                  "nwords", "nunique", "end_to_end_s", "p1_end_to_end_s",
+                  "tokens_per_s", "launches")},
+              "check": {k: mesh_check[k] for k in (
+                  "part_files", "card_equals_cpu", "union_equals_p1",
+                  "intcount_ops")},
+              "several_cards": mesh_cards if "cards" in mesh_cards
+              and len(mesh_cards) == 1 else {
+                  k: mesh_cards[k] for k in ("devices", "cards",
+                                             "end_to_end_s", "exchange_s",
+                                             "launches")}})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2510,7 +2940,13 @@ def main() -> int:
                     "launches_text": {
                         cell: {run: rec[run]["launches"][k]
                                for run in ("eager", "cold", "warm")}
-                        for cell, rec in wf.items()}}
+                        for cell, rec in wf.items()},
+                    # the mesh phase, per run
+                    "launches_mesh": {
+                        "main_p4": mesh_main["launches"][k],
+                        **{f"intcount_p4_{cell}": rec["launches"][k]
+                           for cell, rec in mesh_int.items()},
+                        "wordfreq_p4": mesh_wf["launches"][k]}}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",

@@ -25,13 +25,14 @@ def _map_file(itask, filename, kv, ptr):
     kv.add_batch(data.astype(np.uint64), np.ones(len(data), np.uint32))
 
 
-def intcount(paths: Sequence[str], ntop: int = 0, device=None
+def intcount(paths: Sequence[str], ntop: int = 0, device=None, comm=None
              ) -> Tuple[int, int, List[Tuple[int, int]]]:
     """Count u32 keys across binary files.  Returns (nints, nunique,
     top) where top is the ntop most frequent (key, count) pairs, count
     descending, then key descending.  ``device=None`` runs on the card
-    and raises ``MRError`` without one."""
-    mr = MapReduce(device)
+    and raises ``MRError`` without one; ``comm=mesh`` runs over a mesh
+    (each shard reads its slice of the files)."""
+    mr = MapReduce(device, comm=comm)
     nints = mr.map_files(list(paths), _map_file)
     mr.aggregate(None)
     mr.convert()

@@ -45,10 +45,11 @@ def _sum(key, values, kv, ptr):
 
 
 def wordfreq(files: Sequence[str], ntop: int = 10, device=None,
-             quiet: bool = True) -> Tuple[int, int, List[Tuple[bytes, int]]]:
+             quiet: bool = True, comm=None
+             ) -> Tuple[int, int, List[Tuple[bytes, int]]]:
     """(total words, unique words, top ntop (word, count)) by host
-    callbacks."""
-    mr = MapReduce(device=device)
+    callbacks; ``comm=mesh`` runs over a mesh."""
+    mr = MapReduce(device=device, comm=comm)
     nwords = mr.map_files(list(files), _fileread)
     mr.collate()
     nunique = mr.reduce(_sum)
@@ -60,11 +61,13 @@ def wordfreq(files: Sequence[str], ntop: int = 10, device=None,
     return nwords, nunique, top
 
 
-def wordfreq_interned(files: Sequence[str], ntop: int = 10, device=None
-                      ) -> Tuple[int, int, List[Tuple[bytes, int]]]:
+def wordfreq_interned(files: Sequence[str], ntop: int = 10, device=None,
+                      comm=None) -> Tuple[int, int, List[Tuple[bytes, int]]]:
     """wordfreq on the device path: u64-interned words, a count reduce
-    on the ids, the id → word table decoding the top-N."""
-    mr = MapReduce(device=device)
+    on the ids, the id → word table decoding the top-N; ``comm=mesh``
+    runs over a mesh (each shard splits and interns its files on its
+    device)."""
+    mr = MapReduce(device=device, comm=comm)
     vocab = InternTable()
 
     def fileread_ids(itask, filename, kv, ptr):

@@ -221,6 +221,120 @@ class InternTable(dict):
         return [self[int(h)] for h in ids]
 
 
+def dest_of_ids(ids: np.ndarray, P: int) -> np.ndarray:
+    """The aggregate's destination shard of each u64 id: the host twin of
+    the exchange's ``default_hash(keys) % P`` (``ops/hash.default_hash``),
+    bit-equal to it."""
+    from ..ops.hash import hash_u64
+    ids = np.ascontiguousarray(np.asarray(ids, np.uint64))
+    h = hash_u64(torch.from_numpy(ids.view(np.int64)))
+    return (h % P).numpy().astype(np.int32)
+
+
+class ShardTables:
+    """Dest-sharded id → row tables of a mesh frame's interned column
+    (the JAX package's ``ShardTables``, core/column.py:250-...): the
+    entry of id h lives in ``tables[dest_of_ids(h) % P]``, the shard the
+    default-hash aggregate routes h to, so after such an aggregate shard
+    d's rows decode from ``tables[d]`` alone.  Every lookup routes by the
+    same hash, so decoding is right on every path.  Reads like an
+    :class:`InternTable` (``[]``, ``get``, ``in``, ``decode_batch``,
+    ``keys``/``values``/``items``, ``kind``)."""
+
+    def __init__(self, P: int, kind: str = "bytes"):
+        self.P = P
+        self.kind = kind
+        self.tables = [InternTable(kind=kind) for _ in range(P)]
+
+    @classmethod
+    def from_table(cls, table, P: int) -> "ShardTables":
+        """A one-device frame's table (or another ShardTables) routed
+        over P shards."""
+        out = cls(P, kind=table.kind)
+        ids = np.fromiter(table.keys(), np.uint64, len(table))
+        out.absorb(ids, table.decode_batch(ids))
+        return out
+
+    def absorb(self, ids: np.ndarray, rows: list) -> None:
+        """Route (id, row) pairs into their tables; an id already held
+        with another row (by bytes, or by pickle for objects) is a 64-bit
+        intern collision (``ValueError``)."""
+        if not len(ids):
+            return
+        dests = dest_of_ids(ids, self.P)
+        for h, d, row in zip(np.asarray(ids, np.uint64).tolist(),
+                             dests.tolist(), rows):
+            t = self.tables[d]
+            if h in t:
+                prev = t[h]
+                if self.kind == "object":
+                    same = pickle.dumps(prev, protocol=4) == \
+                        pickle.dumps(row, protocol=4)
+                else:
+                    same = prev == row
+                if not same:
+                    raise ValueError(
+                        f"64-bit intern collision: {prev!r} vs {row!r}")
+                continue
+            t[h] = row
+
+    def merge(self, other) -> "ShardTables":
+        """Union with another table of the same id domain."""
+        kind = "object" if "object" in (self.kind, other.kind) else "bytes"
+        out = ShardTables(self.P, kind=kind)
+        for src in (self, other):
+            ids = np.fromiter(src.keys(), np.uint64, len(src))
+            out.absorb(ids, src.decode_batch(ids))
+        return out
+
+    def shard(self, d: int) -> InternTable:
+        return self.tables[d]
+
+    def __getitem__(self, h):
+        d = int(dest_of_ids(np.array([h], np.uint64), self.P)[0])
+        return self.tables[d][h]
+
+    def get(self, h, default=None):
+        try:
+            return self[h]
+        except KeyError:
+            return default
+
+    def __contains__(self, h) -> bool:
+        try:
+            self[h]
+            return True
+        except KeyError:
+            return False
+
+    def __len__(self) -> int:
+        return sum(len(t) for t in self.tables)
+
+    def decode_batch(self, ids) -> list:
+        """One destination computation for the whole id array, then the
+        per-shard lookups."""
+        ids = np.asarray(ids, np.uint64)
+        dests = dest_of_ids(ids, self.P)
+        tabs = self.tables
+        return [tabs[d][h] for h, d in zip(ids.tolist(), dests.tolist())]
+
+    def keys(self):
+        for t in self.tables:
+            yield from t.keys()
+
+    def values(self):
+        for t in self.tables:
+            yield from t.values()
+
+    def items(self):
+        for t in self.tables:
+            yield from t.items()
+
+    def __repr__(self):
+        return (f"ShardTables(P={self.P}, kind={self.kind}, "
+                f"sizes={[len(t) for t in self.tables]})")
+
+
 class ObjectColumn:
     """Arbitrary Python rows.  They compare, group and sort by their
     pickles (the reference's Python wrapper pickles every key and value,

@@ -94,11 +94,23 @@ def one_frame_of(frames: list):
     """Frames as one frame: the sole frame itself; several host frames
     merge on the host; once any frame is on a device, the host frames
     move to that device (text columns interning there) and all
-    concatenate there, intern tables merged."""
+    concatenate there, intern tables merged.  Mesh frames of one mesh
+    concatenate shard by shard; a mesh frame among other frames comes to
+    the host first."""
     if not frames:
         return empty_kv()
     if len(frames) == 1:
         return frames[0]
+    from ..parallel.sharded import MeshKV
+    meshes = [f for f in frames if isinstance(f, MeshKV)]
+    if meshes:
+        if len(meshes) == len(frames) and \
+                len({f.mesh for f in frames}) == 1:
+            from ..parallel.backend import concat_mesh
+            return concat_mesh(frames)
+        # a mesh frame beside host or one-device frames: all on the host
+        frames = [f.to_host() if isinstance(f, MeshKV) else f
+                  for f in frames]
     device = next((f.device for f in frames
                    if not isinstance(f, KVFrame)), None)
     if device is None:

@@ -32,6 +32,7 @@ class MRError(RuntimeError):
 @dataclass
 class Settings:
     mapstyle: int = 0       # 0 chunk, 1 stride, 2 master-slave work queue
+    all2all: int = 1        # the exchange's schedule: 1 all-to-all, 0 ring
     verbosity: int = 0      # 0 silent, 1 totals, 2 + per-shard histograms
     timer: int = 0          # 0 off, 1 totals, 2 + per-shard histograms
     # MB per page (reference default 64); MRTPU_MEMSIZE / MRTPU_FPATH
@@ -59,6 +60,8 @@ class Settings:
             raise MRError("Invalid memsize setting")
         if self.mapstyle not in (0, 1, 2):
             raise MRError("Invalid mapstyle setting")
+        if self.all2all not in (0, 1):
+            raise MRError("Invalid all2all setting")
         if self.fuse not in (0, 1):
             raise MRError("Invalid fuse setting")
         if self.onfault not in ("fail", "retry", "skip"):

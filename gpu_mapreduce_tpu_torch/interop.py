@@ -4,7 +4,10 @@ This system has no weights; what stands in for them is its key/value
 state.  These helpers turn frames pulled out of the JAX package as numpy
 arrays into the port's device frames or host pages and back, bit for bit:
 a u64 column is reinterpreted as int64 without changing a bit, and its
-logical dtype travels with the frame.  The second carrier of state across
+logical dtype travels with the frame.  A JAX mesh frame of P shards
+crosses as per-shard blocks ``[P, cap, ...]`` plus ``counts [P]`` (the
+JAX arrays' rows ``[p*cap, (p+1)*cap)`` are block p) and becomes a port
+mesh frame, shard p on the mesh's device p, and back.  The second carrier of state across
 the packages is a checkpoint directory (``core/checkpoint.py``), which
 either package loads.
 """
@@ -15,7 +18,7 @@ import numpy as np
 
 from .ops.bits import to_numpy as _tensor_to_numpy
 from .ops.bits import to_torch
-from .parallel.sharded import ShardedKMV, ShardedKV
+from .parallel.sharded import MeshKMV, MeshKV, ShardedKMV, ShardedKV
 
 
 def kv_from_numpy(key: np.ndarray, value: np.ndarray, counts,
@@ -40,8 +43,38 @@ def kmv_from_numpy(ukey: np.ndarray, nvalues: np.ndarray,
                       ukey.dtype, values.dtype)
 
 
+def mesh_kv_from_numpy(key: np.ndarray, value: np.ndarray, counts,
+                       mesh) -> MeshKV:
+    """A mesh KV frame from per-shard padded blocks ``[P, cap, ...]``
+    and the valid counts ``[P]``."""
+    counts = np.asarray(counts, np.int32)
+    return MeshKV(mesh, [kv_from_numpy(key[p], value[p], counts[p], dev)
+                         for p, dev in enumerate(mesh.devices)])
+
+
+def mesh_kmv_from_numpy(ukey: np.ndarray, nvalues: np.ndarray,
+                        voffsets: np.ndarray, values: np.ndarray, gcounts,
+                        vcounts, mesh) -> MeshKMV:
+    """A mesh KMV frame from per-shard padded blocks (``[P, gcap]`` group
+    arrays, ``[P, vcap, ...]`` values, shard-local offsets)."""
+    gcounts = np.asarray(gcounts, np.int32)
+    vcounts = np.asarray(vcounts, np.int32)
+    return MeshKMV(mesh, [
+        kmv_from_numpy(ukey[p], nvalues[p], voffsets[p], values[p],
+                       gcounts[p], vcounts[p], dev)
+        for p, dev in enumerate(mesh.devices)])
+
+
 def to_numpy(frame) -> dict:
-    """A port frame's padded arrays as host numpy, in logical dtypes."""
+    """A port frame's padded arrays as host numpy, in logical dtypes; a
+    mesh frame's as per-shard blocks ``[P, cap, ...]`` with its counts
+    ``[P]``."""
+    if isinstance(frame, (MeshKV, MeshKMV)):
+        parts = [to_numpy(s) for s in frame.shards]
+        return {k: (np.concatenate([q[k] for q in parts])
+                    if k.endswith("counts")
+                    else np.stack([q[k] for q in parts]))
+                for k in parts[0]}
     if isinstance(frame, ShardedKV):
         return {"key": _tensor_to_numpy(frame.key, frame.key_dtype),
                 "value": _tensor_to_numpy(frame.value, frame.value_dtype),

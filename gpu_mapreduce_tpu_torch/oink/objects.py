@@ -12,7 +12,7 @@ The counterpart of ``gpu_mapreduce_tpu/oink/objects.py`` on one device:
 * ``set`` defaults apply to every MR the manager creates.
 
 Every MR lives on the manager's device (``device=None`` → the card;
-``MRError`` when there is none).  One device means one output file at
+``MRError`` when there is none), or with ``comm=mesh`` over that mesh.  One device means one output file at
 the exact path, with no ``.0`` suffix, as the JAX package writes at P = 1.
 """
 
@@ -47,8 +47,11 @@ class ObjectManager:
                    "maxpage", "freepage", "zeropage", "fpath", "fuse",
                    "onfault")
 
-    def __init__(self, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, comm=None):
+        from ..parallel.mesh import Mesh
+        self.comm = comm
+        self.device = comm.devices[0] if isinstance(comm, Mesh) \
+            else resolve_device(device)
         self.named: Dict[str, MapReduce] = {}
         self._temps: List[MapReduce] = []
         self._anon_names: List[str] = []
@@ -68,7 +71,7 @@ class ObjectManager:
 
     # -- MR lifecycle ------------------------------------------------------
     def create_mr(self) -> MapReduce:
-        mr = MapReduce(device=self.device, **self.defaults)
+        mr = MapReduce(device=self.device, comm=self.comm, **self.defaults)
         self._temps.append(mr)
         return mr
 

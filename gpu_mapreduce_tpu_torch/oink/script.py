@@ -37,12 +37,13 @@ _NOT_PORTED = {"shell": "the shell builtin",
 class OinkScript:
     """One interpreter: variable table + object manager + log.
 
-    ``device``: where every MR of the script lives (None → the card).
+    ``device``: where every MR of the script lives (None → the card);
+    ``comm``: a mesh instead, whose width the ``nprocs`` variable reads.
     ``screen``: None → stdout, False → silent, or a file-like."""
 
     def __init__(self, device=None, screen=None,
-                 logfile: Optional[str] = None):
-        self.obj = ObjectManager(device)
+                 logfile: Optional[str] = None, comm=None):
+        self.obj = ObjectManager(device, comm=comm)
         self.variables = Variables()
         self.screen: Optional[TextIO]
         if screen is None:
@@ -57,7 +58,8 @@ class OinkScript:
         self.echo_log = True
         self.deltatime = 0.0           # `time` keyword (input.cpp:463)
         self.variables.specials["time"] = lambda: self.deltatime
-        self.variables.specials["nprocs"] = lambda: 1
+        self.variables.specials["nprocs"] = \
+            lambda: getattr(self.obj.comm, "size", 1)
         self._label_active = False
         self._labelstr = ""
         self._jump_skip = False
@@ -254,7 +256,7 @@ class OinkScript:
         for name in list(self.obj.named):
             self.obj.delete_mr(name)
         defaults = dict(self.obj.defaults)
-        self.obj = ObjectManager(self.obj.device)
+        self.obj = ObjectManager(self.obj.device, comm=self.obj.comm)
         self.obj.defaults.update(defaults)    # `set` defaults survive
 
     def cmd_echo(self, args):

@@ -305,3 +305,38 @@ def intern_packed(buf: torch.Tensor, offsets: torch.Tensor):
                 % (_row_bytes(buf, offsets, int(rows[i])),
                    _row_bytes(buf, offsets, int(rows[i + 1]))))
     return ids, si[head], order[head]
+
+
+# ---------------------------------------------------------------------------
+# the shuffle's destination hash
+# ---------------------------------------------------------------------------
+
+def keys_to_words32(keys: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Fixed-width keys [n] or [n, w] of logical numpy ``dtype`` (default:
+    the tensor's own) → their little-endian u32 words [n, W] (int64
+    lanes), so the device hash sees the bytes the host hash would: an
+    8-byte key is 2 words (low first), a 4-byte key one, and a sub-4-byte
+    key widens to one u32 as numpy's ``astype(uint32)`` does (the JAX
+    package's ``keys_to_words32``, parallel/shuffle.py:51-63)."""
+    if keys.dim() == 1:
+        keys = keys[:, None]
+    n = keys.shape[0]
+    if keys.dtype.is_floating_point:
+        keys = keys.view(torch.int64 if keys.element_size() == 8
+                         else torch.int32)
+    if keys.element_size() == 8:
+        k = keys.to(torch.int64)
+        words = torch.stack([k & _M32, (k >> 32) & _M32], dim=-1)
+        return words.reshape(n, 2 * keys.shape[1])
+    from .bits import widen64
+    wide = widen64(keys, dtype) if dtype is not None \
+        else keys.to(torch.int64)
+    return (wide & _M32).reshape(n, keys.shape[1])
+
+
+def default_hash(keys: torch.Tensor, dtype=None) -> torch.Tensor:
+    """lookup3 over each key's bytes → u32 hashes (int64 lanes): the
+    device twin of ``hashlittle(key, keybytes, nprocs)``
+    (src/mapreduce.cpp:472), bit-equal to the JAX package's
+    ``default_hash``."""
+    return hash_words32(keys_to_words32(keys, dtype))

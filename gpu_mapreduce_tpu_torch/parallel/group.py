@@ -10,6 +10,14 @@ sorts a frame by key or value; :func:`sort_interned_sharded` sorts an
 interned byte/object column by the rows' bytes (their ids are hashes, not
 lexicographic order); :func:`sort_multivalues_sharded` sorts the values
 inside each group.  Intern tables ride along on every output.
+
+On a mesh frame (:class:`~.sharded.MeshKV`/``MeshKMV``) each op runs its
+one-device body shard by shard.  Convert sizes every shard's group block
+by the mesh-wide ``gcap`` (the largest shard's group count, rounded; JAX
+group.py:132-153), pulling the P group counts in one transfer, so the
+layouts are the JAX mesh's; the interned sort is global, as the JAX
+package's: the valid rows come out in byte order packed into the first
+shards.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ from ..core.runtime import bump_dispatch
 from ..ops.bits import order_key, to_torch
 from ..ops.segment import segment_ids_from_boundary, segment_reduce
 from ..ops.sort import lexsort
-from .sharded import ShardedKMV, ShardedKV, round_cap
+from .sharded import (MeshKMV, MeshKV, ShardedKMV, ShardedKV, SyncStats,
+                      round_cap)
 
 
 def _key_columns(key, key_dtype) -> list:
@@ -88,6 +97,8 @@ def segment_reduce_rows(x, seg, valid, gcap: int, op: str, dtype):
 def convert_sharded(skv: ShardedKV) -> ShardedKMV:
     """Sort + boundary detection → grouped frame; one device→host read
     (the group count, which sizes ``gcap``)."""
+    if isinstance(skv, MeshKV):
+        return _convert_mesh(skv)
     count = int(skv.counts[0])
     bump_dispatch()
     sk, sv, valid = _local_sort(skv.key, skv.value, count, skv.key_dtype)
@@ -112,6 +123,8 @@ def _local_segment_ids(voff, nval, vcap: int):
 def reduce_sharded(kmv: ShardedKMV, op: str = "sum") -> ShardedKV:
     """One output pair per group: count, sum, max or min of its values
     (only the count of interned values: arithmetic on ids is refused)."""
+    if isinstance(kmv, MeshKMV):
+        return _per_shard_kv(kmv, lambda s: reduce_sharded(s, op))
     if kmv.value_decode is not None and op != "count":
         raise ValueError(
             f"reduce_sharded({op!r}): values are interned byte/object "
@@ -174,6 +187,8 @@ def fused_group_body(key, value, nrecv: int, gcap: int, out_kind: str,
 def first_sharded(kmv: ShardedKMV) -> ShardedKV:
     """One output pair per group with the group's first value (dedupe,
     the cull reduce)."""
+    if isinstance(kmv, MeshKMV):
+        return _per_shard_kv(kmv, first_sharded)
     bump_dispatch()
     idx = kmv.voffsets.to(torch.int64).clamp(max=kmv.vcap - 1)
     return ShardedKV(kmv.ukey, kmv.values[idx], kmv.gcounts.copy(),
@@ -187,6 +202,8 @@ def sort_sharded(skv: ShardedKV, by: str = "key",
     order, valid rows first; ties keep their row order.  Descending
     reverses the valid prefix of the ascending order (so ties come out in
     reverse row order, as the JAX package orders them)."""
+    if isinstance(skv, MeshKV):
+        return _per_shard_kv(skv, lambda s: sort_sharded(s, by, descending))
     bump_dispatch()
     col, dt = (skv.key, skv.key_dtype) if by == "key" \
         else (skv.value, skv.value_dtype)
@@ -243,6 +260,8 @@ def sort_interned_sharded(skv: ShardedKV, by: str = "key",
     JAX package's device order: equal rows in reverse row order); with
     ``stable_descending`` equal rows keep their row order (its host
     order, Python's ``sorted(reverse=True)``)."""
+    if isinstance(skv, MeshKV):
+        return _sort_interned_mesh(skv, by, descending)
     table = skv.key_decode if by == "key" else skv.value_decode
     col = skv.key if by == "key" else skv.value
     c, cap = int(skv.counts[0]), skv.cap
@@ -267,6 +286,9 @@ def sort_multivalues_sharded(kmv: ShardedKMV,
     value) keeps every group in its own run, so sizes and offsets stay.
     A [n, w] value sorts by its first column, as in the JAX package;
     descending orders by the complement (unsigned) or the negation."""
+    if isinstance(kmv, MeshKMV):
+        return MeshKMV(kmv.mesh, [sort_multivalues_sharded(s, descending)
+                                  for s in kmv.shards])
     bump_dispatch()
     vcap = kmv.vcap
     seg = _local_segment_ids(kmv.voffsets, kmv.nvalues, vcap)
@@ -283,3 +305,97 @@ def sort_multivalues_sharded(kmv: ShardedKMV,
                       kmv.values[order], kmv.gcounts.copy(),
                       kmv.vcounts.copy(), kmv.key_dtype, kmv.value_dtype,
                       kmv.key_decode, kmv.value_decode)
+
+
+# ---------------------------------------------------------------------------
+# mesh frames: the one-device bodies shard by shard
+# ---------------------------------------------------------------------------
+
+def _per_shard_kv(frame, fn) -> MeshKV:
+    """``fn`` over each shard of a mesh frame → a mesh KV frame."""
+    return MeshKV(frame.mesh, [fn(s) for s in frame.shards])
+
+
+def _layout(sk, mask, nrows: int, gcap: int, g: int):
+    """:func:`grouped_layout` for a shard whose group count ``g`` the
+    host already holds, with no further host read (JAX
+    group.py:101-129): each group's first row scatters to its slot, the
+    other rows to spare slots past ``gcap`` spread by row index (never
+    one hot address), and sizes are the distances between group starts.
+    Slots past ``g`` keep key 0, size 0 and offset ``cap``."""
+    from .devkernels import _SPARE, _ids
+    cap = sk.shape[0]
+    dev = sk.device
+    seg = torch.cumsum(mask.to(torch.int64), 0) - 1
+    tgt = _ids(seg, mask, gcap)
+    n = gcap + _SPARE
+    ukey = torch.zeros((n,) + tuple(sk.shape[1:]), dtype=sk.dtype,
+                       device=dev)
+    ukey[tgt] = sk
+    voff = torch.full((n,), cap, dtype=torch.int32, device=dev)
+    voff[tgt] = torch.arange(cap, dtype=torch.int32, device=dev)
+    voff = voff[:gcap]
+    sizes = torch.zeros(gcap, dtype=torch.int32, device=dev)
+    if g:
+        ends = torch.cat([voff[1:g], voff.new_full((1,), nrows)])
+        sizes[:g] = ends - voff[:g]
+    return ukey[:gcap], sizes, voff
+
+
+def _convert_mesh(mkv: MeshKV) -> MeshKMV:
+    """Per-shard sort and boundaries, the P group counts pulled in one
+    transfer, then every shard's layout at the mesh-wide gcap."""
+    bump_dispatch()
+    parts = []
+    for s in mkv.shards:
+        c = int(s.counts[0])
+        sk, sv, valid = _local_sort(s.key, s.value, c, s.key_dtype)
+        parts.append((sk, sv, _boundary(sk, valid), c))
+    dev0 = mkv.mesh.devices[0]
+    SyncStats.bump()          # the op's one pull: the group counts
+    g = torch.stack([m.sum().to(dev0, non_blocking=True)
+                     for _, _, m, _ in parts]).cpu().numpy()
+    gcap = round_cap(int(g.max())) if g.max() else 8
+    shards = []
+    for (sk, sv, mask, c), s, gp in zip(parts, mkv.shards, g):
+        ukey, sizes, voff = _layout(sk, mask, c, gcap, int(gp))
+        shards.append(ShardedKMV(ukey, sizes, voff, sv,
+                                 np.array([gp], np.int32), s.counts.copy(),
+                                 s.key_dtype, s.value_dtype, s.key_decode,
+                                 s.value_decode))
+    return MeshKMV(mkv.mesh, shards)
+
+
+def _sort_interned_mesh(mkv: MeshKV, by: str, descending: bool) -> MeshKV:
+    """The global interned sort of a mesh frame (JAX group.py:412-458):
+    every shard's valid rows in shard order, one sort by the id → rank
+    surrogate on the first shard's device (descending reverses the valid
+    prefix, ties in reverse row order), then the sorted rows packed into
+    the first shards at the frame's cap."""
+    table = mkv.key_decode if by == "key" else mkv.value_decode
+    dev0 = mkv.mesh.devices[0]
+    bump_dispatch()
+    ns = [int(c) for c in mkv.counts]
+    key = torch.cat([s.key[:n].to(dev0) for s, n in zip(mkv.shards, ns)])
+    value = torch.cat([s.value[:n].to(dev0)
+                       for s, n in zip(mkv.shards, ns)])
+    col = key if by == "key" else value
+    ids, rank_of = _rank_lookup(table, dev0)
+    k = order_key(col, np.uint64)
+    pos = torch.searchsorted(ids, k).clamp(max=max(ids.numel() - 1, 0))
+    rank = rank_of[pos] if ids.numel() else torch.zeros_like(k)
+    order = lexsort([rank])
+    if descending:
+        order = order.flip(0)
+    key, value = key[order], value[order]
+    total, cap = key.shape[0], mkv.cap
+    counts = np.clip(total - np.arange(mkv.nprocs) * cap, 0, cap)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    from .sharded import mesh_kv
+    return mesh_kv(mkv.mesh,
+                   [key[offs[p]:offs[p + 1]].to(dev)
+                    for p, dev in enumerate(mkv.mesh.devices)],
+                   [value[offs[p]:offs[p + 1]].to(dev)
+                    for p, dev in enumerate(mkv.mesh.devices)],
+                   counts, mkv.key_dtype, mkv.value_dtype, mkv.key_decode,
+                   mkv.value_decode, cap=cap)

@@ -1,10 +1,14 @@
-"""Device-resident frames on one device: padded row blocks + valid counts.
+"""Device-resident frames: padded row blocks + valid counts.
 
-The one-device counterpart of ``gpu_mapreduce_tpu/parallel/sharded.py``
-(``nprocs == 1``; the multi-GPU mesh comes with a later slice).  Each
-frame holds torch tensors on its device and a host ``counts[1]`` saying
-how many leading rows are valid; the rest is padding.  Caps are powers of
-two (min 8).
+The counterpart of ``gpu_mapreduce_tpu/parallel/sharded.py``.  A
+one-device frame (:class:`ShardedKV`, :class:`ShardedKMV`) holds torch
+tensors on its device and a host ``counts[1]`` saying how many leading
+rows are valid; the rest is padding.  A mesh frame (:class:`MeshKV`,
+:class:`MeshKMV`) holds one such frame per shard of a
+:class:`~.mesh.Mesh`, all with one cap, so shard p's padded block and
+``counts[p]`` are the JAX frame's rows ``[p*cap, (p+1)*cap)`` and its
+``counts[p]``; every one-device body runs on it shard by shard.  Caps are
+powers of two (min 8).
 
 Torch has no u64 arithmetic, so a u64 key column is held as int64 with
 the same bits; ``key_dtype``/``value_dtype`` name the logical numpy dtype
@@ -12,23 +16,50 @@ and the host copies (``to_host``) are reinterpreted as it.
 
 Byte and object columns live on the device as interned u64 ids
 (``core/column.py``): ``key_decode``/``value_decode`` hold the id → row
-:class:`~..core.column.InternTable`, and the host copies decode through it
-(``head(n)`` decodes only its n rows).  A frame's ``nbytes`` is that of
-its padded tensors, as in the JAX package.
+:class:`~..core.column.InternTable` (a mesh frame's, a dest-sharded
+:class:`~..core.column.ShardTables`), and the host copies decode through
+it (``head(n)`` decodes only its n rows).  A frame's ``nbytes`` is that
+of its padded tensors, as in the JAX package.  :class:`SyncStats` counts
+the mesh ops' host pulls of device metadata.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Iterator, Sequence, Tuple
+import threading
+from dataclasses import dataclass, field
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.column import (BytesColumn, DenseColumn, InternTable,
-                           ObjectColumn, TEXT_COLUMNS)
+                           ObjectColumn, ShardTables, TEXT_COLUMNS)
 from ..core.frame import KMVFrame, KVFrame
 from ..ops.bits import storage_dtype, to_numpy, to_torch
+
+
+class SyncStats:
+    """Host pulls of device metadata in the mesh tier (the JAX package's
+    ``SyncStats``, parallel/sharded.py:46-67): an exchange pulls its
+    count matrix once and a mesh convert its group counts once — the
+    reference ends each op in one MPI_Allreduce
+    (src/mapreduce.cpp:557-558)."""
+
+    pulls = 0
+    _lock = threading.Lock()
+
+    @classmethod
+    def bump(cls, n: int = 1) -> None:
+        with cls._lock:
+            cls.pulls += n
+
+    @classmethod
+    def snapshot(cls) -> int:
+        return cls.pulls
+
+    @classmethod
+    def delta(cls, snap: int) -> int:
+        return cls.pulls - snap
 
 
 def _decode_col(table: InternTable, ids: np.ndarray):
@@ -287,3 +318,240 @@ def concat_sharded(frames: Sequence[ShardedKV]) -> ShardedKV:
         at += m
     return ShardedKV(key, value, np.array([n], np.int32), first.key_dtype,
                      first.value_dtype, kt, vt)
+
+
+# ---------------------------------------------------------------------------
+# mesh frames: one one-device frame per shard, one cap
+# ---------------------------------------------------------------------------
+
+def _host_concat(arrs, dtype, table):
+    """Per-shard host arrays → one column in shard order, decoded once
+    when the column is interned."""
+    arr = np.concatenate(arrs) if arrs else np.zeros(0, dtype)
+    return _decode_col(table, arr) if table is not None \
+        else DenseColumn(arr)
+
+
+@dataclass
+class MeshKV:
+    """KV frame over a mesh: ``shards[p]`` is a one-device
+    :class:`ShardedKV` on ``mesh.devices[p]``; every shard has the same
+    cap, dtypes and decode tables.  ``exchange_stats`` carries the
+    telemetry of the exchange that made it, if one did."""
+
+    mesh: object
+    shards: List[ShardedKV]
+    exchange_stats: object = field(default=None, compare=False)
+
+    @property
+    def nprocs(self) -> int:
+        return len(self.shards)
+
+    @property
+    def cap(self) -> int:
+        return self.shards[0].cap
+
+    @property
+    def counts(self) -> np.ndarray:
+        return np.array([int(s.counts[0]) for s in self.shards], np.int32)
+
+    @property
+    def key_dtype(self):
+        return self.shards[0].key_dtype
+
+    @property
+    def value_dtype(self):
+        return self.shards[0].value_dtype
+
+    @property
+    def key_decode(self):
+        return self.shards[0].key_decode
+
+    @property
+    def value_decode(self):
+        return self.shards[0].value_decode
+
+    def __len__(self) -> int:
+        return int(self.counts.sum())
+
+    def nbytes(self) -> int:
+        """Bytes of every shard's padded key and value blocks."""
+        return sum(s.nbytes() for s in self.shards)
+
+    def to_host(self) -> KVFrame:
+        """Exact host KVFrame of the valid rows, shard by shard."""
+        return self._host_rows([int(c) for c in self.counts])
+
+    def _host_rows(self, ns) -> KVFrame:
+        ks = [to_numpy(s.key[:n], s.key_dtype)
+              for s, n in zip(self.shards, ns)]
+        vs = [to_numpy(s.value[:n], s.value_dtype)
+              for s, n in zip(self.shards, ns)]
+        return KVFrame(_host_concat(ks, self.key_dtype, self.key_decode),
+                       _host_concat(vs, self.value_dtype,
+                                    self.value_decode))
+
+    def shard_to_host(self, p: int) -> KVFrame:
+        """Host KVFrame of shard p's valid rows."""
+        return self.shards[p].to_host()
+
+    def head(self, n: int) -> KVFrame:
+        """The first ``n`` valid pairs in shard order (only they copy and
+        decode)."""
+        ns = []
+        for c in self.counts:
+            take = min(int(c), n)
+            ns.append(take)
+            n -= take
+        return self._host_rows(ns)
+
+    def pairs(self) -> Iterator[Tuple[object, object]]:
+        yield from self.to_host().pairs()
+
+    def __repr__(self):
+        return (f"MeshKV(P={self.nprocs}, cap={self.cap}, "
+                f"counts={self.counts.tolist()})")
+
+
+@dataclass
+class MeshKMV:
+    """KMV frame over a mesh: ``shards[p]`` is a one-device
+    :class:`ShardedKMV` on ``mesh.devices[p]``, every shard with the same
+    gcap (the mesh-wide one) and vcap."""
+
+    mesh: object
+    shards: List[ShardedKMV]
+
+    @property
+    def nprocs(self) -> int:
+        return len(self.shards)
+
+    @property
+    def gcap(self) -> int:
+        return self.shards[0].gcap
+
+    @property
+    def vcap(self) -> int:
+        return self.shards[0].vcap
+
+    @property
+    def gcounts(self) -> np.ndarray:
+        return np.array([int(s.gcounts[0]) for s in self.shards], np.int32)
+
+    @property
+    def vcounts(self) -> np.ndarray:
+        return np.array([int(s.vcounts[0]) for s in self.shards], np.int32)
+
+    @property
+    def key_dtype(self):
+        return self.shards[0].key_dtype
+
+    @property
+    def value_dtype(self):
+        return self.shards[0].value_dtype
+
+    @property
+    def key_decode(self):
+        return self.shards[0].key_decode
+
+    @property
+    def value_decode(self):
+        return self.shards[0].value_decode
+
+    def __len__(self) -> int:
+        return int(self.gcounts.sum())
+
+    @property
+    def nvalues_total(self) -> int:
+        return int(self.vcounts.sum())
+
+    def nbytes(self) -> int:
+        return sum(s.nbytes() for s in self.shards)
+
+    def to_host(self) -> KMVFrame:
+        """Exact host KMVFrame: the shards' groups in shard order."""
+        parts = [s.to_host() for s in self.shards]
+        from ..core.column import concat
+        nv = np.concatenate([p.nvalues for p in parts]).astype(np.int64)
+        offsets = np.concatenate([[0], np.cumsum(nv)]).astype(np.int64)
+        return KMVFrame(concat([p.key for p in parts]), nv, offsets,
+                        concat([p.values for p in parts]))
+
+    def shard_to_host(self, p: int) -> KMVFrame:
+        return self.shards[p].to_host()
+
+    def groups(self):
+        for s in self.shards:
+            yield from s.groups()
+
+    def group_values(self, i: int):
+        return self.to_host().group_values(i)
+
+    def __repr__(self):
+        return (f"MeshKMV(P={self.nprocs}, gcap={self.gcap}, g={len(self)}, "
+                f"n={self.nvalues_total})")
+
+
+def mesh_tables(table, P: int):
+    """A decode table as the dest-sharded tables of a P-shard mesh frame
+    (None stays None)."""
+    if table is None or (isinstance(table, ShardTables) and table.P == P):
+        return table
+    return ShardTables.from_table(table, P)
+
+
+def mesh_kv(mesh, keys: Sequence[torch.Tensor],
+            values: Sequence[torch.Tensor], counts, key_dtype, value_dtype,
+            key_decode=None, value_decode=None, cap: int = None) -> MeshKV:
+    """A mesh frame from each shard's rows (tensors on the shard's
+    device, at least ``counts[p]`` rows): every block padded with zeros
+    to ``cap`` (default: the power of two over the largest count)."""
+    counts = [int(c) for c in counts]
+    if cap is None:
+        cap = round_cap(max(counts) if counts else 0)
+    shards = []
+    for k, v, n in zip(keys, values, counts):
+        kb = k.new_zeros((cap,) + tuple(k.shape[1:]))
+        vb = v.new_zeros((cap,) + tuple(v.shape[1:]))
+        kb[:n] = k[:n]
+        vb[:n] = v[:n]
+        shards.append(ShardedKV(kb, vb, np.array([n], np.int32),
+                                np.dtype(key_dtype), np.dtype(value_dtype),
+                                key_decode, value_decode))
+    return MeshKV(mesh, shards)
+
+
+def split_to_mesh(skv: ShardedKV, mesh, counts=None) -> MeshKV:
+    """A one-device frame's valid rows over the mesh: shard p takes the
+    next ``counts[p]`` rows (default: the contiguous ``ceil(n/P)`` split
+    of ``shard_frame``, JAX parallel/sharded.py:344-353), copied device to
+    device; decode tables become dest-sharded."""
+    P = mesh.size
+    n = len(skv)
+    if counts is None:
+        per = -(-n // P) if n else 0
+        starts = np.minimum(np.arange(P) * per, n)
+        counts = np.minimum(starts + per, n) - starts
+    counts = np.asarray(counts, np.int64)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    keys, values = [], []
+    for p, dev in enumerate(mesh.devices):
+        lo, hi = int(offs[p]), int(offs[p + 1])
+        keys.append(skv.key[lo:hi].to(dev, non_blocking=True))
+        values.append(skv.value[lo:hi].to(dev, non_blocking=True))
+    return mesh_kv(mesh, keys, values, counts, skv.key_dtype,
+                   skv.value_dtype, mesh_tables(skv.key_decode, P),
+                   mesh_tables(skv.value_decode, P))
+
+
+def shard_frame_mesh(frame: KVFrame, mesh) -> MeshKV:
+    """A host KVFrame over the mesh, contiguous ``ceil(n/P)`` split; text
+    columns intern on the first shard's device before the split (the JAX
+    package's ``_intern_frame`` then ``shard_frame``)."""
+    return split_to_mesh(shard_frame(frame, mesh.devices[0]), mesh)
+
+
+def shard_frame_with_counts(frame: KVFrame, mesh, counts) -> MeshKV:
+    """A host KVFrame over the mesh with an explicit partition: shard p
+    takes the next ``counts[p]`` rows (JAX parallel/sharded.py:356-376)."""
+    return split_to_mesh(shard_frame(frame, mesh.devices[0]), mesh, counts)

@@ -433,7 +433,6 @@ def test_settings_defaults_and_env_knobs_match_jax(monkeypatch, env):
         monkeypatch.setenv(k, v)
     port = dataclasses.asdict(Settings())
     jax_ = dataclasses.asdict(JSettings())
-    jax_.pop("all2all")                  # the mesh exchange's transport
     assert port == jax_
 
 

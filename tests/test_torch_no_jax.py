@@ -27,10 +27,12 @@ SCRIPT = textwrap.dedent("""
               and sys.modules[m] is not None]
     assert not leaked, leaked
     import torch
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
     if not torch.cuda.is_available():
         for entry in (pkg.InvertedIndex, pkg.MapReduce, pkg.OinkScript,
                       lambda: pkg.intcount([]), lambda: pkg.wordfreq([]),
-                      lambda: pkg.wordfreq_interned([])):
+                      lambda: pkg.wordfreq_interned([]),
+                      lambda: make_mesh(), lambda: make_mesh(2)):
             try:
                 entry()
             except pkg.MRError:
@@ -51,7 +53,9 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "core.column", "utils.io", "apps.wordfreq",
                    "oink.commands.wordfreq", "core.external",
                    "core.checkpoint", "exec", "exec.spill",
-                   "exec.prefetch", "utils.fsio", "utils.integrity")
+                   "exec.prefetch", "utils.fsio", "utils.integrity",
+                   "parallel.mesh", "parallel.shuffle",
+                   "parallel.collectives", "parallel.ingest")
 
 
 def test_port_imports_no_jax():
