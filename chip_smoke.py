@@ -139,7 +139,25 @@ nonzero):
               card and on CPU shards byte-identical (their lines the
               one-device part file's), and a 2^16-key IntCount at P = 3
               through gather(1), broadcast(0), sort_keys(-1) equal on the
-              card and the CPU.  With two cards or more, intcount-p4 runs
+              card and the CPU.  mesh-fuse: each intcount cell at P = 4
+              under MRTPU_FUSE=1, cold (the fused exchange group on the
+              sort path; seg_table 0 launches) then warm (the cached
+              plan and gcap on the group table; seg_table once a shard),
+              both equal to numpy's counts, then once inside
+              ``mr.pipeline()``; at shard 0's received rows of the warm
+              uniform run seg_table against its plain version, timed
+              beside its bound and torch.unique.  mesh-ops-check: map_mr
+              (per pair, batch), clone, collapse, compress under fuse 0
+              and 1, the fused exchange group, open/close and a named-MR
+              script (clone, compress, save, load) at P = 3 on the card
+              and on CPU shards, equal shard by shard.  mesh-ooc: the
+              uniform keys at P = 4 with ``outofcore=1, memsize=64,
+              maxpage=2`` (demote in shard order, external convert),
+              equal to the in-core P = 4 chain.  mesh-checkpoint: the
+              P = 4 KV saved after the aggregate, loaded at P = 1 and
+              P = 3 and counted there, equal to the P = 4 counts; a value
+              flipped in writer shard 2 refused, naming that shard.  With
+              two cards or more, intcount-p4 and the warm mesh-fuse run
               again with one shard a card.  One ``mesh`` line sums it.
 
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
@@ -2699,6 +2717,509 @@ def run_mesh_check(tmp: str, smi: str, devices=None,
             "seconds": time.perf_counter() - t0}
 
 
+@contextlib.contextmanager
+def fused_exchanges():
+    """Every fused exchange group of the block with its mode, its
+    exchange telemetry and its seconds between two synchronises of every
+    card, into the list the block yields."""
+    from gpu_mapreduce_tpu_torch.plan import fuser
+    out = []
+    fn = fuser._exec_exchange_group
+
+    @functools.wraps(fn)
+    def timed(mr, *args, **kw):
+        sync_all()
+        t0 = time.perf_counter()
+        mode, table = fn(mr, *args, **kw)
+        sync_all()
+        out.append({"mode": mode, "table": table,
+                    "seconds": time.perf_counter() - t0,
+                    **vars(mr.last_exchange)})
+        return mode, table
+
+    fuser._exec_exchange_group = timed
+    try:
+        yield out
+    finally:
+        fuser._exec_exchange_group = fn
+
+
+@contextlib.contextmanager
+def first_table_rows():
+    """The first group-table call of the block: its keys (widened, on
+    their device), T and gcap — shard 0's received rows in a fused
+    exchange group — into the dict the block yields."""
+    from gpu_mapreduce_tpu_torch.ops.bits import widen64
+    from gpu_mapreduce_tpu_torch.ops.cuda import group
+    got = {}
+    fn = group.segment_group_reduce
+
+    @functools.wraps(fn)
+    def wrapper(key, value, nrecv, gcap, reduce_op, cfg, key_dtype,
+                value_dtype):
+        if not got:
+            got.update(keys=widen64(key[:nrecv], key_dtype).contiguous(),
+                       T=cfg[1], gcap=gcap)
+        return fn(key, value, nrecv, gcap, reduce_op, cfg, key_dtype,
+                  value_dtype)
+
+    group.segment_group_reduce = wrapper
+    try:
+        yield got
+    finally:
+        group.segment_group_reduce = fn
+
+
+def check_time_mesh_table(keys, T: int, gcap: int) -> dict:
+    """The group table at one shard's shape of the warm fused IntCount
+    at P = 4: exactly its plain version's groups (through the epilogue),
+    then timed beside its bound and torch.unique (``time_seg_table``)."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.cuda.group import (segment_table,
+                                                        segment_table_ref)
+    from gpu_mapreduce_tpu_torch.ops.segment import table_to_groups
+    got = table_to_groups(segment_table(keys, None, T), T, gcap, "count",
+                          np.uint64, None)
+    ref = table_to_groups(segment_table_ref(keys, None, T), T, gcap,
+                          "count", np.uint64, None)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            and got[2] == ref[2] and got[3] == ref[3] == 0):
+        raise AssertionError(f"seg_table at the P = 4 shard shape differs "
+                             f"from its plain version: g {got[2]} vs "
+                             f"{ref[2]}, overflow {got[3]} vs {ref[3]}")
+    del got, ref
+    rec = time_seg_table(keys, T, gcap)
+    rec.pop("group_device_ms")
+    return {**rec, "gcap": gcap, "max_abs_err": 0}
+
+
+def run_mesh_fuse(cell: str, keys_u32, tmp: str, kernels, smi: str,
+                  devices=None, table_check: bool = False) -> dict:
+    """mesh-fuse: the intcount cell's keys as four files through
+    intcount(paths, ntop=10, comm=mesh) under MRTPU_FUSE=1, cold (the
+    exchange group on the sort path) then warm (the cached plan and gcap
+    on the group table, one launch a shard), each against
+    intcount_oracle_mesh with every launch count set to 0 just before
+    it; seg_table must launch 0 times cold and once a shard warm.  Each
+    run is repeated with every op and the fused group between device
+    synchronises (``op_seconds``, ``fused_exchanges``).  Then the same
+    chain once inside ``with mr.pipeline():``.  With ``table_check``,
+    shard 0's received rows of the warm run hold the kernel against its
+    plain version and time it (``check_time_mesh_table``)."""
+    from gpu_mapreduce_tpu_torch import MapReduce, intcount
+    from gpu_mapreduce_tpu_torch.apps.common import top_n
+    from gpu_mapreduce_tpu_torch.apps.intcount import _map_file
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.plan import fuser, plan_cache
+    devices = devices or mesh_devices()
+    mesh = make_mesh(len(devices), devices=devices)
+    P = mesh.size
+    paths = split_files(keys_u32, os.path.join(tmp, f"mesh-fuse-{cell}"), P)
+    want = intcount_oracle_mesh(keys_u32, 10, P)
+    saved = os.environ.get("MRTPU_FUSE")
+    runs, capture = {}, {}
+    try:
+        os.environ["MRTPU_FUSE"] = "1"
+        plan_cache().clear()
+        for run in ("cold", "warm"):
+            for k in kernels:
+                k.launches = 0
+            sync_all()
+            reset_peaks()
+            with contextlib.ExitStack() as stack:
+                if table_check and run == "warm":
+                    capture = stack.enter_context(first_table_rows())
+                ex = stack.enter_context(fused_exchanges())
+                t0 = time.perf_counter()
+                got = intcount(paths, ntop=10, comm=mesh)
+                sync_all()
+                dt = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in kernels}
+            if got != want:
+                raise AssertionError(f"mesh-fuse-{cell} {run}: {got[:2]} "
+                                     f"top {got[2][:3]} != oracle "
+                                     f"{want[:2]} top {want[2][:3]}")
+            expect = 0 if run == "cold" else P
+            mode = "exchange" if run == "cold" else "exchange1"
+            if launches["segment_table"] != expect or len(ex) != 1 or \
+                    ex[0]["mode"] != mode or ex[0]["table"] != (run == "warm"):
+                raise AssertionError(
+                    f"mesh-fuse-{cell} {run}: seg_table launched "
+                    f"{launches['segment_table']} (want {expect}), groups "
+                    f"{[(e['mode'], e['table']) for e in ex]}")
+            runs[run] = {"end_to_end_s": dt, "launches": launches,
+                         "max_memory_allocated": peak_bytes(),
+                         "group_s": ex[0]["seconds"],
+                         "sent_bytes": ex[0]["sent_bytes"],
+                         "exchange_bound_ms":
+                             2 * ex[0]["sent_bytes"] / HBM_BYTES_PER_S * 1e3,
+                         "cap_out": ex[0]["cap_out"], "rows": ex[0]["rows"]}
+        for run in ("cold", "warm"):
+            # the stage seconds: the same run with every op between syncs
+            if run == "cold":
+                plan_cache().clear()
+            with op_seconds([(fuser, "_exec_exchange_group",
+                              "exchange_group")]) as stages:
+                if intcount(paths, ntop=10, comm=mesh) != want:
+                    raise AssertionError(f"mesh-fuse-{cell} {run}: timed "
+                                         f"rerun differs")
+            runs[run]["stages_s"] = stages
+    finally:
+        if saved is None:
+            os.environ.pop("MRTPU_FUSE", None)
+        else:
+            os.environ["MRTPU_FUSE"] = saved
+    mr = MapReduce(comm=mesh, fuse=0)
+    mr.map_files(paths, _map_file)
+    sync_all()
+    t0 = time.perf_counter()
+    with fused_exchanges() as ex:
+        with mr.pipeline():
+            mr.aggregate()
+            mr.convert()
+            mr.reduce(count, batch=True)
+    top = [(int(k), int(v)) for k, v in top_n(mr, 10)]
+    sync_all()
+    pipe_s = time.perf_counter() - t0
+    if (mr.kv.nkv, top) != (want[1], want[2]) or len(ex) != 1:
+        raise AssertionError(f"mesh-fuse-{cell} pipeline: {mr.kv.nkv} "
+                             f"groups, top {top[:3]}")
+    shutil.rmtree(os.path.dirname(paths[0]))
+    rec = {"phase": f"mesh-fuse-{cell}", "card": smi, "p": P,
+           "devices": [str(d) for d in mesh.devices],
+           "cards": len(set(mesh.devices)), "nints": want[0],
+           "nunique": want[1], "top3": want[2][:3], **runs,
+           "pipeline": {"end_to_end_s": pipe_s, "mode": ex[0]["mode"],
+                        "table": ex[0]["table"]}}
+    if capture:
+        rec["table"] = check_time_mesh_table(capture["keys"], capture["T"],
+                                             capture["gcap"])
+    return rec
+
+
+def ds_rows(mr) -> list:
+    """mr's dataset frame by frame, shard by shard, as host rows: a KV
+    shard's keys and values in order, a KMV shard's group keys, sizes and
+    each group's values as a sorted multiset; with each frame's type and
+    cap."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.core.frame import KMVFrame, KVFrame
+    ds = mr.kv if mr.kv is not None else mr.kmv
+    out = []
+    for fr in ds.frames():
+        rec = []
+        for s in getattr(fr, "shards", [fr]):
+            h = s if isinstance(s, (KVFrame, KMVFrame)) else s.to_host()
+            if isinstance(h, KVFrame):
+                rec.append((h.key.tolist(), h.value.tolist()))
+            else:
+                rec.append((h.key.tolist(), np.asarray(h.nvalues).tolist(),
+                            [sorted(h.group_values(i).tolist())
+                             for i in range(len(h))]))
+        out.append((type(fr).__name__,
+                    getattr(fr, "cap", getattr(fr, "gcap", None)), rec))
+    return out
+
+
+MESH_OPS_SCRIPT = """\
+mr a
+a map/file tmp.e read_edge
+a aggregate NULL
+a copy c
+c clone
+mr k
+k map/mr a edge_to_vertices
+k compress count
+k save ck
+mr r
+r load ck
+r aggregate NULL
+r compress count
+"""
+
+
+def mesh_ops_frames(kpaths, epath: str, devices, d: str) -> dict:
+    """The MapReduce ops beyond the data plane on a mesh, at P = 3 over
+    ``devices``, each as :func:`ds_rows`: map_mr per pair and batch
+    (``invert``, a device body shard by shard), clone, collapse, compress
+    under fuse=0 and fuse=1 (cold and warm), the fused exchange group,
+    open/close with another MR's adds, and a named-MR script (clone,
+    compress, save, load) run in ``d``."""
+    import io
+    from gpu_mapreduce_tpu_torch import MapReduce, OinkScript
+    from gpu_mapreduce_tpu_torch.apps.intcount import _map_file
+    from gpu_mapreduce_tpu_torch.oink import kernels as okernels
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.plan import plan_cache
+    mesh = make_mesh(MESH_CHECK_P, devices=devices)
+    base = MapReduce(comm=mesh)
+    base.map_files(kpaths, _map_file)
+    base.aggregate()
+    out = {"aggregate": ds_rows(base)}
+
+    def derived(name, op, **settings):
+        mr = MapReduce(comm=mesh, **settings)
+        op(mr)
+        out[name] = ds_rows(mr)
+
+    derived("map_mr_pair", lambda mr: mr.map_mr(
+        base, lambda i, k, v, kv, p: kv.add(k, v + i % 3)))
+    derived("map_mr_batch", lambda mr: mr.map_mr(base, okernels.invert,
+                                                 batch=True))
+    for name, op in (("clone", lambda mr: mr.clone()),
+                     ("collapse", lambda mr: mr.collapse(1)),
+                     ("compress", lambda mr: mr.compress(count,
+                                                         batch=True))):
+        derived(name, lambda mr, op=op: (mr.add(base), op(mr)))
+    plan_cache().clear()
+    for run in ("cold", "warm"):
+        derived(f"compress_fuse1_{run}", lambda mr: (
+            mr.add(base), mr.set(fuse=1), mr.compress(count, batch=True)))
+        derived(f"exchange_fuse1_{run}", lambda mr: (
+            mr.map_files(kpaths, _map_file), mr.set(fuse=1), mr.aggregate(),
+            mr.convert(), mr.reduce(count, batch=True)))
+
+    def open_close(mr):
+        kv = mr.open()
+        MapReduce(comm=mesh).map_mr(
+            base, lambda i, k, v, _kv, p: kv.add(k, v) if k % 5 == 0
+            else None)
+        mr.close()
+        mr.aggregate()
+    derived("open_close", open_close)
+    cwd = os.getcwd()
+    os.makedirs(d)
+    shutil.copy(epath, os.path.join(d, "tmp.e"))
+    os.chdir(d)
+    try:
+        s = OinkScript(comm=mesh, screen=io.StringIO())
+        s.run_string(MESH_OPS_SCRIPT)
+        for name, mr in sorted(s.obj.named.items()):
+            out[f"script_{name}"] = ds_rows(mr)
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def run_mesh_ops_check(tmp: str, smi: str, devices=None,
+                       cpu_devices=None) -> dict:
+    """mesh-ops-check: :func:`mesh_ops_frames` on P = 3 shards of the
+    card and on three CPU shards over the mesh-check's 2^16 keys and a
+    seeded edge file; every op's frames equal shard by shard."""
+    import numpy as np
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "mesh-ops-check")
+    os.makedirs(d)
+    rng = np.random.default_rng(11)
+    keys = rng.integers(0, 1 << 12, MESH_CHECK_KEYS).astype(np.uint32)
+    kpaths = split_files(keys, os.path.join(d, "keys"), 6)
+    edges = rng.integers(0, 1 << 10, (4096, 2))
+    epath = os.path.join(d, "edges.txt")
+    with open(epath, "w") as f:
+        f.write("".join(f"{a} {b}\n" for a, b in edges))
+    card = (devices or mesh_devices())[:1] * MESH_CHECK_P
+    cpu = (cpu_devices or ["cpu"])[:1] * MESH_CHECK_P
+    frames = {name: mesh_ops_frames(kpaths, epath, devs,
+                                    os.path.join(d, name))
+              for name, devs in (("card", card), ("cpu", cpu))}
+    for op in frames["cpu"]:
+        if frames["card"][op] != frames["cpu"][op]:
+            raise AssertionError(f"mesh-ops-check: {op} at P = "
+                                 f"{MESH_CHECK_P} differs between the card "
+                                 f"and the CPU")
+    shutil.rmtree(d)
+    return {"phase": "mesh-ops-check", "card": smi, "p": MESH_CHECK_P,
+            "keys": MESH_CHECK_KEYS, "edges": len(edges),
+            "ops": list(frames["card"]), "card_equals_cpu": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def sorted_pairs(mr):
+    """A KV's (key, value) pairs as host arrays sorted by key."""
+    import numpy as np
+    k, v = kv_arrays(mr)
+    order = np.argsort(k, kind="stable")
+    return k[order], v[order]
+
+
+def run_mesh_ooc(keys_u32, tmp: str, kernels, smi: str,
+                 devices=None) -> dict:
+    """mesh-ooc: the intcount-uniform keys at P = 4 through
+    ``MapReduce(comm=mesh, outofcore=1, memsize=64, maxpage=2)`` — the
+    host-path map_files (pages past the budget spilled), aggregate (the
+    exchange onto the shards), convert (each shard block over the
+    128 MB budget: demoted in shard order, sorted runs, a k-way merge)
+    and reduce(count) — equal to the in-core P = 4 chain's pairs."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.apps.intcount import _map_file
+    from gpu_mapreduce_tpu_torch.core import dataset, external
+    from gpu_mapreduce_tpu_torch.core.runtime import global_counters
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    t_phase = time.perf_counter()
+    mesh = make_mesh(MESH_P, devices=devices or mesh_devices())
+    paths = split_files(keys_u32, os.path.join(tmp, "mesh-ooc"), MESH_P)
+    spill = os.path.join(tmp, "mesh-ooc-spill")
+    c = global_counters()
+    for k in kernels:
+        k.launches = 0
+    sync_all()
+    reset_peaks()
+    w0, r0 = c.wsize, c.rsize
+    mr = MapReduce(comm=mesh, outofcore=1, memsize=OOC_MEMSIZE,
+                   maxpage=OOC_MAXPAGE, fpath=spill, fuse=0)
+    with counting(external, "_write_run") as runs, \
+            counting(dataset, "_write_spill") as spills:
+        pages = {}
+
+        def map_step():
+            mr.map_files(paths, _map_file)
+            pages["map"] = (mr.kv.nframes, len(os.listdir(spill)),
+                            mr.last_ingest["mode"])
+
+        def convert_step():
+            pages["over_budget"] = mr._mesh_over_budget(mr.kv)
+            mr.convert()
+
+        ooc_s = timed_ops(mesh.devices[0], [
+            ("map_files", map_step), ("aggregate", mr.aggregate),
+            ("convert", convert_step),
+            ("reduce", lambda: mr.reduce(count, batch=True))])
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = peak_bytes()
+    counters = {"wsize": c.wsize - w0, "rsize": c.rsize - r0}
+    got = sorted_pairs(mr)
+    result_pages = mr.kv.nframes
+    mr.kv.free()
+    incore = MapReduce(comm=mesh, fuse=0)
+    core_s = timed_ops(mesh.devices[0], [
+        ("map_files", lambda: incore.map_files(paths, _map_file)),
+        ("aggregate", incore.aggregate), ("convert", incore.convert),
+        ("reduce", lambda: incore.reduce(count, batch=True))])
+    want = sorted_pairs(incore)
+    if not (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])):
+        raise AssertionError("mesh-ooc: the out-of-core pairs differ from "
+                             "the in-core P = 4 chain's")
+    if not np.all(got[0][1:] > got[0][:-1]) or \
+            int(got[1].sum()) != len(keys_u32):
+        raise AssertionError("mesh-ooc: keys not distinct or counts do "
+                             "not sum to the input")
+    if pages["map"][2] != "host" or not pages["over_budget"] or \
+            counters["wsize"] <= 0 or runs[0] < 2:
+        raise AssertionError(f"mesh-ooc: the out-of-core path did not "
+                             f"run ({pages}, {counters}, {runs[0]} runs)")
+    shutil.rmtree(os.path.dirname(paths[0]))
+    shutil.rmtree(spill, ignore_errors=True)
+    return {"phase": "mesh-ooc", "card": smi, "p": MESH_P,
+            "keys": len(keys_u32), "unique": len(got[0]),
+            "settings": {"outofcore": 1, "memsize": OOC_MEMSIZE,
+                         "maxpage": OOC_MAXPAGE},
+            "op_s": ooc_s, "incore_op_s": core_s,
+            "pages_after_map": pages["map"][0],
+            "spill_files_after_map": pages["map"][1],
+            "spill_files_written": spills[0], "runs": runs[0],
+            "result_pages": result_pages, **counters,
+            "max_memory_allocated": peak, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def run_mesh_checkpoint(keys_u32, tmp: str, kernels, smi: str,
+                        devices=None) -> dict:
+    """mesh-checkpoint: save the P = 4 IntCount KV right after the
+    aggregate (2^25 pairs), load it at P = 1 and at P = 3 and count it
+    there (convert + count; at P = 3 after an aggregate): the pairs equal
+    the P = 4 chain's.  Then one value of writer shard 2's rows flipped
+    in the frame file (its file digest restamped, so only the per-shard
+    digest can see it): the load refuses, naming writer shard 2."""
+    import json as _json
+    import numpy as np
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.apps.intcount import _map_file
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.utils.integrity import (IntegrityError,
+                                                         file_digest)
+    t_phase = time.perf_counter()
+    devices = devices or mesh_devices()
+    mesh = make_mesh(MESH_P, devices=devices)
+    paths = split_files(keys_u32, os.path.join(tmp, "mesh-ckpt-keys"),
+                        MESH_P)
+    ck = os.path.join(tmp, "mesh-ckpt")
+    for k in kernels:
+        k.launches = 0
+    mr = MapReduce(comm=mesh, fuse=0)
+    mr.map_files(paths, _map_file)
+    mr.aggregate()
+    sync_all()
+    t0 = time.perf_counter()
+    mr.save(ck)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(ck, f))
+                 for f in os.listdir(ck))
+    mr.convert()
+    mr.reduce(count, batch=True)
+    want = sorted_pairs(mr)
+    del mr
+    loads = {}
+    for width in (1, MESH_CHECK_P):
+        other = MapReduce(comm=make_mesh(width, devices=devices[:1] * width),
+                          fuse=0)
+        t0 = time.perf_counter()
+        n = other.load(ck)
+        load_s = time.perf_counter() - t0
+        if width > 1:
+            other.aggregate()
+        other.convert()
+        other.reduce(count, batch=True)
+        sync_all()
+        got = sorted_pairs(other)
+        if n != len(keys_u32) or not (np.array_equal(got[0], want[0])
+                                      and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"mesh-checkpoint: the load at P = "
+                                 f"{width} counts differently")
+        loads[width] = {"load_s": load_s,
+                        "load_gb_per_s": nbytes / load_s / 1e9,
+                        "count_s": time.perf_counter() - t0 - load_s}
+    launches = {k.__name__: k.launches for k in kernels}
+    with open(os.path.join(ck, "manifest.json")) as f:
+        man = _json.load(f)
+    fm = man["frames"][0]
+    fpath = os.path.join(ck, fm["file"])
+    with np.load(fpath) as z:
+        arrs = {k: z[k].copy() for k in z.files}
+    arrs["v_arr"][sum(fm["shards"][:2]) + 7] ^= 1      # writer shard 2
+    np.savez(fpath, **arrs)
+    del arrs
+    fm["digest"] = file_digest(fpath)
+    with open(os.path.join(ck, "manifest.json"), "w") as f:
+        _json.dump(man, f)
+    try:
+        MapReduce(comm=make_mesh(2, devices=devices[:1] * 2)).load(ck)
+    except IntegrityError as e:
+        if "writer shard 2" not in str(e):
+            raise AssertionError(f"mesh-checkpoint: the refusal names "
+                                 f"another shard: {e}")
+    else:
+        raise AssertionError("mesh-checkpoint: a flipped value in writer "
+                             "shard 2 loaded")
+    shutil.rmtree(ck)
+    shutil.rmtree(os.path.dirname(paths[0]))
+    return {"phase": "mesh-checkpoint", "card": smi, "p": MESH_P,
+            "pairs": len(keys_u32), "bytes": nbytes,
+            "shards": fm["shards"], "save_s": save_s,
+            "save_gb_per_s": nbytes / save_s / 1e9,
+            "loads": {f"p{w}": rec for w, rec in loads.items()},
+            "refused_writer_shard": 2, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2871,6 +3392,25 @@ def main() -> int:
             emit(mesh_cards)
         else:
             mesh_cards = {"cards": 1}
+        mesh_fuse = {}
+        for cell, keys in int_keys.items():
+            mesh_fuse[cell] = run_mesh_fuse(cell, keys, tmp, kernels, smi,
+                                            table_check=cell == "uniform")
+            emit(mesh_fuse[cell])
+        if count >= 2:
+            # the warm fused group with one shard a card: each card
+            # launches its own table
+            mesh_cards_fuse = run_mesh_fuse("uniform", int_keys["uniform"],
+                                            tmp, kernels, smi,
+                                            devices=cards)
+            emit(mesh_cards_fuse)
+        else:
+            mesh_cards_fuse = None
+        mesh_ooc = run_mesh_ooc(int_keys["uniform"], tmp, kernels, smi)
+        emit(mesh_ooc)
+        mesh_ckpt = run_mesh_checkpoint(int_keys["uniform"], tmp, kernels,
+                                        smi)
+        emit(mesh_ckpt)
         mesh_s += time.perf_counter() - t_mesh
 
         wf, text_table, chunks, check, mesh_wf = run_text(paths, tmp, device,
@@ -2880,6 +3420,9 @@ def main() -> int:
         mesh_check = run_mesh_check(tmp, smi)
         emit(mesh_check)
         mesh_s += mesh_check["seconds"]
+        mesh_ops = run_mesh_ops_check(tmp, smi)
+        emit(mesh_ops)
+        mesh_s += mesh_ops["seconds"]
 
         graph = run_graph(device, smi, kernels)
         emit(graph)
@@ -2916,11 +3459,25 @@ def main() -> int:
               "check": {k: mesh_check[k] for k in (
                   "part_files", "card_equals_cpu", "union_equals_p1",
                   "intcount_ops")},
+              "fuse_p4": {cell: {run: {k: rec[run][k] for k in (
+                  "end_to_end_s", "group_s", "sent_bytes",
+                  "exchange_bound_ms", "launches")}
+                  for run in ("cold", "warm")}
+                  for cell, rec in mesh_fuse.items()},
+              "ops_check": {k: mesh_ops[k] for k in (
+                  "ops", "card_equals_cpu", "seconds")},
+              "ooc": {k: mesh_ooc[k] for k in (
+                  "op_s", "incore_op_s", "spill_files_written", "runs",
+                  "seconds")},
+              "checkpoint": {k: mesh_ckpt[k] for k in (
+                  "bytes", "save_s", "loads", "refused_writer_shard")},
               "several_cards": mesh_cards if "cards" in mesh_cards
               and len(mesh_cards) == 1 else {
-                  k: mesh_cards[k] for k in ("devices", "cards",
-                                             "end_to_end_s", "exchange_s",
-                                             "launches")}})
+                  **{k: mesh_cards[k] for k in ("devices", "cards",
+                                                "end_to_end_s",
+                                                "exchange_s", "launches")},
+                  "fuse_warm": {k: mesh_cards_fuse["warm"][k] for k in (
+                      "end_to_end_s", "group_s", "launches")}}})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2946,7 +3503,13 @@ def main() -> int:
                         "main_p4": mesh_main["launches"][k],
                         **{f"intcount_p4_{cell}": rec["launches"][k]
                            for cell, rec in mesh_int.items()},
-                        "wordfreq_p4": mesh_wf["launches"][k]}}
+                        "wordfreq_p4": mesh_wf["launches"][k],
+                        **{f"intcount_p4_fused_{cell}_{run}":
+                           rec[run]["launches"][k]
+                           for cell, rec in mesh_fuse.items()
+                           for run in ("cold", "warm")},
+                        "mesh_ooc": mesh_ooc["launches"][k],
+                        "mesh_checkpoint": mesh_ckpt["launches"][k]}}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -2985,6 +3548,10 @@ def main() -> int:
         "text": {k: text_table[k] for k in ("n", "T", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms", "epilogue_ms")},
+        # at shard 0's received rows of the warm fused IntCount at P = 4
+        "mesh": {k: mesh_fuse["uniform"]["table"][k] for k in (
+            "n", "T", "gcap", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "epilogue_ms", "max_abs_err")},
         **on_graph["segment_table"]}, {
         "name": "mark_bytes", "route": "cuda",
         "source": "gpu_mapreduce_tpu_torch/csrc/mark_bytes.cu",

@@ -5,8 +5,9 @@ reference's ``cpu/IntCount.cpp``: each file is read as u32 words, every
 word a key with value 1, then aggregate + convert + a count reduce and an
 optional top-N.  Maximum key cardinality, minimum payload per key: a pure
 shuffle/group stress.  Under ``fuse=1`` (``MRTPU_FUSE=1``) convert and
-count run as one fused group, whose warm run takes the group table
-(``ops/cuda/group.py``).
+count run as one fused group (on a mesh of P > 1 with the aggregate's
+exchange), whose warm run takes the group table (``ops/cuda/group.py``,
+one launch a shard).
 """
 
 from __future__ import annotations

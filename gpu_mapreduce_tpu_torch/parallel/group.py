@@ -17,7 +17,8 @@ by the mesh-wide ``gcap`` (the largest shard's group count, rounded; JAX
 group.py:132-153), pulling the P group counts in one transfer, so the
 layouts are the JAX mesh's; the interned sort is global, as the JAX
 package's: the valid rows come out in byte order packed into the first
-shards.
+shards.  :func:`fused_group_shards` runs the fused body on every shard
+at one mesh-wide gcap, for the fuser's exchange and local groups.
 """
 
 from __future__ import annotations
@@ -182,6 +183,29 @@ def fused_group_body(key, value, nrecv: int, gcap: int, out_kind: str,
         return ukey, uval, meta
     return ukey, segment_reduce_rows(sv, seg, valid, gcap, reduce_op,
                                      value_dtype), meta
+
+
+def fused_group_shards(blocks, nrecvs, gcap: int, out_kind: str,
+                       reduce_op, key_dtype, value_dtype, table_cfg=None):
+    """:func:`fused_group_body` once per shard, every shard at the one
+    mesh-wide ``gcap`` (each on its block's device; the table engine
+    launches once a shard).  ``blocks`` holds each shard's ``(key,
+    value)`` rows, ``nrecvs`` its valid count.  Returns ``(outs,
+    gcounts, overflow)``: each shard's outputs without the meta, the
+    group counts as one host array (one pull on a mesh) and the rows the
+    tables had no slot for, over every shard."""
+    outs, gcounts, overflow = [], [], 0
+    for (key, value), n in zip(blocks, nrecvs):
+        *out, (g, _n, over) = fused_group_body(key, value, int(n), gcap,
+                                               out_kind, reduce_op,
+                                               key_dtype, value_dtype,
+                                               table_cfg)
+        outs.append(out)
+        gcounts.append(g)
+        overflow += over
+    if len(blocks) > 1:
+        SyncStats.bump()      # the group's one pull: the group counts
+    return outs, np.array(gcounts, np.int32), overflow
 
 
 def first_sharded(kmv: ShardedKMV) -> ShardedKV:

@@ -301,7 +301,11 @@ def tensor_frame(key: torch.Tensor, value: torch.Tensor, key_dtype=None,
 def concat_sharded(frames: Sequence[ShardedKV]) -> ShardedKV:
     """Valid rows of several device frames, in order, as one frame.
     Interned columns align their id domains first and their tables merge
-    (``parallel/devkernels._align_domains``)."""
+    (``parallel/devkernels._align_domains``).  Mesh frames concatenate
+    shard by shard (``parallel/backend.concat_mesh``)."""
+    if isinstance(frames[0], MeshKV):
+        from .backend import concat_mesh
+        return concat_mesh(list(frames))
     from .devkernels import _align_domains
     first = frames[0]
     keys, kt = _align_domains(frames, "key")

@@ -5,28 +5,33 @@ reference's ``MapReduce::aggregate`` over ``Irregular``,
 src/mapreduce.cpp:385-563, src/irregular.cpp), over a mesh driven by one
 process:
 
-phase 1, per shard (``_phase1_core``, JAX :77-89): a destination for
-  every valid row (the default lookup3 hash, a device hash function, or
-  a fixed shard), a stable sort of the rows by destination, and the rows
-  per destination.
+phase 1, per shard (:func:`phase1`, ``_phase1_core``, JAX :77-89): a
+  destination for every valid row (the default lookup3 hash, a device
+  hash function, or a fixed shard), a stable sort of the rows by
+  destination, and the rows per destination; then the ``[P, P]`` counts
+  come to the host in one transfer — the op's one sync
+  (:class:`~.sharded.SyncStats`).
 
-the count matrix: the ``[P, P]`` counts come to the host in one transfer
-  — the op's one sync (:class:`~.sharded.SyncStats`) — and size the
-  output (``_plan_caps``, JAX :452-466).
+the plan (:func:`plan_from_pull`, ``_plan_caps``, JAX :452-466): the
+  count matrix sizes the output; a cached plan is held against it by
+  :func:`plan_holds` and :func:`plan_oversized`.
 
-phase 2, per destination (``phase2_shard_body``, JAX :324-359): output
-  shard d is zeros ``[cap_out]``; each source's dest-d slice is copied to
-  ``base[src]``, sources in ascending order, so shard d holds every
-  source's rows for it, source-major and each in its original order.
-  ``all2all=1`` copies every source's slice to every destination;
-  ``all2all=0`` runs the ring schedule of ``_ring_exchange`` (JAX
-  :141-168): P-1 shifts in which destination d takes from ``(d-s) % P``.
-  The output is identical.  Between distinct cards the copies go device
-  to device, never through host memory.
+phase 2, per destination (:func:`phase2`, JAX ``phase2_shard_body``
+  :324-359): output shard d is zeros ``[cap_out]``; each source's dest-d
+  slice is copied to ``base[src]``, sources in ascending order, so shard
+  d holds every source's rows for it, source-major and each in its
+  original order.  ``all2all=1`` copies every source's slice to every
+  destination; ``all2all=0`` runs the ring schedule of
+  ``_ring_exchange`` (JAX :141-168): P-1 shifts in which destination d
+  takes from ``(d-s) % P``.  The output is identical.  Between distinct
+  cards the copies go device to device, never through host memory.
 
-The JAX package's speculative plan cache, wire codec, buffer donation,
-retry wrapper and trace spans give results bit-identical to this raw
-exchange and are not ported (ROADMAP.md).
+The eager exchange (:func:`exchange`) and the fused exchange group of
+``plan/fuser.py`` share these three steps, so their layouts and
+telemetry are one.  The JAX package's speculative cap cache of the
+eager exchange, wire codec, buffer donation, retry wrapper and trace
+spans give results bit-identical to this raw exchange and are not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -149,11 +154,12 @@ def _schedule(transport: int, nprocs: int):
             for d in range(nprocs)]
 
 
-def exchange(skv: MeshKV, dest, transport: int = 1,
-             counters=None) -> MeshKV:
-    """Route every valid row of a mesh frame to its destination shard
-    (``dest`` as in :func:`_dest_fn`); decode tables ride along.  The new
-    frame carries :class:`ExchangeCallStats` as ``exchange_stats``."""
+def phase1(skv: MeshKV, dest) -> tuple:
+    """Phase 1 of an exchange: every shard's valid rows stably sorted by
+    destination (``_phase1_core``), then the ``[P, P]`` count matrix on
+    the host in one transfer — the op's one sync.  Returns
+    ``(sorted_rows, counts_mat)``; the eager exchange and the fused
+    exchange group (``plan/fuser.py``) share it."""
     mesh = skv.mesh
     P = mesh.size
     dest_of = _dest_fn(dest, P, skv.key_dtype)
@@ -164,7 +170,52 @@ def exchange(skv: MeshKV, dest, transport: int = 1,
     SyncStats.bump()          # the op's one pull: the count matrix
     counts_mat = torch.stack([c.to(dev0, non_blocking=True)
                               for _, _, c in sorted_rows]).cpu().numpy()
+    return sorted_rows, counts_mat
+
+
+# -- the plan: one planning step for the eager and the fused exchange -------
+# A plan is ("raw", B, nrounds, cap_out): the padded schedule's bucket and
+# round count (telemetry) and the output cap.  JAX parallel/wire.py keeps
+# the same tuple for its raw schedule; its wire plans are not ported.
+
+def plan_from_pull(counts_mat: np.ndarray) -> tuple:
+    """The count matrix → ``(plan, bmax_raw, nmax_out, new_counts)``
+    (JAX ``wire.plan_from_pull`` with the codec off): ``bmax_raw`` and
+    ``nmax_out`` are the bounds a cached plan is held against."""
     B, nrounds, cap_out, new_counts = _plan_caps(counts_mat)
+    return (("raw", B, nrounds, cap_out), int(counts_mat.max()),
+            max(int(new_counts.max()), 8), new_counts)
+
+
+def plan_slots(plan) -> int:
+    """Slots per bucket of the plan's padded schedule."""
+    return int(plan[1] * plan[2])
+
+
+def plan_cap_out(plan) -> int:
+    return int(plan[3])
+
+
+def plan_holds(plan, bmax: int, nmax_out: int) -> bool:
+    """Whether a cached plan still delivers every row: its slots cover
+    the largest bucket and its cap the largest destination."""
+    return plan_slots(plan) >= bmax and plan_cap_out(plan) >= nmax_out
+
+
+def plan_oversized(plan, bmax: int, nmax_out: int) -> bool:
+    """Whether a cached plan is ≥ 4× too large for this count matrix
+    (the right-sizing rule of the JAX speculative caps)."""
+    return (plan_slots(plan) > 4 * max(bmax, 8)
+            or plan_cap_out(plan) > 4 * round_cap(nmax_out))
+
+
+def phase2(skv: MeshKV, sorted_rows, counts_mat: np.ndarray, cap_out: int,
+           transport: int = 1) -> list:
+    """Phase 2 at a plan's ``cap_out``: each destination's ``(keys,
+    values)`` block of ``cap_out`` rows, every source's slice at its base,
+    sources in ascending order (``_schedule`` only orders the copies)."""
+    mesh = skv.mesh
+    P = mesh.size
     # per source: where each destination's slice starts in its sorted rows;
     # per destination: where each source's slice lands in the output
     src_off = np.concatenate([np.zeros((P, 1), np.int64),
@@ -185,19 +236,39 @@ def exchange(skv: MeshKV, dest, transport: int = 1,
         sk, sv, _ = sorted_rows[s]
         out_k[d][at:at + n].copy_(sk[lo:lo + n], non_blocking=True)
         out_v[d][at:at + n].copy_(sv[lo:lo + n], non_blocking=True)
-    out = MeshKV(mesh, [ShardedKV(k, v, np.array([n], np.int32),
-                                  skv.key_dtype, skv.value_dtype,
-                                  skv.key_decode, skv.value_decode)
-                        for k, v, n in zip(out_k, out_v, new_counts)])
-    moved, pad, _ = exchange_volume(skv, counts_mat, B * nrounds, P)
-    stats = ExchangeCallStats(nrounds=nrounds, bucket=B, cap_out=cap_out,
-                              rows=int(counts_mat.sum()), sent_bytes=moved,
-                              pad_bytes=pad,
-                              bucket_min=int(counts_mat.min()),
-                              bucket_max=int(counts_mat.max()))
+    return list(zip(out_k, out_v))
+
+
+def exchange_stats(skv: MeshKV, counts_mat: np.ndarray, plan,
+                   counters=None) -> ExchangeCallStats:
+    """The telemetry of one exchange at ``plan`` (shared by the eager and
+    the fused exchange); the bytes also go to ``counters``."""
+    P = skv.mesh.size
+    moved, pad, _ = exchange_volume(skv, counts_mat, plan_slots(plan), P)
     if counters is not None:
         counters.add(cssize=moved, crsize=moved, cspad=pad)
-    out.exchange_stats = stats
+    return ExchangeCallStats(nrounds=plan[2], bucket=plan[1],
+                             cap_out=plan_cap_out(plan),
+                             rows=int(counts_mat.sum()), sent_bytes=moved,
+                             pad_bytes=pad,
+                             bucket_min=int(counts_mat.min()),
+                             bucket_max=int(counts_mat.max()))
+
+
+def exchange(skv: MeshKV, dest, transport: int = 1,
+             counters=None) -> MeshKV:
+    """Route every valid row of a mesh frame to its destination shard
+    (``dest`` as in :func:`_dest_fn`); decode tables ride along.  The new
+    frame carries :class:`ExchangeCallStats` as ``exchange_stats``."""
+    sorted_rows, counts_mat = phase1(skv, dest)
+    plan, _bmax, _nmax, new_counts = plan_from_pull(counts_mat)
+    blocks = phase2(skv, sorted_rows, counts_mat, plan_cap_out(plan),
+                    transport)
+    out = MeshKV(skv.mesh, [ShardedKV(k, v, np.array([n], np.int32),
+                                      skv.key_dtype, skv.value_dtype,
+                                      skv.key_decode, skv.value_decode)
+                            for (k, v), n in zip(blocks, new_counts)])
+    out.exchange_stats = exchange_stats(skv, counts_mat, plan, counters)
     return out
 
 

@@ -1,9 +1,10 @@
 """The plan cache and the plan history (the in-memory subset of
 ``gpu_mapreduce_tpu/plan/cache.py``).
 
-:func:`plan_cache` (an :class:`LRUCache`) maps (stage-chain fingerprint, frame signature,
-device) to the ``fuser.CompiledPlan`` that carries one run's group
-capacities into the next.  :func:`plan_history` keeps the last 64
+:func:`plan_cache` (an :class:`LRUCache`) maps (stage-chain
+fingerprint, frame signature, device or mesh, ``all2all``, ``outofcore``)
+to the ``fuser.CompiledPlan`` that carries one run's exchange plans
+(``caps``) and group capacities (``mega``) into the next.  :func:`plan_history` keeps the last 64
 executed plans with their groups and modes.
 """
 

@@ -72,9 +72,18 @@ def frame_signature(frame) -> tuple:
     """Shape/dtype identity of the dataset the plan will run over, the
     second component of the plan-cache key: for each column its padded
     shape and its logical dtype (``bytes``/``object`` for a host text
-    column, its row count as its shape)."""
+    column, its row count as its shape).  A mesh frame keys on its
+    shards' padded blocks stacked (the JAX frame's global shape)."""
     from ..core.column import BytesColumn, ObjectColumn
     sig = [type(frame).__name__]
+    shards = getattr(frame, "shards", None)
+    if shards is not None:
+        for name in ("key", "value"):
+            t = getattr(shards[0], name)
+            sig.append((name, (len(shards) * t.shape[0],)
+                        + tuple(t.shape[1:]),
+                        str(getattr(frame, f"{name}_dtype"))))
+        return tuple(sig)
     for name in ("key", "value"):
         col = getattr(frame, name, None)
         if col is None:

@@ -172,7 +172,7 @@ def test_map_file_char_chunks_match_jax(corpus, P, mapstyle):
 def test_host_fallbacks(corpus):
     """addflag appends through the host path; a frame payload or shards
     of different dtypes are unshardable and replay into the host KV,
-    every callback run once; out of core is refused on a mesh."""
+    every callback run once; out of core ingests on the host."""
     files, oracle = corpus
     mesh = tmesh(8)
     mr = MapReduce(comm=mesh)
@@ -181,8 +181,10 @@ def test_host_fallbacks(corpus):
     mr.map_files(files[2:], read_words, addflag=1)
     assert mr.last_ingest["mode"] == "host"
     assert mr.kv.nkv == sum(oracle.values())
-    with pytest.raises(MRError, match="not ported"):
-        MapReduce(comm=mesh, outofcore=1, memsize=1, maxpage=4)
+    ooc = MapReduce(comm=mesh, outofcore=1, memsize=1, maxpage=4)
+    assert ooc.map_files(files[:2], read_words) == \
+        sum(len(open(f, "rb").read().split()) for f in files[:2])
+    assert ooc.last_ingest["mode"] == "host"
     from gpu_mapreduce_tpu_torch.core.frame import KVFrame
     calls = []
 

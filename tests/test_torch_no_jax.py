@@ -55,7 +55,9 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "core.checkpoint", "exec", "exec.spill",
                    "exec.prefetch", "utils.fsio", "utils.integrity",
                    "parallel.mesh", "parallel.shuffle",
-                   "parallel.collectives", "parallel.ingest")
+                   "parallel.collectives", "parallel.ingest",
+                   "parallel.group", "parallel.sharded", "plan.fuser",
+                   "plan.ir", "plan.cache", "core.mapreduce")
 
 
 def test_port_imports_no_jax():

@@ -15,6 +15,8 @@ here is the raw schedule's, so those tests set ``MRTPU_WIRE=0`` and clear
 the speculation cache."""
 
 import collections
+import json
+import os
 
 import numpy as np
 import pytest
@@ -572,34 +574,124 @@ def test_make_mesh():
         MapReduce(comm=3)
 
 
-REFUSED = {
-    "map_mr": lambda mr: mr.map_mr(mr, lambda *a: None),
-    "compress": lambda mr: mr.compress(t_count, batch=True),
-    "clone": lambda mr: mr.clone(),
-    "collapse": lambda mr: mr.collapse(1),
-    "open": lambda mr: mr.open(),
-    "close": lambda mr: mr.close(),
-    "save": lambda mr: mr.save("unused"),
-    "load": lambda mr: mr.load("unused"),
-    "pipeline": lambda mr: mr.pipeline(),
-    "outofcore": lambda mr: mr.set(outofcore=1),
-    "fuse": lambda mr: mr.set(fuse=1),
+def _ops_open(mr, mod, d):
+    """open with addflag: the shards' pairs stay, another MR's adds join
+    them as host pages, the next aggregate routes them."""
+    other = mr.copy()
+    kv = mr.open(1)
+    other.map_mr(other, lambda i, k, v, _kv, p: kv.add(k, v + 1))
+    mr.close()
+    mr.aggregate()
+
+
+def _ops_close(mr, mod, d):
+    mr.open()
+    assert mr.close() == 0
+    with pytest.raises(Exception, match="Cannot close without open"):
+        mr.close()
+    mr.map(2, emit)
+    mr.aggregate()
+
+
+def _ops_save(mr, mod, d):
+    mr.save(d)
+    with open(os.path.join(d, "manifest.json")) as f:
+        man = json.load(f)
+    assert man["mesh"] == {"nprocs": 3}
+    assert man["frames"][0]["shards"] == _counts(mr)
+    assert len(man["frames"][0]["shard_digests"]) == 3
+
+
+def _ops_load(mr, mod, d):
+    mr.save(d + ".w")
+    mr.load(d + ".w")
+    mr.aggregate()
+
+
+def _ops_pipeline(mr, mod, d):
+    with mr.pipeline():
+        mr.convert()
+        mr.reduce(mod.count, batch=True)
+
+
+def _ops_outofcore(mr, mod, d):
+    mr.set(outofcore=1, memsize=1, maxpage=1, fpath=d)
+    mr.map(2, emit, addflag=1)
+    mr.aggregate()
+    mr.convert()
+
+
+def _ops_fuse(mr, mod, d):
+    mr.set(fuse=1)
+    mr.map(2, emit, addflag=1)
+    mr.aggregate()
+    mr.convert()
+    mr.reduce(mod.count, batch=True)
+
+
+def _counts(mr):
+    fr = mr.kv.one_frame() if hasattr(mr.kv, "one_frame") else one(mr.kv)
+    return [int(c) for c in fr.counts]
+
+
+MESH_OPS = {
+    "map_mr": lambda mr, mod, d: mr.map_mr(
+        mr, lambda i, k, v, kv, p: kv.add(k, v * 3)),
+    "compress": lambda mr, mod, d: mr.compress(mod.count, batch=True),
+    "clone": lambda mr, mod, d: mr.clone(),
+    "collapse": lambda mr, mod, d: mr.collapse(1),
+    "open": _ops_open,
+    "close": _ops_close,
+    "save": _ops_save,
+    "load": _ops_load,
+    "pipeline": _ops_pipeline,
+    "outofcore": _ops_outofcore,
+    "fuse": _ops_fuse,
 }
 
 
-@pytest.mark.parametrize("op", sorted(REFUSED))
-def test_unported_ops_raise_on_a_mesh(op):
-    mr = MapReduce(comm=tmesh(3))
-    mr.map(2, emit)
+@pytest.mark.parametrize("op", sorted(MESH_OPS))
+def test_ops_run_on_a_mesh(op, tmp_path, monkeypatch):
+    """Each op and setting once refused at P > 1 runs at P = 3, on a
+    frame the aggregate put on the mesh, as the JAX mesh runs it."""
+    from gpu_mapreduce_tpu.oink import kernels as jkernels
+    from gpu_mapreduce_tpu.plan import plan_cache as j_plan_cache
+    from gpu_mapreduce_tpu_torch.oink import kernels as tkernels
+    from gpu_mapreduce_tpu_torch.plan import plan_cache
+    monkeypatch.delenv("MRTPU_FUSE", raising=False)
+    plan_cache().clear()          # the fused ops run cold in both
+    j_plan_cache().clear()
+    jmr, tmr = both(3)
+    for name, mr, mod in (("j", jmr, jkernels), ("t", tmr, tkernels)):
+        mr.map(4, emit)
+        mr.aggregate()
+        MESH_OPS[op](mr, mod, str(tmp_path / name))
+    if tmr.kmv is not None:
+        tf = one(tmr.kmv)
+        if isinstance(tf, MeshKMV):
+            same_kmv(jmr, tmr)
+        else:               # collapse: one host group over every shard
+            assert _groups(tf) == _groups(jmr.kmv.one_frame())
+    else:
+        same_kv(jmr, tmr)
+    MapReduce(comm=tmesh(3), fuse=1, outofcore=1)
+
+
+def _oink_commands():
+    from gpu_mapreduce_tpu_torch.oink.command import COMMANDS
+    return sorted(COMMANDS)
+
+
+@pytest.mark.parametrize("command", _oink_commands())
+def test_oink_commands_refuse_a_mesh(command):
+    """Every OINK command (not the builtins and named-MR lines) still
+    refuses a mesh of P > 1, before it reads its arguments."""
+    import io
+    from gpu_mapreduce_tpu_torch import OinkScript
+    from gpu_mapreduce_tpu_torch.oink.command import COMMANDS
+    port = OinkScript(comm=tmesh(3), screen=io.StringIO())
     with pytest.raises(MRError, match="on a mesh of P > 1 is not ported"):
-        REFUSED[op](mr)
-    with pytest.raises(MRError, match="not ported"):
-        MapReduce(comm=tmesh(3), fuse=1)
-    # the same op on one shard is not refused by the mesh
-    one_shard = MapReduce(comm=tmesh(1))
-    one_shard.map(2, emit)
-    if op in ("clone", "collapse", "outofcore", "fuse"):
-        REFUSED[op](one_shard)
+        COMMANDS[command](port.obj, screen=port.screen)
 
 
 def test_oink_nprocs_reads_the_mesh():
