@@ -158,7 +158,18 @@ nonzero):
               P = 3 and counted there, equal to the P = 4 counts; a value
               flipped in writer shard 2 refused, naming that shard.  With
               two cards or more, intcount-p4 and the warm mesh-fuse run
-              again with one shard a card.  One ``mesh`` line sums it.
+              again with one shard a card.  graph-p4 (after the graph
+              and tri phases, whose P = 1 MRs it is held against): the
+              graph script (checkpoint lines aside) and its composed
+              lines on four shards of the card, every named result equal
+              to P = 1's as a set of rows (PageRank within rtol 1e-5 and
+              one step), every result line too (fused cc's round count
+              aside), composed cc and sssp equal to the fused ones;
+              tri_find at scale 18 equal to P = 1's, the composed
+              tri_find equal to the fused one at scale 12; then every
+              OINK command at P = 3 on the card and on CPU shards, file
+              by file (its own ``graph-p4`` line).  One ``mesh`` line
+              sums it.
 
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
@@ -1600,15 +1611,15 @@ def graph_spans(device, keep=(), keep_args=()):
     spans = [(rmat, "rmat_edges", "rmat_generate"),
              (MapReduce, "collate", "collate"),
              (pagerank, "stage_graph", "pagerank_stage"),
-             (pagerank, "pagerank", "pagerank_loop"),
+             (pagerank, "pagerank_sharded", "pagerank_loop"),
              (pr_model, "pagerank_step", "pagerank_step"),
-             (cc, "stage_graph", "cc_stage"), (cc, "cc", "cc_loop"),
-             (cc_model, "_propagate", "cc_round"),
+             (cc, "stage_graph", "cc_stage"), (cc, "cc_sharded", "cc_loop"),
+             (cc_model, "_round", "cc_round"),
              (luby, "stage_graph", "luby_stage"),
-             (luby, "luby_mis", "luby_loop"),
+             (luby, "luby_mis_sharded", "luby_loop"),
              (luby_model, "_round", "luby_round"),
              (sssp, "stage_graph", "sssp_stage"),
-             (sssp, "bellman_ford", "sssp_loop"),
+             (sssp, "bellman_ford_sharded", "sssp_loop"),
              (sssp_model, "_round", "sssp_round"),
              (tri, "stage_graph", "tri_stage"),
              (tri, "triangles_ranked", "tri_loop"),
@@ -1624,7 +1635,7 @@ def graph_spans(device, keep=(), keep_args=()):
 
     def sync():
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            sync_all()
 
     def timed(fn, label):
         @functools.wraps(fn)
@@ -1925,7 +1936,7 @@ def drive_script(device, lines, kernels, interp=None) -> dict:
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.empty_cache()
-        torch.cuda.synchronize()
+        sync_all()
     for k in kernels:
         k.launches = 0
     s = interp or OinkScript(device=device, screen=False, logfile=None)
@@ -1951,7 +1962,7 @@ def drive_script(device, lines, kernels, interp=None) -> dict:
             with engine(words[0], eng) if eng else contextlib.nullcontext():
                 s.one(line)
             if cuda:
-                torch.cuda.synchronize()
+                sync_all()
             ends[label] = time.perf_counter()
             seconds[label] = ends[label] - t0
             if cuda:
@@ -1991,24 +2002,24 @@ def same_pairs_on_card(a, b) -> bool:
     import numpy as np
     import torch
     from gpu_mapreduce_tpu_torch.ops.bits import order_key
-    fa, fb = a.kv.one_frame(), b.kv.one_frame()
-    if len(fa) != len(fb):
+    (ka, va), (kb, vb) = (mr.kv.one_frame().valid_rows() for mr in (a, b))
+    if len(ka) != len(kb):
         return False
-    n = len(fa)
-    sa, sb = (torch.sort(order_key(f.key[:n], np.uint64)).indices
-              for f in (fa, fb))
-    return torch.equal(fa.key[:n][sa], fb.key[:n][sb]) and \
-        torch.equal(fa.value[:n][sa], fb.value[:n][sb])
+    sa, sb = (torch.sort(order_key(k, np.uint64)).indices for k in (ka, kb))
+    return torch.equal(ka[sa], kb[sb]) and torch.equal(va[sa], vb[sb])
 
 
 def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
-              edgefactor: int = GRAPH_EDGEFACTOR) -> dict:
+              edgefactor: int = GRAPH_EDGEFACTOR, p4: bool = False) -> dict:
     """The graph phase: the OINK script of :func:`graph_script` through
     the port's ``OinkScript`` on ``device``, each command timed between
     device synchronises, then the composed engines on its named MRs
     (:func:`composed_graph_lines`; composed cc's pairs compared with the
-    fused run's on the card), then the host oracles."""
+    fused run's on the card), then the host oracles.  With ``p4`` the
+    same script runs on four shards in between (:func:`run_graph_p4`,
+    under the record's ``p4``)."""
     import numpy as np
+    import torch
     from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
     from gpu_mapreduce_tpu_torch.ops.bits import to_numpy
     rmat_round = check_rmat_round(device, scale)
@@ -2029,6 +2040,20 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
             raise AssertionError("cc_find/composed: the (v, zone) pairs "
                                  "differ from the fused run's")
         compare_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p4_rec = run_graph_p4(device, run, comp, kernels, scale,
+                              edgefactor) if p4 else None
+        if p4_rec:
+            p4_rec["seconds"] = time.perf_counter() - t0
+        if p4_rec and device.type == "cuda" and \
+                torch.cuda.device_count() >= 2:
+            # one shard a card
+            t0 = time.perf_counter()
+            p4_rec["several_cards"] = run_graph_p4(
+                device, run, comp, kernels, scale, edgefactor,
+                devices=[torch.device("cuda", i) for i in range(
+                    min(MESH_P, torch.cuda.device_count()))])
+            p4_rec["several_cards"]["seconds"] = time.perf_counter() - t0
         composed = {
             name: composed_record(comp, f"{name}/composed", marker)
             for name, marker in (("cc_find", "cc_composed_round"),
@@ -2092,7 +2117,8 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
             "rmat_round_device_vs_cpu": rmat_round,
             "composed": composed, "launches_composed": comp_launches,
             "composed_cc_equal_fused_on_card": True,
-            "composed_cc_compare_s": compare_s, "checkpoint": ckpt}
+            "composed_cc_compare_s": compare_s, "checkpoint": ckpt,
+            "p4": p4_rec}
 
 
 def tri_oracles(scale: int, upper, rows, message: str, nbatches: int
@@ -2212,7 +2238,7 @@ def same_triangles_on_card(a, b, scale: int) -> bool:
     import torch
     keys = []
     for f in (fa, fb):
-        r = torch.sort(f.key[:len(f)], dim=1).values
+        r = torch.sort(f.valid_rows()[0], dim=1).values
         keys.append(torch.sort((r[:, 0] << (2 * scale)) | (r[:, 1] << scale)
                                | r[:, 2]).values)
         del r
@@ -2283,11 +2309,12 @@ def run_composed_check(device, smi: str,
 
 
 def run_tri(device, smi: str, kernels=(), scale: int = TRI_SCALE,
-            check_scale: int = TRI_CHECK_SCALE) -> dict:
+            check_scale: int = TRI_CHECK_SCALE, p4: bool = False) -> dict:
     """The tri phase: :func:`tri_script` on ``device`` with each command
     timed, the composed tri_find on the same edges (its triangles
     compared with the fused rows on the card), the host oracles, then
-    the card-vs-CPU neigh_tri files."""
+    the card-vs-CPU neigh_tri files.  With ``p4`` the script also runs
+    on four shards (:func:`run_tri_p4`, under the record's ``p4``)."""
     import torch
     from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tri_")
@@ -2313,6 +2340,11 @@ def run_tri(device, smi: str, kernels=(), scale: int = TRI_SCALE,
         named.pop("mrtc").kv.free()
         comp_launches = comp["launches"]
         del comp
+        t0 = time.perf_counter()
+        p4_rec = run_tri_p4(device, run, kernels, scale,
+                            COMPOSED_CHECK_SCALE) if p4 else None
+        if p4_rec:
+            p4_rec["seconds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         upper = mapreduce_to_numpy(named["mru"])[0]
         rows = mapreduce_to_numpy(named["mrt"])[0]
@@ -2357,7 +2389,336 @@ def run_tri(device, smi: str, kernels=(), scale: int = TRI_SCALE,
             "neigh_tri_check": {"scale": check_scale,
                                 "files": len(files["cpu"]),
                                 "card_equals_cpu": True,
-                                "seconds": check_s}}
+                                "seconds": check_s}, "p4": p4_rec}
+
+
+# ---------------------------------------------------------------------------
+# graph-p4 — the OINK commands over P shards driven by one process
+# ---------------------------------------------------------------------------
+
+GRAPH_CHECK_P = 3              # card vs CPU, every command, file by file
+GRAPH_CHECK_SMALL_SCALE = 9    # neigh_tri there: a file a vertex
+P4_COMPARED = ("mre", "mru", "mrc", "mrl", "mrs", "mrv", "mrcc", "mrlc",
+               "mrsc")         # named MRs held against P = 1 as row sets
+
+
+def sorted_rows_on_card(mr):
+    """An MR's KV rows (its frames joined, shards in order) as one int64
+    matrix on the first shard's device, key columns then value columns
+    (float64 values as their bits), sorted as rows: the rows as a set."""
+    import torch
+    cols = []
+    for c in mr.kv.one_frame().valid_rows():
+        c = c.reshape(c.shape[0], -1)
+        cols.append(c.view(torch.int64) if c.dtype == torch.float64
+                    else c.to(torch.int64))
+    m = torch.cat(cols, 1)
+    del cols
+    order = torch.arange(m.shape[0], device=m.device)
+    for c in reversed(range(m.shape[1])):
+        order = order[torch.sort(m[order, c], stable=True).indices]
+    return m[order]
+
+
+def ranks_close_on_card(a, b) -> bool:
+    """Two PageRank MRs (vertex, rank): the same vertices, ranks within
+    rtol 1e-5 (atol the run's tol: a step more or less moves a rank by at
+    most about that)."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.bits import order_key
+    (ka, va), (kb, vb) = (mr.kv.one_frame().valid_rows() for mr in (a, b))
+    if len(ka) != len(kb):
+        return False
+    sa, sb = (torch.sort(order_key(k, np.uint64)).indices for k in (ka, kb))
+    return torch.equal(ka[sa], kb[sb]) and torch.allclose(
+        va[sa], vb[sb], rtol=1e-5, atol=GRAPH_TOL)
+
+
+def _without_rounds(message: str) -> str:
+    """A fused cc_find line without its round count (at P > 1 each shard
+    jumps pointers over its own edges first, so the count follows the
+    layout, as in the JAX package)."""
+    return message.rsplit(" in ", 1)[0]
+
+
+def run_graph_p4(device, p1_run, p1_comp, kernels, scale: int,
+                 edgefactor: int, devices=None) -> dict:
+    """graph-p4: the graph phase's script (without its checkpoint lines)
+    and composed lines on a mesh of four shards on ``device`` (or one a
+    device of ``devices``), each command timed as at P = 1, every launch
+    count set to 0 before it.  Each named result MR must equal the P = 1
+    run's (``p1_run``/``p1_comp``: the graph phase's runs, still holding
+    their MRs) as a set of rows, each result line too (fused cc's round
+    count aside), PageRank within rtol 1e-5 and one step; the composed cc
+    equals the fused one and the composed sssp's distances the fused
+    one's, on the card."""
+    import torch
+    from gpu_mapreduce_tpu_torch import OinkScript
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(devices=devices or [device] * MESH_P)
+    skip = set(checkpoint_lines()) | {"mrb delete"}
+    lines = [ln for ln in graph_script(scale, edgefactor) if ln not in skip]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    s = OinkScript(comm=mesh, screen=False, logfile=None)
+    reset_peaks()
+    run = drive_script(device, lines, kernels, interp=s)
+    comp = drive_script(device, composed_graph_lines(), kernels, interp=s)
+    peaks = peak_bytes()
+    t0 = time.perf_counter()
+    p1 = p1_run["interp"].obj.named
+    p4 = s.obj.named
+    for name in P4_COMPARED:
+        if not torch.equal(sorted_rows_on_card(p1[name]),
+                           sorted_rows_on_card(p4[name])):
+            raise AssertionError(f"graph-p4: {name} differs from P = 1")
+    if not ranks_close_on_card(p1["mrpr"], p4["mrpr"]):
+        raise AssertionError("graph-p4: PageRank ranks differ from P = 1")
+    if not same_pairs_on_card(p4["mrc"], p4["mrcc"]):
+        raise AssertionError("graph-p4: composed cc differs from fused")
+    dist = [sorted_rows_on_card(p4[n])[:, [0, 3]] for n in ("mrs", "mrsc")]
+    if not torch.equal(dist[0], dist[1]):
+        raise AssertionError("graph-p4: composed sssp's distances differ "
+                             "from the fused run's")
+    del dist
+    compare_s = time.perf_counter() - t0
+    screens = {**run["screens"], **comp["screens"]}
+    p1_screens = {**p1_run["screens"], **p1_comp["screens"]}
+    for label, got in screens.items():
+        want = p1_screens[label]
+        if label == "cc_find":
+            got, want = ([_without_rounds(m) for m in x]
+                         for x in (got, want))
+        if label == "pagerank":
+            (g, w) = (x[0].split() for x in (got, want))
+            if g[:-2] != w[:-2] or abs(int(g[-2]) - int(w[-2])) > 1:
+                raise AssertionError(f"graph-p4: {got} vs {want}")
+        elif got != want:
+            raise AssertionError(f"graph-p4: {label} printed {got}, P = 1 "
+                                 f"{want}")
+    launches = {k: run["launches"][k] + comp["launches"][k]
+                for k in run["launches"]}
+    for name in list(p4):
+        s.obj.delete_mr(name)
+    spans = run["spans"]
+    nedges = (1 << scale) * edgefactor
+    step_s = statistics.median(spans["pagerank_step"])
+    p1_step_s = statistics.median(p1_run["spans"]["pagerank_step"])
+
+    def rounds(scr):
+        return {"pagerank": int(scr["pagerank"][0].split()[-2]),
+                "cc_find": int(scr["cc_find"][0].split()[-2]),
+                "luby_find": int(scr["luby_find"][0].split()[-2]),
+                "sssp": [int(ln.split()[3]) for ln in scr["sssp"]],
+                **{f"{w}/composed": int(scr[f"{w}/composed"][0].split()[-2])
+                   for w in ("cc_find", "luby_find")},
+                "sssp/composed": [int(ln.split()[3])
+                                  for ln in scr["sssp/composed"]]}
+    return {"devices": [str(d) for d in mesh.devices],
+            "lines": lines + [ln for ln, _ in composed_graph_lines()],
+            "command_s": {**run["seconds"], **comp["seconds"]},
+            "p1_command_s": {**p1_run["seconds"], **p1_comp["seconds"]},
+            "peak_bytes_by_command": {**(run["peak_bytes"] or {}),
+                                      **(comp["peak_bytes"] or {})},
+            "max_memory_allocated": peaks, "launches": launches,
+            "rounds": rounds(screens), "p1_rounds": rounds(p1_screens),
+            "pagerank_step_median_s": step_s,
+            "pagerank_edges_per_s_per_iteration": nedges / step_s,
+            "p1_pagerank_edges_per_s_per_iteration": nedges / p1_step_s,
+            "stage_s": _span_record(spans)["stage_s"],
+            "p1_stage_s": _span_record(p1_run["spans"])["stage_s"],
+            "composed_stage_s": _span_record(comp["spans"])["stage_s"],
+            "p1_composed_stage_s": _span_record(
+                p1_comp["spans"])["stage_s"],
+            "compared": list(P4_COMPARED) + ["mrpr", "messages"],
+            "compare_s": compare_s}
+
+
+def run_tri_p4(device, p1_run, kernels, scale: int, small: int) -> dict:
+    """graph-p4's triangles: tri_script(``scale``) on four shards on the
+    card, its rows equal to the P = 1 run's (``p1_run``, the tri phase's)
+    as sets; then at ``small`` the fused and the composed tri_find on
+    four shards, equal to each other."""
+    import torch
+    from gpu_mapreduce_tpu_torch import OinkScript
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(MESH_P, devices=[device] * MESH_P)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_peaks()
+    s = OinkScript(comm=mesh, screen=False, logfile=None)
+    run = drive_script(device, tri_script(scale), kernels, interp=s)
+    peaks = peak_bytes()
+    if not same_triangles_on_card(p1_run["interp"].obj.named["mrt"],
+                                  s.obj.named["mrt"], scale):
+        raise AssertionError(f"graph-p4: tri_find at scale {scale} differs "
+                             f"from P = 1")
+    if run["screens"] != p1_run["screens"]:
+        raise AssertionError("graph-p4: the tri script printed other lines")
+    s.obj.cleanup()
+    s = OinkScript(comm=mesh, screen=False, logfile=None)
+    small_run = drive_script(device, tri_script(small) + [
+        ("tri_find -i mru -o NULL mrtc", "composed")], kernels, interp=s)
+    named = s.obj.named
+    if not same_triangles_on_card(named["mrt"], named["mrtc"], small):
+        raise AssertionError(f"graph-p4: composed tri_find at scale {small} "
+                             f"differs from fused")
+    launches = {k: run["launches"][k] + small_run["launches"][k]
+                for k in run["launches"]}
+    return {"scale": scale, "command_s": run["seconds"],
+            "p1_command_s": p1_run["seconds"],
+            "peak_bytes_by_command": run["peak_bytes"],
+            "max_memory_allocated": peaks,
+            "message": run["screens"]["tri_find"][0],
+            "composed_scale": small,
+            "composed_command_s": small_run["seconds"],
+            "composed_equals_fused": True, "launches": launches}
+
+
+def graph_check_script(scale: int, small: int, texts, docs: str) -> list:
+    """Every registered OINK command on one graph, into files under the
+    cwd: at ``scale`` the commands on their fused engines and cc_find,
+    luby_find, tri_find and sssp on their composed ones too (tagged with
+    their engine); neighbor and neigh_tri at ``small``; wordfreq over the
+    ``texts`` files and invertedindex over the ``docs`` directory."""
+    a, b, c, d = GRAPH_ABCD
+    rmat = f"{GRAPH_EDGEFACTOR} {a} {b} {c} {d} 0.0 {GRAPH_SEED}"
+    return [
+        f"rmat {scale} {rmat} -o tmp.rmat mre",
+        "edge_upper -i mre -o tmp.upper mru",
+        f"rmat2 {scale - 2} 4 {a} {b} {c} {d} 0.1 7 -o tmp.rmat2 NULL",
+        "degree 0 -i mre -o tmp.deg NULL", "degree_stats 1 -i mre",
+        "degree_weight -i tmp.upper.* tmp.deg.* -o tmp.dw NULL",
+        "vertex_extract -i mre -o tmp.vx NULL",
+        f"pagerank {GRAPH_TOL} {GRAPH_MAXITER} {GRAPH_DAMPING} -i mre "
+        f"-o tmp.pr NULL",
+        "cc_find 0 -i mru -o tmp.cc mrc", "cc_stats -i mrc",
+        ("cc_find 0 -i mru -o tmp.ccc NULL", "composed"),
+        "mr mrv", "mrv map/mr mre edge_to_vertices",
+        "histo -i mrv -o tmp.histo NULL",
+        f"luby_find {LUBY_SEED} -i mru -o tmp.luby NULL",
+        (f"luby_find {LUBY_SEED} -i mru -o tmp.lubyc NULL", "composed"),
+        "tri_find -i mru -o tmp.tri NULL",
+        ("tri_find -i mru -o tmp.tric NULL", "composed"),
+        "mre map/mr mre add_weight",
+        f"sssp {SSSP_SOURCES} {SSSP_SEED} -i mre -o tmp.sssp NULL",
+        (f"sssp {SSSP_SOURCES} {SSSP_SEED} -i mre -o tmp.ssspc NULL",
+         "composed"),
+        f"rmat {small} {rmat} -o NULL mre",
+        "edge_upper -i mre -o tmp.supper NULL",
+        "neighbor -i tmp.supper.* -o tmp.snb NULL",
+        "tri_find -i tmp.supper.* -o tmp.stri NULL",
+        "neigh_tri tmp.snt -i tmp.snb.* tmp.stri",
+        f"variable files index {' '.join(texts)}",
+        "wordfreq 10 -i v_files -o tmp.wf NULL",
+        f"variable docs index {docs}",
+        "invertedindex -i v_docs -o tmp.ii NULL"]
+
+
+def graph_check_files(devices, lines, tmp: str) -> dict:
+    """``lines`` on a mesh over ``devices`` in a fresh directory under
+    ``tmp``: the screen lines and {path: bytes} of every file the script
+    wrote."""
+    import io
+    from gpu_mapreduce_tpu_torch import OinkScript
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    d = tempfile.mkdtemp(prefix="chip_smoke_graph_check_", dir=tmp)
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        buf = io.StringIO()
+        s = OinkScript(comm=make_mesh(len(devices), devices=devices),
+                       screen=buf, logfile=None)
+        for line in lines:
+            line, eng = (line, None) if isinstance(line, str) else line
+            with engine(line.split()[0], eng) if eng \
+                    else contextlib.nullcontext():
+                s.one(line)
+        s.obj.cleanup()
+        out = {"screen": buf.getvalue().encode()}
+        for root, _, names in os.walk("."):
+            for n in names:
+                path = os.path.relpath(os.path.join(root, n))
+                if path.startswith("tmp."):
+                    with open(path, "rb") as f:
+                        out[path] = f.read()
+        return out
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _pagerank_file_close(a: bytes, b: bytes) -> bool:
+    import numpy as np
+    ra, rb = ([ln.split() for ln in x.decode().splitlines()] for x in (a, b))
+    return [v for v, _ in ra] == [v for v, _ in rb] and np.allclose(
+        [float(r) for _, r in ra], [float(r) for _, r in rb], rtol=1e-5,
+        atol=GRAPH_TOL)
+
+
+def run_graph_check(tmp: str, smi: str, scale: int = COMPOSED_CHECK_SCALE,
+                    small: int = GRAPH_CHECK_SMALL_SCALE,
+                    devices=None, cpu_devices=None) -> dict:
+    """graph-p4's card-vs-CPU check: :func:`graph_check_script` at P = 3
+    on the card and on CPU shards, with wordfreq on two files of the
+    zipf generator and invertedindex on the 2 MB skewed corpus (the
+    mesh-check's), every file equal byte for byte (PageRank's ranks
+    within rtol 1e-5), per shard."""
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "graph-check")
+    docs = os.path.join(d, "docs")
+    os.makedirs(docs)
+    make_corpus(docs, MESH_CHECK_MB, skew=True)
+    texts = zipf_corpus(d, 1, nfiles=2, nvocab=1 << 14)[0]
+    lines = graph_check_script(scale, small, texts, docs)
+    got, seconds = {}, {}
+    for name, devs in (("card", devices or mesh_devices(GRAPH_CHECK_P)),
+                       ("cpu", cpu_devices or ["cpu"] * GRAPH_CHECK_P)):
+        t1 = time.perf_counter()
+        got[name] = graph_check_files(devs, lines, d)
+        seconds[name] = time.perf_counter() - t1
+    card, cpu = got["card"], got["cpu"]
+    if sorted(card) != sorted(cpu):
+        raise AssertionError(f"graph-check: the card wrote "
+                             f"{sorted(set(card) ^ set(cpu))} where the "
+                             f"CPU did not, or the other way")
+    for name in card:
+        if name == "tmp.pr":
+            same = _pagerank_file_close(card[name], cpu[name])
+        elif name == "screen":
+            same = _screens_close(card[name], cpu[name])
+        else:
+            same = card[name] == cpu[name]
+        if not same:
+            raise AssertionError(f"graph-check: {name} differs between "
+                                 f"the card and the CPU")
+    shards = sorted(n for n in card if n.startswith("tmp.deg."))
+    if shards != [f"tmp.deg.{p}" for p in range(GRAPH_CHECK_P)]:
+        raise AssertionError(f"graph-check: degree wrote {shards}")
+    shutil.rmtree(d)
+    return {"p": GRAPH_CHECK_P, "scale": scale, "small_scale": small,
+            "script": [ln if isinstance(ln, str) else f"{ln[0]} [{ln[1]}]"
+                       for ln in lines],
+            "files": len(card) - 1, "card_equals_cpu": True,
+            "messages": card["screen"].decode().splitlines(),
+            "seconds": seconds, "total_s": time.perf_counter() - t0}
+
+
+def _screens_close(a: bytes, b: bytes) -> bool:
+    """Two scripts' screens equal, PageRank's step count within one."""
+    la, lb = (x.decode().splitlines() for x in (a, b))
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.startswith("PageRank:") and y.startswith("PageRank:"):
+            wx, wy = x.split(), y.split()
+            if wx[:-2] != wy[:-2] or abs(int(wx[-2]) - int(wy[-2])) > 1:
+                return False
+        elif x != y:
+            return False
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -3424,11 +3785,34 @@ def main() -> int:
         emit(mesh_ops)
         mesh_s += mesh_ops["seconds"]
 
-        graph = run_graph(device, smi, kernels)
+        graph = run_graph(device, smi, kernels, p4=True)
+        graph_p4 = graph.pop("p4")
         emit(graph)
-        tri = run_tri(device, smi, kernels)
+        tri = run_tri(device, smi, kernels, p4=True)
+        tri_p4 = tri.pop("p4")
         emit(tri)
         emit(run_composed_check(device, smi))
+        graph_check = run_graph_check(tmp, smi)
+        p4_launches = {k: graph_p4["launches"][k] + tri_p4["launches"][k]
+                       for k in graph_p4["launches"]}
+        p4_s = graph_p4["seconds"] + tri_p4["seconds"] \
+            + graph_check["total_s"]
+        emit({"phase": "graph-p4", "card": smi, "p": MESH_P,
+              "devices": [str(d) for d in mesh_devices()],
+              "config": graph["config"],
+              "reduced": [
+                  "the graph script's checkpoint lines are left out at "
+                  "P = 4 (mesh-checkpoint saves and loads at P = 4)",
+                  f"fused tri_find at P = 4 runs at scale {TRI_SCALE} (the "
+                  f"tri-rmat18 cell)",
+                  f"composed tri_find at P = 4 runs only at scale "
+                  f"{COMPOSED_CHECK_SCALE}",
+                  f"card vs CPU at P = {GRAPH_CHECK_P}: neighbor and "
+                  f"neigh_tri at scale {GRAPH_CHECK_SMALL_SCALE} (a file "
+                  f"a vertex), the rest at {COMPOSED_CHECK_SCALE}"],
+              **graph_p4, "launches": p4_launches, "tri": tri_p4,
+              "check": graph_check, "seconds": p4_s})
+        mesh_s += p4_s
         host = {"phase": "host", "card": smi, "ooc": ooc,
                 "checkpoint": graph["checkpoint"],
                 "text_check": {k: check[k] for k in (
@@ -3466,6 +3850,10 @@ def main() -> int:
                   for cell, rec in mesh_fuse.items()},
               "ops_check": {k: mesh_ops[k] for k in (
                   "ops", "card_equals_cpu", "seconds")},
+              "graph_p4": {"seconds": p4_s, "launches": p4_launches,
+                           "command_s": graph_p4["command_s"],
+                           "p1_command_s": graph_p4["p1_command_s"],
+                           "card_equals_cpu_p3": True},
               "ooc": {k: mesh_ooc[k] for k in (
                   "op_s", "incore_op_s", "spill_files_written", "runs",
                   "seconds")},
@@ -3509,7 +3897,8 @@ def main() -> int:
                            for cell, rec in mesh_fuse.items()
                            for run in ("cold", "warm")},
                         "mesh_ooc": mesh_ooc["launches"][k],
-                        "mesh_checkpoint": mesh_ckpt["launches"][k]}}
+                        "mesh_checkpoint": mesh_ckpt["launches"][k],
+                        "graph_p4": p4_launches[k]}}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",

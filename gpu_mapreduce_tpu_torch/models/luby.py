@@ -1,4 +1,4 @@
-"""Luby maximal independent set on one device.
+"""Luby maximal independent set, on one device or a mesh.
 
 The counterpart of ``gpu_mapreduce_tpu/models/luby.py``: the state is an
 int8 vector over vertex ranks (0 undecided, 1 in the set, 2 excluded).
@@ -16,49 +16,70 @@ them to a dump segment), each round here first drops them from the edge
 list: a decided vertex never becomes undecided again, so a dropped edge
 would never count again, and the later rounds touch only the edges still
 alive (a dump segment would take every dead edge's atomic update on one
-address).  The host reads the surviving edge count and one flag (whether
-any vertex is undecided) a round.
+address).  The host reads one small vector a round: whether any vertex
+is undecided, and each shard's surviving edge count (which sizes the
+compaction, so it reads nothing more).
+
+On a mesh (:func:`luby_mis_sharded`, JAX ``luby_mis_sharded``) each shard
+keeps its own edges and a copy of the state and the priorities on its
+device; the three reductions of a round (the least neighbour priority,
+the least tie rank, whether a neighbour won) are taken per shard and
+then across the shards (``parallel/collectives.allreduce``, the JAX
+``pmin``/``pmax``), in float64 and int32, so the set and the round count
+equal one device's.  One device is the one-shard case.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
+
+from ..parallel.collectives import allreduce, per_device, replicate
 
 _INT32_MAX = torch.iinfo(torch.int32).max
 
 
-def _round(state: torch.Tensor, prio: torch.Tensor, src: torch.Tensor,
-           dst: torch.Tensor) -> torch.Tensor:
-    """One round over the edges (src, dst) between undecided vertices
-    (int64 ranks, both directions used); returns the next state."""
-    n = state.shape[0]
-    dev = state.device
-    und = state == 0
-    tgt = torch.cat([dst, src])           # the vertex a contribution lands on
-    other = torch.cat([src, dst])         # the neighbour it comes from
+def _round(state: List[torch.Tensor], prio: List[torch.Tensor],
+           shards: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+           ) -> List[torch.Tensor]:
+    """One round over each shard's edges (src, dst) between undecided
+    vertices (int64 ranks, both directions used); ``state`` and ``prio``
+    are replicated (one tensor a shard, shared by the shards of a
+    device).  Returns the next state, replicated."""
+    n = state[0].shape[0]
+    # the vertex a contribution lands on, and the neighbour it comes from
+    dirs = [(torch.cat([dst, src]), torch.cat([src, dst]))
+            for src, dst in shards]
 
     # least priority among undecided neighbours
-    pv = prio[other]
-    m1 = torch.full((n,), float("inf"), dtype=torch.float64, device=dev)
-    m1 = m1.scatter_reduce_(0, tgt, pv, "amin")
+    pv = [p[other] for p, (_, other) in zip(prio, dirs)]
+    m1 = allreduce([torch.full((n,), float("inf"), dtype=torch.float64,
+                               device=v.device).scatter_reduce_(
+                                   0, tgt, v, "amin")
+                    for v, (tgt, _) in zip(pv, dirs)], "min")
     # least neighbour rank among the holders of that priority (tie-break)
-    hold = pv == m1[tgt]
+    mid = allreduce([torch.full((n,), _INT32_MAX, dtype=torch.int32,
+                                device=v.device).scatter_reduce_(
+        0, tgt, torch.where(v == m[tgt], other.to(torch.int32), _INT32_MAX),
+        "amin") for v, m, (tgt, other) in zip(pv, m1, dirs)], "min")
     del pv
-    mid = torch.full((n,), _INT32_MAX, dtype=torch.int32, device=dev)
-    mid = mid.scatter_reduce_(0, tgt, torch.where(
-        hold, other.to(torch.int32), _INT32_MAX), "amin")
-    del hold
 
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    winner = und & ((prio < m1) | ((prio == m1) & (idx < mid)))
+    def won(st, p, m, t):
+        idx = torch.arange(n, dtype=torch.int32, device=st.device)
+        return (st == 0) & ((p < m) | ((p == m) & (idx < t)))
+    winner = per_device(won, state, prio, m1, mid)
 
     # neighbours of winners are excluded (only undecided ones change)
-    wn = torch.zeros(n, dtype=torch.int32, device=dev)
-    wn = wn.scatter_reduce_(0, tgt, winner[other].to(torch.int32), "amax")
-    lose = und & ~winner & (wn > 0)
-    return torch.where(winner, 1, torch.where(lose, 2, state)).to(torch.int8)
+    wn = allreduce([torch.zeros(n, dtype=torch.int32, device=w.device)
+                    .scatter_reduce_(0, tgt, w[other].to(torch.int32),
+                                     "amax")
+                    for w, (tgt, other) in zip(winner, dirs)], "max")
+
+    def step(st, w, x):
+        lose = (st == 0) & ~w & (x > 0)
+        return torch.where(w, 1, torch.where(lose, 2, st)).to(torch.int8)
+    return per_device(step, state, winner, wn)
 
 
 def luby_mis(src: torch.Tensor, dst: torch.Tensor, prio: torch.Tensor,
@@ -67,13 +88,33 @@ def luby_mis(src: torch.Tensor, dst: torch.Tensor, prio: torch.Tensor,
     n).  ``prio``: float64 priorities over ranks (``vertex_rand`` of the
     vertex ids).  Returns (state [n] int8 of 1 in the set / 2 excluded,
     rounds)."""
+    return luby_mis_sharded([(src, dst)], prio, n, maxiter)
+
+
+def luby_mis_sharded(shards: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                     prio: torch.Tensor, n: int, maxiter: int = 0
+                     ) -> Tuple[torch.Tensor, int]:
+    """:func:`luby_mis` over ``(src, dst)`` rank edges a shard, each pair
+    on its shard's device (``prio`` on the first shard's).  Returns
+    (state [n] int8 on the first shard's device, rounds)."""
     maxiter = maxiter or max(n, 1)
-    state = torch.zeros(n, dtype=torch.int8, device=prio.device)
-    it = 0
-    while it < maxiter and bool((state == 0).any()):
-        und = state == 0
-        alive = und[src] & und[dst]
-        src, dst = src[alive], dst[alive]
-        state = _round(state, prio, src, dst)
+    devices = [src.device for src, _ in shards]
+    prio = replicate(prio, devices)
+    state = replicate(torch.zeros(n, dtype=torch.int8, device=prio[0].device),
+                      devices)
+    dev0, it = devices[0], 0
+    while it < maxiter:
+        und = per_device(lambda st: st == 0, state)
+        alive = [u[src] & u[dst] for u, (src, dst) in zip(und, shards)]
+        # one read: any vertex undecided, and each shard's live edges
+        got = torch.stack([und[0].any().to(torch.int64)] + [
+            a.sum().to(dev0, non_blocking=True) for a in alive]).tolist()
+        if not got[0]:
+            break
+        keep = [torch.nonzero_static(a, size=c).squeeze(1)
+                for a, c in zip(alive, got[1:])]
+        shards = [(src[k], dst[k]) for (src, dst), k in zip(shards, keep)]
+        del alive, keep
+        state = _round(state, prio, shards)
         it += 1
-    return state, it
+    return state[0], it

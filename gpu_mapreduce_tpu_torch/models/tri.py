@@ -1,4 +1,5 @@
-"""Triangle enumeration by degree-ordered wedge matching, on one device.
+"""Triangle enumeration by degree-ordered wedge matching, on one device
+(on a mesh, over the shards' edges joined on the first shard's device).
 
 The counterpart of ``gpu_mapreduce_tpu/models/tri.py`` (Cohen's
 MapReduce algorithm, reference ``oink/tri_find.cpp:43-81``, as array

@@ -44,12 +44,7 @@ class Command:
     noutputs = 0
 
     def __init__(self, obj: ObjectManager, screen=None):
-        # the commands run on one device; on a mesh only the builtins
-        # and named-MR lines do
-        if getattr(obj.comm, "size", 1) > 1:
-            raise MRError(f"{self.name} on a mesh of P > 1 is not ported "
-                          f"yet")
-        self.obj = obj
+        self.obj = obj     # its MRs live on obj's device or mesh
         self.screen = screen  # None → print to stdout, False → silent
 
     def params(self, args: List[str]):

@@ -5,8 +5,8 @@ The counterpart of ``gpu_mapreduce_tpu/oink/commands/cc.py`` (reference
 component is named by its least vertex id.  Two engines
 (``CCFind.engine`` or ``GPUMR_CC_ENGINE``, default ``fused``):
 
-* ``fused`` — the edge KV is staged on the device
-  (``parallel/staging.py``) and ``models/cc.py`` iterates there;
+* ``fused`` — the edge KV is staged on the device, or shard by shard on
+  a mesh (``parallel/staging.py``), and ``models/cc.py`` iterates there;
 * ``composed`` — the reference's MapReduce composition, each round a
   chain of device-frame maps, collates and batch reduces whose bodies
   (below) run on the frame's device.  Values are tagged ``[tag, a, b]``
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ...core.runtime import MRError
-from ...models.cc import cc
+from ...models.cc import cc_sharded
 from ...parallel.devkernels import (U64MAX, kmv_row_state, seg_max_u64,
                                     seg_min_u64, skmv_map, skv_map)
 from ...parallel.staging import stage_graph
@@ -161,7 +161,8 @@ class CCFind(Command):
         if sg is None:
             self.ncc, self.niterate = 0, 0
         else:
-            labels, self.niterate = cc(sg.src, sg.dst, sg.n)
+            labels, self.niterate = cc_sharded(
+                [(s.src, s.dst) for s in sg.shards], sg.n)
             zones = sg.verts[labels.long()]   # least vertex id per component
             self.ncc = int(torch.unique(labels).numel())
             mrv.map(1, lambda i, kv, p: kv.add_batch(

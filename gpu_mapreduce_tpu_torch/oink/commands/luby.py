@@ -5,9 +5,9 @@ The counterpart of ``gpu_mapreduce_tpu/oink/commands/luby.py``
 ``vertex_rand(v, seed)``.  Two engines (``LubyFind.engine`` or
 ``GPUMR_LUBY_ENGINE``, default ``fused``):
 
-* ``fused`` — the edge KV is staged on the device without its self-loops
-  (a self-loop vertex could never win its own edge) and
-  ``models/luby.py`` iterates there;
+* ``fused`` — the edge KV is staged on the device, or shard by shard on
+  a mesh, without its self-loops (a self-loop vertex could never win its
+  own edge) and ``models/luby.py`` iterates there;
 * ``composed`` — the reference's round of four reduces (edge winner,
   vertex winner, vertex loser, emit) over MapReduce ops, with ``clone``
   and ``open``/``close``; the callbacks' bodies (below) run on the
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ...core.runtime import MRError
-from ...models.luby import luby_mis
+from ...models.luby import luby_mis_sharded
 from ...parallel.devkernels import (kmv_row_state, seg_any, skmv_map,
                                     skv_map, u64_lt, u64_max, u64_min)
 from ...parallel.staging import stage_graph
@@ -180,7 +180,8 @@ class LubyFind(Command):
             self.nset, self.niterate = 0, 0
         else:
             prio = vertex_rand(sg.verts, self.seed)
-            state, self.niterate = luby_mis(sg.src, sg.dst, prio, sg.n)
+            state, self.niterate = luby_mis_sharded(
+                [(s.src, s.dst) for s in sg.shards], prio, sg.n)
             mis = sg.verts[state == 1]
             self.nset = int(mis.numel())
             mrv.map(1, lambda i, kv, p: kv.add_batch(

@@ -2,10 +2,13 @@
 
 The counterpart of ``gpu_mapreduce_tpu/oink/commands/pagerank.py``
 (``pagerank tol maxiter alpha``, reference ``PageRank::params``).  The
-edge KV is staged on the device (``parallel/staging.py``: the sorted
-vertex table and ranked edges, the same table and edge order as the JAX
-command's host ``np.unique``), then the fused loop of
-``models/pagerank.py`` runs there.  Edge weights are accepted in the
+edge KV is staged on the device, or shard by shard on a mesh
+(``parallel/staging.py``: the sorted vertex table and ranked edges, the
+same table as the JAX command's host ``np.unique``), then the fused loop
+of ``models/pagerank.py`` runs there, summing across the shards each
+step.  The JAX command splits the host edge list into P blocks where
+the port keeps each shard's own rows; float32 sums in another order give
+ranks equal within rtol 1e-5 and a step count within one.  Edge weights are accepted in the
 input ('vi vj [wt]') but rank follows link structure only.  Output:
 'v rank' per vertex, ascending v.  ``ranks`` ({v: rank}, the JAX
 command's attribute) is built when first read; ``verts`` and
@@ -17,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from ...core.runtime import MRError
-from ...models.pagerank import pagerank
+from ...models.pagerank import pagerank_sharded
 from ...ops.bits import to_numpy
 from ...parallel.staging import stage_graph
 from ..command import Command, command
@@ -58,16 +61,18 @@ class PageRankCommand(Command):
         sg = stage_graph(mre)
         if sg is None:
             raise MRError("pagerank: empty edge list")
-        ranks, iters = pagerank(sg.src, sg.dst, sg.n, tol=self.tolerance,
-                                maxiter=self.maxiter, damping=self.alpha)
-        self.niterate, self.nvert, self.nedge = iters, sg.n, len(sg.src)
+        ranks, iters = pagerank_sharded(
+            [(s.src, s.dst) for s in sg.shards], sg.n, tol=self.tolerance,
+            maxiter=self.maxiter, damping=self.alpha)
+        nedge = sum(len(s.src) for s in sg.shards)
+        self.niterate, self.nvert, self.nedge = iters, sg.n, nedge
         self.verts, self.rank_values = sg.verts, ranks
         self._ranks = None
         mrr = obj.create_mr()
         mrr.map(1, lambda i, kv, p: kv.add_batch(
             sg.verts, ranks.double(), key_dtype=np.uint64))
         obj.output(1, mrr, lambda k, v, fp: fp.write(f"{k} {v:.8g}\n"))
-        self.message(f"PageRank: {sg.n} vertices, {len(sg.src)} edges, "
+        self.message(f"PageRank: {sg.n} vertices, {nedge} edges, "
                      f"{iters} iterations")
         obj.cleanup()
 

@@ -5,8 +5,9 @@ The counterpart of ``gpu_mapreduce_tpu/oink/commands/sssp.py``
 ``ncnt`` vertices ordered by (``vertex_rand(v, seed)``, v).  Two engines
 (``SSSPCommand.engine`` or ``GPUMR_SSSP_ENGINE``, default ``fused``):
 
-* ``fused`` — the weighted edge KV is staged on the device once
-  (``need_weights``) and ``models/sssp.py`` relaxes it from each source;
+* ``fused`` — the weighted edge KV is staged on the device once, or
+  shard by shard on a mesh (``need_weights``), and ``models/sssp.py``
+  relaxes it from each source;
 * ``composed`` — the reference's Bellman-Ford rounds over MapReduce ops
   (``compress``, ``open``/``close``): candidate distances join the
   per-vertex state, the best (dist, pred) per vertex is kept, and the
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ...core.runtime import MRError
-from ...models.sssp import bellman_ford
+from ...models.sssp import bellman_ford_sharded
 from ...ops.bits import order_key, to_numpy
 from ...parallel.devkernels import (f64_to_u64, kmv_row_state, seg_any,
                                     seg_lex_min2, seg_min_with, skmv_map,
@@ -184,8 +185,8 @@ class SSSPCommand(Command):
         dist = pred = None
         for cnt, sidx in enumerate(order.tolist()):
             source = int(to_numpy(verts[sidx:sidx + 1], np.uint64)[0])
-            dist, pred, niter = bellman_ford(sg.src, sg.dst, sg.weights, n,
-                                             sidx)
+            dist, pred, niter = bellman_ford_sharded(
+                [(s.src, s.dst, s.weights) for s in sg.shards], n, sidx)
             pv = torch.where(pred >= 0, verts[pred.long().clamp(min=0)], 0)
             self._finish_source(cnt, source, niter, verts, dist, pv)
         outd = obj.outputs[0] if obj.outputs else None
@@ -211,8 +212,7 @@ class SSSPCommand(Command):
         mrvert.map_mr(mredge, edge_to_vertices, batch=True)
         mrvert.collate()
         mrvert.reduce(cull, batch=True)
-        fr = mrvert.kv.one_frame()
-        verts = fr.key[:len(fr)]
+        verts, _ = mrvert.kv.one_frame().valid_rows()
         verts = verts[torch.sort(order_key(verts, np.uint64)).indices]
         order = torch.sort(vertex_rand(verts, self.seed), stable=True
                            ).indices[:self.ncnt]
@@ -257,12 +257,11 @@ class SSSPCommand(Command):
             obj.free_mr(mrpath)
             obj.free_mr(mredge_w)
 
-            fr = mrvert.kv.one_frame()
-            n = len(fr)
-            order = torch.sort(order_key(fr.key[:n], np.uint64)).indices
-            rows = fr.value[:n][order]
+            keys, rows = mrvert.kv.one_frame().valid_rows()
+            order = torch.sort(order_key(keys, np.uint64)).indices
+            rows = rows[order]
             pred = rows[:, 1].clamp(min=0).to(torch.int64)
-            self._finish_source(cnt, source, niter, fr.key[:n][order],
+            self._finish_source(cnt, source, niter, keys[order],
                                 rows[:, 2], pred)
         outd = obj.outputs[0] if obj.outputs else None
         if outd is not None and outd.mr_name is not None:

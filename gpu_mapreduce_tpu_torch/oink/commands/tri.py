@@ -5,9 +5,11 @@ The counterpart of ``gpu_mapreduce_tpu/oink/commands/tri.py`` (reference
 ``tri_find`` engines (``TriFind.engine`` or ``GPUMR_TRI_ENGINE``, default
 ``fused``), with the same triangle set:
 
-* ``fused`` — the edge KV is staged on the device and ``models/tri.py``
-  walks the degree-ordered wedges there; rows are (centre, u, w), centre
-  the low-degree vertex that emitted the wedge;
+* ``fused`` — the edge KV is staged on the device (on a mesh, the
+  shards' ranked edges joined in shard order on the first shard's
+  device, as the JAX command joins their valid rows) and
+  ``models/tri.py`` walks the degree-ordered wedges there; rows are
+  (centre, u, w), centre the low-degree vertex that emitted the wedge;
 * ``composed`` — the reference's MapReduce pipeline: edges gain their
   endpoints' degrees, the low-degree endpoint emits every pair of its
   neighbours as an angle, and the angles join the original edges; rows
@@ -141,7 +143,8 @@ def emit_triangles(fr, kv, ptr):
     """Edge group of tagged rows: with an original-edge row present,
     each angle row (centre vi) closes a triangle (vi, vj, vk)
     (reduce_emit_triangles, tri_find.cpp:280-...)."""
-    kv.add_frame(skmv_map(fr, _emit_triangles_dev, device=kv.device))
+    kv.add_frame(skmv_map(fr, _emit_triangles_dev, device=kv.device,
+                          per_value=True))
 
 
 @command("tri_find")
@@ -247,7 +250,7 @@ def tri_to_vertex_edges(fr, kv, ptr):
                                      np.stack([one, t[:, 0], t[:, 2]], 1),
                                      np.stack([one, t[:, 0], t[:, 1]], 1)]))
         return
-    t = fr.key[:len(fr)]
+    t, _ = fr.valid_rows()
     one = torch.ones_like(t[:, 0])
     kv.add_batch(torch.cat([t[:, 0], t[:, 1], t[:, 2]]),
                  torch.cat([torch.stack([one, t[:, 1], t[:, 2]], 1),

@@ -1,7 +1,7 @@
 """OINK object manager: named/temporary MapReduce objects + I/O
 descriptors.
 
-The counterpart of ``gpu_mapreduce_tpu/oink/objects.py`` on one device:
+The counterpart of ``gpu_mapreduce_tpu/oink/objects.py``:
 
 * named MRs persist across commands; temporaries from :meth:`create_mr`
   die at :meth:`cleanup`;
@@ -12,8 +12,12 @@ The counterpart of ``gpu_mapreduce_tpu/oink/objects.py`` on one device:
 * ``set`` defaults apply to every MR the manager creates.
 
 Every MR lives on the manager's device (``device=None`` → the card;
-``MRError`` when there is none), or with ``comm=mesh`` over that mesh.  One device means one output file at
-the exact path, with no ``.0`` suffix, as the JAX package writes at P = 1.
+``MRError`` when there is none), or with ``comm=mesh`` over that mesh.
+A dataset held as one mesh frame at P > 1 writes one output file a shard
+(``path.<p>``, or the path's first ``%`` replaced by the shard id, the
+reference's expandpath rules, oink/object.cpp:900-941), each from its own
+shard block; host and one-device datasets, and P = 1, write one file at
+the exact path, with no ``.0`` suffix, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 from ..core.mapreduce import MapReduce
 from ..core.runtime import MRError, resolve_device
+from ..parallel.sharded import MeshKMV, MeshKV
 
 
 @dataclass
@@ -160,8 +165,11 @@ class ObjectManager:
     def output(self, index: int, mr: MapReduce,
                printer: Optional[Callable] = None):
         """Handle -o descriptor #index: write ``printer(key, value, fp)``
-        lines (``key value`` without one) to its path, register mr under
-        its name.  A missing descriptor is a no-op."""
+        lines (``key value`` without one) to its path, or one file a
+        shard (module docstring), and register mr under its name.  A
+        pending fused plan runs first.  A missing descriptor is a
+        no-op."""
+        mr._flush_plan()
         if index > len(self.outputs):
             return
         d = self.outputs[index - 1]
@@ -169,12 +177,16 @@ class ObjectManager:
             parent = os.path.dirname(d.path)
             if parent:
                 os.makedirs(parent, exist_ok=True)
-            with open(d.path, "w") as fp:
-                for k, v in _iter_pairs(mr):
-                    if printer is None:
-                        fp.write(f"{k} {v}\n")
-                    else:
-                        printer(k, v, fp)
+            fr = _mesh_frame(mr)
+            if fr is None:
+                _write(d.path, _iter_pairs(mr), printer)
+            else:
+                for p in range(fr.nprocs):
+                    path = d.path.replace("%", str(p), 1) \
+                        if "%" in d.path else f"{d.path}.{p}"
+                    host = fr.shard_to_host(p)
+                    _write(path, host.pairs() if isinstance(fr, MeshKV)
+                           else host.groups(), printer)
         if d.mr_name is not None:
             self.name_mr(d.mr_name, mr)
 
@@ -184,6 +196,26 @@ def _free(mr: MapReduce) -> None:
     for ds in (mr.kv, mr.kmv):
         if ds is not None:
             ds.free()
+
+
+def _write(path: str, rows, printer) -> None:
+    with open(path, "w") as fp:
+        for k, v in rows:
+            if printer is None:
+                fp.write(f"{k} {v}\n")
+            else:
+                printer(k, v, fp)
+
+
+def _mesh_frame(mr: MapReduce):
+    """mr's data as its one mesh frame of P > 1 shards, or None (a host
+    or one-device dataset, several frames, or no data)."""
+    ds = mr.kv if mr.kv is not None else mr.kmv
+    if ds is None or ds.nframes != 1:
+        return None
+    fr = next(iter(ds.frames()))
+    return fr if isinstance(fr, (MeshKV, MeshKMV)) and fr.nprocs > 1 \
+        else None
 
 
 def _iter_pairs(mr: MapReduce):

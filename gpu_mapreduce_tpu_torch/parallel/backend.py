@@ -40,6 +40,16 @@ def _dense_page(fr, first) -> bool:
     return True
 
 
+def _device_layout(fr):
+    """A device frame's storage and logical dtypes and row shapes, or None
+    when its keys or values are interned."""
+    s = fr.shards[0] if hasattr(fr, "shards") else fr
+    if s.key_decode is not None or s.value_decode is not None:
+        return None
+    return (s.key.dtype, s.value.dtype, str(s.key_dtype),
+            str(s.value_dtype), s.key.shape[1:], s.value.shape[1:])
+
+
 class DeviceBackend:
     nprocs = 1
     me = 0
@@ -93,11 +103,19 @@ class MeshBackend:
     @staticmethod
     def _split(kv):
         """(the dataset's mesh frames as one, or None; else its frames,
-        mesh frames brought to the host)."""
-        from .sharded import MeshKV
+        mesh frames as their rows in shard order: joined on the first
+        shard's device when every frame is a dense device frame of one
+        dtype and row shape (an OINK cull loop's batches beside the
+        rounds before), else brought to the host)."""
+        from .sharded import MeshKV, ShardedKV
         frames = list(kv.frames())
         if frames and all(isinstance(f, MeshKV) for f in frames):
             return concat_mesh(frames), None
+        if all(isinstance(f, (MeshKV, ShardedKV)) for f in frames):
+            layouts = {_device_layout(f) for f in frames}
+            if len(layouts) == 1 and None not in layouts:
+                return None, [f.joined() if isinstance(f, MeshKV) else f
+                              for f in frames]
         return None, [f.to_host() if isinstance(f, MeshKV) else f
                       for f in frames]
 

@@ -1,6 +1,8 @@
-"""gather and broadcast over the mesh.
+"""gather, broadcast and the reduction across shards over the mesh.
 
-The counterpart of ``gpu_mapreduce_tpu/parallel/collectives.py``:
+The counterpart of ``gpu_mapreduce_tpu/parallel/collectives.py``, and of
+the ``lax.psum``/``pmin``/``pmax`` inside the JAX package's ``shard_map``
+bodies:
 
 * :func:`gather_kv` — funnel every shard's rows onto the first n shards:
   the reference's rank-matched Send/Recv funnel
@@ -14,7 +16,10 @@ The counterpart of ``gpu_mapreduce_tpu/parallel/collectives.py``:
 
 from __future__ import annotations
 
+from typing import Callable, Dict, List, Sequence
+
 import numpy as np
+import torch
 
 from .sharded import MeshKV, ShardedKV
 from .shuffle import _rowbytes, exchange
@@ -44,3 +49,47 @@ def broadcast_kv(backend, mr, root: int) -> None:
     moved = n * (backend.nprocs - 1) * _rowbytes(skv)
     mr.counters.add(cssize=moved, crsize=moved)
     mr.kv.replace_frames(MeshKV(skv.mesh, shards))
+
+
+_REDUCE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def allreduce(tensors: Sequence[torch.Tensor], op: str
+              ) -> List[torch.Tensor]:
+    """Each shard's partial tensor (``tensors[p]`` on shard p's device)
+    reduced elementwise by ``op`` ("sum", "min" or "max") in shard order on
+    ``tensors[0]``'s device; returns one result a shard, on its device.
+    Shards that share a device share one copy (the same tensor object),
+    and a one-shard list returns its tensor as it is."""
+    fn = _REDUCE[op]
+    acc = tensors[0]
+    for t in tensors[1:]:
+        acc = fn(acc, t.to(acc.device, non_blocking=True))
+    return replicate(acc, [t.device for t in tensors])
+
+
+def replicate(t: torch.Tensor, devices: Sequence[torch.device]
+              ) -> List[torch.Tensor]:
+    """``t`` on each of ``devices`` (one entry a shard): shards on ``t``'s
+    own device get ``t``, shards that share another device one copy."""
+    copies: Dict[torch.device, torch.Tensor] = {t.device: t}
+    for dev in devices:
+        if dev not in copies:
+            copies[dev] = t.to(dev, non_blocking=True)
+    return [copies[dev] for dev in devices]
+
+
+def per_device(fn: Callable, *replicated: Sequence[torch.Tensor]
+               ) -> List[torch.Tensor]:
+    """``fn`` over the replicas of one or more replicated values (lists of
+    one tensor a shard, as :func:`allreduce` returns), called once a
+    device with that device's replicas; the result is replicated the same
+    way."""
+    done: Dict[torch.device, torch.Tensor] = {}
+    out = []
+    for args in zip(*replicated):
+        dev = args[0].device
+        if dev not in done:
+            done[dev] = fn(*args)
+        out.append(done[dev])
+    return out

@@ -181,14 +181,17 @@ def _scatter_pack(t, valid, cap: int):
 
 
 def _pack_mesh(mesh, results, row_cap=None, key_dtype=None,
-               value_dtype=None, decodes=(None, None)) -> MeshKV:
+               value_dtype=None, decodes=(None, None), cap=None) -> MeshKV:
     """Each shard's body output ``(okey, ovalue, valid)`` packed into one
     mesh frame: the valid counts in one pull, then every shard's rows
     at the front of a block of one cap.  ``row_cap`` is ``(input cap,
     input counts)`` for a KV body: the cap is then the body's rows per
     input row times the input cap when that ratio is one integer over
-    the non-empty shards (the JAX static shape), else the power of two
-    over the largest count."""
+    the non-empty shards (the JAX static shape).  For a KMV body
+    (``row_cap`` None) it is the bodies' output length when every shard's
+    is the same (a body over one gcap and vcap: the JAX ``skmv_map``
+    shape), or ``cap`` when given.  Else it is the power of two over the
+    largest count."""
     lens = [ok.shape[0] for ok, _, _ in results]
     counts = list(lens)
     masked = [i for i, (_, _, v) in enumerate(results) if v is not None]
@@ -199,8 +202,13 @@ def _pack_mesh(mesh, results, row_cap=None, key_dtype=None,
                            for i in masked]).cpu().tolist()
         for i, c in zip(masked, got):
             counts[i] = int(c)
+    static = cap
     cap = round_cap(max(counts))
-    if row_cap is not None:
+    if static is not None:
+        cap = max(cap, static)
+    elif row_cap is None and len(set(lens)) == 1:
+        cap = max(cap, lens[0])
+    elif row_cap is not None:
         cap_in, counts_in = row_cap
         ratios = {L // c if c and L % c == 0 else None
                   for L, c in zip(lens, counts_in) if c}
@@ -240,11 +248,15 @@ def skv_map(fr, fn, extra=(), key_dtype=None, value_dtype=None,
 
 
 def skmv_map(kmv, fn, extra=(), key_dtype=None, value_dtype=None,
-             device=None, preserve_decodes: bool = False):
+             device=None, preserve_decodes: bool = False,
+             per_value: bool = False):
     """Run a KMV body ``fn(ukey, nvalues, voffsets, values, gcount,
     vcount, *extra) → (okey, ovalue, valid)`` (a vectorised reduce) over
     a grouped frame (a mesh frame shard by shard) and pack its valid rows
-    into a new frame; the decode guard as in :func:`skv_map`."""
+    into a new frame; the decode guard as in :func:`skv_map`.  A body
+    that compacts its own rows, one at most a value, says so with
+    ``per_value``: on a mesh frame its output cap is then the vcap (the
+    JAX body's static length)."""
     if isinstance(kmv, MeshKMV):
         decodes = _check_decodes(kmv, preserve_decodes, "skmv_map")
         bump_dispatch()
@@ -252,7 +264,7 @@ def skmv_map(kmv, fn, extra=(), key_dtype=None, value_dtype=None,
                       int(s.gcounts[0]), int(s.vcounts[0]), *extra)
                    for s in kmv.shards]
         return _pack_mesh(kmv.mesh, results, None, key_dtype, value_dtype,
-                          decodes)
+                          decodes, kmv.vcap if per_value else None)
     kmv = place_kmv(kmv, device)
     decodes = _check_decodes(kmv, preserve_decodes, "skmv_map")
     bump_dispatch()

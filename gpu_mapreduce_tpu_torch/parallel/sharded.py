@@ -135,6 +135,11 @@ class ShardedKV:
             raise IndexError(f"shard {p} of a one-device frame")
         return self.to_host()
 
+    def valid_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The valid (key, value) rows on the device."""
+        n = len(self)
+        return self.key[:n], self.value[:n]
+
     def head(self, n: int) -> KVFrame:
         """The first ``n`` valid pairs on the host (one small copy; only
         those rows decode)."""
@@ -398,6 +403,24 @@ class MeshKV:
     def shard_to_host(self, p: int) -> KVFrame:
         """Host KVFrame of shard p's valid rows."""
         return self.shards[p].to_host()
+
+    def valid_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every shard's valid (key, value) rows in shard order, joined on
+        the first shard's device."""
+        dev = self.shards[0].device
+        rows = [s.valid_rows() for s in self.shards]
+        return tuple(torch.cat([r[c].to(dev, non_blocking=True)
+                                for r in rows]) for c in (0, 1))
+
+    def joined(self) -> ShardedKV:
+        """The valid rows in shard order as one frame on the first
+        shard's device (the rows :meth:`to_host` gives, kept on the
+        device)."""
+        s = self.shards[0]
+        return ShardedKV(*(pad_rows(t, round_cap(len(self)))
+                           for t in self.valid_rows()),
+                         np.array([len(self)], np.int32), s.key_dtype,
+                         s.value_dtype, s.key_decode, s.value_decode)
 
     def head(self, n: int) -> KVFrame:
         """The first ``n`` valid pairs in shard order (only they copy and

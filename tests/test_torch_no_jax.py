@@ -57,7 +57,9 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "parallel.mesh", "parallel.shuffle",
                    "parallel.collectives", "parallel.ingest",
                    "parallel.group", "parallel.sharded", "plan.fuser",
-                   "plan.ir", "plan.cache", "core.mapreduce")
+                   "plan.ir", "plan.cache", "core.mapreduce",
+                   "oink.commands.invertedindex", "oink.objects",
+                   "parallel.backend")
 
 
 def test_port_imports_no_jax():

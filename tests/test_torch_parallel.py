@@ -677,26 +677,10 @@ def test_ops_run_on_a_mesh(op, tmp_path, monkeypatch):
     MapReduce(comm=tmesh(3), fuse=1, outofcore=1)
 
 
-def _oink_commands():
-    from gpu_mapreduce_tpu_torch.oink.command import COMMANDS
-    return sorted(COMMANDS)
-
-
-@pytest.mark.parametrize("command", _oink_commands())
-def test_oink_commands_refuse_a_mesh(command):
-    """Every OINK command (not the builtins and named-MR lines) still
-    refuses a mesh of P > 1, before it reads its arguments."""
-    import io
-    from gpu_mapreduce_tpu_torch import OinkScript
-    from gpu_mapreduce_tpu_torch.oink.command import COMMANDS
-    port = OinkScript(comm=tmesh(3), screen=io.StringIO())
-    with pytest.raises(MRError, match="on a mesh of P > 1 is not ported"):
-        COMMANDS[command](port.obj, screen=port.screen)
-
-
 def test_oink_nprocs_reads_the_mesh():
     """A script's ``nprocs`` is the mesh width; its MRs live on the mesh;
-    the OINK commands are refused there."""
+    an OINK command runs there (every command against the JAX package:
+    ``test_torch_mesh_oink.py``)."""
     import io
     from gpu_mapreduce_tpu.oink.script import OinkScript as JOinkScript
     from gpu_mapreduce_tpu_torch import OinkScript
@@ -706,8 +690,9 @@ def test_oink_nprocs_reads_the_mesh():
         assert port.variables.specials["nprocs"]() == \
             ref.variables.specials["nprocs"]() == P
         assert port.obj.create_mr().nprocs == P
-    with pytest.raises(MRError, match="on a mesh of P > 1"):
-        port.one("rmat 4 2 0.25 0.25 0.25 0.25 0.0 1 -o NULL x")
+    port.one("rmat 4 2 0.25 0.25 0.25 0.25 0.0 1 -o NULL x")
+    fr = one(port.obj.named["x"].kv)
+    assert isinstance(fr, MeshKV) and fr.nprocs == 3 and len(fr) == 32
 
 
 @pytest.mark.parametrize("P", [3, 8])
