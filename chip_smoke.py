@@ -171,6 +171,27 @@ nonzero):
               by file (its own ``graph-p4`` line).  One ``mesh`` line
               sums it.
 
+12. dist    — the process group (``parallel/dist.py``, ``launch.py``).
+              reshard: the intcount-p4-uniform KV (2^25 pairs after the
+              aggregate on four shards of the card) through mr.reshard to
+              2 shards and back to 4, byte-identical, each direction's
+              seconds and the range exchange's rows and bytes; with four
+              cards again with one shard a card; a KV and a KMV at 2^16
+              keys through the same steps on the card and on CPU shards,
+              equal after every step.  exchange: four rank processes
+              (``chip_smoke.py --dist-rank``) each hold one of those
+              files' keys on their device and run a hash exchange; each
+              rank's block equals shard d of the one-controller
+              make_mesh(4) exchange (cap, count, sha256 of the padded
+              keys and values); count_sync and exchange seconds by rank,
+              the backend and transport.  launcher: ``launch --np 4``
+              and ``--np 2`` over 64 MB of the zipf generator, both
+              equal to a Counter oracle, then ``--np 4`` with rank 2
+              killed at its second exchange: width 2 after 2
+              generations, dead == [2], output byte-equal to --np 2's;
+              recover_seconds, wall times, each rank's device.  One
+              ``dist`` line.
+
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
 result when no CUDA device is present.  Imports nothing of JAX.
@@ -3580,6 +3601,428 @@ def run_mesh_checkpoint(keys_u32, tmp: str, kernels, smi: str,
             "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# 12. dist — the process group: reshard, the exchange across ranks, launch
+# ---------------------------------------------------------------------------
+
+DIST_P = 4                     # ranks, as the mesh phase's shards
+DIST_NARROW = 2                # reshard's narrow width
+DIST_CHECK_KEYS = 1 << 16      # reshard card vs CPU
+DIST_LAUNCH_MB = 64            # the launcher's corpus (the cell's cap)
+DIST_LAUNCH_CHUNKS = 8
+DIST_FAULTS = "site=dist.exchange;kind=peer_kill;rank=2;after=1;n=1"
+DIST_TIMEOUT_S = 300           # a subprocess run's limit
+
+
+def _same_rows(a, b) -> bool:
+    """Two mesh frames' valid rows in global order (shard by shard)
+    byte for byte, compared on the first's first device."""
+    import torch
+    (ka, va), (kb, vb) = a.valid_rows(), b.valid_rows()
+    return (ka.shape == kb.shape and va.shape == vb.shape
+            and torch.equal(ka, kb.to(ka.device))
+            and torch.equal(va, vb.to(va.device)))
+
+
+def _kmv_host(fr) -> list:
+    """A mesh KMV frame's shards as host rows: (gcap, vcap, gcounts,
+    vcounts, per shard (keys, sizes, value multisets))."""
+    import numpy as np
+    out = [fr.gcap, fr.vcap, fr.gcounts.tolist(), fr.vcounts.tolist()]
+    for s in fr.shards:
+        h = s.to_host()
+        out.append((np.asarray(h.key.data).tolist(),
+                    np.asarray(h.nvalues).tolist(),
+                    [sorted(h.group_values(i).tolist())
+                     for i in range(len(h))]))
+    return out
+
+
+def dist_reshard_check(keys_u32, cards: int) -> dict:
+    """reshard at DIST_CHECK_KEYS keys on the card (one shard a card when
+    there are DIST_P cards) and on CPU shards: a KV and a KMV through
+    4 → 2 → 4, equal shard by shard after every step, and the KV's
+    global rows after the round trip equal to where they started."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    keys = keys_u32[:DIST_CHECK_KEYS]
+
+    def kv_rows(mr):
+        fr = next(mr.kv.frames())
+        return fr.cap, fr.counts.tolist(), [
+            (np.asarray(h.key.data).tobytes(),
+             np.asarray(h.value.data).tobytes())
+            for h in (s.to_host() for s in fr.shards)]
+
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cpu":
+            devs = [torch.device("cpu")] * DIST_P
+        elif cards >= DIST_P:
+            devs = [torch.device("cuda", i) for i in range(DIST_P)]
+        else:
+            devs = [torch.device("cuda", 0)] * DIST_P
+        meshes = [make_mesh(DIST_P, devices=devs),
+                  make_mesh(DIST_NARROW, devices=devs[:DIST_NARROW]),
+                  make_mesh(DIST_P, devices=devs)]
+        kv = MapReduce(comm=meshes[0], fuse=0)
+        kv.map(1, lambda i, out, p: out.add_batch(
+            keys.astype(np.uint64), np.ones(len(keys), np.uint32)))
+        kv.aggregate()
+        kmv = MapReduce(comm=meshes[0], fuse=0)
+        kmv.map(1, lambda i, out, p: out.add_batch(
+            (keys % 4099).astype(np.uint64), keys))
+        kmv.collate()
+        got = [(kv_rows(kv), _kmv_host(next(kmv.kmv.frames())))]
+        for m in meshes[1:]:
+            kv.reshard(m)
+            kmv.reshard(m)
+            got.append((kv_rows(kv), _kmv_host(next(kmv.kmv.frames()))))
+        steps[dev] = got
+    for i, (a, b) in enumerate(zip(steps["cuda"], steps["cpu"])):
+        if a != b:
+            raise AssertionError(f"dist-reshard: step {i} differs between "
+                                 f"the card and the CPU")
+    def global_rows(step):
+        return [b"".join(blk[c] for blk in step[0][2]) for c in (0, 1)]
+    if global_rows(steps["cuda"][0]) != global_rows(steps["cuda"][-1]):
+        raise AssertionError("dist-reshard: the small round trip changed "
+                             "the global rows")
+    return {"keys": len(keys), "steps": len(steps["cuda"]) - 1,
+            "card_equals_cpu": True}
+
+
+def run_dist_reshard(keys_u32, tmp: str, devices=None) -> dict:
+    """reshard: the intcount-p4-uniform KV (2^25 pairs after the
+    aggregate on make_mesh(4)) through mr.reshard to 2 shards and back to
+    4: the round trip byte-identical (the valid rows in global order; the
+    shards then hold the even split),
+    each direction's seconds between device synchronises, the range
+    exchange's rows and bytes."""
+    import torch
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.apps.intcount import _map_file
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.parallel.reshard import even_counts
+    devices = devices or mesh_devices(DIST_P)
+    mesh4 = make_mesh(DIST_P, devices=devices)
+    mesh2 = make_mesh(DIST_NARROW, devices=devices[:DIST_NARROW])
+    paths = split_files(keys_u32, os.path.join(tmp, "dist-reshard"),
+                        DIST_P)
+    mr = MapReduce(comm=mesh4, fuse=0)
+    mr.map_files(paths, _map_file)
+    mr.aggregate()
+    before = next(mr.kv.frames())
+    rec = {"devices": [str(d) for d in devices], "pairs": len(before)}
+    for label, mesh in (("narrow", mesh2), ("widen", mesh4)):
+        sync_all()
+        cs0 = mr.counters.cssize
+        t0 = time.perf_counter()
+        n = mr.reshard(mesh)
+        sync_all()
+        dt = time.perf_counter() - t0
+        fr = next(mr.kv.frames())
+        st = fr.exchange_stats
+        if n != len(keys_u32) or fr.nprocs != mesh.size:
+            raise AssertionError(f"dist-reshard {label}: {n} pairs on "
+                                 f"{fr.nprocs} shards")
+        rec[label] = {"from": mr.last_reshard["from"],
+                      "to": mr.last_reshard["to"], "seconds": dt,
+                      "cap": fr.cap, "counts": fr.counts.tolist(),
+                      "rows": st.rows, "sent_bytes": st.sent_bytes,
+                      "cssize": mr.counters.cssize - cs0,
+                      "bound_ms": 2 * st.sent_bytes / HBM_BYTES_PER_S
+                      * 1e3}
+    after = next(mr.kv.frames())
+    if not _same_rows(before, after):
+        raise AssertionError("dist-reshard: the 4 -> 2 -> 4 round trip "
+                             "changed the global rows")
+    if after.counts.tolist() != even_counts(len(after), DIST_P).tolist():
+        raise AssertionError(f"dist-reshard: the widened counts "
+                             f"{after.counts.tolist()} are not the even "
+                             f"split")
+    rec["round_trip_identical"] = True
+    del mr, before, after
+    shutil.rmtree(os.path.dirname(paths[0]))
+    return rec
+
+
+def dist_rank_main(d: str) -> int:
+    """One rank of the exchange across ranks (``chip_smoke.py --dist-rank
+    DIR``, started by :func:`run_dist_exchange`): its file's keys as its
+    block, one hash exchange (then a second, warm), and a JSON record of
+    its received block's digests and sync seconds."""
+    import hashlib
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.core.runtime import synchronize
+    from gpu_mapreduce_tpu_torch.ops.cuda import group, match
+    from gpu_mapreduce_tpu_torch.parallel import dist as D
+    from gpu_mapreduce_tpu_torch.parallel.shuffle import exchange
+    rt = D.init_from_env()
+    kernels = [match.mark_words, group.segment_table, match.mark]
+    with open(os.path.join(d, "counts.json")) as f:
+        counts = json.load(f)
+    keys = np.fromfile(os.path.join(d, f"part-{rt.rank}.bin"), np.uint32)
+    frame = D.shard_local_rows(
+        (keys.astype(np.uint64), np.ones(len(keys), np.uint32)), counts)
+    runs = []
+    for _ in range(2):
+        synchronize(rt.device)
+        t0 = time.perf_counter()
+        out = exchange(frame, ("hash", None))
+        synchronize(rt.device)
+        runs.append({"seconds": time.perf_counter() - t0,
+                     **out.sync_seconds})
+    s = out.shard
+    rec = {"rank": rt.rank, "device": str(rt.device),
+           "backend": rt.backend, "transport": rt.transport,
+           "cap": s.cap, "count": int(s.counts[0]),
+           "key_sha": hashlib.sha256(
+               s.key.cpu().numpy().tobytes()).hexdigest(),
+           "value_sha": hashlib.sha256(
+               s.value.cpu().numpy().tobytes()).hexdigest(),
+           "cold": runs[0], "warm": runs[1],
+           "launches": {k.__name__: k.launches for k in kernels}}
+    with open(os.path.join(d, f"rank{rt.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    rt.stop()
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def run_dist_exchange(keys_u32, tmp: str, devices=None) -> dict:
+    """exchange across ranks: DIST_P rank processes each hold one of the
+    intcount-p4-uniform files' keys on their device and run one hash
+    exchange (then a second, warm); each rank's received block (cap,
+    count, padded keys and values by sha256) must equal shard d of the
+    one-controller make_mesh(4) exchange of the same blocks on
+    ``devices``, whose warm exchange is timed beside the ranks'."""
+    import hashlib
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.launch import pick_port
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.parallel.sharded import mesh_kv
+    from gpu_mapreduce_tpu_torch.parallel.shuffle import exchange
+    d = os.path.join(tmp, "dist-exchange")
+    paths = split_files(keys_u32, d, DIST_P)
+    counts = [os.path.getsize(p) // 4 for p in paths]
+    with open(os.path.join(d, "counts.json"), "w") as f:
+        json.dump(counts, f)
+    devices = devices or mesh_devices(DIST_P)
+    mesh = make_mesh(DIST_P, devices=devices)
+    blocks = [np.fromfile(p, np.uint32) for p in paths]
+    src = mesh_kv(
+        mesh, [torch.from_numpy(b.astype(np.uint64).view(np.int64)).to(dev)
+               for b, dev in zip(blocks, devices)],
+        [torch.ones(len(b), dtype=torch.int32, device=dev)
+         for b, dev in zip(blocks, devices)],
+        counts, np.uint64, np.uint32)
+    exchange(src, ("hash", None))
+    sync_all()
+    t0 = time.perf_counter()
+    ref = exchange(src, ("hash", None))      # warm: the timed reference
+    sync_all()
+    mesh_s = time.perf_counter() - t0
+    want = [{"cap": s.cap, "count": int(s.counts[0]),
+             "key_sha": hashlib.sha256(
+                 s.key.cpu().numpy().tobytes()).hexdigest(),
+             "value_sha": hashlib.sha256(
+                 s.value.cpu().numpy().tobytes()).hexdigest()}
+            for s in ref.shards]
+    del ref, src, blocks
+    port = pick_port()
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(DIST_P):
+        env = dict(os.environ, MRTPU_DIST_WORLD=str(DIST_P),
+                   MRTPU_DIST_RANK=str(r),
+                   MRTPU_DIST_COORD=f"localhost:{port}",
+                   MRTPU_DIST_RUNDIR=os.path.join(d, "run"),
+                   MRTPU_DIST_GEN="0")
+        env.pop("MRTPU_FAULTS", None)
+        log = open(os.path.join(d, f"rank{r}.log"), "wb")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank", d],
+            env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    try:
+        codes = [p.wait(timeout=DIST_TIMEOUT_S) for p, _ in procs]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    if any(codes):
+        tails = {}
+        for r in range(DIST_P):
+            with open(os.path.join(d, f"rank{r}.log"), "rb") as f:
+                tails[r] = f.read()[-1500:].decode(errors="replace")
+        raise AssertionError(f"dist-exchange: rank exit codes {codes}: "
+                             f"{tails}")
+    ranks = []
+    for r in range(DIST_P):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            rec = json.load(f)
+        got = {k: rec[k] for k in ("cap", "count", "key_sha", "value_sha")}
+        if got != want[r]:
+            raise AssertionError(f"dist-exchange: rank {r}'s block {got} "
+                                 f"!= the mesh's shard {r} {want[r]}")
+        ranks.append(rec)
+    shutil.rmtree(d)
+    return {"ranks": DIST_P, "keys": int(sum(counts)),
+            "bytes_per_rank": [c * 4 for c in counts],
+            "backend": ranks[0]["backend"],
+            "transport": ranks[0]["transport"],
+            "devices": [r["device"] for r in ranks],
+            "equals_mesh_shards": True, "wall_s": wall,
+            "mesh_devices": [str(dev) for dev in devices],
+            "mesh_exchange_s": mesh_s,
+            "cap": want[0]["cap"], "counts": [w["count"] for w in want],
+            "count_sync_s": {run: [r[run]["count_sync"] for r in ranks]
+                             for run in ("cold", "warm")},
+            "exchange_s": {run: [r[run]["exchange"] for r in ranks]
+                           for run in ("cold", "warm")},
+            "seconds": {run: [r[run]["seconds"] for r in ranks]
+                        for run in ("cold", "warm")},
+            "launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in ranks[0]["launches"]}}
+
+
+def _launch(args, rundir: str, env=None) -> dict:
+    """One launcher run; returns its ``mrlaunch:`` summary and the
+    device, backend and transport each rank's log names."""
+    e = dict(os.environ)
+    e.pop("MRTPU_FAULTS", None)
+    e.update(env or {})
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "gpu_mapreduce_tpu_torch.launch",
+                        "--rundir", rundir] + args, env=e, cwd=root,
+                       capture_output=True, timeout=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"launch {args[:2]}: rc {r.returncode}\n"
+                             f"{r.stdout.decode()[-2000:]}\n"
+                             f"{r.stderr.decode()[-2000:]}")
+    summary = json.loads(r.stdout.decode().split("mrlaunch: ", 1)[1]
+                         .splitlines()[0])
+    ranks = {}
+    for name in sorted(os.listdir(rundir)):
+        if not name.endswith(".log"):
+            continue
+        with open(os.path.join(rundir, name), "rb") as f:
+            m = re.search(rb"launch: rank (\d+) of (\d+), gen (\d+), "
+                          rb"device (\S+), backend (\w+), transport (\S+)",
+                          f.read())
+        if m:
+            ranks[name[:-4]] = {"device": m.group(4).decode(),
+                                "backend": m.group(5).decode(),
+                                "transport": m.group(6).decode()}
+    return {"wall_s": wall, "summary": summary, "ranks": ranks}
+
+
+def launch_oracle(paths) -> bytes:
+    """The launcher's output from collections.Counter: 'word count' lines,
+    count descending, then word."""
+    from collections import Counter
+    c = Counter()
+    for p in paths:
+        with open(p, "rb") as f:
+            c.update(f.read().split())
+    rows = sorted(c.items(), key=lambda wc: (-wc[1], wc[0]))
+    return b"".join(w + b" %d\n" % n for w, n in rows)
+
+
+def run_dist_launch(tmp: str) -> dict:
+    """launcher: launch --np 4, then --np 2, over the zipf generator's
+    files at DIST_LAUNCH_MB, both equal to the Counter oracle; then --np 4
+    with rank 2 killed at its second exchange: it must end at width 2
+    after 2 generations, history[0].dead == [2], the output byte-equal to
+    the --np 2 run's."""
+    d = os.path.join(tmp, "dist-launch")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    paths, _, _, _ = zipf_corpus(d, DIST_LAUNCH_MB)
+    gen_s = time.perf_counter() - t0
+    want = launch_oracle(paths)
+    runs, outs = {}, {}
+    for label, nproc, env in (
+            ("np4", DIST_P, None), ("np2", DIST_NARROW, None),
+            ("chaos", DIST_P, {"MRTPU_FAULTS": DIST_FAULTS})):
+        out = os.path.join(d, f"{label}.txt")
+        runs[label] = _launch(
+            ["--np", str(nproc), "wordfreq", "--files", *paths, "--out", out,
+             "--chunks", str(DIST_LAUNCH_CHUNKS)],
+            os.path.join(d, f"run-{label}"), env)
+        with open(out, "rb") as f:
+            outs[label] = f.read()
+    for label in ("np4", "np2"):
+        if outs[label] != want:
+            raise AssertionError(f"dist-launch {label}: the output differs "
+                                 f"from the Counter oracle")
+    s = runs["chaos"]["summary"]
+    if not (s["final_width"] == DIST_NARROW and s["generations"] == 2
+            and s["history"][0]["dead"] == [2]
+            and s["recover_seconds"] is not None):
+        raise AssertionError(f"dist-launch chaos: {s}")
+    if outs["chaos"] != outs["np2"]:
+        raise AssertionError("dist-launch chaos: the shrunk run's output "
+                             "differs from the --np 2 run's")
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    shutil.rmtree(d)
+    return {"corpus_bytes": nbytes, "files": len(paths),
+            "cut": f"the zipf generator at {DIST_LAUNCH_MB} MB (cut from "
+                   f"the wordfreq-zipf cell's 256 MB to the launcher "
+                   f"cell's cap of 64 MB)", "corpus_s": gen_s,
+            "chunks": DIST_LAUNCH_CHUNKS, "faults": DIST_FAULTS,
+            "outputs_equal_oracle": True, "chaos_equals_np2": True,
+            "recover_seconds": s["recover_seconds"],
+            "final_width": s["final_width"],
+            "generations": s["generations"],
+            "dead": s["history"][0]["dead"],
+            "codes": s["history"][0]["codes"],
+            **{f"{label}_wall_s": rec["wall_s"]
+               for label, rec in runs.items()},
+            **{f"{label}_launcher_s": rec["summary"]["wall_seconds"]
+               for label, rec in runs.items()},
+            "ranks": {label: rec["ranks"] for label, rec in runs.items()}}
+
+
+def run_dist(keys_u32, tmp: str, kernels, smi: str) -> dict:
+    """The dist phase: reshard (and its card-vs-CPU check), the exchange
+    across ranks and the launcher, every launch count set to 0 just
+    before it; with DIST_P cards or more, reshard again with one shard a
+    card (the ranks are then one a card already, on NCCL)."""
+    import torch
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    for k in kernels:
+        k.launches = 0
+    rec = {"phase": "dist", "card": smi, "p": DIST_P, "cards": cards}
+    rec["reshard"] = run_dist_reshard(keys_u32, tmp)
+    if cards >= DIST_P:
+        rec["reshard_cards"] = run_dist_reshard(
+            keys_u32, tmp, devices=[torch.device("cuda", i)
+                                    for i in range(DIST_P)])
+    rec["reshard_check"] = dist_reshard_check(keys_u32, cards)
+    # the one-process reference on the same cards as the ranks
+    rec["exchange"] = run_dist_exchange(
+        keys_u32, tmp, devices=[torch.device("cuda", i)
+                                for i in range(DIST_P)]
+        if cards >= DIST_P else None)
+    rec["launch"] = run_dist_launch(tmp)
+    # this process's launches and the exchange ranks'; the launcher's
+    # workers call no kernel wrapper
+    rec["launches"] = {k.__name__: k.launches
+                       + rec["exchange"]["launches"][k.__name__]
+                       for k in kernels}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
 
 def main() -> int:
     import torch
@@ -3866,6 +4309,8 @@ def main() -> int:
                                                 "exchange_s", "launches")},
                   "fuse_warm": {k: mesh_cards_fuse["warm"][k] for k in (
                       "end_to_end_s", "group_s", "launches")}}})
+        dist = run_dist(int_keys["uniform"], tmp, kernels, smi)
+        emit(dist)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3898,7 +4343,9 @@ def main() -> int:
                            for run in ("cold", "warm")},
                         "mesh_ooc": mesh_ooc["launches"][k],
                         "mesh_checkpoint": mesh_ckpt["launches"][k],
-                        "graph_p4": p4_launches[k]}}
+                        "graph_p4": p4_launches[k]},
+                    # the dist phase: reshard, the exchange across ranks
+                    "launches_dist": dist["launches"][k]}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -3964,4 +4411,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank_main(sys.argv[2]))
     sys.exit(main())

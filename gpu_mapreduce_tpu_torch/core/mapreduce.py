@@ -9,7 +9,7 @@ host form, ``batch=True``, and ``block_rows`` for large groups),
 ``compress``, ``add``, ``copy``, ``open``/``close``, ``set``,
 ``sort_keys``/``sort_values`` (int flags, or a comparator ``cmp(a, b)`` on
 the host), ``sort_multivalues``, ``print``, ``scan_kv``, ``scan_kmv``,
-``kv_stats``, ``kmv_stats``, ``save``/``load``, ``stats`` and
+``kv_stats``, ``kmv_stats``, ``save``/``load``, ``reshard``, ``stats`` and
 ``cummulative_stats``, with the reference's callback arities: ``map``
 calls ``func(itask, kv, ptr)``, ``map_files`` ``func(itask, filename, kv,
 ptr)``, the chunk maps ``func(itask, chunk_bytes, kv, ptr)``, ``map_mr``
@@ -163,6 +163,7 @@ class MapReduce:
             raise MRError(f"comm must be None, 1 or a Mesh, not {comm!r}")
         self.comm = comm
         self.last_exchange = None        # the last exchange's telemetry
+        self.last_reshard = None         # the last reshard's from/to/n/s
         self.last_ingest: dict = {"mode": None}
         self.counters = global_counters()
         self._kv_data: Optional[KeyValue] = None
@@ -1014,6 +1015,78 @@ class MapReduce:
         self._flush_plan()
         from .checkpoint import load as _load
         return _load(self, path)
+
+    # ------------------------------------------------------------------
+    # topology (parallel/reshard.py)
+    # ------------------------------------------------------------------
+    def reshard(self, comm) -> int:
+        """Move the resident dataset onto a new topology and swap the
+        backend (JAX ``core/mapreduce.py:1304-1374``).  ``comm``: a
+        :class:`~..parallel.mesh.Mesh` of any width — device frames move
+        N → M through the range exchange, the global row and group order
+        kept exactly (a one-device frame moves as a mesh of one) — or
+        ``None``/an int for one device, where device frames compact to the
+        host.  Host frames are left as they are: they go onto the shards
+        at the next aggregate, like fresh data.  Returns the global pair
+        or group count."""
+        self._flush_plan()
+        from ..parallel.mesh import Mesh
+        from ..parallel.reshard import reshard_kmv, reshard_kv
+        from ..parallel.sharded import MeshKMV, MeshKV, ShardedKMV, ShardedKV
+        t = Timer()
+        if comm is None or isinstance(comm, int):
+            mesh = None
+            backend = DeviceBackend(self.device)
+        elif isinstance(comm, Mesh):
+            mesh = comm
+            self.device = comm.devices[0]
+            backend = DeviceBackend(self.device) if comm.size == 1 \
+                else MeshBackend(comm)
+        else:
+            raise MRError(f"reshard: comm must be None, an int or a Mesh, "
+                          f"not {comm!r}")
+        nfrom = self.backend.nprocs
+
+        def move(fr):
+            if not isinstance(fr, (MeshKV, MeshKMV, ShardedKV, ShardedKMV)):
+                return fr
+            if mesh is None:
+                return fr.to_host()
+            if isinstance(fr, (ShardedKV, ShardedKMV)):
+                one = MeshKV if isinstance(fr, ShardedKV) else MeshKMV
+                fr = one(Mesh((fr.device,)), [fr])
+            if fr.mesh != mesh:
+                fr = reshard_kv(fr, mesh, self.settings.all2all,
+                                self.counters) \
+                    if isinstance(fr, MeshKV) else \
+                    reshard_kmv(fr, mesh, self.settings.all2all,
+                                self.counters)
+            return fr.shards[0] if mesh.size == 1 else fr
+
+        n = 0
+        for ds in (self._kv_data, self._kmv_data):
+            if ds is None:
+                continue
+            out = []
+            for fr in ds._frames:
+                new = move(fr)
+                if new is not fr:
+                    self.counters.mem(new.nbytes() - fr.nbytes())
+                out.append(new)
+            ds._frames = out
+        self.backend = backend
+        self.comm = comm
+        if self._kv_data is not None:
+            self._kv_data.nkv = sum(self._kv_data._frame_n(f)
+                                    for f in self._kv_data._frames)
+            n = self._kv_data.nkv
+        if self._kmv_data is not None:
+            n = self._kmv_data.complete()
+        self.counters.add(commtime=t.elapsed())
+        self.last_reshard = {"from": nfrom, "to": self.backend.nprocs,
+                             "wall_s": round(t.elapsed(), 6), "n": n}
+        self._op_stats("reshard", nkv=n)
+        return n
 
     # ------------------------------------------------------------------
     # stats (reference src/mapreduce.cpp:2937-3066)

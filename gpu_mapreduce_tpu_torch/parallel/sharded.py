@@ -548,17 +548,23 @@ def mesh_kv(mesh, keys: Sequence[torch.Tensor],
     return MeshKV(mesh, shards)
 
 
+def even_counts(n: int, m: int) -> np.ndarray:
+    """The contiguous ``ceil(n/m)`` split of n rows over m shards (JAX
+    parallel/sharded.py:344-353): a fresh shard, a reshard and the
+    launcher's chunks place rows by this one rule."""
+    per = -(-n // m) if n else 0
+    starts = np.minimum(np.arange(m) * per, n)
+    return (np.minimum(starts + per, n) - starts).astype(np.int32)
+
+
 def split_to_mesh(skv: ShardedKV, mesh, counts=None) -> MeshKV:
     """A one-device frame's valid rows over the mesh: shard p takes the
-    next ``counts[p]`` rows (default: the contiguous ``ceil(n/P)`` split
-    of ``shard_frame``, JAX parallel/sharded.py:344-353), copied device to
-    device; decode tables become dest-sharded."""
+    next ``counts[p]`` rows (default: :func:`even_counts`), copied device
+    to device; decode tables become dest-sharded."""
     P = mesh.size
     n = len(skv)
     if counts is None:
-        per = -(-n // P) if n else 0
-        starts = np.minimum(np.arange(P) * per, n)
-        counts = np.minimum(starts + per, n) - starts
+        counts = even_counts(n, P)
     counts = np.asarray(counts, np.int64)
     offs = np.concatenate([[0], np.cumsum(counts)])
     keys, values = [], []

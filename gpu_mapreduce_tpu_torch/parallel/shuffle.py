@@ -28,14 +28,19 @@ phase 2, per destination (:func:`phase2`, JAX ``phase2_shard_body``
 
 The eager exchange (:func:`exchange`) and the fused exchange group of
 ``plan/fuser.py`` share these three steps, so their layouts and
-telemetry are one.  The JAX package's speculative cap cache of the
-eager exchange, wire codec, buffer donation, retry wrapper and trace
-spans give results bit-identical to this raw exchange and are not ported
-(ROADMAP.md).
+telemetry are one.  A rank frame of the process group
+(``parallel/dist.RankKV``) takes the same phase 1 and plan on its own
+block, the count matrix in one gather across ranks and phase 2 as one
+``all_to_all_single`` a column (:func:`exchange_ranks`); rank d's block
+equals the one-process mesh's shard d.  The JAX package's speculative
+cap cache of the eager exchange, wire codec, buffer donation, retry
+wrapper and trace spans give results bit-identical to this raw exchange
+and are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -43,8 +48,10 @@ import numpy as np
 import torch
 
 from ..core.frame import KVFrame
-from ..core.runtime import bump_dispatch
+from ..core.runtime import MRError, bump_dispatch
 from ..ops.hash import default_hash
+from . import dist as _dist
+from .dist import RankKV
 from .sharded import (MeshKV, ShardedKV, SyncStats, round_cap,
                       shard_frame_with_counts)
 
@@ -71,15 +78,19 @@ class ExchangeCallStats:
 
 
 def _dest_fn(dest, nprocs: int, key_dtype) -> Callable:
-    """Destination spec → per-shard function ``(keys, shard) → dest``
-    (JAX ``_dest_fn``, :216-262):
+    """Destination spec → per-shard function ``(keys, shard) → dest``, or
+    for a range a :class:`_RangeDest` (JAX ``_dest_fn``, :216-262):
 
     * ``("hash", None)`` — ``default_hash(keys) % P``;
     * ``("hash", fn)`` — ``fn(keys) % P``, ``fn`` a device hash over the
       key tensor (u64 keys as their int64 bits);
     * ``("fixed_mod", n)`` — every row of shard i to shard ``i % n``,
       the reference gather's sender → receiver map
-      (src/mapreduce.cpp:919-928).
+      (src/mapreduce.cpp:919-928);
+    * ``("range", offsets, ends)`` — topology resharding
+      (``parallel/reshard.py``): row r of shard p has global index
+      ``offsets[p] + r`` and goes to ``searchsorted(ends, g, right)``
+      (:class:`_RangeDest`).
     """
     kind = dest[0]
     if kind == "hash":
@@ -92,7 +103,35 @@ def _dest_fn(dest, nprocs: int, key_dtype) -> Callable:
         return lambda keys, p: torch.full((keys.shape[0],), p % n,
                                           dtype=torch.int64,
                                           device=keys.device)
+    if kind == "range":
+        return _RangeDest(np.asarray(dest[1], np.int64),
+                          np.asarray(dest[2], np.int64), nprocs)
     raise ValueError(f"unknown exchange destination {dest!r}")
+
+
+@dataclass(frozen=True)
+class _RangeDest:
+    """The ``("range", offsets, ends)`` destination: global row
+    ``g = offsets[p] + r`` goes to ``searchsorted(ends, g, right=True)``.
+    It is monotone in the row, so a shard's rows are already in
+    destination order (the stable sort is the identity and the output
+    keeps the global row order), and the rows per destination follow
+    from the shard's global range alone, on the host."""
+
+    offsets: np.ndarray
+    ends: np.ndarray
+    nprocs: int
+
+    def rows_per_dest(self, p: int, c: int) -> np.ndarray:
+        """Rows of shard p's global range ``[offsets[p], offsets[p] + c)``
+        inside each target's ``[ends[d-1], ends[d])``, as ``[nprocs]``."""
+        lo, hi = int(self.offsets[p]), int(self.offsets[p]) + c
+        starts = np.concatenate([[0], self.ends[:-1]])
+        n = np.clip(np.minimum(self.ends, hi) - np.maximum(starts, lo),
+                    0, None)
+        out = np.zeros(self.nprocs, np.int64)
+        out[:n.shape[0]] = n
+        return out
 
 
 def _phase1_core(nprocs: int, dest_of: Callable, shard: ShardedKV, p: int):
@@ -100,6 +139,9 @@ def _phase1_core(nprocs: int, dest_of: Callable, shard: ShardedKV, p: int):
     per destination ``[P]`` (int64, on the shard's device)."""
     c = int(shard.counts[0])
     key, value = shard.key[:c], shard.value[:c]
+    if isinstance(dest_of, _RangeDest):
+        return key, value, torch.from_numpy(
+            dest_of.rows_per_dest(p, c)).to(key.device)
     sd, order = torch.sort(dest_of(key, p), stable=True)
     # rows per destination from the sorted destinations: no atomics on
     # P hot counters
@@ -127,7 +169,8 @@ def _plan_caps(counts_mat: np.ndarray):
 
 
 def _rowbytes(skv) -> int:
-    k, v = skv.shards[0].key, skv.shards[0].value
+    s = skv.shard if isinstance(skv, RankKV) else skv.shards[0]
+    k, v = s.key, s.value
     return (k.element_size() * (k.shape[1] if k.dim() > 1 else 1)
             + v.element_size() * (v.shape[1] if v.dim() > 1 else 1))
 
@@ -243,7 +286,7 @@ def exchange_stats(skv: MeshKV, counts_mat: np.ndarray, plan,
                    counters=None) -> ExchangeCallStats:
     """The telemetry of one exchange at ``plan`` (shared by the eager and
     the fused exchange); the bytes also go to ``counters``."""
-    P = skv.mesh.size
+    P = skv.nprocs
     moved, pad, _ = exchange_volume(skv, counts_mat, plan_slots(plan), P)
     if counters is not None:
         counters.add(cssize=moved, crsize=moved, cspad=pad)
@@ -255,11 +298,15 @@ def exchange_stats(skv: MeshKV, counts_mat: np.ndarray, plan,
                              bucket_max=int(counts_mat.max()))
 
 
-def exchange(skv: MeshKV, dest, transport: int = 1,
-             counters=None) -> MeshKV:
+def exchange(skv: MeshKV, dest, transport: int = 1, counters=None,
+             site: str = "exchange") -> MeshKV:
     """Route every valid row of a mesh frame to its destination shard
     (``dest`` as in :func:`_dest_fn`); decode tables ride along.  The new
-    frame carries :class:`ExchangeCallStats` as ``exchange_stats``."""
+    frame carries :class:`ExchangeCallStats` as ``exchange_stats``.  A
+    rank frame (``parallel/dist.RankKV``) exchanges across the process
+    group (:func:`exchange_ranks`, its rows' sync point named ``site``)."""
+    if isinstance(skv, RankKV):
+        return exchange_ranks(skv, dest, counters, site)
     sorted_rows, counts_mat = phase1(skv, dest)
     plan, _bmax, _nmax, new_counts = plan_from_pull(counts_mat)
     blocks = phase2(skv, sorted_rows, counts_mat, plan_cap_out(plan),
@@ -269,6 +316,43 @@ def exchange(skv: MeshKV, dest, transport: int = 1,
                                       skv.key_decode, skv.value_decode)
                             for (k, v), n in zip(blocks, new_counts)])
     out.exchange_stats = exchange_stats(skv, counts_mat, plan, counters)
+    return out
+
+
+def exchange_ranks(skv: RankKV, dest, counters=None,
+                   site: str = "exchange") -> RankKV:
+    """The exchange across ranks (JAX ``shuffle.py:686-703`` over
+    ``dist.host_pull``): phase 1 on this rank's block; the ``[P, P]``
+    count matrix in one gather on the metadata group under the
+    ``count_sync`` watchdog; the same plan on every rank; keys and values
+    in one ``all_to_all_single`` each under the ``site`` watchdog, padded
+    with zeros to ``cap_out``.  Rank d's block, cap and count equal the
+    one-controller mesh's shard d byte for byte: ``all_to_all_single``
+    lays its output out by source rank, which is the mesh's source-major
+    order.  The new frame carries ``exchange_stats`` and the seconds of
+    both sync points (``sync_seconds``)."""
+    if skv.key_decode is not None or skv.value_decode is not None:
+        raise MRError("an exchange of interned columns across ranks is not "
+                      "ported yet (intern tables are per process)")
+    P, rank = skv.nprocs, skv.rank
+    dest_of = _dest_fn(dest, P, skv.key_dtype)
+    bump_dispatch()
+    key, value, row = _phase1_core(P, dest_of, skv.shard, rank)
+    t0 = time.perf_counter()
+    SyncStats.bump()          # the op's one pull: the count matrix
+    counts_mat = _dist.guard_call(
+        "count_sync", lambda: _dist.all_gather_host(row.cpu().numpy()))
+    t1 = time.perf_counter()
+    plan, _bmax, _nmax, new_counts = plan_from_pull(counts_mat)
+    bump_dispatch()
+    k, v = _dist.guard_call(site, _dist.all_to_all_rows, (key, value),
+                            counts_mat, plan_cap_out(plan))
+    t2 = time.perf_counter()
+    out = RankKV(rank, ShardedKV(k, v, new_counts[rank:rank + 1].copy(),
+                                 skv.key_dtype, skv.value_dtype),
+                 new_counts)
+    out.exchange_stats = exchange_stats(skv, counts_mat, plan, counters)
+    out.sync_seconds = {"count_sync": t1 - t0, site: t2 - t1}
     return out
 
 

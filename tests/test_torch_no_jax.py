@@ -27,12 +27,14 @@ SCRIPT = textwrap.dedent("""
               and sys.modules[m] is not None]
     assert not leaked, leaked
     import torch
+    from gpu_mapreduce_tpu_torch.parallel.dist import topology
     from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
     if not torch.cuda.is_available():
         for entry in (pkg.InvertedIndex, pkg.MapReduce, pkg.OinkScript,
                       lambda: pkg.intcount([]), lambda: pkg.wordfreq([]),
                       lambda: pkg.wordfreq_interned([]),
-                      lambda: make_mesh(), lambda: make_mesh(2)):
+                      lambda: make_mesh(), lambda: make_mesh(2),
+                      lambda: topology(0, 2)):
             try:
                 entry()
             except pkg.MRError:
@@ -59,7 +61,8 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "parallel.group", "parallel.sharded", "plan.fuser",
                    "plan.ir", "plan.cache", "core.mapreduce",
                    "oink.commands.invertedindex", "oink.objects",
-                   "parallel.backend")
+                   "parallel.backend", "parallel.dist", "parallel.reshard",
+                   "ft", "ft.inject", "launch")
 
 
 def test_port_imports_no_jax():
