@@ -192,6 +192,29 @@ nonzero):
               recover_seconds, wall times, each rank's device.  One
               ``dist`` line.
 
+13. wire    — the exchange as it runs by default, the wire codec and the
+              speculative plan cache, on four shards of the card (one a
+              card where four are present).  wire-p4-uniform and -zipf:
+              the intcount cells' 2^25 (u64 key, u32 1) rows, the hash
+              exchange three times with the codec on (the first cold,
+              the next two speculative hits) and three times with
+              MRTPU_WIRE=0, every output byte-equal to the first; the
+              plan's pack widths and tiers, wire_ratio, wire_bytes
+              against sent + pad bytes, the hits, the exchange's ms by
+              CUDA events (median of the warm runs); then the mesh
+              phase's mesh-fuse runs (cold, and warm with seg_table once
+              a shard, against numpy's counts), which must have taken a
+              wire plan.  wordfreq-p4: the plans the text phase's mesh
+              run took.  mesh2-2x2:
+              make_mesh2(2, 2) over the same devices, the exchange
+              byte-equal to make_mesh(4)'s, aggregate + gather(1) and a
+              per-shard InvertedIndex output equal to make_mesh(4)'s.
+              dist-local-2x2: two rank processes (``chip_smoke.py
+              --dist-local-rank``) holding two shards each, every block
+              equal to the make_mesh(4) exchange's shard.  Then each at
+              2^16 rows on the card and on CPU shards, byte-equal.  One
+              line a cell and one ``wire`` line.
+
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
 result when no CUDA device is present.  Imports nothing of JAX.
@@ -2978,6 +3001,7 @@ def run_mesh_wordfreq(paths, oracle: dict, kernels, smi: str,
     and the top 10 must equal the generator's counts.  The same call on
     one device first, for the P = 1 seconds beside it."""
     from gpu_mapreduce_tpu_torch import wordfreq_interned
+    from gpu_mapreduce_tpu_torch.parallel import shuffle
     from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
     mesh = make_mesh(MESH_P, devices=devices or mesh_devices())
     sync_all()
@@ -2987,12 +3011,19 @@ def run_mesh_wordfreq(paths, oracle: dict, kernels, smi: str,
     p1_s = time.perf_counter() - t0
     for k in kernels:
         k.launches = 0
+    before = dict(shuffle._SPEC_CACHE)
     sync_all()
     reset_peaks()
     t0 = time.perf_counter()
     nwords, nunique, top = wordfreq_interned(paths, WF_NTOP, comm=mesh)
     sync_all()
     dt = time.perf_counter() - t0
+    # the plans its exchanges ran under the codec (the speculative
+    # cache's new entries): full-entropy u64 ids ship raw
+    plans = [{"rows": key[3][0], "key_dtype": key[4],
+              "value_dtype": key[6], "plan": json.loads(json.dumps(plan))}
+             for key, plan in shuffle._SPEC_CACHE.items()
+             if key[0] == mesh and before.get(key) != plan]
     for got in (one, (nwords, nunique, top)):
         if (got[0], got[1]) != (oracle["nwords"], oracle["nunique"]) or \
                 sorted(got[2]) != sorted(oracle["top"]) or \
@@ -3006,7 +3037,7 @@ def run_mesh_wordfreq(paths, oracle: dict, kernels, smi: str,
             "p1_end_to_end_s": p1_s,
             "tokens_per_s": nwords / dt,
             "launches": {k.__name__: k.launches for k in kernels},
-            "max_memory_allocated": peak_bytes()}
+            "max_memory_allocated": peak_bytes(), "wire_plans": plans}
 
 
 def mesh_intcount_frames(paths, devices) -> dict:
@@ -3235,6 +3266,9 @@ def run_mesh_fuse(cell: str, keys_u32, tmp: str, kernels, smi: str,
             runs[run] = {"end_to_end_s": dt, "launches": launches,
                          "max_memory_allocated": peak_bytes(),
                          "group_s": ex[0]["seconds"],
+                         **{k: ex[0][k] for k in (
+                             "mode", "speculative", "pad_bytes",
+                             "wire_bytes", "wire_ratio")},
                          "sent_bytes": ex[0]["sent_bytes"],
                          "exchange_bound_ms":
                              2 * ex[0]["sent_bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -4024,6 +4058,401 @@ def run_dist(keys_u32, tmp: str, kernels, smi: str) -> dict:
     return rec
 
 
+WIRE_CHECK_KEYS = 1 << 16      # the card-vs-CPU check's rows
+WIRE_ON_RUNS = 3               # the first cold, the next speculative hits
+
+
+def wire_frame(keys_u32, mesh):
+    """The intcount-p4 cells' rows as a mesh frame: (u64 key, u32 1)
+    pairs, a contiguous quarter of the keys a shard."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.parallel.sharded import mesh_kv
+    blocks = np.array_split(keys_u32, mesh.size)
+    return mesh_kv(
+        mesh, [torch.from_numpy(b.astype(np.uint64).view(np.int64)).to(dev)
+               for b, dev in zip(blocks, mesh.devices)],
+        [torch.ones(len(b), dtype=torch.int32, device=dev)
+         for b, dev in zip(blocks, mesh.devices)],
+        [len(b) for b in blocks], np.uint64, np.uint32)
+
+
+def same_frames(a, b) -> bool:
+    """Two mesh frames equal shard by shard: caps, counts, padded keys
+    and values (compared on their devices)."""
+    import torch
+    return (a.cap == b.cap and a.counts.tolist() == b.counts.tolist()
+            and all(torch.equal(x.key, y.key.to(x.key.device))
+                    and torch.equal(x.value, y.value.to(x.value.device))
+                    for x, y in zip(a.shards, b.shards)))
+
+
+@contextlib.contextmanager
+def wire_env(value: str):
+    """``MRTPU_WIRE`` set to ``value`` for the block."""
+    saved = os.environ.get("MRTPU_WIRE")
+    os.environ["MRTPU_WIRE"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MRTPU_WIRE", None)
+        else:
+            os.environ["MRTPU_WIRE"] = saved
+
+
+def timed_exchange(frame, dest=("hash", None)):
+    """One exchange between synchronises of every card: (frame, CUDA-event
+    ms on card 0, its stats)."""
+    import torch
+    from gpu_mapreduce_tpu_torch.parallel.shuffle import exchange
+    sync_all()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    out = exchange(frame, dest)
+    sync_all()
+    ev1.record()
+    ev1.synchronize()
+    return out, ev0.elapsed_time(ev1), vars(out.exchange_stats)
+
+
+def wire_plan_of(frame, wire_on: bool, dest=("hash", None)):
+    """The plan the speculative cache holds for ``frame``'s exchange: the
+    plan that ran last."""
+    from gpu_mapreduce_tpu_torch.parallel import shuffle
+    return shuffle._SPEC_CACHE.get(
+        shuffle._spec_key(frame, dest, 1, wire_on))
+
+
+def run_wire_exchange(cell: str, keys_u32, devices) -> dict:
+    """wire-p4-<cell>: the eager hash exchange of the cell's 2^25 rows on
+    four shards, WIRE_ON_RUNS times with the codec on (the first cold,
+    the rest speculative hits), then as many with MRTPU_WIRE=0; every
+    output byte-equal to the first.  The plan's pack widths,
+    wire_ratio, wire_bytes against sent + pad bytes, the hits, and the
+    exchange's ms on and off (median of the warm runs)."""
+    from gpu_mapreduce_tpu_torch.parallel import shuffle
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(len(devices), devices=devices)
+    frame = wire_frame(keys_u32, mesh)
+    shuffle._SPEC_CACHE.clear()
+    runs, first = {"on": [], "off": []}, None
+    for label, value in (("on", "1"), ("off", "0")):
+        with wire_env(value):
+            for _ in range(WIRE_ON_RUNS):
+                out, ms, stats = timed_exchange(frame)
+                if first is None:
+                    first = out
+                elif not same_frames(first, out):
+                    raise AssertionError(f"wire-p4-{cell}: the codec-{label} "
+                                         f"exchange differs from the first")
+                runs[label].append({"ms": ms, **stats})
+        del out
+    plan = wire_plan_of(frame, True)
+    if plan is None or plan[0] != "wire":
+        raise AssertionError(f"wire-p4-{cell}: the codec did not engage: "
+                             f"{plan}")
+    on, off = runs["on"], runs["off"]
+    hits = [r["speculative"] for r in on]
+    if hits != [False] + [True] * (WIRE_ON_RUNS - 1):
+        raise AssertionError(f"wire-p4-{cell}: speculative hits {hits}")
+    s = on[-1]
+    return {"cell": f"wire-p4-{cell}", "p": mesh.size,
+            "devices": [str(d) for d in mesh.devices],
+            "rows": s["rows"], "bytes_on_card": frame.nbytes(),
+            "plan": {"tiers": list(plan[1]), "cap_out": plan[2],
+                     "kpack": plan[3], "vpack": plan[4]},
+            "wire_ratio": s["wire_ratio"], "wire_bytes": s["wire_bytes"],
+            "sent_bytes": s["sent_bytes"], "pad_bytes": s["pad_bytes"],
+            "sent_plus_pad": s["sent_bytes"] + s["pad_bytes"],
+            "speculative_hits": sum(hits), "speculative": hits,
+            "off_speculative": [r["speculative"] for r in off],
+            "ms_on": [r["ms"] for r in on], "ms_off": [r["ms"] for r in off],
+            "ms_on_cold": on[0]["ms"], "ms_off_cold": off[0]["ms"],
+            "ms_on_warm_median": statistics.median(r["ms"] for r in on[1:]),
+            "ms_off_warm_median": statistics.median(r["ms"]
+                                                    for r in off[1:]),
+            "equal_on_off": True}
+
+
+def run_mesh2(keys_u32, tmp: str, devices) -> dict:
+    """mesh2-2x2: make_mesh2(2, 2) over ``devices`` (a slice is two
+    cards where four are present): the hash exchange of the cell's rows
+    byte-equal to make_mesh(4)'s on the same devices, then aggregate and
+    gather(1) through MapReduce, and a per-shard InvertedIndex output
+    (four part files) equal to make_mesh(4)'s."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch import InvertedIndex, MapReduce
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh, make_mesh2
+    m2 = make_mesh2(2, 2, devices=devices)
+    m1 = make_mesh(4, devices=devices)
+    hier, ms2, st2 = timed_exchange(wire_frame(keys_u32, m2))
+    flat, ms1, st1 = timed_exchange(wire_frame(keys_u32, m1))
+    if not same_frames(flat, hier):
+        raise AssertionError("mesh2-2x2: the hierarchical exchange differs "
+                             "from make_mesh(4)'s")
+    del hier, flat
+    blocks = np.array_split(keys_u32.astype(np.uint64), 4)
+    gathered = []
+    for mesh in (m2, m1):
+        mr = MapReduce(comm=mesh)
+        mr.map(4, lambda itask, kv, ptr: kv.add_batch(
+            blocks[itask], np.ones(len(blocks[itask]), np.uint32)))
+        mr.aggregate()
+        mr.gather(1)
+        gathered.append(mr.kv.one_frame())
+    if not same_frames(*gathered):
+        raise AssertionError("mesh2-2x2: gather(1) differs from "
+                             "make_mesh(4)'s")
+    d = os.path.join(tmp, "mesh2")
+    os.makedirs(d)
+    paths, nref, nuniq = make_corpus(d, MESH_CHECK_MB, skew=True)
+    parts = []
+    for mesh, tag in ((m2, "m2"), (m1, "m1")):
+        out = os.path.join(d, f"out-{tag}")
+        if InvertedIndex(comm=mesh).run(paths, outdir=out) != (nref, nuniq):
+            raise AssertionError(f"mesh2-2x2: InvertedIndex on {tag}")
+        parts.append({f: open(os.path.join(out, f), "rb").read()
+                      for f in sorted(os.listdir(out))})
+    if parts[0] != parts[1] or len(parts[0]) != 4:
+        raise AssertionError("mesh2-2x2: the part files differ from "
+                             "make_mesh(4)'s")
+    shutil.rmtree(d)
+    return {"cell": "mesh2-2x2", "shape": m2.shape,
+            "devices": [str(x) for x in m2.devices],
+            "cards": len(set(m2.devices)), "equals_flat": True,
+            "exchange_ms": ms2, "flat_exchange_ms": ms1,
+            "wire_ratio": st2["wire_ratio"],
+            "gather_counts": gathered[0].counts.tolist(),
+            "part_files": len(parts[0]), "parts_equal_flat": True}
+
+
+def dist_local_rank_main(d: str) -> int:
+    """One rank of dist-local-2x2 (``chip_smoke.py --dist-local-rank
+    DIR``): its two shards' keys as its blocks, one hash exchange, and a
+    JSON record of each received block's digests."""
+    import hashlib
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.core.runtime import synchronize
+    from gpu_mapreduce_tpu_torch.parallel import dist as D
+    from gpu_mapreduce_tpu_torch.parallel.shuffle import exchange
+    rt = D.init_from_env()
+    with open(os.path.join(d, "counts.json")) as f:
+        counts = json.load(f)
+    L = len(rt.devices)
+    blocks = []
+    for p in range(rt.rank * L, (rt.rank + 1) * L):
+        keys = np.fromfile(os.path.join(d, f"part-{p}.bin"), np.uint32)
+        blocks.append((keys.astype(np.uint64), np.ones(len(keys),
+                                                         np.uint32)))
+    frame = D.shard_local_rows(blocks, counts)
+    for dev in rt.devices:
+        synchronize(dev)
+    t0 = time.perf_counter()
+    out = exchange(frame, ("hash", None))
+    for dev in rt.devices:
+        synchronize(dev)
+    rec = {"rank": rt.rank, "devices": [str(x) for x in rt.devices],
+           "backend": rt.backend, "transport": rt.transport,
+           "seconds": time.perf_counter() - t0, **out.sync_seconds,
+           "wire_bytes": out.exchange_stats.wire_bytes,
+           "shards": [{"cap": s.cap, "count": int(s.counts[0]),
+                       "key_sha": hashlib.sha256(
+                           s.key.cpu().numpy().tobytes()).hexdigest(),
+                       "value_sha": hashlib.sha256(
+                           s.value.cpu().numpy().tobytes()).hexdigest()}
+                      for s in out.shards]}
+    with open(os.path.join(d, f"rank{rt.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    rt.stop()
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def run_dist_local(keys_u32, tmp: str, devices, cpu: bool = False) -> dict:
+    """dist-local-2x2: two rank processes holding two shards each
+    (``MRTPU_DIST_LOCAL_DEVICES=2``; gloo on one card, NCCL with one card
+    a shard where four are present; with ``cpu`` gloo on the CPU), the
+    hash exchange of the cell's rows; each rank's two blocks (cap, count,
+    sha256 of the padded keys and values) equal to make_mesh(4)'s shards
+    2r and 2r + 1 of the same blocks on ``devices``, cold."""
+    import hashlib
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.launch import pick_port
+    from gpu_mapreduce_tpu_torch.parallel import shuffle
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    W, L = 2, 2
+    d = os.path.join(tmp, "dist-local")
+    paths = split_files(keys_u32, d, W * L)
+    counts = [os.path.getsize(p) // 4 for p in paths]
+    with open(os.path.join(d, "counts.json"), "w") as f:
+        json.dump(counts, f)
+    shuffle._SPEC_CACHE.clear()
+    ref = shuffle.exchange(wire_frame(keys_u32, make_mesh(
+        W * L, devices=devices)), ("hash", None))
+    want = [{"cap": s.cap, "count": int(s.counts[0]),
+             "key_sha": hashlib.sha256(
+                 s.key.cpu().numpy().tobytes()).hexdigest(),
+             "value_sha": hashlib.sha256(
+                 s.value.cpu().numpy().tobytes()).hexdigest()}
+            for s in ref.shards]
+    del ref
+    port = pick_port()
+    procs = []
+    for r in range(W):
+        env = dict(os.environ, MRTPU_DIST_WORLD=str(W),
+                   MRTPU_DIST_RANK=str(r), MRTPU_DIST_LOCAL_DEVICES=str(L),
+                   MRTPU_DIST_COORD=f"localhost:{port}",
+                   MRTPU_DIST_RUNDIR=os.path.join(d, "run"),
+                   MRTPU_DIST_GEN="0")
+        env.pop("MRTPU_FAULTS", None)
+        if cpu:
+            env["MRTPU_DIST_DEVICE"] = "cpu"
+        log = open(os.path.join(d, f"rank{r}.log"), "wb")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-local-rank",
+             d], env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    try:
+        codes = [p.wait(timeout=DIST_TIMEOUT_S) for p, _ in procs]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if any(codes):
+        tails = {}
+        for r in range(W):
+            with open(os.path.join(d, f"rank{r}.log"), "rb") as f:
+                tails[r] = f.read()[-1500:].decode(errors="replace")
+        raise AssertionError(f"dist-local: rank exit codes {codes}: {tails}")
+    ranks = []
+    for r in range(W):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            rec = json.load(f)
+        if rec["shards"] != want[r * L:(r + 1) * L]:
+            raise AssertionError(f"dist-local: rank {r}'s blocks "
+                                 f"{rec['shards']} != the mesh's shards "
+                                 f"{want[r * L:(r + 1) * L]}")
+        ranks.append(rec)
+    shutil.rmtree(d)
+    return {"cell": "dist-local-2x2", "ranks": W, "shards_per_rank": L,
+            "keys": int(sum(counts)), "backend": ranks[0]["backend"],
+            "devices": [r["devices"] for r in ranks],
+            "equals_mesh_shards": True,
+            "seconds": [r["seconds"] for r in ranks],
+            "count_sync_s": [r["count_sync"] for r in ranks],
+            "exchange_s": [r["exchange"] for r in ranks],
+            "wire_bytes": ranks[0]["wire_bytes"],
+            "counts": [w["count"] for w in want]}
+
+
+def wire_cpu_check(keys_u32, tmp: str, card=None) -> dict:
+    """The wire cells at WIRE_CHECK_KEYS rows on the card and on CPU
+    shards, byte-equal: the exchange with the codec on (cold, then a
+    speculative hit) and off, the hierarchical exchange of make_mesh2(2,
+    2), the fused group cold and warm; and dist-local-2x2 with its ranks
+    on the CPU against the CPU mesh."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    from gpu_mapreduce_tpu_torch.parallel import shuffle
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh, make_mesh2
+    from gpu_mapreduce_tpu_torch.plan import plan_cache
+    keys = keys_u32[:WIRE_CHECK_KEYS]
+    card = torch.device("cuda", 0) if card is None else torch.device(card)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        devs = [card if dev == "cuda" else torch.device("cpu")] * 4
+        shuffle._SPEC_CACHE.clear()
+        rec = []
+        for value in ("1", "1", "0"):
+            with wire_env(value):
+                out = shuffle.exchange(
+                    wire_frame(keys, make_mesh(4, devices=devs)),
+                    ("hash", None))
+                rec.append((out, vars(out.exchange_stats)))
+        rec.append((shuffle.exchange(wire_frame(keys, make_mesh2(
+            2, 2, devices=devs)), ("hash", None)), None))
+        saved = os.environ.get("MRTPU_FUSE")
+        os.environ["MRTPU_FUSE"] = "1"
+        try:
+            plan_cache().clear()
+            blocks = np.array_split(keys.astype(np.uint64), 4)
+            for _ in range(2):
+                mr = MapReduce(comm=make_mesh(4, devices=devs))
+                mr.map(4, lambda itask, kv, ptr: kv.add_batch(
+                    blocks[itask], np.ones(len(blocks[itask]), np.uint32)))
+                mr.aggregate()
+                mr.convert()
+                mr.reduce(count, batch=True)
+                rec.append((mr.kv.one_frame(), vars(mr.last_exchange)))
+        finally:
+            if saved is None:
+                os.environ.pop("MRTPU_FUSE", None)
+            else:
+                os.environ["MRTPU_FUSE"] = saved
+        got[dev] = rec
+    for i, ((a, sa), (b, sb)) in enumerate(zip(got["cuda"], got["cpu"])):
+        if not same_frames(b, a) or sa != sb:
+            raise AssertionError(f"wire check: output {i} differs between "
+                                 f"the card and the CPU: {sa} vs {sb}")
+    local = run_dist_local(keys, tmp, [torch.device("cpu")] * 4, cpu=True)
+    return {"rows": len(keys), "compared": len(got["cpu"]),
+            "card_equals_cpu": True,
+            "speculative": [s["speculative"] for _, s in got["cpu"][:3]],
+            "fused_modes_speculative": [s["speculative"]
+                                        for _, s in got["cpu"][4:]],
+            "dist_local_cpu": local["equals_mesh_shards"]}
+
+
+def run_wire(int_keys: dict, tmp: str, kernels, smi: str, mesh_wf: dict,
+             mesh_fuse: dict) -> dict:
+    """The wire phase: wire-p4-uniform and -zipf (the eager exchange with
+    the codec on and off; the fused group under it is the mesh phase's
+    mesh-fuse run, ``mesh_fuse``, whose exchange must have taken a wire
+    plan), wordfreq-p4's plans (from the text phase), mesh2-2x2,
+    dist-local-2x2 and the card-vs-CPU check, every launch count set to
+    0 just before it."""
+    import torch
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(MESH_P)] \
+        if cards >= MESH_P else mesh_devices()
+    for k in kernels:
+        k.launches = 0
+    rec = {"phase": "wire", "card": smi, "p": MESH_P, "cards": cards,
+           "devices": [str(d) for d in devices]}
+    for cell, keys in int_keys.items():
+        rec[f"wire-p4-{cell}"] = run_wire_exchange(cell, keys, devices)
+        emit({"phase": "wire", "card": smi, **rec[f"wire-p4-{cell}"]})
+        fused = {run: {k: r[k] for k in (
+            "mode", "speculative", "group_s", "sent_bytes", "pad_bytes",
+            "wire_bytes", "wire_ratio", "launches")}
+            for run, r in mesh_fuse[cell].items() if run in ("cold", "warm")}
+        if not all(r["wire_bytes"] for r in fused.values()):
+            raise AssertionError(f"wire-fuse-{cell}: the fused group took "
+                                 f"no wire plan: {fused}")
+        rec[f"wire-p4-{cell}"]["fused"] = fused
+        emit({"phase": "wire", "card": smi, "cell": f"wire-fuse-{cell}",
+              "from": f"mesh-fuse-{cell}", **fused})
+    rec["wordfreq-p4"] = {"plans": mesh_wf["wire_plans"]}
+    emit({"phase": "wire", "card": smi, "cell": "wordfreq-p4",
+          "plans": mesh_wf["wire_plans"]})
+    rec["mesh2-2x2"] = run_mesh2(int_keys["uniform"], tmp, devices)
+    emit({"phase": "wire", "card": smi, **rec["mesh2-2x2"]})
+    rec["dist-local-2x2"] = run_dist_local(
+        int_keys["uniform"], tmp, devices, cpu=devices[0].type == "cpu")
+    emit({"phase": "wire", "card": smi, **rec["dist-local-2x2"]})
+    rec["check"] = wire_cpu_check(int_keys["uniform"], tmp, devices[0])
+    rec["launches"] = {k.__name__: k.launches for k in kernels}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4311,6 +4740,9 @@ def main() -> int:
                       "end_to_end_s", "group_s", "launches")}}})
         dist = run_dist(int_keys["uniform"], tmp, kernels, smi)
         emit(dist)
+        wire = run_wire(int_keys, tmp, kernels, smi, mesh_wf, mesh_fuse)
+        emit({k: wire[k] for k in ("phase", "card", "p", "cards", "devices",
+                                   "check", "launches", "seconds")})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4345,7 +4777,10 @@ def main() -> int:
                         "mesh_checkpoint": mesh_ckpt["launches"][k],
                         "graph_p4": p4_launches[k]},
                     # the dist phase: reshard, the exchange across ranks
-                    "launches_dist": dist["launches"][k]}
+                    "launches_dist": dist["launches"][k],
+                    # the wire phase: mesh2's part files and the
+                    # card-vs-CPU check's warm fused group
+                    "launches_wire": wire["launches"][k]}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -4413,4 +4848,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
         sys.exit(dist_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dist-local-rank"]:
+        sys.exit(dist_local_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -7,7 +7,11 @@ a u64 column is reinterpreted as int64 without changing a bit, and its
 logical dtype travels with the frame.  A JAX mesh frame of P shards
 crosses as per-shard blocks ``[P, cap, ...]`` plus ``counts [P]`` (the
 JAX arrays' rows ``[p*cap, (p+1)*cap)`` are block p) and becomes a port
-mesh frame, shard p on the mesh's device p, and back.  The second carrier of state across
+mesh frame, shard p on the mesh's device p, and back.  A frame of a JAX
+two-axis mesh (``make_mesh2(S, C)``) crosses the same way, or as blocks
+``[S, C, cap, ...]`` with counts ``[S, C]`` (the arrays reshaped by
+axis), into the port's ``make_mesh2(S, C)`` frame: the flat shard id is
+row-major ``s·C + c`` in both packages.  The second carrier of state across
 the packages is a checkpoint directory (``core/checkpoint.py``), which
 either package loads.
 """
@@ -43,11 +47,26 @@ def kmv_from_numpy(ukey: np.ndarray, nvalues: np.ndarray,
                       ukey.dtype, values.dtype)
 
 
+def _flat_blocks(counts, mesh, *arrays):
+    """Per-axis blocks ``[S, C, ...]`` with counts ``[S, C]`` (a two-axis
+    mesh) → the flat ``[P, ...]`` blocks and counts ``[P]``."""
+    counts = np.asarray(counts, np.int32)
+    if counts.ndim == 1:
+        return (counts,) + arrays
+    if counts.shape != tuple(mesh.shape.values()):
+        raise ValueError(f"blocks of axes {counts.shape} for a mesh of "
+                         f"{mesh.shape}")
+    n = counts.size
+    return (counts.reshape(n),) + tuple(
+        a.reshape((n,) + a.shape[counts.ndim:]) for a in arrays)
+
+
 def mesh_kv_from_numpy(key: np.ndarray, value: np.ndarray, counts,
                        mesh) -> MeshKV:
     """A mesh KV frame from per-shard padded blocks ``[P, cap, ...]``
-    and the valid counts ``[P]``."""
-    counts = np.asarray(counts, np.int32)
+    and the valid counts ``[P]`` (or, on a two-axis mesh, ``[S, C, cap,
+    ...]`` and ``[S, C]``)."""
+    counts, key, value = _flat_blocks(counts, mesh, key, value)
     return MeshKV(mesh, [kv_from_numpy(key[p], value[p], counts[p], dev)
                          for p, dev in enumerate(mesh.devices)])
 

@@ -14,6 +14,11 @@ transport from the topology, never from a caught error:
 * ``MRTPU_DIST_DEVICE=cpu`` (the launcher's ``--device cpu``): ranks on
   the CPU, ``gloo``.  With no card and no such request it raises.
 
+``MRTPU_DIST_LOCAL_DEVICES = L`` gives each rank L shards: rank r holds
+the shards ``r·L … r·L + L − 1`` of a ``(W, L)`` mesh, on the cards
+``r·L + c`` when ``W·L`` cards are present (NCCL, one data group a
+chip index), else on the shared cards ``(r·L + c) % cards`` (gloo).
+
 Beside the data group every topology has one ``gloo`` group for host
 metadata (the count matrix, sizes, the barrier).  A world of 1 needs no
 process group.
@@ -39,8 +44,9 @@ A survivor leaves with ``os._exit(EXIT_PEER_LOST)``, never through
 timeout is set past the watchdog's, so the watchdog always fires first.
 
 The rank frame (:class:`RankKV`, :func:`shard_local_rows`) holds this
-rank's block of a frame over the group; ``parallel/shuffle.exchange``
-moves its rows across ranks.
+rank's blocks of a frame over the group, one a local shard;
+``parallel/shuffle.exchange`` moves its rows across ranks
+(:func:`all_to_all_rows`).
 """
 
 from __future__ import annotations
@@ -261,16 +267,20 @@ class DistRuntime:
                  skew_s: Optional[float] = None,
                  sync_timeout_s: Optional[float] = None,
                  gen: int = 0, device=None, backend: str = "none",
-                 transport: str = "none"):
+                 transport: str = "none", devices=None):
         self.rank = rank
         self.world = world
         self.rundir = rundir
         self.gen = gen
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        if devices is None:
+            devices = [device if device is not None else "cpu"]
+        # this rank's shards' devices, one a local shard
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
         self.backend = backend          # the data group's: nccl | gloo
         self.transport = transport      # how tensors travel: nccl | gloo
         self.meta = None                # the gloo group for host metadata
+        self.chip_groups = None         # L > 1: a data group a chip index
         self.heartbeat_s = heartbeat_s if heartbeat_s is not None else \
             env_knob("MRTPU_DIST_HEARTBEAT", float, 0.25)
         self.lease_s = lease_s if lease_s is not None else \
@@ -420,10 +430,22 @@ def activate(rt: Optional[DistRuntime]) -> Optional[DistRuntime]:
 
 
 def topology(rank: int, world: int, want: str = ""):
-    """(device, backend, transport) of rank ``rank`` of ``world``: see
-    the module docstring.  ``want`` is ``"cpu"`` or empty."""
+    """(device, backend, transport) of rank ``rank`` of ``world``, one
+    shard a rank: see the module docstring.  ``want`` is ``"cpu"`` or
+    empty."""
+    devices, backend, transport = local_topology(rank, world, want, 1)
+    return devices[0], backend, transport
+
+
+def local_topology(rank: int, world: int, want: str = "",
+                   nlocal: int = 1):
+    """(devices, backend, transport) of rank ``rank`` of ``world`` when
+    each rank holds ``nlocal`` shards: local shard c on card
+    ``rank·nlocal + c`` (NCCL) when every shard owns a card, else on
+    card ``(rank·nlocal + c) % cards`` (gloo); all on the CPU (gloo)
+    for ``want == "cpu"``."""
     if want == "cpu":
-        return torch.device("cpu"), "gloo", "gloo"
+        return [torch.device("cpu")] * nlocal, "gloo", "gloo"
     if want:
         raise MRError(f"MRTPU_DIST_DEVICE={want!r}: only 'cpu' (or unset, "
                       f"for the cards) is known")
@@ -431,10 +453,11 @@ def topology(rank: int, world: int, want: str = ""):
         raise MRError("no CUDA device for the process group; pass "
                       "--device cpu to run the ranks on the CPU")
     cards = torch.cuda.device_count()
-    if world <= cards:
-        return torch.device("cuda", rank), "nccl", "nccl"
+    ids = [rank * nlocal + c for c in range(nlocal)]
+    if world * nlocal <= cards:
+        return [torch.device("cuda", i) for i in ids], "nccl", "nccl"
     # NCCL refuses two ranks on one card: ranks sharing a card use gloo
-    return torch.device("cuda", rank % cards), "gloo", "gloo"
+    return [torch.device("cuda", i % cards) for i in ids], "gloo", "gloo"
 
 
 def init_from_env() -> Optional[DistRuntime]:
@@ -453,24 +476,30 @@ def init_from_env() -> Optional[DistRuntime]:
         raise MRError("MRTPU_DIST_WORLD is set but MRTPU_DIST_COORD / "
                       "MRTPU_DIST_RUNDIR are not — use python -m "
                       "gpu_mapreduce_tpu_torch.launch")
-    ndev = env_knob("MRTPU_DIST_LOCAL_DEVICES", int, 1)
-    if ndev != 1:
-        raise MRError(f"a rank holding {ndev} shards "
-                      f"(MRTPU_DIST_LOCAL_DEVICES) is not ported yet")
-    device, backend, transport = topology(
-        rank, world, env_str("MRTPU_DIST_DEVICE", ""))
-    rt = DistRuntime(rank, world, rundir, gen=gen, device=device,
+    nlocal = env_knob("MRTPU_DIST_LOCAL_DEVICES", int, 1)
+    if nlocal < 1:
+        raise MRError(f"MRTPU_DIST_LOCAL_DEVICES={nlocal}: a rank holds "
+                      f"one shard at least")
+    devices, backend, transport = local_topology(
+        rank, world, env_str("MRTPU_DIST_DEVICE", ""), nlocal)
+    rt = DistRuntime(rank, world, rundir, gen=gen, devices=devices,
                      backend=backend, transport=transport)
     if world > 1:
         # a shrunk-to-1 generation needs no process group
         import torch.distributed as dist
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
+        if devices[0].type == "cuda":
+            torch.cuda.set_device(devices[0])
         dist.init_process_group(backend, init_method=f"tcp://{coord}",
                                 world_size=world, rank=rank,
                                 timeout=rt.torch_timeout())
         rt.meta = dist.new_group(backend="gloo",
                                  timeout=rt.torch_timeout())
+        if nlocal > 1:
+            # chip index c's all-to-all runs between same-index peers,
+            # each on its own card: one data group a chip index
+            rt.chip_groups = [dist.new_group(backend=backend,
+                                             timeout=rt.torch_timeout())
+                              for _ in range(nlocal)]
     # arm MRTPU_FAULTS here: workers drive the collectives directly
     from ..ft.inject import configure_from_env
     configure_from_env()
@@ -532,28 +561,78 @@ def barrier_count() -> int:
     return int(t.item())
 
 
-def all_to_all_rows(tensors, counts_mat: np.ndarray, cap_out: int) -> list:
-    """Each of ``tensors`` (this rank's rows sorted by destination, on
-    its device) to the other ranks: ``counts_mat[rank, d]`` rows to rank
-    d, ``counts_mat[s, rank]`` rows from rank s, laid out by source rank
-    in ``cap_out`` rows padded with zeros.  One ``all_to_all_single`` a
-    tensor; the call returns once the rows have arrived."""
+def all_to_all_rows(blocks, counts_mat: np.ndarray, cap_out: int) -> list:
+    """This rank's local blocks ``[(keys, values), ...]`` (each local
+    shard's rows sorted by destination, on its device) to their
+    destination shards over a ``(world, L)`` mesh of ``P = world·L``
+    shards (``counts_mat`` ``[P, P]``): for each chip index c, local
+    copies first gather every local block's rows for the shards
+    ``(r', c)`` on local shard c, then one ``all_to_all_single`` a
+    column moves them between the ranks' shards of index c.  Each
+    destination's rows are laid out by source rank, then by the
+    source's local index (the flat source order), in ``cap_out`` rows
+    padded with zeros.  Returns the L ``(keys, values)`` blocks once the
+    rows have arrived."""
     rt = _require_active()
-    send = counts_mat[rt.rank, :].astype(np.int64).tolist()
-    recv = counts_mat[:, rt.rank].astype(np.int64).tolist()
-    n = int(sum(recv))
+    W, L, r = rt.world, len(blocks), rt.rank
+    src_off = np.concatenate([np.zeros((W * L, 1), np.int64),
+                              np.cumsum(counts_mat, axis=1)], axis=1)
+    srcs = [r * L + l for l in range(L)]
     outs = []
-    for t in tensors:
-        out = t.new_zeros((cap_out,) + tuple(t.shape[1:]))
-        if rt.world == 1:
-            out[:n] = t[:n]
-        else:
-            import torch.distributed as dist
-            dist.all_to_all_single(out[:n], t.contiguous(), recv, send)
-        outs.append(out)
-    if rt.device.type == "cuda":
-        torch.cuda.synchronize(rt.device)
+    for c in range(L):
+        dests = [rr * L + c for rr in range(W)]
+        send = [int(counts_mat[srcs, dd].sum()) for dd in dests]
+        recv = [int(counts_mat[rr * L:(rr + 1) * L, r * L + c].sum())
+                for rr in range(W)]
+        n = int(sum(recv))
+        dev = rt.devices[c]
+        out = []
+        for j in range(2):
+            if L == 1:
+                stage = blocks[0][j].contiguous()
+            else:       # the hop inside the rank, to local shard c
+                stage = _gather_rows(
+                    [(blocks[l][j], int(src_off[s, dd]),
+                      int(counts_mat[s, dd]))
+                     for dd in dests for l, s in enumerate(srcs)], dev)
+            t = stage.new_zeros((cap_out,) + tuple(stage.shape[1:]))
+            if W == 1:
+                t[:n] = stage[:n]
+            else:
+                import torch.distributed as dist
+                group = rt.chip_groups[c] if rt.chip_groups else None
+                # rows travel as their bytes: gloo has no int16 (a
+                # uint16 wire pack)
+                dist.all_to_all_single(_row_bytes(t)[:n],
+                                       _row_bytes(stage), recv, send,
+                                       group=group)
+            out.append(t)
+        outs.append(tuple(out))
+    for dev in set(rt.devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return outs
+
+
+def _row_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous ``[n, ...]`` tensor's rows as ``[n, rowbytes]`` uint8,
+    sharing its memory."""
+    rowbytes = t.element_size() * int(np.prod(t.shape[1:], dtype=np.int64))
+    return t.view(torch.uint8).reshape(t.shape[0], rowbytes)
+
+
+def _gather_rows(parts, device) -> torch.Tensor:
+    """``(tensor, start, n)`` slices joined in order on ``device``."""
+    t0 = parts[0][0]
+    total = sum(n for _, _, n in parts)
+    out = torch.empty((total,) + tuple(t0.shape[1:]), dtype=t0.dtype,
+                      device=device)
+    at = 0
+    for t, lo, n in parts:
+        if n:
+            out[at:at + n].copy_(t[lo:lo + n], non_blocking=True)
+            at += n
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -562,14 +641,15 @@ def all_to_all_rows(tensors, counts_mat: np.ndarray, cap_out: int) -> list:
 
 @dataclass
 class RankKV:
-    """This rank's block of a KV frame over the process group: ``shard``
-    holds the rank's rows at the global cap (``round_cap`` of the largest
-    count) on its device, and ``counts[P]`` every rank's valid count,
-    agreed by all.  It is the one-controller mesh frame's shard
-    ``rank``, held by the process that owns it."""
+    """This rank's blocks of a KV frame over the process group: ``shards``
+    holds the rank's L local shards (flat ids ``rank·L … rank·L + L −
+    1``), each at the global cap (``round_cap`` of the largest count) on
+    its device, and ``counts[P]`` every shard's valid count, agreed by
+    all.  Local shard l is the one-controller mesh frame's shard
+    ``rank·L + l``, held by the process that owns it."""
 
     rank: int
-    shard: ShardedKV
+    shards: List[ShardedKV]
     counts: np.ndarray
     exchange_stats: object = field(default=None, compare=False)
     sync_seconds: dict = field(default=None, compare=False)
@@ -579,47 +659,74 @@ class RankKV:
         return int(self.counts.shape[0])
 
     @property
+    def nlocal(self) -> int:
+        return len(self.shards)
+
+    @property
+    def shard_ids(self) -> range:
+        L = self.nlocal
+        return range(self.rank * L, (self.rank + 1) * L)
+
+    @property
+    def shard(self) -> ShardedKV:
+        """The rank's one block (a rank holding one shard)."""
+        if self.nlocal != 1:
+            raise MRError(f"rank {self.rank} holds {self.nlocal} shards; "
+                          f"read them from .shards")
+        return self.shards[0]
+
+    @property
     def cap(self) -> int:
-        return self.shard.cap
+        return self.shards[0].cap
 
     @property
     def device(self) -> torch.device:
-        return self.shard.device
+        return self.shards[0].device
 
     @property
     def key_dtype(self):
-        return self.shard.key_dtype
+        return self.shards[0].key_dtype
 
     @property
     def value_dtype(self):
-        return self.shard.value_dtype
+        return self.shards[0].value_dtype
 
     @property
     def key_decode(self):
-        return self.shard.key_decode
+        return self.shards[0].key_decode
 
     @property
     def value_decode(self):
-        return self.shard.value_decode
+        return self.shards[0].value_decode
 
     def __len__(self) -> int:
         return int(self.counts.sum())
 
     def shard_to_host(self, p: int) -> KVFrame:
-        """Host KVFrame of this rank's valid rows; another rank's shard
-        lives in another process."""
-        if p != self.rank:
-            raise MRError(f"shard {p} of a rank frame lives on rank {p}; "
-                          f"this is rank {self.rank}")
-        return self.shard.to_host()
+        """Host KVFrame of local shard p's valid rows; another rank's
+        shard lives in another process."""
+        if p not in self.shard_ids:
+            owner = p // self.nlocal
+            raise MRError(f"shard {p} of a rank frame lives on rank "
+                          f"{owner}; this is rank {self.rank}")
+        return self.shards[p - self.shard_ids.start].to_host()
 
     def valid_rows(self):
-        """This rank's valid (key, value) rows on its device."""
-        return self.shard.valid_rows()
+        """This rank's valid (key, value) rows on its first device, local
+        shards in order."""
+        if self.nlocal == 1:
+            return self.shards[0].valid_rows()
+        rows = [s.valid_rows() for s in self.shards]
+        return tuple(torch.cat([r[c].to(self.device) for r in rows])
+                     for c in (0, 1))
 
     def __repr__(self):
-        return (f"RankKV(rank={self.rank}, cap={self.cap}, "
-                f"counts={self.counts.tolist()}, device={self.device})")
+        if self.nlocal == 1:
+            return (f"RankKV(rank={self.rank}, cap={self.cap}, "
+                    f"counts={self.counts.tolist()}, device={self.device})")
+        return (f"RankKV(rank={self.rank}, shards={list(self.shard_ids)}, "
+                f"cap={self.cap}, counts={self.counts.tolist()}, "
+                f"devices={[str(s.device) for s in self.shards]})")
 
 
 def _place_rows(rows, device, dtype):
@@ -643,26 +750,34 @@ def _place_rows(rows, device, dtype):
 
 def shard_local_rows(local_rows, counts, key_dtype=None,
                      value_dtype=None) -> RankKV:
-    """This rank's ``(keys, values)`` as its block of a frame over the
-    process group (JAX ``shard_local_rows``): ``counts[P]`` is every
-    rank's valid count, agreed by all; the block is padded with zeros to
-    the common cap, on the rank's device.  Tensors may carry u64 as
-    int64 bits: ``key_dtype``/``value_dtype`` name the logical dtype."""
+    """This rank's rows as its blocks of a frame over the process group
+    (JAX ``shard_local_rows``): ``local_rows`` is a list of ``(keys,
+    values)`` blocks, one a local shard in shard order (a rank holding
+    one shard may pass the pair itself); ``counts[P]`` is every shard's
+    valid count, agreed by all.  Each block is padded with zeros to the
+    common cap, on its shard's device.  Tensors may carry u64 as int64
+    bits: ``key_dtype``/``value_dtype`` name the logical dtype."""
     rt = _require_active()
+    L = len(rt.devices)
+    blocks = local_rows if isinstance(local_rows, list) else [local_rows]
     counts = np.asarray(counts, np.int64).reshape(-1)
-    if counts.shape[0] != rt.world:
-        raise MRError(f"shard_local_rows: {counts.shape[0]} counts for a "
-                      f"world of {rt.world}")
-    keys, values = local_rows
-    k, kd = _place_rows(keys, rt.device, key_dtype)
-    v, vd = _place_rows(values, rt.device, value_dtype)
-    n = int(counts[rt.rank])
-    if k.shape[0] != n or v.shape[0] != n:
-        raise MRError(f"shard_local_rows: rank {rt.rank} holds "
-                      f"{k.shape[0]} keys and {v.shape[0]} values, its "
-                      f"count says {n}")
+    if counts.shape[0] != rt.world * L:
+        raise MRError(f"shard_local_rows: {counts.shape[0]} counts for "
+                      f"{rt.world} rank(s) of {L} shard(s)")
+    if len(blocks) != L:
+        raise MRError(f"shard_local_rows: {len(blocks)} local blocks for "
+                      f"{L} local shard(s)")
     cap = round_cap(int(counts.max()) if counts.size else 0)
-    shard = ShardedKV(pad_rows(k, cap), pad_rows(v, cap),
-                      np.array([n], np.int32), kd, vd)
-    return RankKV(rt.rank, shard, counts.astype(np.int32))
-
+    shards = []
+    for l, ((keys, values), dev) in enumerate(zip(blocks, rt.devices)):
+        k, kd = _place_rows(keys, dev, key_dtype)
+        v, vd = _place_rows(values, dev, value_dtype)
+        p = rt.rank * L + l
+        n = int(counts[p])
+        if k.shape[0] != n or v.shape[0] != n:
+            raise MRError(f"shard_local_rows: shard {p} of rank {rt.rank} "
+                          f"holds {k.shape[0]} keys and {v.shape[0]} "
+                          f"values, its count says {n}")
+        shards.append(ShardedKV(pad_rows(k, cap), pad_rows(v, cap),
+                                np.array([n], np.int32), kd, vd))
+    return RankKV(rt.rank, shards, counts.astype(np.int32))

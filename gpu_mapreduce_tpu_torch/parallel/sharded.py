@@ -90,6 +90,16 @@ def round_cap(n: int) -> int:
     return cap
 
 
+def narrowest_uint(maxval: int):
+    """(dtype name, itemsize) of the narrowest unsigned dtype holding
+    ``maxval``: the wire codec's width rule (JAX parallel/sharded.py:119,
+    beside :func:`round_cap`)."""
+    for name, width in (("uint8", 1), ("uint16", 2), ("uint32", 4)):
+        if maxval <= (1 << (8 * width)) - 1:
+            return name, width
+    return "uint64", 8
+
+
 @dataclass
 class ShardedKV:
     """KV frame on one device: ``key``/``value`` [cap] + ``counts`` [1]."""

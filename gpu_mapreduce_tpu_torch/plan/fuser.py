@@ -6,10 +6,13 @@ fusible run of stages as one group:
 
 * ``[aggregate, convert(, reduce(kernel, batch))]`` on a mesh of P > 1
   is an exchange group (``_exec_exchange_group``): phase 1 of the
-  exchange and its count-matrix pull (``parallel/shuffle.phase1``), the
-  one planning step the eager exchange takes (``plan_from_pull``), then
-  phase 2 and the group body (``parallel/group.fused_group_shards``) on
-  every shard.  Without a kernel reduce the group ends in a grouped KMV.
+  exchange and its count- and stats-matrix pull
+  (``parallel/shuffle.phase1``), the one planning step the eager
+  exchange takes (``wire.plan_from_pull``, under the wire codec unless
+  ``MRTPU_WIRE=0``), then phase 2 (packed columns decoded at the
+  destination under a wire plan) and the group body
+  (``parallel/group.fused_group_shards``) on every shard.  Without a
+  kernel reduce the group ends in a grouped KMV.
 * ``[convert, reduce(kernel, batch)]`` on a device frame, of one device
   or a mesh, is a local group (``_exec_local_group``): the group body on
   every shard.
@@ -28,10 +31,12 @@ Both kinds run cold or warm:
   ``MRTPU_PALLAS_GROUP``) the group table with T = ``table_slots(gcap)``
   on every shard — the JAX package's megafused warm arithmetic, without
   its single dispatch.  The speculation check follows: a cached plan
-  that no longer holds every row (checked before phase 2, which could
-  not place them), a table overflow or a shard with more groups than
-  gcap throws the result away, pops the entry and runs the group again
-  cold.  A warm entry ≥4× too large is right-sized for the next run.
+  that no longer holds every row or whose pack widths no longer hold
+  the bucket ranges (``wire.plan_holds``, checked before phase 2, which
+  could not place them), a table overflow or a shard with more groups
+  than gcap throws the result away, pops the entry and runs the group
+  again cold.  A warm entry ≥4× too large, or whose plan's tag differs
+  from the fresh one's, is right-sized for the next run.
 
 A host frame reaching an exchange group is placed and split over the
 mesh first, byte and object columns interned, as the eager aggregate
@@ -45,9 +50,9 @@ group's output.  ``last_exchange``, the ``cssize``/``cspad`` counters and
 Fusion breaks where the JAX package breaks it (``_fusible_kv``): under
 ``outofcore=1`` (pages spill, a device KV over the budget demotes), on an
 open MR and on an empty KV every stage replays through the ordinary op.
-Left out against the JAX fuser: the single-dispatch megafusion, the wire
-codec, the persistent plan tier, buffer donation, the fault-retry
-wrapper and the tracer spans.
+Left out against the JAX fuser: the single-dispatch megafusion, the
+persistent plan tier, buffer donation, the fault-retry wrapper and the
+tracer spans.
 """
 
 from __future__ import annotations
@@ -64,8 +69,8 @@ from .ir import Plan, PlanStage, frame_signature
 @dataclass
 class CompiledPlan:
     """Cached state of one plan key: per group index, the exchange plan
-    its last cold run took (``caps``: gidx → ``("raw", B, nrounds,
-    cap_out)``) and what a warm run uses (``mega``: gidx → ``("x", plan,
+    its last cold run took (``caps``: gidx → a ``parallel/wire.py`` plan
+    tuple) and what a warm run uses (``mega``: gidx → ``("x", plan,
     gcap)`` for an exchange group, ``("l", gcap)`` for a local one)."""
     caps: dict = field(default_factory=dict)
     mega: dict = field(default_factory=dict)
@@ -254,17 +259,18 @@ def _exec_exchange_group(mr, stages, reduce_op, compiled: CompiledPlan,
     group table ran."""
     from ..core.runtime import Timer
     from ..parallel import shuffle as sh
+    from ..parallel import wire
     from ..parallel.group import fused_group_shards
     t = Timer()
     out_kind = "kv" if reduce_op is not None else "kmv"
     ngroup = 2 if out_kind == "kv" else 3     # the group-indexed outputs
-    sorted_rows, counts_mat = sh.phase1(skv, ("hash", _agg_hash(stages[0])))
-    fresh, bmax, nmax, nrecvs = sh.plan_from_pull(counts_mat)
+    ph = sh.phase1(skv, ("hash", _agg_hash(stages[0])))
+    counts_mat, _ = ph.pull()
+    fresh, kvrange, bmax, nmax, nrecvs = ph.plan()
     transport = mr.settings.all2all
 
     def run(plan, gcap, cfg):
-        blocks = sh.phase2(skv, sorted_rows, counts_mat,
-                           sh.plan_cap_out(plan), transport)
+        blocks = sh.phase2(skv, ph, plan, transport)
         return fused_group_shards(blocks, nrecvs, gcap, out_kind, reduce_op,
                                   skv.key_dtype, skv.value_dtype, cfg)
 
@@ -272,17 +278,18 @@ def _exec_exchange_group(mr, stages, reduce_op, compiled: CompiledPlan,
     entry = compiled.mega.get(gidx)
     if entry is not None and entry[0] == "x":
         _tag, plan, gcap = entry
-        if sh.plan_holds(plan, bmax, nmax):
+        if wire.plan_holds(plan, bmax, nmax, kvrange):
             cfg = _table_cfg_for(skv.shards[0], out_kind, reduce_op, gcap)
             outs, gcounts, overflow = run(plan, gcap, cfg)
             gmax = int(gcounts.max())
             if overflow or gmax > gcap:
                 outs = None
-            elif (sh.plan_oversized(plan, bmax, nmax)
-                  or gcap > 4 * _gcap_for(gmax, sh.plan_cap_out(plan))):
+            elif (plan[0] != fresh[0]
+                  or wire.plan_oversized(plan, bmax, nmax)
+                  or gcap > 4 * _gcap_for(gmax, wire.plan_cap_out(plan))):
                 # right-size the entry for the next run; this one is exact
                 compiled.mega[gidx] = (
-                    "x", fresh, _gcap_for(gmax, sh.plan_cap_out(fresh)))
+                    "x", fresh, _gcap_for(gmax, wire.plan_cap_out(fresh)))
         if outs is None:
             # the speculation failed: discard and run the group cold
             compiled.mega.pop(gidx, None)
@@ -291,17 +298,19 @@ def _exec_exchange_group(mr, stages, reduce_op, compiled: CompiledPlan,
             mode = "exchange1"
     if outs is None:
         cached = compiled.caps.get(gidx)
-        if cached is not None and sh.plan_holds(cached, bmax, nmax) \
-                and not sh.plan_oversized(cached, bmax, nmax):
+        if cached is not None and cached[0] == fresh[0] \
+                and wire.plan_holds(cached, bmax, nmax, kvrange) \
+                and not wire.plan_oversized(cached, bmax, nmax):
             plan = cached
         else:
             plan = compiled.caps[gidx] = fresh
-        cap_out = sh.plan_cap_out(plan)
+        cap_out = wire.plan_cap_out(plan)
         outs, gcounts, _ = run(plan, cap_out, None)
         gmax = int(gcounts.max())
         outs = _maybe_compact(cap_out, gmax, outs, ngroup)
         compiled.mega[gidx] = ("x", plan, _gcap_for(gmax, cap_out))
-    mr.last_exchange = sh.exchange_stats(skv, counts_mat, plan, mr.counters)
+    mr.last_exchange = sh.exchange_stats(skv, counts_mat, plan, mr.counters,
+                                         speculative=mode == "exchange1")
     mr.counters.add(commtime=t.elapsed())
     ngroups = int(gcounts.sum())
     stages[0].result = int(counts_mat.sum())
@@ -379,14 +388,15 @@ def _backend_signature(mr) -> tuple:
 def execute_plan(mr, plan: Plan) -> None:
     """Fuse + run a recorded plan against mr's current dataset.  The
     cache key is (fingerprint, frame signature, device or mesh, all2all,
-    outofcore), as the JAX package keys it (its wire knob aside)."""
+    outofcore, ``MRTPU_WIRE``), as the JAX package keys it."""
+    from ..parallel.wire import wire_enabled
     kv = mr._kv_data
     frame = kv._frames[0] if kv is not None and kv.complete_done \
         and kv._frames else None
     try:
         key = (plan.fingerprint(), frame_signature(frame),
                _backend_signature(mr), mr.settings.all2all,
-               mr.settings.outofcore)
+               mr.settings.outofcore, wire_enabled())
         compiled = plan_cache().get(key)
     except TypeError:       # an unhashable stage argument: run uncached
         key, compiled = None, None

@@ -251,6 +251,20 @@ def test_topology_on_cards(monkeypatch):
                                     "gloo")
 
 
+def test_local_topology(monkeypatch):
+    """L shards a rank: W·L cards → NCCL, rank r's shards on cards
+    r·L + c; fewer → gloo on the shared cards; the CPU on request."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert D.local_topology(1, 2, "", 2) == (
+        [torch.device("cuda", 2), torch.device("cuda", 3)], "nccl", "nccl")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert D.local_topology(1, 2, "", 2) == (
+        [torch.device("cuda", 0)] * 2, "gloo", "gloo")
+    assert D.local_topology(0, 2, "cpu", 3) == (
+        [torch.device("cpu")] * 3, "gloo", "gloo")
+
+
 def test_init_from_env_refusals(monkeypatch, tmp_path):
     for k in list(os.environ):
         if k.startswith("MRTPU_DIST_"):
@@ -261,8 +275,14 @@ def test_init_from_env_refusals(monkeypatch, tmp_path):
     with pytest.raises(MRError, match="COORD"):
         D.init_from_env()
     monkeypatch.setenv("MRTPU_DIST_COORD", "localhost:1")
+    monkeypatch.setenv("MRTPU_DIST_LOCAL_DEVICES", "0")
+    with pytest.raises(MRError, match="one shard at least"):
+        D.init_from_env()
+    # a rank holding two shards is accepted and goes on to the topology,
+    # which finds no card here (and no --device cpu)
     monkeypatch.setenv("MRTPU_DIST_LOCAL_DEVICES", "2")
-    with pytest.raises(MRError, match="not ported yet"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MRError, match="no CUDA device"):
         D.init_from_env()
     assert D.active() is None
 
@@ -281,6 +301,7 @@ def test_rank_frame_refusals(tmp_path):
                                  np.ones(2, np.int64)), [3, 2])
         assert fr.cap == 8 and fr.counts.tolist() == [3, 2] and len(fr) == 5
         assert repr(fr) == "RankKV(rank=1, cap=8, counts=[3, 2], device=cpu)"
+        assert fr.device == torch.device("cpu")
         assert fr.shard_to_host(1).key.data.tolist() == [5, (1 << 64) - 1]
         with pytest.raises(MRError, match="rank 0"):
             fr.shard_to_host(0)
@@ -532,19 +553,12 @@ def _jax_exchange(case, k, v, W):
             for p in range(W)], out.counts
 
 
-class _Forget(dict):
-    """A speculative-caps cache that keeps nothing (the port has none)."""
-
-    def __setitem__(self, key, value):
-        pass
-
-
 @pytest.mark.parametrize("W", [2, 3])
 def test_rank_exchange_matches_jax_mesh(W, tmp_path, monkeypatch):
     """W CPU processes over gloo: each rank's received block equals the
     JAX make_mesh(W) exchange's shard, byte for byte with its padding."""
     monkeypatch.setenv("MRTPU_WIRE", "0")
-    monkeypatch.setattr(jshuffle, "_SPEC_CACHE", _Forget())
+    monkeypatch.setattr(jshuffle, "_SPEC_CACHE", {})
     cases, arrs = _cases(W)
     d = str(tmp_path)
     np.savez(os.path.join(d, "inputs.npz"), cases=json.dumps(cases), **arrs)
@@ -587,3 +601,141 @@ def test_rank_exchange_matches_jax_mesh(W, tmp_path, monkeypatch):
         rows = np.concatenate([got[r]["flat_range_k"][:int(
             got[r]["flat_range_c"][r])] for r in range(W)])
         np.testing.assert_array_equal(rows, arrs["flat_range_k"])
+
+
+# -- ranks holding several shards ---------------------------------------------
+
+def test_rank_frame_of_two_shards(tmp_path):
+    """One rank of a world of 1 holding two shards: its blocks, repr and
+    host rows, and its exchange equal the one-process make_mesh(2)'s,
+    shard by shard (the hop inside the rank alone)."""
+    from gpu_mapreduce_tpu_torch.core.frame import KVFrame
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.parallel.sharded import \
+        shard_frame_with_counts
+    from gpu_mapreduce_tpu_torch.parallel.shuffle import exchange
+    rt = D.DistRuntime(0, 1, str(tmp_path), devices=["cpu", "cpu"])
+    prev = D.activate(rt)
+    try:
+        k = np.array([5, (1 << 64) - 1, 9, 1 << 63, 3], np.uint64)
+        v = np.arange(5, dtype=np.int64) - 2
+        with pytest.raises(MRError, match="local blocks"):
+            D.shard_local_rows((k, v), [3, 2])
+        fr = D.shard_local_rows([(k[:3], v[:3]), (k[3:], v[3:])], [3, 2])
+        assert fr.nlocal == 2 and list(fr.shard_ids) == [0, 1]
+        assert repr(fr) == ("RankKV(rank=0, shards=[0, 1], cap=8, "
+                            "counts=[3, 2], devices=['cpu', 'cpu'])")
+        assert fr.shard_to_host(1).key.data.tolist() == [1 << 63, 3]
+        with pytest.raises(MRError, match="2 shards"):
+            fr.shard
+        for wire in ("0", "1"):
+            os.environ["MRTPU_WIRE"] = wire
+            try:
+                got = exchange(fr, ("hash", None))
+                want = exchange(shard_frame_with_counts(
+                    KVFrame(k, v), make_mesh(2, devices=["cpu"] * 2),
+                    [3, 2]), ("hash", None))
+            finally:
+                del os.environ["MRTPU_WIRE"]
+            assert got.counts.tolist() == want.counts.tolist()
+            for a, b in zip(got.shards, want.shards):
+                assert a.cap == b.cap and a.key.equal(b.key) \
+                    and a.value.equal(b.value)
+    finally:
+        D.activate(prev)
+
+
+RANK_LOCAL = textwrap.dedent("""
+    import json, os, sys
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.ops.bits import to_numpy
+    from gpu_mapreduce_tpu_torch.parallel import dist as D
+    from gpu_mapreduce_tpu_torch.parallel.shuffle import exchange
+    rt = D.init_from_env()
+    d = sys.argv[1]
+    L = len(rt.devices)
+    with np.load(os.path.join(d, "inputs.npz")) as z:
+        cases = json.loads(str(z["cases"]))
+        arrs = {k: z[k] for k in z.files if k != "cases"}
+    out = {}
+    for wire in ("0", "1"):
+        os.environ["MRTPU_WIRE"] = wire
+        for name, case in cases.items():
+            counts = np.asarray(case["counts"])
+            offs = np.concatenate([[0], np.cumsum(counts)])
+            blocks = [(arrs[name + "_k"][offs[p]:offs[p + 1]],
+                       arrs[name + "_v"][offs[p]:offs[p + 1]])
+                      for p in range(rt.rank * L, (rt.rank + 1) * L)]
+            fr = D.shard_local_rows(blocks, counts)
+            dest = case["dest"]
+            dest = ("hash", None) if dest[0] == "hash" else \\
+                ("range", tuple(dest[1]), tuple(dest[2]))
+            res = exchange(fr, dest)
+            for l, s in enumerate(res.shards):
+                tag = f"{wire}_{name}_{l}"
+                out[tag + "_k"] = to_numpy(s.key, res.key_dtype)
+                out[tag + "_v"] = to_numpy(s.value, res.value_dtype)
+            out[f"{wire}_{name}_c"] = res.counts
+            st = res.exchange_stats
+            out[f"{wire}_{name}_st"] = np.array(
+                [st.nrounds, st.bucket, st.cap_out, st.wire_bytes])
+    np.savez(os.path.join(d, f"out{rt.rank}.npz"), **out)
+    rt.stop()
+    os._exit(0)
+""")
+
+
+def test_two_ranks_of_two_shards_match_jax_mesh(tmp_path, monkeypatch):
+    """2 CPU processes over gloo, two shards each: every rank's blocks
+    equal the JAX make_mesh(4) exchange's shards r·2 and r·2 + 1, byte
+    for byte with their padding, codec off and on (cold caches)."""
+    W, L = 2, 2
+    cases, arrs = _cases(W * L)                  # the last shard empty
+    # values of a range past 255: a uint16 pack (gloo has no int16)
+    cases["u16_hash"] = dict(cases["flat_hash"])
+    arrs["u16_hash_k"] = arrs["flat_hash_k"]
+    arrs["u16_hash_v"] = np.random.default_rng(3).integers(
+        0, 5000, len(arrs["flat_hash_v"])).astype(np.int64)
+    d = str(tmp_path)
+    np.savez(os.path.join(d, "inputs.npz"), cases=json.dumps(cases), **arrs)
+    port = launch.pick_port()
+    procs = []
+    for r in range(W):
+        env = dict(os.environ, PYTHONPATH=ROOT, MRTPU_DIST_WORLD=str(W),
+                   MRTPU_DIST_RANK=str(r), MRTPU_DIST_LOCAL_DEVICES=str(L),
+                   MRTPU_DIST_COORD=f"localhost:{port}",
+                   MRTPU_DIST_RUNDIR=os.path.join(d, "run"),
+                   MRTPU_DIST_DEVICE="cpu", OMP_NUM_THREADS="1")
+        env.pop("MRTPU_FAULTS", None)
+        procs.append(subprocess.Popen([sys.executable, "-c", RANK_LOCAL, d],
+                                      env=env, cwd=ROOT,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT))
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0] * W, \
+        b"\n".join(o[-1500:] for o in outs).decode(errors="replace")
+    got = [np.load(os.path.join(d, f"out{r}.npz")) for r in range(W)]
+    for wire in ("0", "1"):
+        monkeypatch.setenv("MRTPU_WIRE", wire)
+        for name, case in cases.items():
+            monkeypatch.setattr(jshuffle, "_SPEC_CACHE", {})
+            want, wcounts = _jax_exchange(case, arrs[name + "_k"],
+                                          arrs[name + "_v"], W * L)
+            for r in range(W):
+                assert got[r][f"{wire}_{name}_c"].tolist() == \
+                    wcounts.tolist(), name
+                for l in range(L):
+                    tag = f"{wire}_{name}_{l}"
+                    wk, wv = want[r * L + l]
+                    np.testing.assert_array_equal(got[r][tag + "_k"], wk,
+                                                  err_msg=tag)
+                    np.testing.assert_array_equal(got[r][tag + "_v"], wv,
+                                                  err_msg=tag)
+        if wire == "1":
+            assert got[0]["1_flat_hash_st"][3] > 0    # the codec ran
+            assert got[0]["1_u16_hash_st"][3] > 0

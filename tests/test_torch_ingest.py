@@ -25,6 +25,7 @@ from gpu_mapreduce_tpu_torch.oink.kernels import read_words
 from gpu_mapreduce_tpu_torch.ops.bits import to_numpy
 from gpu_mapreduce_tpu_torch.ops.reduces import count
 from gpu_mapreduce_tpu_torch.parallel.ingest import balance_by_bytes
+from gpu_mapreduce_tpu_torch.parallel import shuffle as tshuffle
 from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
 from gpu_mapreduce_tpu_torch.parallel.sharded import MeshKV
 
@@ -67,6 +68,7 @@ def test_map_files_per_shard_matches_jax(corpus, P):
     aggregate, convert and count."""
     files, oracle = corpus
     jshuffle._SPEC_CACHE.clear()
+    tshuffle._SPEC_CACHE.clear()
     jmr, tmr = JMapReduce(j_make_mesh(P)), MapReduce(comm=tmesh(P))
     assert jmr.map_files(files, j_read_words) == \
         tmr.map_files(files, read_words) == sum(oracle.values())
@@ -112,6 +114,7 @@ def test_wordfreq_mesh_matches_jax_and_serial(corpus, P):
     from gpu_mapreduce_tpu_torch.apps.wordfreq import wordfreq
     files, oracle = corpus
     jshuffle._SPEC_CACHE.clear()
+    tshuffle._SPEC_CACHE.clear()
     got = wordfreq(files, ntop=7, comm=tmesh(P))
     want = j_wordfreq(files, ntop=7, comm=j_make_mesh(P))
     assert got == want
@@ -125,6 +128,7 @@ def test_wordfreq_interned_mesh_matches_jax(corpus, P):
     from gpu_mapreduce_tpu_torch.apps.wordfreq import wordfreq_interned
     files, oracle = corpus
     jshuffle._SPEC_CACHE.clear()
+    tshuffle._SPEC_CACHE.clear()
     got = wordfreq_interned(files, 7, comm=tmesh(P))
     assert got == j_wfi(files, 7, comm=j_make_mesh(P))
     assert got[:2] == (sum(oracle.values()), len(oracle))
@@ -150,6 +154,8 @@ def test_map_file_char_chunks_match_jax(corpus, P, mapstyle):
         return fn
 
     jshuffle._SPEC_CACHE.clear()
+
+    tshuffle._SPEC_CACHE.clear()
     jmr = JMapReduce(j_make_mesh(P), mapstyle=mapstyle)
     tmr = MapReduce(comm=tmesh(P), mapstyle=mapstyle)
     assert jmr.map_file_char(16, files, 0, 0, " ", 16, cb("j")) == \
@@ -227,6 +233,7 @@ def test_object_keys_mesh_match_jax(tmp_path, P):
     from gpu_mapreduce_tpu_torch.ops.reduces import sum_values
     from gpu_mapreduce_tpu.ops.reduces import sum_values as j_sum_values
     jshuffle._SPEC_CACHE.clear()
+    tshuffle._SPEC_CACHE.clear()
     jmr, tmr = JMapReduce(j_make_mesh(P)), MapReduce(comm=tmesh(P))
     assert jmr.map_files(files, emit) == tmr.map_files(files, emit) == 12
     assert tmr.last_ingest["mode"] == "mesh"
@@ -269,6 +276,7 @@ def test_lopsided_ingest_resplits_evenly(corpus):
     in order, as the JAX ingest does."""
     files, _ = corpus
     jshuffle._SPEC_CACHE.clear()
+    tshuffle._SPEC_CACHE.clear()
     jmr, tmr = JMapReduce(j_make_mesh(8)), MapReduce(comm=tmesh(8))
     jmr.map_files(files[:1], j_read_words)
     tmr.map_files(files[:1], read_words)

@@ -26,9 +26,10 @@ from gpu_mapreduce_tpu.oink.script import OinkScript as JOinkScript
 from gpu_mapreduce_tpu.parallel import shuffle as jshuffle
 from gpu_mapreduce_tpu.parallel.mesh import make_mesh as j_make_mesh
 from gpu_mapreduce_tpu_torch import OinkScript
+from gpu_mapreduce_tpu_torch.parallel import shuffle as tshuffle
 from gpu_mapreduce_tpu_torch.parallel.sharded import MeshKV
 
-from test_torch_mesh_oink import NoSpeculation, _drive, _files
+from test_torch_mesh_oink import _drive, _files
 from test_torch_parallel import same_kv, tmesh
 
 P = 3
@@ -72,7 +73,8 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("mesh_composed")
     got = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jshuffle, "_SPEC_CACHE", NoSpeculation())
+        mp.setattr(jshuffle, "_SPEC_CACHE", {})
+        mp.setattr(tshuffle, "_SPEC_CACHE", {})
         mp.setenv("MRTPU_WIRE", "0")
         for env, _ in ENGINES.values():
             mp.setenv(env, "composed")

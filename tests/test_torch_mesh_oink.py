@@ -42,6 +42,7 @@ from gpu_mapreduce_tpu_torch.models import luby as tluby
 from gpu_mapreduce_tpu_torch.models import pagerank as tpr
 from gpu_mapreduce_tpu_torch.models import sssp as tsssp
 from gpu_mapreduce_tpu_torch.oink.command import COMMANDS
+from gpu_mapreduce_tpu_torch.parallel import shuffle as tshuffle
 from gpu_mapreduce_tpu_torch.parallel.collectives import (allreduce,
                                                           per_device,
                                                           replicate)
@@ -82,13 +83,6 @@ SCRIPT = [
     ("invertedindex", "invertedindex -i v_docs -o tmp.ii NULL", []),
 ]
 DEGREE_WEIGHT = "degree_weight -i tmp.upper.* tmp.deg.* -o tmp.dw NULL"
-
-
-class NoSpeculation(dict):
-    """A speculative-caps cache that never keeps a plan."""
-
-    def __setitem__(self, key, value):
-        pass
 
 
 def _inputs(d):
@@ -140,7 +134,8 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("mesh_oink")
     got = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jshuffle, "_SPEC_CACHE", NoSpeculation())
+        mp.setattr(jshuffle, "_SPEC_CACHE", {})
+        mp.setattr(tshuffle, "_SPEC_CACHE", {})
         mp.setenv("MRTPU_WIRE", "0")
         for side in ("jax", "port"):
             d = root / side
@@ -303,7 +298,8 @@ def test_rmat_layout_matches_jax_at_two_sizes(runs, scale):
         line = f"rmat {scale} 4 0.57 0.19 0.19 0.05 0.0 99 -o NULL x"
         pulls = []
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jshuffle, "_SPEC_CACHE", NoSpeculation())
+            mp.setattr(jshuffle, "_SPEC_CACHE", {})
+            mp.setattr(tshuffle, "_SPEC_CACHE", {})
             j = JOinkScript(comm=j_make_mesh(P), screen=False)
             t = OinkScript(comm=tmesh(P), screen=False)
             j.one(line)

@@ -63,6 +63,7 @@ def oracle_pairs(ntasks=6):
 def both(P, **settings):
     """A JAX and a port MapReduce over P shards (exchange caps cold)."""
     jshuffle._SPEC_CACHE.clear()
+    tshuffle._SPEC_CACHE.clear()
     return (JMapReduce(j_make_mesh(P), **settings),
             MapReduce(comm=tmesh(P), **settings))
 
@@ -297,6 +298,7 @@ def test_gather_and_broadcast_match_jax(P):
         mr.aggregate()
     for n in (2, 1):
         jshuffle._SPEC_CACHE.clear()
+        tshuffle._SPEC_CACHE.clear()
         assert jmr.gather(n) == tmr.gather(n) == 3000
         same_kv(jmr, tmr)
     assert jmr.broadcast(0) == tmr.broadcast(0) == 3000 * P
@@ -318,6 +320,7 @@ def test_gather_reference_mod_layout(P):
         for k in to_numpy(s.key[:int(s.counts[0])], np.uint64).tolist():
             owner[k] = p
     jshuffle._SPEC_CACHE.clear()
+    tshuffle._SPEC_CACHE.clear()
     jmr.gather(2)
     tmr.gather(2)
     same_kv(jmr, tmr)
@@ -426,6 +429,7 @@ def test_skewed_exchange_matches_jax(all2all, skew, monkeypatch):
     from gpu_mapreduce_tpu_torch.parallel.sharded import shard_frame_mesh
     monkeypatch.setenv("MRTPU_WIRE", "0")
     jshuffle._SPEC_CACHE.clear()
+    tshuffle._SPEC_CACHE.clear()
     rng = np.random.default_rng(99)
     hub = np.zeros(2000, np.uint64)              # dest 0 by key % 8
     mult = 8 if skew == "one_shard" else 1       # tail to 0 or to 1..7
@@ -540,6 +544,7 @@ def test_interop_exchanged_frame_equals_jax(monkeypatch):
     JAX exchange of the same frame, shard by shard."""
     monkeypatch.setenv("MRTPU_WIRE", "0")
     jshuffle._SPEC_CACHE.clear()
+    tshuffle._SPEC_CACHE.clear()
     jmr = JMapReduce(j_make_mesh(3))
     jmr.map(6, emit)
     jmr.aggregate()

@@ -19,6 +19,7 @@ from gpu_mapreduce_tpu.parallel.reshard import even_counts as j_even_counts
 from gpu_mapreduce_tpu_torch import MapReduce
 from gpu_mapreduce_tpu_torch.core.frame import KMVFrame, KVFrame
 from gpu_mapreduce_tpu_torch.parallel import reshard
+from gpu_mapreduce_tpu_torch.parallel import shuffle as tshuffle
 from gpu_mapreduce_tpu_torch.parallel.sharded import (MeshKMV, MeshKV,
                                                       ShardedKV)
 
@@ -27,17 +28,11 @@ from test_torch_parallel import emit, one, same_kmv, same_kv, tmesh
 WIDTHS = (2, 5, 3)
 
 
-class _Forget(dict):
-    """A speculative-caps cache that keeps nothing (the port has none)."""
-
-    def __setitem__(self, key, value):
-        pass
-
-
 @pytest.fixture(autouse=True)
 def _raw_jax_exchange(monkeypatch):
     monkeypatch.setenv("MRTPU_WIRE", "0")
-    monkeypatch.setattr(jshuffle, "_SPEC_CACHE", _Forget())
+    monkeypatch.setattr(jshuffle, "_SPEC_CACHE", {})
+    monkeypatch.setattr(tshuffle, "_SPEC_CACHE", {})
 
 
 def _pair(fn=emit, ntasks=6, op="aggregate"):
