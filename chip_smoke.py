@@ -215,6 +215,34 @@ nonzero):
               2^16 rows on the card and on CPU shards, byte-equal.  One
               line a cell and one ``wire`` line.
 
+14. ft      — fault tolerance on the card: each case fault-free, then
+              under the JAX golden's schedule (every fault site, rate 1,
+              seed 11, one fault a site, budget 3; MRTPU_RETRY_BACKOFF
+              2 ms).  ft-main: InvertedIndex over the main corpus
+              (make_mesh(1), onfault=retry), npairs, nunique and the
+              part file equal.  ft-wordfreq-p4: map_files → collate →
+              reduce count → save → load over the zipf files at P = 4,
+              rows and reloaded rows byte-equal, faults at ingest.read,
+              ingest.tokenize, shuffle.exchange and checkpoint.save,
+              stats()["ft"] equal to fault_counts().  ft-fuse-p4: the
+              fused IntCount chain cold then warm, equal shard by shard,
+              seg_table 0 launches in the faulted warm attempt and 4 in
+              the successful one.  ft-ooc: the ooc cell's descending
+              external sort with spill.write and spill.read armed, rows
+              equal.  ft-quarantine: the wordfreq-p4 job under
+              onfault=skip with one file a dangling link, one
+              quarantine record naming it, counts equal to the other
+              three files'.  ft-resume: the graph script journaled in a
+              child (``chip_smoke.py --ft-graph-child``), SIGKILLed after
+              the checkpoint that follows pagerank, resumed in a fresh
+              child: cc labels, degree_stats and cc_stats lines equal to
+              the graph phase's, PageRank at rtol 1e-5 and ±1 step, only
+              the tail re-run; seconds a command and a checkpoint set.
+              ft-partition: ``-partition 2x2`` through the OINK command
+              line, a wordfreq over two zipf files a world and a shell
+              line, the counts summed equal the generator's.  One
+              ``ft-case`` line a case and one ``ft`` line.
+
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
 result when no CUDA device is present.  Imports nothing of JAX.
@@ -1156,7 +1184,8 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     card-vs-CPU check; wordfreq-p4 (the mesh phase's) runs on the zipf
     corpus.  Returns (the wordfreq phase records by cell, the seg_table
     record, the chunk-map record, the text-check record, the wordfreq-p4
-    record)."""
+    record, and the zipf files with their oracle, kept for the ft
+    phase)."""
     t0 = time.perf_counter()
     zdir = os.path.join(tmp, "zipf")
     os.makedirs(zdir)
@@ -1165,7 +1194,7 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     t0 = time.perf_counter()
     words = [vbuf[voffs[i]:voffs[i + 1]].tobytes()
              for i in range(len(voffs) - 1)]
-    oracle = wordfreq_oracle(words, counts, len(zpaths))
+    oracle = oracle_z = wordfreq_oracle(words, counts, len(zpaths))
     del words, counts, vbuf, voffs
     emit({"phase": "wordfreq-zipf-corpus", "mb": WF_MB,
           "bytes": sum(os.path.getsize(p) for p in zpaths),
@@ -1181,7 +1210,6 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     text_table = check_seg_table_text(ids, device)
     del ids
     emit({"phase": "kernels", "seg_table_text": text_table})
-    shutil.rmtree(zdir)
     t0 = time.perf_counter()
     oracle = counter_oracle(html_paths)
     oracle_s = time.perf_counter() - t0
@@ -1193,7 +1221,8 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     check = run_text_check(tmp, smi)
     check["seconds"] = time.perf_counter() - t0
     emit(check)
-    return wf, text_table, chunks, check, mesh_wf
+    # the zipf corpus (its files and oracle) stays for the ft phase
+    return wf, text_table, chunks, check, mesh_wf, (zpaths, oracle_z)
 
 
 def run_text_check(tmp: str, smi: str) -> dict:
@@ -2053,6 +2082,9 @@ def same_pairs_on_card(a, b) -> bool:
     return torch.equal(ka[sa], kb[sb]) and torch.equal(va[sa], vb[sb])
 
 
+GRAPH_KEEP: dict = {}          # the graph phase's cc, PageRank and lines
+
+
 def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
               edgefactor: int = GRAPH_EDGEFACTOR, p4: bool = False) -> dict:
     """The graph phase: the OINK script of :func:`graph_script` through
@@ -2125,6 +2157,10 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
         luby_rounds = int(msgs["luby_find"].split()[-2])
         sssp_rounds = [int(ln.split()[3]) for ln in screens["sssp"]]
         got["pagerank"] = (pr_verts, pr_ranks, pr_iters)
+        # what ft-resume holds its resumed run against
+        GRAPH_KEEP.update(cc=got["cc"], pagerank=got["pagerank"],
+                          screens={k: screens[k] for k in (
+                              "degree_stats", "cc_stats")})
         del run, comp, named
         t0 = time.perf_counter()
         found = graph_oracles(scale, edgefactor, screens, got)
@@ -4453,6 +4489,755 @@ def run_wire(int_keys: dict, tmp: str, kernels, smi: str, mesh_wf: dict,
     return rec
 
 
+# -- the ft phase: fault tolerance on the card ---------------------------------
+
+FT_BACKOFF_S = "0.002"         # MRTPU_RETRY_BACKOFF in the phase: the
+#                                rerun work is timed, not the sleep
+FT_CKPT_EVERY = 3              # the journaled graph script: 3 sets
+FT_SEED = 11                   # tests/test_ft.py's _arm_all_sites
+FT_BUDGET = 3
+FT_CPU = False                 # --ft-rehearse: CPU shards, small sizes
+
+
+def ft_devices(n: int) -> list:
+    """The phase's ``n`` shards: on the first card (CPU shards in a
+    rehearsal)."""
+    return ["cpu"] * n if FT_CPU else mesh_devices(n)
+
+
+@contextlib.contextmanager
+def ft_armed(arm: bool = True, sites=None):
+    """The JAX golden's schedule (tests/test_ft.py:223-227) for the block:
+    every registered site (or ``sites``), rate 1, seed 11, one fault a
+    site, budget 3; ft/ state reset before and after, the backoff base a
+    few ms."""
+    from gpu_mapreduce_tpu_torch import ft
+    saved = os.environ.get("MRTPU_RETRY_BACKOFF")
+    os.environ["MRTPU_RETRY_BACKOFF"] = FT_BACKOFF_S
+    ft.reset()
+    if arm:
+        for site in sites or ft.SITES:
+            ft.schedule(site=site, rate=1.0, seed=FT_SEED, max_faults=1)
+            ft.set_budget(site, FT_BUDGET)
+    try:
+        yield ft
+    finally:
+        ft.reset()
+        if saved is None:
+            os.environ.pop("MRTPU_RETRY_BACKOFF", None)
+        else:
+            os.environ["MRTPU_RETRY_BACKOFF"] = saved
+
+
+def ft_counts() -> dict:
+    """Faults injected by site, retry outcomes by site, quarantines."""
+    from gpu_mapreduce_tpu_torch import ft
+    return {"faults": ft.fault_counts(),
+            "retries": {f"{s} {o}": n
+                        for (s, o), n in sorted(ft.retries_snapshot().items())},
+            "quarantined": ft.quarantine_snapshot()["count"]}
+
+
+def ft_recovered(rec: dict, site: str) -> bool:
+    return rec["faults"].get(site, 0) >= 1 and \
+        rec["retries"].get(f"{site} recovered", 0) >= 1
+
+
+def ft_main(paths, nref: int, nuniq: int, tmp: str, kernels) -> dict:
+    """ft-main: InvertedIndex over the main corpus, comm=make_mesh(1),
+    onfault=retry (MRTPU_ONFAULT), clean then under the schedule, each
+    writing its part file.  At P = 1 neither package exchanges (the
+    reference's nprocs == 1 early-out), so the map task's ingest sites
+    are the ones that fire."""
+    from gpu_mapreduce_tpu_torch import InvertedIndex
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    runs, parts = {}, {}
+    os.environ["MRTPU_ONFAULT"] = "retry"
+    mesh = make_mesh(1, devices=ft_devices(1))
+    try:
+        for run in ("clean", "faulted"):
+            with ft_armed(run == "faulted"):
+                out = os.path.join(tmp, f"ft-main-{run}")
+                for k in kernels:
+                    k.launches = 0
+                sync_all()
+                t0 = time.perf_counter()
+                got = InvertedIndex(comm=mesh).run(paths, outdir=out)
+                sync_all()
+                dt = time.perf_counter() - t0
+                runs[run] = {"seconds": dt, "npairs": got[0],
+                             "nunique": got[1],
+                             "launches": {k.__name__: k.launches
+                                          for k in kernels},
+                             **ft_counts()}
+                with open(os.path.join(out, "part-00000"), "rb") as f:
+                    parts[run] = f.read()
+                shutil.rmtree(out)
+    finally:
+        os.environ.pop("MRTPU_ONFAULT", None)
+    bad = [run for run, r in runs.items()
+           if (r["npairs"], r["nunique"]) != (nref, nuniq)]
+    f = runs["faulted"]
+    if bad or parts["clean"] != parts["faulted"] or \
+            not ft_recovered(f, "ingest.tokenize") or \
+            f["faults"].get("ingest.read", 0) < 1 or \
+            (f["launches"]["mark_words"] < 1 and not FT_CPU):
+        raise AssertionError(f"ft-main: {runs} (part files equal: "
+                             f"{parts['clean'] == parts['faulted']})")
+    return {"case": "ft-main", **runs, "part_bytes": len(parts["clean"]),
+            "part_equal": True}
+
+
+def ft_wordfreq_job(paths, mesh, ckpt: str, onfault: str = "fail"):
+    """The JAX golden's job shape (tests/test_ft.py:229-252) on the card:
+    map_files (the words split and interned on each shard's device) →
+    collate → reduce count → save → load.  Returns (rows, reloaded rows,
+    seconds)."""
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.oink.kernels import read_words
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    sync_all()
+    t0 = time.perf_counter()
+    mr = MapReduce(comm=mesh, onfault=onfault)
+    mr.map_files(list(paths), read_words)
+    mr.collate()
+    mr.reduce(count, batch=True)
+    mr.save(ckpt)
+    mr2 = MapReduce(comm=mesh)
+    mr2.load(ckpt)
+    sync_all()
+    dt = time.perf_counter() - t0
+    rows, rows2 = ds_rows(mr), ds_rows(mr2)
+    stats = mr.stats()["ft"]
+    shutil.rmtree(ckpt)
+    return rows, rows2, dt, stats
+
+
+def word_counts(rows) -> dict:
+    """{word: count} of a wordfreq job's rows (ds_rows)."""
+    out: dict = {}
+    for _kind, _cap, shards in rows:
+        for keys, values in shards:
+            for k, v in zip(keys, values):
+                out[k] = out.get(k, 0) + int(v)
+    return out
+
+
+def ft_wordfreq(zpaths, tmp: str, kernels) -> dict:
+    """ft-wordfreq-p4: the job shape over the zipf cell's four files at
+    P = 4, clean then under the schedule: rows byte-equal shard by shard
+    (caps included), the reloaded rows equal, faults at ingest.read,
+    ingest.tokenize, shuffle.exchange and checkpoint.save, and
+    ``stats()["ft"]`` the same faults as ``fault_counts()``."""
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(MESH_P, devices=ft_devices(MESH_P))
+    runs, got = {}, {}
+    for run in ("clean", "faulted"):
+        with ft_armed(run == "faulted") as ft:
+            for k in kernels:
+                k.launches = 0
+            rows, rows2, dt, stats = ft_wordfreq_job(
+                zpaths, mesh, os.path.join(tmp, f"ft-wf-{run}"))
+            got[run] = (rows, rows2)
+            runs[run] = {"seconds": dt, **ft_counts(),
+                         "launches": {k.__name__: k.launches
+                                      for k in kernels},
+                         "stats_ft_equal_fault_counts":
+                             stats["faults_injected"] == ft.fault_counts()}
+    f = runs["faulted"]
+    sites = ("ingest.read", "ingest.tokenize", "shuffle.exchange",
+             "checkpoint.save")
+    if got["clean"][0] != got["faulted"][0] or \
+            got["clean"][1] != got["faulted"][1] or \
+            any(f["faults"].get(s, 0) < 1 for s in sites) or \
+            not ft_recovered(f, "shuffle.exchange") or \
+            not f["stats_ft_equal_fault_counts"]:
+        raise AssertionError(f"ft-wordfreq-p4: {runs} (rows equal "
+                             f"{got['clean'][0] == got['faulted'][0]}, "
+                             f"reloaded equal "
+                             f"{got['clean'][1] == got['faulted'][1]})")
+    counts = word_counts(got["clean"][0])
+    return {"case": "ft-wordfreq-p4", "p": MESH_P, **runs,
+            "nunique": len(counts), "nwords": sum(counts.values()),
+            "rows_equal": True, "reloaded_equal": True}
+
+
+def ft_quarantine(zpaths, oracle: dict, tmp: str) -> dict:
+    """ft-quarantine: the wordfreq-p4 job under onfault=skip with the
+    third file replaced by a link to nowhere: one quarantine record
+    naming it, and the counts of a Counter over the other three (the
+    generator's counts less the skipped file's)."""
+    from collections import Counter
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    d = os.path.join(tmp, "ft-quarantine")
+    os.makedirs(d)
+    paths = []
+    for i, p in enumerate(zpaths):
+        q = os.path.join(d, os.path.basename(p))
+        os.symlink(p if i != 2 else os.path.join(d, "gone"), q)
+        paths.append(q)
+    t0 = time.perf_counter()
+    want = Counter()
+    for line in oracle["out_lines"]:
+        w, c = line.rsplit(" ", 1)
+        want[w.encode()] = int(c)
+    with open(zpaths[2], "rb") as f:
+        want.subtract(Counter(f.read().split()))
+    want = {w: c for w, c in want.items() if c}
+    oracle_s = time.perf_counter() - t0
+    with ft_armed(False) as ft:
+        rows, _rows2, dt, _st = ft_wordfreq_job(
+            paths, make_mesh(MESH_P, devices=ft_devices(MESH_P)),
+            os.path.join(tmp, "ft-q-ckpt"), onfault="skip")
+        rec = ft_counts()
+        q = ft.quarantine_snapshot()
+    got = word_counts(rows)
+    shutil.rmtree(d)
+    if got != want or q["count"] != 1 or \
+            q["records"][0]["file"] != paths[2]:
+        raise AssertionError(f"ft-quarantine: {len(got)} words against "
+                             f"{len(want)}, quarantine {q}")
+    return {"case": "ft-quarantine", "seconds": dt, **rec,
+            "record": q["records"][0], "nunique": len(got),
+            "oracle_s": oracle_s, "counts_equal_oracle": True}
+
+
+def same_valid_frames(a, b) -> bool:
+    """Two MRs' KVs equal frame by frame, shard by shard: caps, counts
+    and the valid rows (compared on their devices)."""
+    import torch
+    fa, fb = list(a.kv.frames()), list(b.kv.frames())
+    if len(fa) != len(fb):
+        return False
+    for x, y in zip(fa, fb):
+        if getattr(x, "cap", None) != getattr(y, "cap", None):
+            return False
+        for s, t in zip(getattr(x, "shards", [x]), getattr(y, "shards",
+                                                            [y])):
+            n, m = int(s.counts[0]), int(t.counts[0])
+            if n != m or not (torch.equal(s.key[:n], t.key[:m])
+                              and torch.equal(s.value[:n], t.value[:m])):
+                return False
+    return True
+
+
+def ft_fuse(keys_u32, tmp: str, kernels) -> dict:
+    """ft-fuse-p4: the mesh-fuse-uniform chain (MRTPU_FUSE=1: map_files,
+    aggregate, convert, reduce count as one exchange group) cold then
+    warm, clean, then under the schedule, re-armed before the warm run
+    so its first exchange attempt is the faulted one: equal to the clean
+    run shard by shard; seg_table launches 0 in the faulted attempt (the
+    fault comes before phase 1) and once a shard in the successful
+    one."""
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.apps.intcount import _map_file
+    from gpu_mapreduce_tpu_torch.ft import inject
+    from gpu_mapreduce_tpu_torch.ops.cuda import group
+    from gpu_mapreduce_tpu_torch.ops.reduces import count
+    from gpu_mapreduce_tpu_torch.parallel import shuffle
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.plan import plan_cache, plan_history
+    mesh = make_mesh(MESH_P, devices=ft_devices(MESH_P))
+    paths = split_files(keys_u32, os.path.join(tmp, "ft-fuse"), MESH_P)
+    out, runs = {}, {}
+    at_fault = []
+    real_fp = inject.fault_point
+
+    def fault_point(site, **detail):
+        # the table's launches in this run when an exchange attempt faults
+        try:
+            real_fp(site, **detail)
+        except BaseException:
+            if site == "shuffle.exchange":
+                at_fault.append(group.segment_table.launches)
+            raise
+    inject.fault_point = fault_point
+    try:
+        for tag in ("clean", "faulted"):
+            plan_cache().clear()
+            shuffle._SPEC_CACHE.clear()
+            for run in ("cold", "warm"):
+                with ft_armed(tag == "faulted"):
+                    for k in kernels:
+                        k.launches = 0
+                    del at_fault[:]
+                    sync_all()
+                    t0 = time.perf_counter()
+                    mr = MapReduce(comm=mesh, fuse=1)
+                    mr.map_files(paths, _map_file)
+                    mr.aggregate()
+                    mr.convert()
+                    mr.reduce(count, batch=True)
+                    _ = mr.kv
+                    sync_all()
+                    dt = time.perf_counter() - t0
+                    group_rec = plan_history()[-1]["groups"][0]
+                    runs[f"{tag}_{run}"] = {
+                        "seconds": dt, "mode": group_rec["mode"],
+                        "table": group_rec["table"], **ft_counts(),
+                        "launches": {k.__name__: k.launches
+                                     for k in kernels},
+                        "seg_table_launches_at_fault": list(at_fault)}
+                    out[f"{tag}_{run}"] = mr
+    finally:
+        inject.fault_point = real_fp
+    shutil.rmtree(os.path.dirname(paths[0]))
+    fw = runs["faulted_warm"]
+    equal = same_valid_frames(out["clean_warm"], out["faulted_warm"]) and \
+        same_valid_frames(out["clean_cold"], out["faulted_cold"])
+    on_card = not FT_CPU
+    if not equal or fw["mode"] != "exchange1" or \
+            (on_card and not fw["table"]) or \
+            (on_card and fw["launches"]["segment_table"] != MESH_P) or \
+            fw["seg_table_launches_at_fault"] != [0] or \
+            not ft_recovered(fw, "shuffle.exchange"):
+        raise AssertionError(f"ft-fuse-p4: equal {equal}, {runs}")
+    return {"case": "ft-fuse-p4", "p": MESH_P, **runs,
+            "rows_equal": True}
+
+
+def ft_ooc(keys_u32, tmp: str, device, kernels) -> dict:
+    """ft-ooc: the ooc cell's descending external sort (the 2^25 keys,
+    outofcore=1, memsize=64, maxpage=2; map_files then sort_keys(-1))
+    clean, then with spill.write and spill.read armed: the rows equal."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch import MapReduce
+    path = os.path.join(tmp, "ft-ooc-keys.bin")
+    keys_u32.tofile(path)
+    got, runs = {}, {}
+    for run in ("clean", "faulted"):
+        spill = os.path.join(tmp, f"ft-ooc-{run}")
+        with ft_armed(run == "faulted", ("spill.write", "spill.read")):
+            for k in kernels:
+                k.launches = 0
+            mr = MapReduce(device=device, outofcore=1, memsize=OOC_MEMSIZE,
+                           maxpage=OOC_MAXPAGE, fpath=spill, fuse=0)
+            t0 = time.perf_counter()
+            mr.map_files([path], read_u32_keys)
+            mr.sort_keys(-1)
+            got[run] = kv_arrays(mr)
+            dt = time.perf_counter() - t0
+            mr.kv.free()
+            runs[run] = {"seconds": dt, **ft_counts(),
+                         "launches": {k.__name__: k.launches
+                                      for k in kernels}}
+        shutil.rmtree(spill, ignore_errors=True)
+    os.remove(path)
+    f = runs["faulted"]
+    equal = all(np.array_equal(a, b) for a, b in zip(got["clean"],
+                                                     got["faulted"]))
+    if not equal or not ft_recovered(f, "spill.write") or \
+            not ft_recovered(f, "spill.read"):
+        raise AssertionError(f"ft-ooc: equal {equal}, {runs}")
+    return {"case": "ft-ooc", "keys": len(keys_u32), **runs,
+            "rows_equal": True}
+
+
+def ft_graph_lines() -> list:
+    """The graph phase's script as the journaled run takes it: its
+    checkpoint lines left out (the journal's checkpoints stand in)."""
+    skip = set(checkpoint_lines()) | {"mrb delete"}
+    return [ln for ln in graph_script(GRAPH_SCALE, GRAPH_EDGEFACTOR)
+            if ln not in skip]
+
+
+def ft_graph_child(d: str, mode: str) -> int:
+    """``chip_smoke.py --ft-graph-child DIR run|resume``: the journaled
+    graph script (``run``, under MRTPU_JOURNAL=DIR/journal) or ``resume
+    DIR/journal`` in a fresh process, on the card, from DIR.  Every
+    command's seconds and screen lines, and every checkpoint set's
+    seconds, go to DIR/times.<mode>.jsonl as they end; the resume then
+    writes the cc and PageRank MRs to DIR/out.npz."""
+    import io
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch import OinkScript
+    from gpu_mapreduce_tpu_torch.ft import journal
+    from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
+    if os.environ.get("FT_REHEARSE"):
+        ft_rehearse_sizes()
+    os.chdir(d)
+    log = open(os.path.join(d, f"times.{mode}.jsonl"), "w", buffering=1)
+    real_exec = OinkScript._execute
+    real_ckpt = journal.Journal.checkpoint
+    in_ckpt = [0.0]
+
+    def execute(self, command, args):
+        skipped = self._ft_skip > 0 and command not in self._BUILTINS
+        screen, self.screen = self.screen, io.StringIO()
+        in_ckpt[0] = 0.0
+        t0 = time.perf_counter()
+        try:
+            real_exec(self, command, args)
+            sync_all()
+        finally:
+            text, self.screen = self.screen.getvalue(), screen
+        # the command's own seconds: its journal records in, the
+        # checkpoint set it triggered out (timed apart)
+        log.write(json.dumps({"cmd": " ".join([command] + args),
+                              "seconds": time.perf_counter() - t0
+                              - in_ckpt[0],
+                              "skipped": skipped,
+                              "screen": text.splitlines()}) + "\n")
+
+    def checkpoint(self, obj):
+        sync_all()
+        t0 = time.perf_counter()
+        ok = real_ckpt(self, obj)
+        in_ckpt[0] = time.perf_counter() - t0
+        log.write(json.dumps({"ckpt": self.cmd_seq, "ok": ok,
+                              "seconds": in_ckpt[0]}) + "\n")
+        return ok
+    OinkScript._execute = execute
+    journal.Journal.checkpoint = checkpoint
+    device = torch.device("cpu" if FT_CPU else "cuda")
+    s = OinkScript(device=device, screen=False)
+    t0 = time.perf_counter()
+    if mode == "run":
+        s.run_string("\n".join(ft_graph_lines()) + "\n")
+    else:
+        s.run_string(f"resume {os.path.join(d, 'journal')}\n")
+    sync_all()
+    log.write(json.dumps({"total_s": time.perf_counter() - t0}) + "\n")
+    if mode == "resume":
+        cc = mapreduce_to_numpy(s.obj.named["mrc"])
+        pr = mapreduce_to_numpy(s.obj.named["mrpr"])
+        np.savez(os.path.join(d, "out.npz"), cc_k=cc[0], cc_v=cc[1],
+                 pr_k=pr[0], pr_v=pr[1])
+    log.close()
+    return 0
+
+
+def _read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def ft_resume(tmp: str, graph: dict) -> dict:
+    """ft-resume: the graph script journaled in a child process
+    (MRTPU_JOURNAL, MRTPU_CKPT_EVERY=3), SIGKILLed once the journal holds
+    the checkpoint taken after pagerank, then ``resume`` in a fresh
+    child: cc labels, the degree_stats and cc_stats lines exactly the
+    graph phase's, PageRank within rtol 1e-5 and ±1 step, and the journal
+    showing the resume and only the tail re-run."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.ft import journal
+    keep = GRAPH_KEEP
+    d = os.path.join(tmp, "ft-resume")
+    os.makedirs(d)
+    jdir = os.path.join(d, "journal")
+    lines = ft_graph_lines()
+    cmds = [ln for ln in lines if not ln.startswith("mr ")]
+    pr_seq = 1 + next(i for i, ln in enumerate(cmds)
+                      if ln.startswith("pagerank"))
+    env = dict(os.environ, MRTPU_JOURNAL=jdir,
+               MRTPU_CKPT_EVERY=str(FT_CKPT_EVERY))
+    me = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    out = open(os.path.join(d, "run.out"), "wb")
+    child = subprocess.Popen([sys.executable, me, "--ft-graph-child", d,
+                              "run"], env=env, stdout=out,
+                             stderr=subprocess.STDOUT)
+    killed_at = None
+    try:
+        while child.poll() is None:
+            time.sleep(0.05)
+            try:
+                recs = journal.read_journal(jdir)
+            except Exception:
+                continue
+            if any(r.get("kind") == "ckpt" and r.get("seq", 0) >= pr_seq
+                   for r in recs):
+                child.kill()             # SIGKILL
+                killed_at = time.perf_counter() - t0
+                break
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    out.close()
+    with open(os.path.join(d, "run.out"), "rb") as f:
+        run_out = f.read().decode(errors="replace")
+    if killed_at is None:
+        raise AssertionError(f"ft-resume: the journaled run ended before "
+                             f"its checkpoint after pagerank "
+                             f"(rc {child.returncode}):\n{run_out[-3000:]}")
+    env.pop("MRTPU_JOURNAL")
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, me, "--ft-graph-child", d,
+                        "resume"], env=env, capture_output=True, text=True,
+                       timeout=600)
+    resume_wall = time.perf_counter() - t1
+    if r.returncode != 0:
+        raise AssertionError(f"ft-resume: the resume failed (rc "
+                             f"{r.returncode}):\n{r.stdout[-3000:]}"
+                             f"{r.stderr[-3000:]}")
+    first = _read_jsonl(os.path.join(d, "times.run.jsonl"))
+    second = _read_jsonl(os.path.join(d, "times.resume.jsonl"))
+    recs = journal.read_journal(jdir)
+    kinds = [rec["kind"] for rec in recs]
+    res = recs[kinds.index("resume")]
+    tail = [rec["seq"] for rec in recs[kinds.index("resume"):]
+            if rec["kind"] == "cmd"]
+    ran = [t for t in second if "cmd" in t and not t["skipped"]
+           and not t["cmd"].startswith(("mr ", "resume"))]
+    screens = {t["cmd"].split()[0]: t["screen"]
+               for t in first + ran if "cmd" in t}
+    z = np.load(os.path.join(d, "out.npz"))
+    cc_ok = _same_sorted(z["cc_k"], z["cc_v"], *keep["cc"])
+    pk, pv = z["pr_k"], z["pr_v"]
+    gk, gv = keep["pagerank"][:2]
+    pa, ga = np.argsort(pk, kind="stable"), np.argsort(gk, kind="stable")
+    pr_ok = np.array_equal(pk[pa], gk[ga]) and np.allclose(
+        pv[pa], gv[ga], rtol=1e-5, atol=GRAPH_TOL)
+    steps = int(screens["pagerank"][0].split()[-2])
+    checks = {
+        "cc_labels_equal": cc_ok,
+        "degree_stats_equal":
+            screens["degree_stats"] == keep["screens"]["degree_stats"],
+        "cc_stats_equal":
+            screens["cc_stats"] == keep["screens"]["cc_stats"],
+        "pagerank_close": pr_ok,
+        "pagerank_steps": [steps, keep["pagerank"][2]],
+        "resume_from_seq": res["from_seq"],
+        "cmds_done_before_kill": res["cmds_done_before_crash"],
+        "tail_seqs": tail}
+    if not (cc_ok and pr_ok and checks["degree_stats_equal"]
+            and checks["cc_stats_equal"]
+            and abs(steps - keep["pagerank"][2]) <= 1
+            and res["from_seq"] >= pr_seq
+            and tail == list(range(res["from_seq"] + 1, len(cmds) + 1))):
+        raise AssertionError(f"ft-resume: {checks}")
+    shutil.rmtree(d)
+    cmd_s = [{"cmd": t["cmd"], "seconds": t["seconds"]}
+             for t in first + ran if "cmd" in t
+             and not t["cmd"].startswith(("mr ", "resume"))]
+    return {"case": "ft-resume", "ckpt_every": FT_CKPT_EVERY,
+            "killed_after_s": killed_at, "resume_wall_s": resume_wall,
+            "resume_s": next(t["total_s"] for t in second
+                             if "total_s" in t),
+            # the skipped commands' seconds: the checkpoint's restore
+            "restore_s": sum(t["seconds"] for t in second
+                             if t.get("skipped")),
+            "command_s": cmd_s,
+            "graph_command_s": graph["command_s"],
+            "ckpt_s": [{"seq": t["ckpt"], "ok": t["ok"],
+                        "seconds": t["seconds"]}
+                       for t in first + second if "ckpt" in t],
+            **checks}
+
+
+def _cmd_label(line: str) -> str:
+    """A script line's label in drive_script's records."""
+    words = line.split()
+    return " ".join(words[:2]) if len(words) > 1 and (
+        words[1].startswith("map/")
+        or words[1] in ("save", "load", "delete")) else words[0]
+
+
+def _same_sorted(ka, va, kb, vb) -> bool:
+    """Two (key, value) array pairs equal as rows sorted by key."""
+    import numpy as np
+    if len(ka) != len(kb):
+        return False
+    a, b = np.argsort(ka, kind="stable"), np.argsort(kb, kind="stable")
+    return np.array_equal(ka[a], kb[b]) and np.array_equal(va[a], vb[b])
+
+
+FT_PARTITION_SCRIPT = """\
+variable w world 0 1
+shell mkdir out$w
+wordfreq 10 -i zw$w -o out$w/wf NULL
+"""
+
+
+def ft_partition(zpaths, oracle: dict, tmp: str) -> dict:
+    """ft-partition: ``-partition 2x2`` over four shards through the OINK
+    command line; world w runs the wordfreq command over two of the zipf
+    files (a directory of links a world, picked by a world variable) and
+    a ``shell mkdir``: the worlds' counts summed equal the generator's,
+    and screen.0/1 and log.oink.0/1 are written."""
+    import io
+    from gpu_mapreduce_tpu_torch.oink.script import main as oink_main
+    d = os.path.join(tmp, "ft-partition")
+    os.makedirs(d)
+    for w in (0, 1):
+        os.makedirs(os.path.join(d, f"zw{w}"))
+        for p in zpaths[2 * w:2 * w + 2]:
+            os.symlink(p, os.path.join(d, f"zw{w}", os.path.basename(p)))
+    with open(os.path.join(d, "in.partition"), "w") as f:
+        f.write(FT_PARTITION_SCRIPT)
+    cwd = os.getcwd()
+    os.chdir(d)
+    banner = io.StringIO()
+    try:
+        sync_all()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(banner):
+            rc = oink_main(["-in", "in.partition", "-partition", "2x2"]
+                           + (["-device", "cpu"] if FT_CPU else []))
+        sync_all()
+        dt = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    files = sorted(os.listdir(d))
+    got: dict = {}
+    for w in (0, 1):
+        for name in sorted(os.listdir(os.path.join(d, f"out{w}"))):
+            with open(os.path.join(d, f"out{w}", name)) as f:
+                for line in f:
+                    word, c = line.rsplit(" ", 1)
+                    got[word] = got.get(word, 0) + int(c)
+    want = {}
+    for line in oracle["out_lines"]:
+        word, c = line.rsplit(" ", 1)
+        want[word] = int(c)
+    outs = {w: sorted(os.listdir(os.path.join(d, f"out{w}")))
+            for w in (0, 1)}
+    shutil.rmtree(d)
+    expect = {"screen.0", "screen.1", "log.oink.0", "log.oink.1"}
+    if rc != 0 or got != want or not expect <= set(files):
+        raise AssertionError(f"ft-partition: rc {rc}, {len(got)} words "
+                             f"against {len(want)}, files {files}")
+    return {"case": "ft-partition", "worlds": 2, "procs_per_world": 2,
+            "seconds": dt, "files": sorted(expect), "out_files": outs,
+            "universe": banner.getvalue().splitlines(),
+            "counts_equal_oracle": True}
+
+
+def run_ft(paths, nref: int, nuniq: int, zpaths, zoracle: dict, keys_u32,
+           tmp: str, device, kernels, smi: str, graph: dict) -> dict:
+    """The ft phase: every case fault-free and then under the JAX
+    golden's schedule (ft_armed), each with its gate."""
+    t0 = time.perf_counter()
+    cases = {}
+    for name, fn in (
+            ("ft-main", lambda: ft_main(paths, nref, nuniq, tmp, kernels)),
+            ("ft-wordfreq-p4", lambda: ft_wordfreq(zpaths, tmp, kernels)),
+            ("ft-fuse-p4", lambda: ft_fuse(keys_u32, tmp, kernels)),
+            ("ft-ooc", lambda: ft_ooc(keys_u32, tmp, device, kernels)),
+            ("ft-quarantine", lambda: ft_quarantine(zpaths, zoracle, tmp)),
+            ("ft-resume", lambda: ft_resume(tmp, graph)),
+            ("ft-partition", lambda: ft_partition(zpaths, zoracle, tmp))):
+        c0 = time.perf_counter()
+        cases[name] = fn()
+        cases[name]["case_s"] = time.perf_counter() - c0
+        emit({"phase": "ft-case", "card": smi, **cases[name]})
+    launches = {k.__name__: {
+        "ft-main": cases["ft-main"]["faulted"]["launches"][k.__name__],
+        "ft-wordfreq-p4":
+            cases["ft-wordfreq-p4"]["faulted"]["launches"][k.__name__],
+        "ft-fuse-p4-warm":
+            cases["ft-fuse-p4"]["faulted_warm"]["launches"][k.__name__],
+        "ft-ooc": cases["ft-ooc"]["faulted"]["launches"][k.__name__]}
+        for k in kernels}
+    summary = {}
+    for name, c in cases.items():
+        # a case's fault-free and faulted runs: the warm ones for the
+        # fused chain; ft-resume's journaled run to its kill plus the
+        # resume's wall time beside the graph phase's same commands;
+        # ft-quarantine and ft-partition run once
+        faulted = c.get("faulted") or c.get("faulted_warm") or c
+        clean = c.get("clean") or c.get("clean_warm")
+        if name == "ft-resume":
+            clean_s = sum(c["graph_command_s"][_cmd_label(t["cmd"])]
+                          for t in c["command_s"])
+            faulted_s = c["killed_after_s"] + c["resume_wall_s"]
+        else:
+            clean_s = clean["seconds"] if clean else \
+                (c["seconds"] if name == "ft-partition" else None)
+            faulted_s = faulted["seconds"] if name != "ft-partition" \
+                else None
+        summary[name] = {
+            "clean_s": clean_s, "faulted_s": faulted_s,
+            "faults": faulted.get("faults", {}),
+            "retries": faulted.get("retries", {}),
+            "quarantined": faulted.get("quarantined", 0),
+            "case_s": c["case_s"]}
+    return {"phase": "ft", "card": smi, "backoff_s": float(FT_BACKOFF_S),
+            "schedule": {"sites": "all", "rate": 1.0, "seed": FT_SEED,
+                         "faults_a_site": 1, "budget": FT_BUDGET},
+            "cases": summary, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def ft_rehearse_sizes() -> None:
+    """The rehearsal's sizes: pages that spill at a few MB, a small
+    graph."""
+    global FT_CPU, OOC_MEMSIZE, OOC_MAXPAGE, GRAPH_SCALE
+    FT_CPU = True
+    OOC_MEMSIZE, OOC_MAXPAGE, GRAPH_SCALE = 1, 1, 10
+
+
+def ft_alone(card: bool) -> int:
+    """``chip_smoke.py --ft-rehearse``: the ft phase on four CPU shards at
+    a small size (a 2 MB main corpus, 2 MB of zipf text, 2^18 IntCount
+    keys, the graph script at scale 10), every gate but the kernels'
+    launch counts (the plain versions launch nothing): a rehearsal of the
+    phase's code without a card.  ``--ft-alone``: the phase alone on the
+    card at its full size, its inputs made here (the graph script's run
+    standing in for the graph phase's).  Prints the ft lines."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
+    from gpu_mapreduce_tpu_torch.ops import cuda as kcuda
+    from gpu_mapreduce_tpu_torch.ops.cuda import group, match
+    if card:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 2
+        kcuda.build_all()
+        smi = nvidia_smi()
+        device = torch.device("cuda", 0)
+        main_mb, wf_mb, nkeys = MAIN_MB, WF_MB, INTCOUNT_KEYS
+    else:
+        ft_rehearse_sizes()
+        os.environ["FT_REHEARSE"] = "1"
+        smi = "cpu rehearsal"
+        device = torch.device("cpu")
+        main_mb, wf_mb, nkeys = 2, 2, 1 << 18
+    kernels = [match.mark_words, group.segment_table, match.mark]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    cwd = os.getcwd()
+    try:
+        os.makedirs(os.path.join(tmp, "main"))
+        paths, nref, nuniq = make_corpus(os.path.join(tmp, "main"),
+                                         main_mb)
+        zdir = os.path.join(tmp, "zipf")
+        os.makedirs(zdir)
+        zpaths, counts, vbuf, voffs = zipf_corpus(zdir, wf_mb)
+        words = [vbuf[voffs[i]:voffs[i + 1]].tobytes()
+                 for i in range(len(voffs) - 1)]
+        zoracle = wordfreq_oracle(words, counts, len(zpaths))
+        del vbuf, voffs, words
+        keys = np.random.default_rng(7).integers(0, 1 << 32, nkeys,
+                                                 dtype=np.uint32)
+        gdir = os.path.join(tmp, "graph")
+        os.makedirs(gdir)
+        os.chdir(gdir)
+        run = drive_script(device, ft_graph_lines(), ())
+        os.chdir(cwd)
+        named = run["interp"].obj.named
+        run_s = run["seconds"]
+        pr = mapreduce_to_numpy(named["mrpr"])
+        GRAPH_KEEP.update(
+            cc=mapreduce_to_numpy(named["mrc"]),
+            pagerank=(pr[0], pr[1],
+                      int(run["screens"]["pagerank"][0].split()[-2])),
+            screens={k: run["screens"][k] for k in ("degree_stats",
+                                                    "cc_stats")})
+        del run, named
+        rec = run_ft(paths, nref, nuniq, zpaths, zoracle, keys, tmp,
+                     device, kernels, smi, {"command_s": run_s})
+        emit(rec)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4646,9 +5431,8 @@ def main() -> int:
         emit(mesh_ckpt)
         mesh_s += time.perf_counter() - t_mesh
 
-        wf, text_table, chunks, check, mesh_wf = run_text(paths, tmp, device,
-                                                          kernels, smi)
-        shutil.rmtree(main_dir)
+        wf, text_table, chunks, check, mesh_wf, zipf = run_text(
+            paths, tmp, device, kernels, smi)
         mesh_s += mesh_wf["end_to_end_s"] + mesh_wf["p1_end_to_end_s"]
         mesh_check = run_mesh_check(tmp, smi)
         emit(mesh_check)
@@ -4743,6 +5527,12 @@ def main() -> int:
         wire = run_wire(int_keys, tmp, kernels, smi, mesh_wf, mesh_fuse)
         emit({k: wire[k] for k in ("phase", "card", "p", "cards", "devices",
                                    "check", "launches", "seconds")})
+        ft_rec = run_ft(paths, nref, nuniq, zipf[0], zipf[1],
+                        int_keys["uniform"], tmp, device, kernels, smi,
+                        graph)
+        emit(ft_rec)
+        shutil.rmtree(main_dir)
+        shutil.rmtree(os.path.dirname(zipf[0][0]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4780,7 +5570,9 @@ def main() -> int:
                     "launches_dist": dist["launches"][k],
                     # the wire phase: mesh2's part files and the
                     # card-vs-CPU check's warm fused group
-                    "launches_wire": wire["launches"][k]}
+                    "launches_wire": wire["launches"][k],
+                    # the ft phase's faulted runs, by case
+                    "launches_ft": ft_rec["launches"][k]}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -4850,4 +5642,8 @@ if __name__ == "__main__":
         sys.exit(dist_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dist-local-rank"]:
         sys.exit(dist_local_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--ft-graph-child"]:
+        sys.exit(ft_graph_child(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] in (["--ft-rehearse"], ["--ft-alone"]):
+        sys.exit(ft_alone(sys.argv[1] == "--ft-alone"))
     sys.exit(main())

@@ -6,6 +6,7 @@ on the card unless the caller passes ``device="cpu"``; kernels are built
 from ``csrc/`` on first use, never at import.
 """
 
+from . import ft                      # ft.schedule, ft.resume, ...
 from .apps.intcount import intcount
 from .apps.invertedindex import InvertedIndex
 from .apps.wordfreq import wordfreq, wordfreq_interned
@@ -13,5 +14,5 @@ from .core.mapreduce import MapReduce
 from .core.runtime import MRError
 from .oink.script import OinkScript
 
-__all__ = ["InvertedIndex", "MapReduce", "MRError", "OinkScript",
+__all__ = ["InvertedIndex", "MapReduce", "MRError", "OinkScript", "ft",
            "intcount", "wordfreq", "wordfreq_interned"]

@@ -75,9 +75,14 @@ def _frame_payload(fr) -> dict:
 
 def save(mr, path: str) -> int:
     """Write mr's dataset (KV or KMV) to directory ``path``; returns the
-    number of frames written."""
+    number of frames written.  The frames and manifest go to a temp
+    sibling swapped in by rename, so a retried save (ft/
+    ``checkpoint.save``, whose fault point comes first) never mixes
+    generations."""
+    from ..ft.inject import fault_point
     from ..utils.fsio import fsync_dir
     from ..utils.integrity import file_digest
+    fault_point("checkpoint.save", path=path)
     path = os.path.normpath(path)
     tmp = f"{path}.tmp.{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)

@@ -125,6 +125,8 @@ class _Run:
 
     @staticmethod
     def _load(path: str, start: int, stop: int, kind: str):
+        from ..ft.inject import fault_point
+        fault_point("spill.read", path=path)
         if kind == "dense":
             arr = np.load(path, mmap_mode="r")
             return DenseColumn(np.array(arr[start:stop]))
@@ -132,6 +134,9 @@ class _Run:
         return ObjectColumn(rows) if kind == "object" else BytesColumn(rows)
 
     def verify(self) -> None:
+        """Check the run files against the writer's stamps, once (under
+        the caller's ``spill.read`` budget: a torn read recovers on a
+        re-read, a lasting mismatch exhausts into ``MRError``)."""
         if self._verified:
             return
         from ..utils.integrity import verify_file
@@ -142,13 +147,22 @@ class _Run:
     def refill(self, block_rows: int, by: str) -> None:
         if self.buf is not None or self.pos >= self.n:
             return
+        from ..ft.retry import retry_call
         self.wait_ready()
-        self.verify()
+        if not self._verified:
+            retry_call("spill.read", self.verify, detail=self.kpath)
         stop = min(self.pos + block_rows, self.n)
-        self.buf = KVFrame(self._load(self.kpath, self.pos, stop,
-                                      self.kkind),
-                           self._load(self.vpath, self.pos, stop,
-                                      self.vkind))
+        # ft/: a block read retries under the spill.read budget (the run
+        # file is immutable once past the durability barrier)
+        self.buf = KVFrame(
+            retry_call("spill.read",
+                       lambda: self._load(self.kpath, self.pos, stop,
+                                          self.kkind),
+                       detail=self.kpath),
+            retry_call("spill.read",
+                       lambda: self._load(self.vpath, self.pos, stop,
+                                          self.vkind),
+                       detail=self.vpath))
         self.sur = sort_surrogate(self.buf.key if by == "key"
                                   else self.buf.value)
         self.counters.add(rsize=self.buf.nbytes())
@@ -199,8 +213,16 @@ def _write_run(fr: KVFrame, settings, counters, seq: int,
                _col_kind(value))
 
     def do_write():
-        run.kdigest = _save_col(key, kpath)
-        run.vdigest = _save_col(value, vpath)
+        # ft/: a failed write retries whole under the spill.write budget
+        # (the tmp + replace write makes a re-write idempotent)
+        from ..ft.inject import fault_point
+        from ..ft.retry import retry_call
+
+        def _write_both():
+            fault_point("spill.write", path=base)
+            run.kdigest = _save_col(key, kpath)
+            run.vdigest = _save_col(value, vpath)
+        retry_call("spill.write", _write_both, detail=base)
         counters.add(wsize=nbytes)
 
     if writer is None:

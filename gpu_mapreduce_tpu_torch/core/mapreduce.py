@@ -150,6 +150,10 @@ class MapReduce:
     def __init__(self, device=None, comm=None, **settings):
         self.settings = Settings(**settings)
         self.settings.validate()
+        # ft/: apply MRTPU_FAULTS / MRTPU_RETRY / MRTPU_JOURNAL when they
+        # changed (a getenv and a compare each when they did not)
+        from ..ft import configure_from_env
+        configure_from_env()
         from ..parallel.mesh import Mesh
         if isinstance(comm, Mesh):
             # one shard is the one-device backend on that shard's device
@@ -285,7 +289,10 @@ class MapReduce:
     def _op_stats(self, op: str, **kw) -> None:
         """``verbosity`` ≥ 1: the KV totals after the op; ≥ 2: the
         spill and shuffle bytes it moved (reference file_stats,
-        src/mapreduce.cpp:3112-3226)."""
+        src/mapreduce.cpp:3112-3226).  An armed journal (ft/) gets the
+        op's record."""
+        from ..ft.journal import note_op
+        note_op(self, op, kw.get("nkv", kw.get("nkmv")))
         if self.settings.verbosity:
             self.kv_stats(self.settings.verbosity, _op=op)
             if self.settings.verbosity >= 2 and self._op_snap is not None:
@@ -375,11 +382,21 @@ class MapReduce:
         run every task here in order.  2 hands tasks to a thread pool
         that pulls the next when free; each task writes a private sink,
         replayed into ``kv`` in task order, and at most 4 × workers tasks
-        are in flight, so payloads and buffered output stay bounded."""
+        are in flight, so payloads and buffered output stay bounded.
+
+        Every task runs under the ft/ ingest policy
+        (``ft.retry.ingest_task``): its fault points, retries into a fresh
+        sink an attempt (published only on success, so a retried task
+        keeps its place and adds nothing twice), ``MRError`` naming a
+        file task's file, and quarantine under ``onfault="skip"``."""
+        from ..ft.retry import ingest_active, ingest_task
+        onfault = self.settings.onfault
+        active = ingest_active(onfault)
         if self.settings.mapstyle != 2:
             n = 0
             for itask, payload in enumerate(tasks):
-                call(itask, payload, kv)
+                ingest_task(call, itask, payload, kv, onfault=onfault,
+                            private_sink=False, active=active)
                 n += 1
             return n
         from collections import deque
@@ -398,8 +415,9 @@ class MapReduce:
                 if len(inflight) >= window:
                     drain_one()
                 sink = _TaskSink(kv.device)
-                inflight.append((pool.submit(call, itask, payload, sink),
-                                 sink))
+                inflight.append((pool.submit(ingest_task, call, itask,
+                                             payload, sink, onfault=onfault,
+                                             active=active), sink))
                 n += 1
             while inflight:
                 drain_one()
@@ -453,7 +471,7 @@ class MapReduce:
         t = self._begin_op()
         if isinstance(files, str):
             files = [files]
-        names = findfiles(list(files))
+        names = self._find_inputs(files, 0, 0)
         kv = self._start_map(addflag)
         call = lambda itask, fname, sink: func(itask, fname, sink, ptr)
         if self._mesh_ingest_ok(addflag):
@@ -465,6 +483,24 @@ class MapReduce:
         n = self._finish_kv("map_files")
         self._time("map_files", t)
         return n
+
+    def _find_inputs(self, files, recurse, readflag) -> list:
+        """``findfiles`` under the ft/ discovery policy: a failing path
+        is an ``MRError`` naming it, or under ``onfault="skip"`` a
+        quarantined and dropped path, as at task time."""
+        from ..ft.retry import input_unreadable, quarantine_or_raise
+        if self.settings.onfault != "skip":
+            try:
+                return findfiles(list(files), bool(recurse), bool(readflag))
+            except OSError as e:
+                raise input_unreadable(e) from e
+        names: list = []
+        for p in files:
+            try:
+                names.extend(findfiles([p], bool(recurse), bool(readflag)))
+            except OSError as e:
+                quarantine_or_raise(e, p, "skip")
+        return names
 
     def _mesh_ingest_ok(self, addflag: int) -> bool:
         """Per-shard file ingest: a mesh of P > 1, a fresh KV (with
@@ -500,7 +536,7 @@ class MapReduce:
         t = self._begin_op()
         if isinstance(files, str):
             files = [files]
-        names = findfiles(list(files), bool(recurse), bool(readflag))
+        names = self._find_inputs(files, recurse, readflag)
         if not names:
             raise MRError("No files found for chunked map")
         per_file = max(1, nmap // max(1, len(names)))
@@ -514,9 +550,25 @@ class MapReduce:
             self._time("map_chunks", t)
             return n
 
+        from ..ft.retry import ingest_active, ingest_read, input_unreadable
+        onfault = self.settings.onfault
+
         def chunk_stream():
+            # each file reads under the ft/ ingest.read policy; disarmed,
+            # its chunks stay lazy (a retry needs the file's chunks whole)
             for fname in names:
-                yield from file_chunks(fname, per_file, sep, delta)
+                if not ingest_active(onfault):
+                    try:
+                        yield from file_chunks(fname, per_file, sep, delta)
+                    except OSError as e:
+                        raise input_unreadable(e, fname) from e
+                    continue
+                chunks = ingest_read(
+                    lambda f=fname: list(file_chunks(f, per_file, sep,
+                                                     delta)),
+                    file=fname, onfault=onfault)
+                if chunks is not None:
+                    yield from chunks
 
         # the next chunk is read while this one's callback runs
         self._run_tasks(kv, prefetch_iter(chunk_stream(),
@@ -1003,10 +1055,14 @@ class MapReduce:
     def save(self, path: str) -> int:
         """Checkpoint the KV or KMV to directory ``path``; returns the
         number of frames written.  Mesh frames are written as their host
-        rows with the writer's per-shard counts and digests."""
+        rows with the writer's per-shard counts and digests.  The save
+        runs under the ft/ ``checkpoint.save`` retry policy (the directory
+        swap is atomic, so a retried save never mixes generations)."""
         self._flush_plan()
+        from ..ft.retry import retry_call
         from .checkpoint import save as _save
-        return _save(self, path)
+        return retry_call("checkpoint.save", lambda: _save(self, path),
+                          detail=path)
 
     def load(self, path: str) -> int:
         """Replace the dataset with a checkpoint written at any width;
@@ -1121,14 +1177,18 @@ class MapReduce:
 
     def stats(self) -> dict:
         """What ``cummulative_stats`` prints, as a dict: every counter by
-        name, the plan cache's counts (``plan``) and the overlap records
-        of exec/ (``exec``)."""
+        name, the plan cache's counts (``plan``), the overlap records of
+        exec/ (``exec``) and the fault-tolerance section of ft/ (``ft``:
+        retries per site, faults injected, quarantines, budgets, the
+        journal's progress)."""
         self._flush_plan()
         from ..exec import exec_stats
+        from ..ft import ft_stats
         from ..plan.cache import cache_stats
         out = self.counters.snapshot()
         out["plan"] = cache_stats()
         out["exec"] = exec_stats()
+        out["ft"] = ft_stats()
         return out
 
     def cummulative_stats(self, level: int = 1, reset: int = 0):

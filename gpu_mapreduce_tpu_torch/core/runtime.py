@@ -29,6 +29,12 @@ class MRError(RuntimeError):
     """Raised for fatal conditions (the reference aborts; we raise)."""
 
 
+class DeviceError(MRError):
+    """The card or a kernel failed: a kernel that did not build, load or
+    launch.  The retry layer never retries it, quarantines it or answers
+    it with a plain version (``ft/retry.device_error``)."""
+
+
 @dataclass
 class Settings:
     mapstyle: int = 0       # 0 chunk, 1 stride, 2 master-slave work queue
@@ -51,7 +57,10 @@ class Settings:
     # 1 = defer op chains into the plan/ recorder and run them fused
     fuse: int = field(default_factory=lambda: env_knob("MRTPU_FUSE", int,
                                                        0))
-    # what a failed map input does: only "fail" (raise) is ported
+    # what a failed map input does after the ft/ retry budget is spent:
+    # "fail" raises MRError, "retry" retries with a default budget even
+    # when MRTPU_RETRY is unset, "skip" quarantines the input and goes on
+    # (the records in mr.stats()["ft"])
     onfault: str = field(default_factory=lambda: env_str("MRTPU_ONFAULT",
                                                          "fail"))
 
@@ -66,9 +75,6 @@ class Settings:
             raise MRError("Invalid fuse setting")
         if self.onfault not in ("fail", "retry", "skip"):
             raise MRError("Invalid onfault setting (fail, retry, or skip)")
-        if self.onfault != "fail":
-            raise MRError(f"onfault {self.onfault!r} is not ported yet "
-                          f"(only 'fail')")
         for a in (self.keyalign, self.valuealign):
             if a <= 0 or (a & (a - 1)):
                 raise MRError("Alignment setting must be power of 2")

@@ -19,11 +19,12 @@ Each spec owns a ``random.Random`` seeded from ``(seed, site)`` (via
 crc32, not the salted ``hash()``).  Disarmed, :func:`fault_point` is one
 module-bool check.
 
-The port probes the process group's four sync points, the ``dist.*``
-sites of ``parallel/dist.DistRuntime.guard``.  The reference's other six
-sites (ingest, spill, shuffle, checkpoint) belong to the retry layer,
-which is not ported yet: a spec naming one is refused, as is any name
-outside the registry.
+The registry is the reference's ten sites: the retry layer's six
+(``ingest.read``, ``ingest.tokenize``, ``spill.write``, ``spill.read``,
+``shuffle.exchange``, ``checkpoint.save``; :mod:`.retry` decides what a
+fault there costs) and the process group's four sync points, the
+``dist.*`` sites of ``parallel/dist.DistRuntime.guard``.  A spec naming
+any other site is refused.
 
 Kinds: ``oserror``/``ioerror``, ``timeout``, ``runtime`` and ``fatal``
 raise an exception carrying ``.ft_site`` and subclassing
@@ -47,15 +48,13 @@ from typing import Dict, List, Optional
 
 from ..utils.env import env_knob, env_str
 
-# the sync points of parallel/dist.DistRuntime.guard: the count matrix,
-# the exchange, the range exchange of a launcher's finalize step and the
-# checkpoint barrier
-SITES = ("dist.count_sync", "dist.exchange", "dist.reshard",
+# the retry layer's sites, then the sync points of
+# parallel/dist.DistRuntime.guard: the count matrix, the exchange, the
+# range exchange of a launcher's finalize step and the checkpoint barrier
+SITES = ("ingest.read", "ingest.tokenize", "spill.write", "spill.read",
+         "shuffle.exchange", "checkpoint.save",
+         "dist.count_sync", "dist.exchange", "dist.reshard",
          "dist.ckpt_barrier")
-
-# the reference's sites of its retry layer, not probed here yet
-_NOT_PORTED = ("ingest.read", "ingest.tokenize", "spill.write",
-               "spill.read", "shuffle.exchange", "checkpoint.save")
 
 
 class InjectedFault:
@@ -100,9 +99,6 @@ class FaultSpec:
         if kind not in _KINDS and kind not in _PROC_KINDS:
             raise ValueError(f"unknown fault kind {kind!r} "
                              f"(one of {sorted(_KINDS) + list(_PROC_KINDS)})")
-        if site in _NOT_PORTED:
-            raise ValueError(f"fault site {site!r} is not ported yet "
-                             f"(the port probes {SITES})")
         if site != "*" and site not in SITES:
             raise ValueError(f"unknown fault site {site!r} "
                              f"(registered: {SITES})")

@@ -3,22 +3,28 @@
 The counterpart of ``gpu_mapreduce_tpu/oink/script.py`` (reference
 ``oink/input.{h,cpp}``): a line reader with ``&`` continuation,
 quote-aware ``#`` comments and ``$x``/``${x}`` substitution; the builtins
-clear, echo, if, include, jump, label, log, next, print and variable; the
-OINK commands input, output, set and ``mr``; named-MR method lines
-(``mrscript.py``); registered commands with ``-i``/``-o`` switches; and
-the ``oink.cpp`` command line (``-in``, ``-log``, ``-screen``, ``-echo``,
-``-var``).
+clear, echo, if, include, jump, label, log, next, print, shell and
+variable; the OINK commands input, output, set and ``mr``; named-MR
+method lines (``mrscript.py``); registered commands with ``-i``/``-o``
+switches; the ft journal's hooks and its ``resume`` builtin; and the
+``oink.cpp`` command line (``-in``, ``-log``, ``-screen``, ``-echo``,
+``-var``, ``-partition``).
 
 Every MR a script makes lives on its ``ObjectManager``'s device: the card
-unless the caller passes ``device="cpu"``.  Not ported yet (each raises
-``MRError``): ``shell``, the ft journal's ``resume``, multi-world runs
-(``-partition``), the named-MR methods ``mrscript.py`` lists, and the
-settings the port's ``MapReduce`` lacks.
+unless the caller passes ``device="cpu"``.  ``-partition`` runs one
+interpreter a world, each over its sub-mesh, in threads
+(``universe.py``).  With ``MRTPU_JOURNAL`` set, every completed command
+is journaled and the named MRs checkpoint every ``MRTPU_CKPT_EVERY``
+commands (``ft/journal.py``); ``resume <dir>`` replays a killed script
+from its last checkpoint.  Not ported yet (each raises ``MRError``): the
+named-MR methods ``mrscript.py`` lists, and the settings the port's
+``MapReduce`` lacks.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import sys
 import time as _time
 from typing import List, Optional, TextIO
@@ -30,21 +36,19 @@ from .mrscript import MRScriptDispatch, expand_path_variable
 from .objects import ObjectManager
 from .variables import Variables
 
-_NOT_PORTED = {"shell": "the shell builtin",
-               "resume": "the ft journal's resume"}
-
-
 class OinkScript:
     """One interpreter: variable table + object manager + log.
 
     ``device``: where every MR of the script lives (None → the card);
     ``comm``: a mesh instead, whose width the ``nprocs`` variable reads.
-    ``screen``: None → stdout, False → silent, or a file-like."""
+    ``screen``: None → stdout, False → silent, or a file-like.
+    ``world``: this interpreter's ``WorldContext`` in a ``-partition``
+    universe (None: one world)."""
 
     def __init__(self, device=None, screen=None,
-                 logfile: Optional[str] = None, comm=None):
+                 logfile: Optional[str] = None, comm=None, world=None):
         self.obj = ObjectManager(device, comm=comm)
-        self.variables = Variables()
+        self.variables = Variables(world=world)
         self.screen: Optional[TextIO]
         if screen is None:
             self.screen = sys.stdout
@@ -58,14 +62,29 @@ class OinkScript:
         self.echo_log = True
         self.deltatime = 0.0           # `time` keyword (input.cpp:463)
         self.variables.specials["time"] = lambda: self.deltatime
-        self.variables.specials["nprocs"] = \
-            lambda: getattr(self.obj.comm, "size", 1)
+        self.variables.specials["nprocs"] = self._nprocs
         self._label_active = False
         self._labelstr = ""
         self._jump_skip = False
         self._jump_to: Optional[tuple] = None   # (filename-or-SELF, lines)
         self._path_prepend: Optional[str] = None
         self._path_substitute = 0
+        # the ft/ journal (armed by MRTPU_JOURNAL) records every completed
+        # command and checkpoints the named MRs; a resume replays the
+        # recorded lines, skipping the first _ft_skip command executions
+        # (builtins re-run so loop variables and jumps reproduce), then
+        # restores the MRs from _ft_restore and goes on live
+        from ..ft.journal import from_env as _ft_from_env
+        self._ft_journal = _ft_from_env(script_mode=True)
+        self._ft_skip = 0
+        self._ft_restore: Optional[tuple] = None   # (ckpt record, dir)
+        self._ft_resuming = False
+        self._ft_resharded = False    # restored from another width
+        self._ft_depth = 0
+        self._ft_pending_begin: Optional[tuple] = None
+
+    def _nprocs(self) -> int:
+        return getattr(self.obj.comm, "size", 1)
 
     def close(self):
         if self.logfile:
@@ -90,10 +109,26 @@ class OinkScript:
     # -- driving (reference Input::file / Input::one) ----------------------
     def run_file(self, filename: str):
         with open(filename) as f:
-            self._run_lines(f.read().splitlines())
+            lines = f.read().splitlines()
+        self._run_script(lines, filename)
 
     def run_string(self, text: str):
-        self._run_lines(text.splitlines())
+        self._run_script(text.splitlines(), "<string>")
+
+    def _run_script(self, lines: List[str], name: str):
+        """The outermost run of an armed journal stages its lines as the
+        ``begin`` record, written at the first non-builtin command: a
+        script of builtins only (the one-line ``resume <dir>``) never
+        writes a begin that would shadow the real script's.  ``include``
+        runs never begin again."""
+        if self._ft_journal is not None and self._ft_depth == 0 \
+                and not self._ft_resuming:
+            self._ft_pending_begin = (list(lines), name)
+        self._ft_depth += 1
+        try:
+            self._run_lines(lines)
+        finally:
+            self._ft_depth -= 1
 
     def _run_lines(self, lines: List[str]):
         i = 0
@@ -165,21 +200,70 @@ class OinkScript:
 
     # -- dispatch (reference Input::execute_command) -----------------------
     _BUILTINS = ("clear", "echo", "if", "include", "jump", "label", "log",
-                 "next", "print", "variable", "input", "output", "set", "mr")
+                 "next", "print", "shell", "variable", "input", "output",
+                 "set", "mr", "resume")
 
     def _execute(self, command: str, args: List[str]):
         if command in self._BUILTINS:
+            # a resume replays builtins, so loop variables and jumps
+            # reproduce, but never `shell`: its file moves happened
+            # before the checkpoint
+            if self._ft_skip > 0 and command == "shell":
+                return
             getattr(self, "cmd_" + command)(args)
-        elif command in COMMANDS:
+            return
+        if self._ft_skip > 0:
+            # a resume skips the first _ft_skip command executions (they
+            # are in the checkpoint), then restores the MRs.  Any
+            # non-builtin word counts: a skipped command may be what
+            # named the MR a later line dispatches on
+            self._ft_skip -= 1
+            if self._ft_skip == 0:
+                self._ft_apply_restore()
+            return
+        # the begin lands before the first command starts: a crash in
+        # command 1 still leaves a resumable journal
+        self._ft_flush_begin()
+        if command in COMMANDS:
             self._run_registered(command, args)
-        elif command in _NOT_PORTED:
-            raise MRError(f"{_NOT_PORTED[command]} is not ported yet")
         elif command in self.obj.named:
             t0 = _time.perf_counter()
             MRScriptDispatch(self.obj, self.variables).run(command, args)
             self.deltatime = _time.perf_counter() - t0
         else:
             raise MRError(f"Unknown command: {command}")
+        self._ft_cmd_done(command)
+
+    def _ft_flush_begin(self):
+        j = self._ft_journal
+        if j is not None and self._ft_pending_begin is not None:
+            lines, name = self._ft_pending_begin
+            self._ft_pending_begin = None
+            j.begin(lines, name)
+
+    def _ft_cmd_done(self, command: str):
+        """Journal one completed command (the record follows the fact)
+        and checkpoint the named MRs every ``MRTPU_CKPT_EVERY``."""
+        j = self._ft_journal
+        if j is not None:
+            self._ft_flush_begin()
+            j.cmd_done(command)
+            j.maybe_checkpoint(self.obj)
+
+    def _ft_apply_restore(self):
+        rec, self._ft_restore = self._ft_restore, None
+        if rec:
+            from ..ft.journal import restore_mrs
+            ckpt, dir = rec
+            restore_mrs(self.obj, ckpt, dir)
+
+    def cmd_resume(self, args):
+        """resume <dir>: replay the journal under <dir> from its last
+        durable checkpoint into this interpreter (``ft/journal.py``)."""
+        if len(args) != 1:
+            raise MRError("Illegal resume command")
+        from ..ft.journal import resume_into
+        resume_into(self, args[0])
 
     def _run_registered(self, name: str, args: List[str]):
         """-i/-o switch split + params + run (input.cpp:429-468)."""
@@ -343,6 +427,29 @@ class OinkScript:
             raise MRError("Illegal print command")
         self._emit(self._substitute(args[0]) + " \n")
 
+    def cmd_shell(self, args):
+        """The reference's restricted verbs cd, mkdir, mv, rm and rmdir,
+        as library calls, never a system() (input.cpp:751-791)."""
+        if not args:
+            raise MRError("Illegal shell command")
+        verb, rest = args[0], args[1:]
+        if verb == "cd" and len(rest) == 1:
+            os.chdir(rest[0])
+        elif verb == "mkdir" and rest:
+            for d in rest:
+                os.makedirs(d, exist_ok=True)
+        elif verb == "mv" and len(rest) == 2:
+            shutil.move(rest[0], rest[1])
+        elif verb in ("rm", "rmdir") and rest:
+            remove = os.unlink if verb == "rm" else os.rmdir
+            for f in rest:
+                try:
+                    remove(f)
+                except FileNotFoundError:
+                    pass
+        else:
+            raise MRError("Illegal shell command")
+
     def cmd_variable(self, args):
         self.variables.set(args)
 
@@ -448,15 +555,20 @@ def _split_args(line: str) -> List[str]:
 
 def main(argv: Optional[List[str]] = None) -> int:
     """``python -m gpu_mapreduce_tpu_torch.oink.script [-in file]
-    [-log file|none] [-screen file|none] [-echo style] [-var name
-    value...] [-device cpu|cuda]`` (reference oink.cpp:45-125).  The
-    script runs on the card unless ``-device cpu`` is given."""
+    [-log file|none] [-screen file|none] [-echo style] [-partition NxM
+    ...] [-var name value...] [-device cpu|cuda]`` (reference
+    oink.cpp:45-125).  The script runs on the card unless ``-device cpu``
+    is given; under ``-partition`` the specs' procs are shards of one
+    mesh on that device (one a card where there are enough cards)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     infile = None
     logname: Optional[str] = "log.oink"
+    lograw: Optional[str] = None      # the explicit -log value, if any
     screen: object = None
+    screenraw: Optional[str] = None
     echo = None
     device = None
+    partition: List[str] = []
     varsets = []
     i = 0
     while i < len(argv):
@@ -465,11 +577,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             infile = argv[i + 1]
             i += 2
         elif a in ("-log", "-l"):
-            logname = None if argv[i + 1] == "none" else argv[i + 1]
+            lograw = argv[i + 1]
+            logname = None if lograw == "none" else lograw
             i += 2
         elif a in ("-screen", "-sc"):
-            screen = False if argv[i + 1] == "none" \
-                else open(argv[i + 1], "w")
+            screenraw = argv[i + 1]      # opened only without -partition
             i += 2
         elif a in ("-echo", "-e"):
             echo = argv[i + 1]
@@ -486,10 +598,27 @@ def main(argv: Optional[List[str]] = None) -> int:
                 i += 1
             varsets.append((name, vals))
         elif a in ("-partition", "-p"):
-            raise SystemExit("-partition (multi-world runs) is not ported "
-                             "yet")
+            i += 1
+            while i < len(argv) and not argv[i].startswith("-"):
+                partition.append(argv[i])
+                i += 1
+            if not partition:
+                raise SystemExit("Invalid command-line argument: "
+                                 "-partition needs world specs")
         else:
             raise SystemExit(f"Invalid command-line argument: {a}")
+    if partition:
+        # a multi-world run (the reference requires -in, oink.cpp:99-100)
+        if not infile:
+            raise SystemExit("Must use -in switch with multiple partitions")
+        from .universe import run_universe
+        run_universe(infile, partition,
+                     comm=_partition_mesh(partition, device),
+                     logname=lograw, screenname=screenraw, echo=echo,
+                     varsets=varsets, device=device)
+        return 0
+    if screenraw is not None:
+        screen = False if screenraw == "none" else open(screenraw, "w")
     interp = OinkScript(device=device, screen=screen, logfile=logname)
     if echo:
         interp.cmd_echo([echo])
@@ -503,6 +632,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         interp.close()
     return 0
+
+
+def _partition_mesh(specs: List[str], device):
+    """The mesh the partition specs split: as many shards as their procs
+    sum to (None for one), one a CUDA card when that many are present,
+    else all on ``device`` (the card unless ``"cpu"``)."""
+    import torch
+
+    from ..core.runtime import resolve_device
+    from ..parallel.mesh import make_mesh
+    from .universe import Universe
+    probe = Universe(0)
+    for spec in specs:
+        probe.add_world(spec)
+    total = sum(probe.procs_per_world)
+    if total <= 1:
+        return None
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= total:
+        return make_mesh(total)
+    return make_mesh(total, devices=[dev] * total)
 
 
 if __name__ == "__main__":

@@ -8,10 +8,14 @@ and the EQUAL-style formula evaluator with C-like precedence, math
 functions and the ``time``/``nprocs`` specials, as a recursive-descent
 parser over tokens (no ``eval()``).
 
-One world only: multi-world runs (``-partition``) are not ported yet, so
-WORLD takes one value and UNIVERSE/ULOOP advance as LOOP does in a
-one-world universe: they start at index 0 and each ``next`` claims the
-next index from this table's counter.
+WORLD/UNIVERSE/ULOOP are the multi-world styles of ``-partition`` runs
+(``universe.py``).  The reference coordinates ULOOP through a lock file
+on shared disk (``variable.cpp:186-240``, ``:345-383``); here worlds are
+threads of one process, so a :class:`WorldContext` carries the world's
+index and count and a :class:`UloopCounter` shared by the universe's
+worlds hands out the next index under a lock.  Without a context the
+table runs one world (iworld 0, nworlds 1): UNIVERSE/ULOOP start at 0 and
+each ``next`` claims 1, 2, ... as LOOP does.
 """
 
 from __future__ import annotations
@@ -19,11 +23,86 @@ from __future__ import annotations
 import math
 import random as _random
 import re
+import threading
 from typing import Callable, Dict, List, Optional
 
 from ..core.runtime import MRError
 
 _STYLES = ("index", "loop", "world", "universe", "uloop", "string", "equal")
+
+
+class WorldContext:
+    """This world's place in the universe (reference Universe fields
+    ``iworld``/``nworlds`` + the ``tmp.oink.variable`` lock file).
+
+    One instance per world; ``counter`` is SHARED between the worlds of
+    one universe (the runner passes the same object to all).  The
+    counter starts at ``nworlds`` — world i implicitly owns index i, the
+    first ``next`` anywhere claims ``nworlds``, exactly the number the
+    reference seeds its lock file with (``variable.cpp:215-219``)."""
+
+    def __init__(self, iworld: int = 0, nworlds: int = 1,
+                 counter: Optional["UloopCounter"] = None,
+                 on_advance: Optional[Callable[[int, int], None]] = None):
+        self.iworld = iworld
+        self.nworlds = nworlds
+        self.counter = counter if counter is not None \
+            else UloopCounter(nworlds)
+        self.on_advance = on_advance   # (nextindex, iworld) → universe log
+
+    def uloop_next(self) -> int:
+        nextindex = self.counter.claim()
+        if self.on_advance is not None:
+            self.on_advance(nextindex, self.iworld)
+        return nextindex
+
+    def uloop_seed(self, name: str, generation: int):
+        """(Re)seed the shared counter at variable definition so a
+        SECOND uloop loop later in the script starts fresh instead of
+        resuming the exhausted counter (the reference rewrites its lock
+        file with nworlds at every definition, variable.cpp:215-219).
+
+        Reseeding is once per (variable, definition-generation): the
+        FIRST world to define it wins, later worlds' definitions are
+        no-ops — unlike a naive proc-0 reset, a straggler world defining
+        the variable after others already claimed indices cannot rewind
+        the counter and hand an index out twice."""
+        self.counter.seed(name, generation, self.nworlds)
+
+
+class UloopCounter:
+    """The shared next-index source (the reference's lock file, made a
+    mutex: rename()-as-lock → threading.Lock, variable.cpp:350-366)."""
+
+    def __init__(self, start: int):
+        self._next = start
+        self._lock = threading.Lock()
+        self._gens: Dict[str, int] = {}   # var name → seeded generation
+
+    def claim(self) -> int:
+        with self._lock:
+            n = self._next
+            self._next += 1
+            return n
+
+    def seed(self, name: str, generation: int, start: int):
+        """Reset to ``start`` the first time (name, generation) is seen;
+        the same definition executed by the other worlds is a no-op."""
+        with self._lock:
+            if self._gens.get(name, 0) < generation:
+                self._gens[name] = generation
+                self._next = start
+
+
+class _Var:
+    def __init__(self, style: str, values: List[str], which: int = 0,
+                 offset: int = 0, pad: int = 0):
+        self.style = style
+        self.values = values          # INDEX/WORLD/UNIVERSE/STRING: strings
+        self.num = len(values)        # LOOP/ULOOP: overridden below
+        self.which = which
+        self.offset = offset
+        self.pad = pad
 
 
 class _Var:
@@ -44,14 +123,12 @@ class Variables:
     interpreter installs ``time`` (elapsed seconds of the last command,
     ``oink/input.cpp:458-464``) and ``nprocs``."""
 
-    nworlds = 1
-    iworld = 0
-
-    def __init__(self):
+    def __init__(self, world: Optional[WorldContext] = None):
         self._vars: Dict[str, _Var] = {}
         self.specials: Dict[str, Callable[[], float]] = {}
         self._rng: Optional[_random.Random] = None
-        self._uloop_next = self.nworlds   # the next index `next` claims
+        self.world = world if world is not None else WorldContext()
+        self._uni_gen: Dict[str, int] = {}  # this table's definition count
 
     # -- the `variable` command (reference Variable::set) ------------------
     def set(self, args: List[str]):
@@ -82,17 +159,17 @@ class Variables:
             v = _Var(style, args[2:])
             if style == "world":
                 # one value per partition (variable.cpp:166-168)
-                if v.num != self.nworlds:
+                if v.num != self.world.nworlds:
                     raise MRError("World variable count doesn't match # "
                                   "of partitions")
-                v.which = self.iworld
+                v.which = self.world.iworld
             elif style == "universe":
-                if v.num < self.nworlds:
+                if v.num < self.world.nworlds:
                     raise MRError("Universe/uloop variable count < # of "
                                   "partitions")
-                v.which = self.iworld
+                v.which = self.world.iworld
                 self._check_uni_lengths(v)
-                self._seed_uni()
+                self._seed_uni(name)
         elif style in ("loop", "uloop"):
             rest = args[2:]
             pad = 0
@@ -119,12 +196,12 @@ class Variables:
                      if pad else 0)
             v.num = nlast - nfirst + 1
             if style == "uloop":
-                if v.num < self.nworlds:
+                if v.num < self.world.nworlds:
                     raise MRError("Universe/uloop variable count < # of "
                                   "partitions")
-                v.which = self.iworld
+                v.which = self.world.iworld
                 self._check_uni_lengths(v)
-                self._seed_uni()
+                self._seed_uni(name)
         elif style == "string":
             if len(args) != 3:
                 raise MRError("Illegal variable command")
@@ -135,11 +212,14 @@ class Variables:
             v = _Var(style, [args[2]])
         self._vars[name] = v
 
-    def _seed_uni(self):
-        """A universe/uloop definition restarts the claim counter (the
+    def _seed_uni(self, name: str):
+        """A universe/uloop definition reseeds the shared counter (the
         reference rewrites its lock file at every definition,
-        variable.cpp:215-219)."""
-        self._uloop_next = self.nworlds
+        variable.cpp:215-219): this table's Nth definition of ``name``
+        is shared generation N, and only the first world to reach it
+        reseeds."""
+        self._uni_gen[name] = self._uni_gen.get(name, 0) + 1
+        self.world.uloop_seed(name, self._uni_gen[name])
 
     def _check_uni_lengths(self, v: _Var):
         """All universe/uloop variables must agree on num (they advance
@@ -205,10 +285,10 @@ class Variables:
             raise MRError("Invalid variable style with next command")
         exhausted = False
         if style == "uni":
-            # claim the next unprocessed index; every listed variable
-            # jumps to it (variable.cpp:345-383)
-            nextindex = self._uloop_next
-            self._uloop_next += 1
+            # claim the next unprocessed index from the universe's shared
+            # counter; every listed variable jumps to it
+            # (variable.cpp:345-383)
+            nextindex = self.world.uloop_next()
             for n in names:
                 v = self._vars[n]
                 v.which = nextindex

@@ -24,7 +24,7 @@ import threading
 import time
 from typing import Callable, Dict, List
 
-from ...core.runtime import MRError, bump_dispatch
+from ...core.runtime import DeviceError, bump_dispatch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -57,8 +57,8 @@ def _nvcc() -> str:
     for c in cands:
         if c and os.path.exists(c):
             return c
-    raise MRError("nvcc not found: the CUDA kernels are built on first use "
-                  "and need the CUDA toolkit (set CUDA_HOME)")
+    raise DeviceError("nvcc not found: the CUDA kernels are built on first "
+                      "use and need the CUDA toolkit (set CUDA_HOME)")
 
 
 def _lib_path(name: str) -> str:
@@ -86,8 +86,8 @@ def _finish_build(name: str, proc: subprocess.Popen) -> str:
     out, _ = proc.communicate()
     tmp = proc.args[proc.args.index("-o") + 1]
     if proc.returncode != 0:
-        raise MRError(f"nvcc failed on csrc/{name}.cu "
-                      f"(exit {proc.returncode}):\n{out}")
+        raise DeviceError(f"nvcc failed on csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, _lib_path(name))
     return out
 
@@ -123,7 +123,10 @@ def library(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
         if lib is None:
             if _stale(name):
                 _finish_build(name, _start_build(name))
-            lib = ctypes.CDLL(_lib_path(name))
+            try:
+                lib = ctypes.CDLL(_lib_path(name))
+            except OSError as e:      # a kernel that will not load is fatal
+                raise DeviceError(f"cannot load lib{name}.so: {e}") from e
             bind(lib)
             _LIBS[name] = lib
     return lib

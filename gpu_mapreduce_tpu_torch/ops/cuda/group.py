@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ...core.runtime import MRError
+from ...core.runtime import DeviceError
 from ...utils.env import env_flag, env_str
 from ..bits import M32, narrow64, widen64
 from . import library, note_kernel_launch
@@ -254,7 +254,8 @@ def segment_table(keys: torch.Tensor, values: Optional[torch.Tensor],
         table.claimed.data_ptr(), table.claimed_keys.data_ptr(),
         keys.device.index or 0, stream)
     if rc != 0:
-        raise MRError(f"seg_table kernel launch failed (CUDA error {rc})")
+        raise DeviceError(f"seg_table kernel launch failed "
+                          f"(CUDA error {rc})")
     note_kernel_launch(segment_table)
     return table
 

@@ -28,7 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ...core.runtime import MRError
+from ...core.runtime import DeviceError
 from ..bits import M32, to_u32_lanes
 from . import library, note_kernel_launch
 
@@ -160,7 +160,8 @@ def mark_words(words: torch.Tensor, pattern: bytes) -> torch.Tensor:
     rc = lib.mark_words_launch(words.data_ptr(), out.data_ptr(), m, cm, cv,
                                nw, words.device.index or 0, stream)
     if rc != 0:
-        raise MRError(f"mark_words kernel launch failed (CUDA error {rc})")
+        raise DeviceError(f"mark_words kernel launch failed "
+                          f"(CUDA error {rc})")
     note_kernel_launch(mark_words)
     return out
 
@@ -288,7 +289,8 @@ def mark(buf: torch.Tensor, pattern: bytes) -> torch.Tensor:
     rc = lib.mark_bytes_launch(buf.data_ptr(), out.data_ptr(), n, cm, cv,
                                len(pattern), buf.device.index or 0, stream)
     if rc != 0:
-        raise MRError(f"mark_bytes kernel launch failed (CUDA error {rc})")
+        raise DeviceError(f"mark_bytes kernel launch failed "
+                          f"(CUDA error {rc})")
     note_kernel_launch(mark)
     return out
 

@@ -9,7 +9,10 @@ reference's map stage reads each rank's own files on its own node
   (:func:`balance_by_bytes`), one a shard;
 * every task's callback runs into a private sink that carries its
   shard's device (tasks numbered in global file order; under mapstyle 2
-  on the MapReduce's thread pool);
+  on the MapReduce's thread pool), under the ft/ ingest policy
+  (``ft.retry.ingest_task``: fault points, retries within the task's
+  slot, quarantine under ``onfault="skip"``); a file that fails at the
+  byte balance, or a chunk map's file read, gets the same disposition;
 * each shard's sinks become one frame on that shard's device (a text
   column interns there), and the shards' frames become one mesh frame
   (:func:`build_sharded`) whose text tables are dest-sharded
@@ -60,21 +63,28 @@ def balance_by_bytes(names: Sequence[str], P: int):
     return out
 
 
-def run_sinks(mr, payloads, call: Callable, base: int, device):
+def run_sinks(mr, payloads, call: Callable, base: int, device,
+              shard=None):
     """``call(base + i, payload, sink)`` for every payload into private
-    sinks on ``device``, in task order; under mapstyle 2 the tasks run on
-    the MapReduce's thread pool.  Returns the sinks."""
+    sinks on ``device``, in task order, each task under
+    ``ft.retry.ingest_task``; under mapstyle 2 the tasks run on the
+    MapReduce's thread pool.  Returns the sinks."""
     from ..core.mapreduce import _TaskSink
+    from ..ft.retry import ingest_active, ingest_task
+    onfault = mr.settings.onfault
+    active = ingest_active(onfault)
     sinks = [_TaskSink(device) for _ in payloads]
     if mr.settings.mapstyle == 2 and len(payloads) > 1:
         pool = mr._task_pool()
-        futs = [pool.submit(call, base + i, p, sinks[i])
+        futs = [pool.submit(ingest_task, call, base + i, p, sinks[i],
+                            onfault=onfault, shard=shard, active=active)
                 for i, p in enumerate(payloads)]
         for f in futs:
             f.result()          # a callback's exception surfaces here
     else:
         for i, p in enumerate(payloads):
-            call(base + i, p, sinks[i])
+            ingest_task(call, base + i, p, sinks[i], onfault=onfault,
+                        shard=shard, active=active)
     return sinks
 
 
@@ -209,8 +219,23 @@ def _even_split(kcols, vcols, counts, mesh):
     return nk, nv, nc
 
 
-def _balanced(names: Sequence[str], P: int) -> List[List[str]]:
-    return [files for _, files, _ in balance_by_bytes(list(names), P)]
+def _balanced(names: Sequence[str], P: int,
+              onfault: str = "fail") -> List[List[str]]:
+    """:func:`balance_by_bytes` under the ft/ discovery policy: a file
+    that fails here gets the task-time disposition (``MRError`` naming
+    it, or quarantined and dropped under ``onfault="skip"``)."""
+    from ..ft.retry import quarantine_or_raise
+    names = list(names)
+    while True:
+        try:
+            return [files for _, files, _ in balance_by_bytes(names, P)]
+        except OSError as e:
+            bad = getattr(e, "filename", None)
+            if bad in names:
+                quarantine_or_raise(e, bad, onfault)
+                names.remove(bad)
+            else:
+                quarantine_or_raise(e, bad, "fail")
 
 
 def _finish(mr, kv, shard_sinks: List[list], stats: dict) -> dict:
@@ -237,12 +262,12 @@ def mesh_map_files(mr, kv, names: Sequence[str], call: Callable) -> dict:
     a frame on its device.  Returns the ingest record
     (``{"mode": "mesh" | "host", ...}``)."""
     mesh = mr.backend.mesh
-    shards = _balanced(names, mesh.size)
+    shards = _balanced(names, mesh.size, mr.settings.onfault)
     stats = {"mode": "mesh", "shards": mesh.size,
              "files_per_shard": [len(s) for s in shards]}
     sinks, base = [], 0
-    for files, dev in zip(shards, mesh.devices):
-        sinks.append(run_sinks(mr, files, call, base, dev))
+    for p, (files, dev) in enumerate(zip(shards, mesh.devices)):
+        sinks.append(run_sinks(mr, files, call, base, dev, shard=p))
         base += len(files)
     return _finish(mr, kv, sinks, stats)
 
@@ -253,18 +278,27 @@ def mesh_map_chunks(mr, kv, names: Sequence[str], per_file: int,
     the shards, each splits into its ~``per_file`` chunks as on the host
     path (so callbacks see the same payloads, tasks numbered file then
     chunk), and each shard's chunks map into a frame on its device."""
+    from ..ft.retry import ingest_read
     from ..utils.io import file_chunks
     mesh = mr.backend.mesh
-    shards = _balanced(names, mesh.size)
+    onfault = mr.settings.onfault
+    shards = _balanced(names, mesh.size, onfault)
     stats = {"mode": "mesh", "shards": mesh.size,
              "files_per_shard": [len(s) for s in shards],
              "chunks_per_shard": []}
     sinks, base = [], 0
-    for files, dev in zip(shards, mesh.devices):
-        payloads = [c for f in files for c in file_chunks(f, per_file, sep,
-                                                          delta)]
+    for p, (files, dev) in enumerate(zip(shards, mesh.devices)):
+        # each file reads under the ft/ ingest.read policy (None: the
+        # file was quarantined)
+        payloads = []
+        for fname in files:
+            chunks = ingest_read(
+                lambda f=fname: list(file_chunks(f, per_file, sep, delta)),
+                file=fname, onfault=onfault, shard=p)
+            if chunks is not None:
+                payloads.extend(chunks)
         stats["chunks_per_shard"].append(len(payloads))
-        sinks.append(run_sinks(mr, payloads, call, base, dev))
+        sinks.append(run_sinks(mr, payloads, call, base, dev, shard=p))
         base += len(payloads)
     stats["ntasks"] = base
     return _finish(mr, kv, sinks, stats)

@@ -475,17 +475,48 @@ def _spec_key(skv: MeshKV, dest, transport: int, wire_on: bool) -> tuple:
             wire_on)
 
 
+def _under_retry(skv, run: Callable, detail: str):
+    """``run()`` under the ft/ ``shuffle.exchange`` fault site and retry
+    policy (JAX ``shuffle.py:575-616``).  The fault point comes before
+    any launch, so a faulted attempt leaves no trace: the plan cache, the
+    exchange and sync counters change only on a successful attempt.
+    Torch never consumes its inputs, but the veto stays explicit: a
+    retry needs every input shard still whole."""
+    from ..ft.inject import fault_point
+    from ..ft.retry import retry_call
+
+    def _once():
+        fault_point("shuffle.exchange")
+        return run()
+
+    def _retryable(_e) -> bool:
+        return all(s.key is not None and s.value is not None
+                   for s in skv.shards)
+
+    return retry_call("shuffle.exchange", _once, detail=detail,
+                      retryable=_retryable)
+
+
 def exchange(skv: MeshKV, dest, transport: int = 1, counters=None,
              site: str = "exchange") -> MeshKV:
     """Route every valid row of a mesh frame to its destination shard
     (``dest`` as in :func:`_dest_fn`); decode tables ride along.  A
     cached plan for this spec key that still holds is the one phase 2
     runs at (module docstring).  The new frame carries
-    :class:`ExchangeCallStats` as ``exchange_stats``.  A rank frame (``parallel/dist.RankKV``)
-    exchanges across the process group (:func:`exchange_ranks`, its
-    rows' sync point named ``site``)."""
+    :class:`ExchangeCallStats` as ``exchange_stats``.  A rank frame
+    (``parallel/dist.RankKV``) exchanges across the process group
+    (:func:`exchange_ranks`, its rows' sync point named ``site``).  Runs
+    under the ft/ ``shuffle.exchange`` retry policy (:func:`_under_retry`).
+    """
     if isinstance(skv, RankKV):
         return exchange_ranks(skv, dest, counters, site)
+    return _under_retry(
+        skv, lambda: _exchange_mesh(skv, dest, transport, counters),
+        f"P={skv.nprocs}")
+
+
+def _exchange_mesh(skv: MeshKV, dest, transport: int,
+                   counters) -> MeshKV:
     wire_on = _wire.wire_enabled()
     ph = phase1(skv, dest, wire_on)
     key = _spec_key(skv, dest, transport, wire_on)
@@ -535,7 +566,19 @@ def exchange_ranks(skv: RankKV, dest, counters=None,
     block, cap and count equals the one-process ``make_mesh(W·L)``'s
     shard byte for byte.  No speculation: the count gather is the
     exchange's first collective.  The new frame carries
-    ``exchange_stats`` and the seconds of both sync points."""
+    ``exchange_stats`` and the seconds of both sync points.
+
+    Runs under the ft/ ``shuffle.exchange`` retry policy, its fault point
+    before the first collective: the seeded schedule is per process and
+    every rank reaches its k-th exchange together, so a fault fires on
+    every rank at the same call and every rank retries into the same
+    collectives."""
+    return _under_retry(
+        skv, lambda: _exchange_ranks(skv, dest, counters, site),
+        f"P={skv.nprocs} rank {skv.rank}")
+
+
+def _exchange_ranks(skv: RankKV, dest, counters, site: str) -> RankKV:
     if skv.key_decode is not None or skv.value_decode is not None:
         raise MRError("an exchange of interned columns across ranks is not "
                       "ported yet (intern tables are per process)")

@@ -256,7 +256,20 @@ def _exec_exchange_group(mr, stages, reduce_op, compiled: CompiledPlan,
     """Run [aggregate, convert(, reduce(kernel))] over a mesh frame as
     one group.  Returns ``(mode, table)``: mode "exchange" (cold) or
     "exchange1" (warm at the cached plan and gcap), and whether the
-    group table ran."""
+    group table ran.  Runs under the ft/ ``shuffle.exchange`` fault site
+    and retry policy as the eager exchange does (JAX
+    ``plan/fuser.py:500-533``): the fault point comes before phase 1, so
+    a faulted attempt launches nothing and leaves the cached plan, the
+    counters and the dataset as they were."""
+    from ..parallel.shuffle import _under_retry
+    return _under_retry(
+        skv, lambda: _exchange_group_once(mr, stages, reduce_op, compiled,
+                                          gidx, skv),
+        f"P={skv.nprocs} fused")
+
+
+def _exchange_group_once(mr, stages, reduce_op, compiled: CompiledPlan,
+                         gidx: int, skv) -> tuple:
     from ..core.runtime import Timer
     from ..parallel import shuffle as sh
     from ..parallel import wire

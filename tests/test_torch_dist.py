@@ -330,8 +330,9 @@ def test_peer_kinds_rejected_outside_dist_sites():
         inject.FaultSpec(site="spill.write", kind="peer_kill")
     with pytest.raises(ValueError):
         inject.FaultSpec(site="*", kind="peer_hang")
-    with pytest.raises(ValueError, match="not ported yet"):
-        inject.FaultSpec(site="ingest.read", kind="oserror")
+    # a retry-layer site takes the exception kinds, as in the JAX package
+    assert _fields(inject.FaultSpec(site="ingest.read", kind="oserror")) \
+        == _fields(jinject.FaultSpec(site="ingest.read", kind="oserror"))
     with pytest.raises(ValueError):
         inject.parse_faults("site=dist.exchange;bogus=1")
 
@@ -366,7 +367,10 @@ def test_injected_exception_and_env_arming(monkeypatch):
         assert inject.counts() == {"dist.reshard": 1}
         inject.clear_faults()
         monkeypatch.setenv("MRTPU_FAULTS", "site=spill.write;kind=oserror")
-        inject.configure_from_env()                    # refused: warns
+        inject.configure_from_env()          # a retry-layer site arms
+        assert inject.armed_for("spill.write")
+        monkeypatch.setenv("MRTPU_FAULTS", "site=spill.wrte;kind=oserror")
+        inject.configure_from_env()          # an unknown site: warns
         assert not inject.armed()
         monkeypatch.setenv("MRTPU_FAULTS", "site=dist.exchange;kind=fatal")
         inject.configure_from_env()

@@ -437,13 +437,23 @@ def test_settings_defaults_and_env_knobs_match_jax(monkeypatch, env):
 
 
 @pytest.mark.parametrize("kw, match", [
-    ({"onfault": "retry"}, "not ported yet"),
-    ({"onfault": "skip"}, "not ported yet"),
+    # onfault retry and skip were refused until the ft/ layer was
+    # ported; they keep their ids and now hold the accepted settings
+    # against the JAX package's
+    pytest.param({"onfault": "retry"}, None, id="kw0-not ported yet"),
+    pytest.param({"onfault": "skip"}, None, id="kw1-not ported yet"),
     ({"onfault": "later"}, "Invalid onfault"),
     ({"keyalign": 3}, "power of 2"),
     ({"mapstyle": 3}, "Invalid mapstyle"),
     ({"nosuch": 1}, "unknown setting")])
 def test_settings_refusals(kw, match):
+    import dataclasses
+    if match is None:
+        mr = MapReduce(device="cpu").set(**kw)
+        jmr = JMapReduce(**kw)
+        assert dataclasses.asdict(mr.settings) == \
+            dataclasses.asdict(jmr.settings)
+        return
     with pytest.raises(MRError, match=match):
         MapReduce(device="cpu").set(**kw)
 
@@ -471,13 +481,19 @@ def test_set_and_mr_builtins_match_jax(tmp_path, monkeypatch, lines):
 
 
 def test_onfault_retry_is_refused_until_ported():
+    """``set onfault retry`` was refused until the ft/ layer was ported:
+    the named MR now carries it, as the JAX package's does."""
+    from gpu_mapreduce_tpu.oink.script import OinkScript as JOinkScript
     from gpu_mapreduce_tpu_torch import OinkScript
-    s = OinkScript(device="cpu", screen=False)
-    s.one("set onfault retry")
-    with pytest.raises(MRError, match="not ported yet"):
+    got = []
+    for s in (OinkScript(device="cpu", screen=False),
+              JOinkScript(screen=False)):
+        s.one("set onfault retry")
         s.one("mr z")
-    with pytest.raises(MRError, match="unknown set parameter"):
-        s.one("set nosuch 1")
+        got.append(s.obj.named["z"].settings.onfault)
+        with pytest.raises(Exception, match="unknown set parameter"):
+            s.one("set nosuch 1")
+    assert got == ["retry", "retry"]
 
 
 def test_interop_carries_paged_and_spilled_host_datasets(tmp_path):

@@ -219,9 +219,10 @@ def test_copy_set_scan_kmv_and_stats(capsys):
     assert cp.kv_stats() == mr.kv_stats() == (6, 96)
     cp.set(memsize=16, verbosity=1)
     assert (cp.settings.memsize, mr.settings.memsize) == (16, 8)
-    for bad in ({"onfault": "retry"}, {"onfault": "skip"}):
-        with pytest.raises(MRError, match="not ported yet"):
-            cp.set(**bad)
+    for policy in ("retry", "skip", "fail"):     # ported with ft/
+        assert cp.set(onfault=policy).settings.onfault == policy
+    with pytest.raises(MRError, match="Invalid onfault"):
+        cp.set(onfault="later")
     with pytest.raises(MRError, match="Invalid memsize"):
         cp.set(memsize=0)
     assert cp.collate() == 3

@@ -62,7 +62,8 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "plan.ir", "plan.cache", "core.mapreduce",
                    "oink.commands.invertedindex", "oink.objects",
                    "parallel.backend", "parallel.dist", "parallel.reshard",
-                   "ft", "ft.inject", "launch")
+                   "ft", "ft.inject", "launch", "ft.retry",
+                   "ft.journal", "oink.universe")
 
 
 def test_port_imports_no_jax():

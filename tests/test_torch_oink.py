@@ -178,10 +178,24 @@ def test_big_ids_match_serial_jax(tmp_path):
 
 
 @pytest.mark.parametrize("line", ["shell mkdir x", "resume somewhere"])
-def test_unported_builtins_raise(line):
-    s = OinkScript(device="cpu", screen=False)
-    with pytest.raises(MRError, match="not ported yet"):
-        s.one(line)
+def test_unported_builtins_raise(line, tmp_path, monkeypatch):
+    """``shell`` and ``resume`` were refused until ported; both now do
+    what the JAX package's do: the directory made, or the missing
+    journal's MRError."""
+    got = {}
+    for side, s in (("port", OinkScript(device="cpu", screen=False)),
+                    ("jax", JOinkScript(screen=False))):
+        d = tmp_path / side
+        d.mkdir()
+        monkeypatch.chdir(d)
+        try:
+            s.one(line)
+            got[side] = ("ok", sorted(os.listdir(d)))
+        except Exception as e:
+            got[side] = (type(e).__name__, str(e))
+    assert got["port"] == got["jax"]
+    assert got["port"] in (("ok", ["x"]),
+                           ("MRError", "no journal under 'somewhere'"))
 
 
 MR_LINES = """\
