@@ -185,7 +185,7 @@ nonzero):
               make_mesh(4) exchange (cap, count, sha256 of the padded
               keys and values); count_sync and exchange seconds by rank,
               the backend and transport.  launcher: ``launch --np 4``
-              and ``--np 2`` over 64 MB of the zipf generator, both
+              and ``--np 2`` over 32 MB of the zipf generator, both
               equal to a Counter oracle, then ``--np 4`` with rank 2
               killed at its second exchange: width 2 after 2
               generations, dead == [2], output byte-equal to --np 2's;
@@ -242,6 +242,30 @@ nonzero):
               line, a wordfreq over two zipf files a world and a shell
               line, the counts summed equal the generator's.  One
               ``ft-case`` line a case and one ``ft`` line.
+
+15. obs     — the port's observability on the card, after the intcount
+              phase (its line follows the dist line).  The main run
+              traced to a JSONL file: pairs and unique URLs as the
+              generator's, the same launches as untraced (mark_words 1),
+              each ``stage.<name>`` span within 2% or 1 ms of
+              StageTimer's seconds; the span tree (names, nesting, byte
+              attributes) of the 2 MB skewed corpus on the card equal to
+              the CPU's; one traced main run under torch.profiler:
+              mark_words launched inside ``stage.map_device``, each
+              top-level span's device ms and the run's idle share; traced
+              against untraced, interleaved, medians of 9 (main and the
+              warm fused IntCount), gated at 1.10x; µs a span for 10^5
+              empty spans with NVTX and the profiler range, the range
+              only, and neither; the warm fused IntCount (uniform) with
+              ``ensure_server(0)`` — seg_table once, /metrics scraped
+              during the run and after — and the P = 4 mesh-fuse warm
+              run, whose exchange byte counters equal the cumulative
+              counters' deltas, every metric name in the catalog; and
+              the dist phase's launcher runs' files: one trace id across
+              launch.json, the trace shards, the rank dumps and the
+              flight dumps, the sync records' spreads, the chaos
+              survivors' flight dumps with the lease table naming rank 2.
+              Then a ``total`` line with the smoke's seconds.
 
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits nonzero without printing a
@@ -3678,10 +3702,13 @@ def run_mesh_checkpoint(keys_u32, tmp: str, kernels, smi: str,
 DIST_P = 4                     # ranks, as the mesh phase's shards
 DIST_NARROW = 2                # reshard's narrow width
 DIST_CHECK_KEYS = 1 << 16      # reshard card vs CPU
-DIST_LAUNCH_MB = 64            # the launcher's corpus (the cell's cap)
+# the launcher's corpus: 32 MB, cut from the cell's cap of 64 MB once the
+# smoke with the obs phase ran past 780 s on a slow machine
+DIST_LAUNCH_MB = 32
 DIST_LAUNCH_CHUNKS = 8
 DIST_FAULTS = "site=dist.exchange;kind=peer_kill;rank=2;after=1;n=1"
 DIST_TIMEOUT_S = 300           # a subprocess run's limit
+LAUNCH_ARGS: list = []         # ["--device", "cpu"] in the CPU rehearsals
 
 
 def _same_rows(a, b) -> bool:
@@ -3971,8 +3998,9 @@ def _launch(args, rundir: str, env=None) -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "gpu_mapreduce_tpu_torch.launch",
-                        "--rundir", rundir] + args, env=e, cwd=root,
-                       capture_output=True, timeout=DIST_TIMEOUT_S)
+                        "--rundir", rundir] + LAUNCH_ARGS + args, env=e,
+                       cwd=root, capture_output=True,
+                       timeout=DIST_TIMEOUT_S)
     wall = time.perf_counter() - t0
     if r.returncode != 0:
         raise AssertionError(f"launch {args[:2]}: rc {r.returncode}\n"
@@ -4043,11 +4071,18 @@ def run_dist_launch(tmp: str) -> dict:
         raise AssertionError("dist-launch chaos: the shrunk run's output "
                              "differs from the --np 2 run's")
     nbytes = sum(os.path.getsize(p) for p in paths)
+    # the trace shards, rank dumps, sync records and flight dumps each
+    # run left (the obs phase's line carries them)
+    obs = {label: dist_obs_files(os.path.join(d, f"run-{label}"),
+                                 DIST_NARROW if label == "np2" else DIST_P,
+                                 label == "chaos")
+           for label in runs}
     shutil.rmtree(d)
-    return {"corpus_bytes": nbytes, "files": len(paths),
+    return {"corpus_bytes": nbytes, "files": len(paths), "obs": obs,
             "cut": f"the zipf generator at {DIST_LAUNCH_MB} MB (cut from "
-                   f"the wordfreq-zipf cell's 256 MB to the launcher "
-                   f"cell's cap of 64 MB)", "corpus_s": gen_s,
+                   f"the wordfreq-zipf cell's 256 MB, under the launcher "
+                   f"cell's cap of 64 MB, to keep the smoke under 780 s)",
+            "corpus_s": gen_s,
             "chunks": DIST_LAUNCH_CHUNKS, "faults": DIST_FAULTS,
             "outputs_equal_oracle": True, "chaos_equals_np2": True,
             "recover_seconds": s["recover_seconds"],
@@ -5238,6 +5273,539 @@ def ft_alone(card: bool) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# obs: the port's own spans, profiler ranges, metrics and dist files
+# ---------------------------------------------------------------------------
+
+# traced / untraced runs of each cell: 9, not 5, because the main run's
+# read varies by about 10% on an H100's host, and at 5 one slow read moved
+# the median ratio to 1.095x
+OBS_REPEATS = 9
+OBS_SPANS = 100_000            # empty spans timed for the cost of one
+OBS_OVERHEAD_MAX = 1.10        # traced / untraced end-to-end gate
+OBS_STAGE_TOL = (0.02, 1e-3)   # a stage span against StageTimer: 2% or 1 ms
+OBS_SCRAPE_S = 0.05            # /metrics polled this often during a run
+BYTE_ARGS = ("npairs", "shuffle_sent_bytes", "shuffle_pad_bytes",
+             "spill_write_bytes", "spill_read_bytes")
+
+
+@contextlib.contextmanager
+def traced(jsonl=None):
+    """The port's process tracer on for the block (its ring, and a JSONL
+    file when given), then off with its sinks dropped."""
+    from gpu_mapreduce_tpu_torch.obs import get_tracer
+    tr = get_tracer()
+    tr.reset()
+    tr.enable(jsonl=jsonl)
+    try:
+        yield tr
+    finally:
+        tr.reset()
+
+
+def span_tree(events) -> list:
+    """Each span as (thread, name, cat, depth, parent name) and its byte
+    attributes, in emission order: what must not depend on the device."""
+    byid = {e["id"]: e for e in events}
+    tids: dict = {}
+    out = []
+    for e in events:
+        depth, p = 0, e["parent"]
+        parent = byid[p]["name"] if p in byid else None
+        while p in byid:
+            depth += 1
+            p = byid[p]["parent"]
+        out.append((tids.setdefault(e["tid"], len(tids)), e["name"],
+                    e["cat"], depth, parent)
+                   + tuple(e["args"].get(k) for k in BYTE_ARGS))
+    return out
+
+
+def stage_spans_vs_timer(events, times: dict) -> dict:
+    """Each ``stage.<name>`` span's summed seconds beside StageTimer's:
+    within OBS_STAGE_TOL, or raise."""
+    spans: dict = {}
+    for e in events:
+        if e["name"].startswith("stage."):
+            name = e["name"][len("stage."):]
+            spans[name] = spans.get(name, 0.0) + e["dur"] / 1e6
+    if set(spans) != set(times):
+        raise AssertionError(f"obs: stage spans {sorted(spans)} != timer "
+                             f"stages {sorted(times)}")
+    rel, floor = OBS_STAGE_TOL
+    out = {}
+    for name, secs in times.items():
+        diff = abs(spans[name] - secs)
+        if diff > max(rel * secs, floor):
+            raise AssertionError(f"obs: stage.{name} span {spans[name]} s, "
+                                 f"StageTimer {secs} s")
+        out[name] = {"span_s": spans[name], "timer_s": secs,
+                     "diff_s": diff}
+    return out
+
+
+def _union_ms(intervals) -> float:
+    """Total length of a set of (start, end) µs intervals, in ms."""
+    total, cur = 0.0, None
+    for a, b in sorted(intervals):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total / 1e3
+
+
+def profile_main(paths, device) -> dict:
+    """One traced main run under torch.profiler: the mark_words kernel
+    must be launched inside the ``stage.map_device`` range (its wrapper's
+    call marked by a ``launch.mark_words`` range for the run); each
+    top-level span's device ms (the union of the device events inside its
+    range) and the run's idle share (1 - busy / wall over the top-level
+    spans)."""
+    import torch
+    from torch.autograd import DeviceType
+    from gpu_mapreduce_tpu_torch import InvertedIndex
+    from gpu_mapreduce_tpu_torch.apps import invertedindex as ii_mod
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    card = device.type == "cuda"
+    if card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    wrapper = ii_mod.mark_words
+
+    @functools.wraps(wrapper)
+    def marked(*args, **kw):
+        with torch.profiler.record_function("launch.mark_words"):
+            return wrapper(*args, **kw)
+    ii_mod.mark_words = marked
+    try:
+        with traced() as tr, \
+                torch.profiler.profile(activities=acts) as prof:
+            InvertedIndex(device=device).run(paths)
+            if card:
+                torch.cuda.synchronize()
+            top = [e["name"] for e in tr.events() if not e["parent"]]
+            names = {e["name"] for e in tr.events()} | {"launch.mark_words"}
+    finally:
+        ii_mod.mark_words = wrapper
+    evs = prof.events()
+    # the device's kernels and copies (a span's own range on the device
+    # timeline, its gpu_user_annotation, is not work)
+    dev = [(e.time_range.start, e.time_range.end) for e in evs
+           if e.device_type == DeviceType.CUDA and e.name not in names]
+    ranges = {}
+    for e in evs:
+        if e.device_type == DeviceType.CPU and e.name in top:
+            ranges.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    spans_ms = {}
+    for name, rs in ranges.items():
+        spans_ms[name] = {
+            "wall_ms": sum(b - a for a, b in rs) / 1e3,
+            "device_ms": _union_ms([(max(a, s), min(b, t))
+                                    for a, b in dev for s, t in rs
+                                    if a < t and b > s])}
+    lo = min(a for rs in ranges.values() for a, _ in rs)
+    hi = max(b for rs in ranges.values() for _, b in rs)
+    busy = _union_ms([(max(a, lo), min(b, hi)) for a, b in dev
+                      if a < hi and b > lo])
+    # the word mark's launches (its wrapper's calls) inside the
+    # stage.map_device range; its kernel records where CUPTI delivers
+    # them (each inside the range: the stage starts after the h2d
+    # stage's synchronise and ends with its own)
+    stage = [(e.time_range.start, e.time_range.end) for e in evs
+             if e.device_type == DeviceType.CPU
+             and e.name == "stage.map_device"]
+    launches = [(e.time_range.start, e.time_range.end) for e in evs
+                if e.device_type == DeviceType.CPU
+                and e.name == "launch.mark_words"]
+    kernels = [(e.time_range.start, e.time_range.end) for e in evs
+               if e.device_type == DeviceType.CUDA
+               and "mark_words" in e.name
+               and e.name != "launch.mark_words"]
+
+    def inside(iv):
+        return [k for k in iv if any(s <= k[0] and k[1] <= t
+                                     for s, t in stage)]
+    if not launches or len(inside(launches)) != len(launches):
+        raise AssertionError(f"obs: mark_words launches {launches}, "
+                             f"stage.map_device ranges {stage}")
+    if len(inside(kernels)) != len(kernels):
+        raise AssertionError(f"obs: mark_words kernel records {kernels} "
+                             f"outside stage.map_device {stage}")
+    return {"top_spans": spans_ms, "wall_ms": (hi - lo) / 1e3,
+            "device_busy_ms": busy,
+            "idle_share": 1.0 - busy * 1e3 / (hi - lo) if hi > lo else None,
+            "mark_words_launches_inside_map_device": len(launches),
+            "mark_words_kernel_records": len(kernels),
+            "device_events": len(dev)}
+
+
+def span_cost_us(nspans: int = OBS_SPANS) -> dict:
+    """µs a span for ``nspans`` empty spans on a private tracer: with the
+    profiler and NVTX ranges (NVTX where CUDA is available), with the
+    profiler range only, and with neither."""
+    from gpu_mapreduce_tpu_torch.obs.tracer import Tracer
+    out = {}
+    for label, nvtx, annot in (("nvtx", True, True),
+                               ("profiler_range", False, True),
+                               ("plain", False, False)):
+        tr = Tracer().enable(ring=1024)
+        tr.annotations = annot
+        tr.nvtx = nvtx and tr.nvtx
+        if label == "nvtx" and not tr.nvtx:
+            out[label] = None          # no card: no NVTX
+            continue
+        t0 = time.perf_counter()
+        for _ in range(nspans):
+            with tr.span("x"):
+                pass
+        out[label] = (time.perf_counter() - t0) / nspans * 1e6
+    return out
+
+
+def _scraper(port: int, stop, got: list) -> None:
+    import urllib.request
+    while not stop.is_set():
+        try:
+            got.append(urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=5).read()
+                .decode())
+        except OSError:
+            pass
+        stop.wait(OBS_SCRAPE_S)
+
+
+def catalog_names() -> set:
+    """The metric names of doc/observability.md's catalog table."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "doc", "observability.md")) as f:
+        rows = [ln for ln in f if ln.startswith("| `mrtpu_")]
+    return {m for ln in rows
+            for m in re.findall(r"`(mrtpu_[a-z0-9_]*[a-z0-9])", ln)}
+
+
+def exchange_bytes(snap) -> dict:
+    fam = snap.get("mrtpu_exchange_bytes_total", {"samples": []})
+    return {s["labels"]["kind"]: s["value"] for s in fam["samples"]}
+
+
+def obs_metrics(int_path, keys_u32, tmp: str, kernels, device,
+                devices) -> dict:
+    """The warm fused IntCount (uniform) with the metrics endpoint up
+    (``ensure_server(0)``): seg_table once, /metrics scraped during the
+    run and after it; then the P = 4 mesh-fuse warm run, whose exchange
+    byte counters must equal the cumulative counters' deltas
+    (``mr.stats()``), and every metric name must be in the catalog."""
+    import threading
+    from gpu_mapreduce_tpu_torch import intcount
+    from gpu_mapreduce_tpu_torch.core.runtime import global_counters
+    from gpu_mapreduce_tpu_torch.obs import httpd, metrics
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.plan import plan_cache
+    card = device.type == "cuda"
+    want = intcount_oracle(keys_u32, 10)
+    port = httpd.ensure_server(0)
+    os.environ["MRTPU_FUSE"] = "1"
+    plan_cache().clear()
+    if intcount([int_path], ntop=10, device=device) != want:
+        raise AssertionError("obs: the cold fused IntCount differs")
+    for k in kernels:
+        k.launches = 0
+    stop, scrapes = threading.Event(), []
+    th = threading.Thread(target=_scraper, args=(port, stop, scrapes),
+                          daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    got = intcount([int_path], ntop=10, device=device)
+    if card:
+        sync_all()
+    warm_s = time.perf_counter() - t0
+    stop.set()
+    th.join()
+    launches = {k.__name__: k.launches for k in kernels}
+    if got != want:
+        raise AssertionError("obs: the warm fused IntCount differs")
+    if card and launches["segment_table"] != 1:
+        raise AssertionError(f"obs: seg_table launched "
+                             f"{launches['segment_table']} times warm")
+    import urllib.request
+    after = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                   timeout=10).read().decode()
+    for name in ("mrtpu_op_latency_seconds", "mrtpu_plan_cache_hit_ratio",
+                 "mrtpu_hbm_hiwater_bytes"):
+        if f"# TYPE {name} " not in after:
+            raise AssertionError(f"obs: {name} missing from /metrics")
+    mesh = make_mesh(len(devices), devices=devices)
+    mpaths = split_files(keys_u32, os.path.join(tmp, "obs-fuse"), mesh.size)
+    mwant = intcount_oracle_mesh(keys_u32, 10, mesh.size)
+    if intcount(mpaths, ntop=10, comm=mesh) != mwant:     # cold
+        raise AssertionError("obs: the P = 4 cold fused IntCount differs")
+    c0, m0 = global_counters().snapshot(), exchange_bytes(metrics.snapshot())
+    if intcount(mpaths, ntop=10, comm=mesh) != mwant:     # warm
+        raise AssertionError("obs: the P = 4 warm fused IntCount differs")
+    c1, m1 = global_counters().snapshot(), exchange_bytes(metrics.snapshot())
+    os.environ.pop("MRTPU_FUSE", None)
+    shutil.rmtree(os.path.dirname(mpaths[0]))
+    deltas = {"metrics_sent": m1.get("sent", 0) - m0.get("sent", 0),
+              "metrics_pad": m1.get("pad", 0) - m0.get("pad", 0),
+              "metrics_wire": m1.get("wire", 0) - m0.get("wire", 0),
+              "stats_cssize": c1["cssize"] - c0["cssize"],
+              "stats_cspad": c1["cspad"] - c0["cspad"]}
+    if (deltas["metrics_sent"], deltas["metrics_pad"]) != \
+            (deltas["stats_cssize"], deltas["stats_cspad"]) \
+            or deltas["metrics_sent"] <= 0:
+        raise AssertionError(f"obs: exchange counters {deltas}")
+    names = set(metrics.snapshot())
+    stray = names - catalog_names()
+    if stray:
+        raise AssertionError(f"obs: metrics outside the catalog: {stray}")
+    return {"port": port, "warm_s": warm_s, "launches": launches,
+            "scrapes_during_run": len(scrapes),
+            "scrape_bytes_after": len(after), "p4_exchange": deltas,
+            "metric_names": sorted(names)}
+
+
+def obs_overhead(paths, int_path, device, kernels) -> dict:
+    """Traced against untraced end to end, interleaved (the order flips
+    every repeat), OBS_REPEATS each: the main run and the warm fused
+    IntCount (uniform).  Traced: the process tracer's ring, the profiler
+    ranges and NVTX."""
+    from gpu_mapreduce_tpu_torch import InvertedIndex, intcount
+    from gpu_mapreduce_tpu_torch.obs import get_tracer
+    from gpu_mapreduce_tpu_torch.plan import plan_cache
+    card = device.type == "cuda"
+    tr = get_tracer()
+    tr.reset()
+
+    def main_run():
+        InvertedIndex(device=device).run(paths)
+        if card:
+            sync_all()
+
+    def int_run():
+        intcount([int_path], ntop=10, device=device)
+        if card:
+            sync_all()
+    os.environ["MRTPU_FUSE"] = "1"
+    plan_cache().clear()
+    int_run()                                  # the warm plan
+    times = {c: {"traced": [], "untraced": []} for c in ("main", "intcount")}
+    spans = {}
+    for i in range(OBS_REPEATS):
+        for cell, fn in (("main", main_run), ("intcount", int_run)):
+            order = ("untraced", "traced") if i % 2 == 0 \
+                else ("traced", "untraced")
+            for mode in order:
+                if mode == "traced":
+                    tr.enable()
+                    tr.clear()
+                t0 = time.perf_counter()
+                fn()
+                times[cell][mode].append(time.perf_counter() - t0)
+                if mode == "traced":
+                    spans[cell] = len(tr.events())
+                    tr.disable()
+    os.environ.pop("MRTPU_FUSE", None)
+    tr.reset()
+    out = {}
+    for cell, t in times.items():
+        med = {m: statistics.median(v) for m, v in t.items()}
+        ratio = med["traced"] / med["untraced"]
+        out[cell] = {"traced_s": t["traced"], "untraced_s": t["untraced"],
+                     "median_traced_s": med["traced"],
+                     "median_untraced_s": med["untraced"],
+                     "ratio": ratio, "spans": spans[cell]}
+        if card and ratio > OBS_OVERHEAD_MAX:
+            raise AssertionError(f"obs: traced {cell} {ratio:.3f}x the "
+                                 f"untraced run")
+    return out
+
+
+def run_obs(paths, nref: int, nuniq: int, main_launches: dict, int_path,
+            keys_u32, tmp: str, kernels, smi: str, device) -> dict:
+    """The obs phase (the port's own spans, profiler ranges and metrics;
+    the dist files are checked in the dist phase's launcher runs): the
+    traced main run, its stage spans against StageTimer, the span tree
+    on the card against the CPU's, the profiled main run, the metrics
+    endpoint over the warm fused IntCount, traced against untraced, and
+    the cost of one span."""
+    import torch
+    from gpu_mapreduce_tpu_torch import InvertedIndex
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.obs import (chrome_trace, flight, httpd,
+                                             metrics, read_jsonl)
+    card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "obs")
+    os.makedirs(d)
+    saved_flight = os.environ.get("MRTPU_FLIGHT")
+    os.environ["MRTPU_FLIGHT"] = os.path.join(d, "flight")
+    rec = {"phase": "obs", "card": smi}
+    try:
+        # the traced main run
+        jsonl = os.path.join(d, "main.jsonl")
+        for k in kernels:
+            k.launches = 0
+        with traced(jsonl) as tr:
+            if card:
+                torch.cuda.synchronize()
+            idx = InvertedIndex(device=device)
+            t0 = time.perf_counter()
+            got = idx.run(paths)
+            if card:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            events = tr.events()
+        launches = {k.__name__: k.launches for k in kernels}
+        if got != (nref, nuniq):
+            raise AssertionError(f"obs: traced main run {got}")
+        if card and launches != main_launches:
+            raise AssertionError(f"obs: traced main run launched "
+                                 f"{launches}, untraced {main_launches}")
+        if len(read_jsonl(jsonl)) != len(events) or \
+                len(chrome_trace(events)["traceEvents"]) != len(events):
+            raise AssertionError("obs: the JSONL trace differs from the ring")
+        rec["main"] = {"end_to_end_s": dt, "spans": len(events),
+                       "launches": launches,
+                       "stages": stage_spans_vs_timer(events,
+                                                      idx.timer.times),
+                       "trace_id": events[0].get("trace")}
+        # the span tree: card against CPU on the 2 MB skewed corpus
+        sk = os.path.join(d, "skew")
+        os.makedirs(sk)
+        skew, _, _ = make_corpus(sk, 2, skew=True)
+        trees = {}
+        for dev in ((device, torch.device("cpu")) if card else (device,)):
+            with traced() as tr:
+                InvertedIndex(device=dev).run(skew)
+                trees[dev.type] = span_tree(tr.events())
+        if card and trees["cuda"] != trees["cpu"]:
+            raise AssertionError(f"obs: the card's span tree differs from "
+                                 f"the CPU's: {trees['cuda'][:8]} ... vs "
+                                 f"{trees['cpu'][:8]} ...")
+        rec["tree"] = {"spans": len(trees[device.type]),
+                       "card_equals_cpu": card,
+                       "names": sorted({t[1] for t in trees[device.type]})}
+        shutil.rmtree(sk)
+        rec["profile"] = profile_main(paths, device)
+        rec["overhead"] = obs_overhead(paths, int_path, device, kernels)
+        rec["span_cost_us"] = span_cost_us()
+        rec["metrics"] = obs_metrics(
+            int_path, keys_u32, d, kernels, device,
+            mesh_devices() if card else [torch.device("cpu")] * MESH_P)
+    finally:
+        httpd.stop_server()
+        metrics.reset()
+        flight.reset()
+        from gpu_mapreduce_tpu_torch.obs import get_tracer
+        get_tracer().reset()
+        if saved_flight is None:
+            os.environ.pop("MRTPU_FLIGHT", None)
+        else:
+            os.environ["MRTPU_FLIGHT"] = saved_flight
+        shutil.rmtree(d, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def dist_obs_files(rundir: str, width: int, chaos: bool) -> dict:
+    """What a launcher run left for observability: one trace id across
+    ``launch.json``, every trace shard, every rank's metrics dump and
+    every flight dump; the sync records' spreads; in a chaos run the
+    survivors' flight dumps with the lease table naming the dead rank."""
+    import glob
+    from gpu_mapreduce_tpu_torch.obs.fleetobs import (read_rank_dumps,
+                                                      read_sync_records,
+                                                      read_trace_dir)
+    with open(os.path.join(rundir, "launch.json")) as f:
+        tid = json.load(f)["trace_id"]
+    events, nshards = read_trace_dir(rundir)
+    dumps = read_rank_dumps(rundir)
+    syncs = read_sync_records(rundir)
+    flights = []
+    for p in sorted(glob.glob(os.path.join(rundir, "mr_flight.*.json"))):
+        with open(p) as f:
+            flights.append(json.load(f))
+    ids = ({e.get("trace") for e in events}
+           | {doc.get("trace_id") for doc in dumps.values()}
+           | {doc.get("trace_id") for doc in flights})
+    spreads = [r["spread_s"] for r in syncs if r.get("kind") == "spread"]
+    if ids != {tid} or nshards != width or sorted(dumps) != \
+            list(range(width)) or not spreads:
+        raise AssertionError(f"obs: {rundir}: trace ids {ids} (launch "
+                             f"{tid}), {nshards} shards, dumps "
+                             f"{sorted(dumps)}, {len(spreads)} spreads")
+    lost = [doc for doc in flights
+            if str(doc.get("reason", "")).startswith("peer_lost")]
+    if chaos and not any("2" in (doc.get("dist") or {}).get("dead", ())
+                         for doc in lost):
+        raise AssertionError(f"obs: no survivor's flight dump names rank "
+                             f"2 dead: {[d.get('reason') for d in flights]}")
+    return {"trace_id": tid, "trace_shards": nshards, "spans": len(events),
+            "rank_dumps": {r: doc["reason"] for r, doc in dumps.items()},
+            "sync_records": len(syncs), "spreads": len(spreads),
+            "max_spread_s": max(spreads),
+            "flight_dumps": [doc.get("reason") for doc in flights],
+            "lease_tables": sum(1 for doc in lost if doc.get("dist"))}
+
+
+def obs_alone(card: bool) -> int:
+    """``chip_smoke.py --obs-alone``: the obs phase alone on the card at
+    its full size (the main corpus, the intcount-uniform file, the
+    untraced main run's launches for the gate), then the dist phase's
+    launcher runs for their files.  ``--obs-rehearse``: the same on the
+    CPU at a small size (a 2 MB corpus, 2^18 keys, CPU ranks), every gate
+    but the launch counts.  Prints the obs line."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch import InvertedIndex
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.ops import cuda as kcuda
+    from gpu_mapreduce_tpu_torch.ops.cuda import group, match
+    global DIST_LAUNCH_MB
+    if card:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 2
+        kcuda.build_all()
+        smi = nvidia_smi()
+        device = torch.device("cuda", 0)
+        main_mb, nkeys = MAIN_MB, INTCOUNT_KEYS
+    else:
+        smi = "cpu rehearsal"
+        device = torch.device("cpu")
+        main_mb, nkeys = 2, 1 << 18
+        DIST_LAUNCH_MB = 2
+        LAUNCH_ARGS[:] = ["--device", "cpu"]
+    kernels = [match.mark_words, group.segment_table, match.mark]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "main"))
+        paths, nref, nuniq = make_corpus(os.path.join(tmp, "main"), main_mb)
+        keys = np.random.default_rng(7).integers(0, 1 << 32, nkeys,
+                                                 dtype=np.uint32)
+        int_path = os.path.join(tmp, "uniform.bin")
+        keys.tofile(int_path)
+        InvertedIndex(device=device).run(paths)            # warm-up
+        for k in kernels:
+            k.launches = 0
+        InvertedIndex(device=device).run(paths)
+        launches = {k.__name__: k.launches for k in kernels}
+        rec = run_obs(paths, nref, nuniq, launches, int_path, keys, tmp,
+                      kernels, smi, device)
+        rec["dist_files"] = run_dist_launch(tmp)["obs"]
+        rec["alone_seconds"] = time.perf_counter() - t0
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5252,6 +5820,7 @@ def main() -> int:
     # every kernel wrapper: the InvertedIndex path's, the fused count
     # chain's, and the byte mark (off every entry point)
     kernels = [match.mark_words, group.segment_table, match.mark]
+    t_smoke = time.perf_counter()
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -5395,6 +5964,9 @@ def main() -> int:
             emit(int_runs[cell])
         ooc = run_ooc(int_paths["uniform"], int_keys["uniform"], tmp,
                       device, kernels)
+        obs_rec = run_obs(paths, nref, nuniq, main_rec["launches"],
+                          int_paths["uniform"], int_keys["uniform"], tmp,
+                          kernels, smi, device)
         shutil.rmtree(int_dir)
         t_mesh = time.perf_counter()
         mesh_int = {}
@@ -5524,6 +6096,9 @@ def main() -> int:
                       "end_to_end_s", "group_s", "launches")}}})
         dist = run_dist(int_keys["uniform"], tmp, kernels, smi)
         emit(dist)
+        # the obs phase's line, with the files the launcher runs left
+        obs_rec["dist_files"] = dist["launch"]["obs"]
+        emit(obs_rec)
         wire = run_wire(int_keys, tmp, kernels, smi, mesh_wf, mesh_fuse)
         emit({k: wire[k] for k in ("phase", "card", "p", "cards", "devices",
                                    "check", "launches", "seconds")})
@@ -5536,6 +6111,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})
     uni, zipf = table_timing["uniform"], table_timing["zipf"]
     # the graph and tri phases reach no hand-written kernel: their counts
     # (0 expected) ride beside each kernel's main-path count, the
@@ -5572,7 +6148,13 @@ def main() -> int:
                     # card-vs-CPU check's warm fused group
                     "launches_wire": wire["launches"][k],
                     # the ft phase's faulted runs, by case
-                    "launches_ft": ft_rec["launches"][k]}
+                    "launches_ft": ft_rec["launches"][k],
+                    # the obs phase: the traced main run and the warm
+                    # fused IntCount with the metrics endpoint up
+                    "launches_obs": {
+                        "main_traced": obs_rec["main"]["launches"][k],
+                        "intcount_warm_metrics":
+                            obs_rec["metrics"]["launches"][k]}}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -5646,4 +6228,6 @@ if __name__ == "__main__":
         sys.exit(ft_graph_child(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] in (["--ft-rehearse"], ["--ft-alone"]):
         sys.exit(ft_alone(sys.argv[1] == "--ft-alone"))
+    if sys.argv[1:2] in (["--obs-rehearse"], ["--obs-alone"]):
+        sys.exit(obs_alone(sys.argv[1] == "--obs-alone"))
     sys.exit(main())

@@ -190,7 +190,9 @@ def _host_collision_count(ids: np.ndarray, alts: np.ndarray) -> int:
 class StageTimer:
     """Cumulative wall-clock seconds per pipeline stage.  Each stage ends
     with a synchronise of every device it may use, so its time includes
-    their work."""
+    their work.  Each stage is also a ``stage.<name>`` span (``obs/``,
+    JAX :449-454) that closes after that synchronise, so the span's
+    duration is the stage's seconds."""
 
     def __init__(self, device: torch.device, devices=()):
         self.devices = tuple(dict.fromkeys(devices or (device,)))
@@ -198,14 +200,16 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            for dev in self.devices:
-                synchronize(dev)
-            self.times[name] = self.times.get(name, 0.0) \
-                + time.perf_counter() - t0
+        from ..obs import get_tracer
+        with get_tracer().span("stage." + name, cat="app"):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                for dev in self.devices:
+                    synchronize(dev)
+                self.times[name] = self.times.get(name, 0.0) \
+                    + time.perf_counter() - t0
 
 
 class InvertedIndex:

@@ -49,6 +49,13 @@ reduces are recorded instead of run and return a lazy ``PendingCount``;
 every other op, and any read of ``mr.kv``/``mr.kmv``, is a barrier that
 runs the recorded chain first.  The fuser never fuses across a spill
 boundary.
+
+Observability (``obs/``): every op is a span of the process tracer when
+tracing is on (``trace=`` or ``MRTPU_TRACE``), with its pair count and
+counter deltas; ``metrics_port=`` (or ``MRTPU_METRICS_PORT``) serves the
+metrics on localhost; each op start and each plan barrier is a
+cancellation barrier; ``stats()`` carries ``ops`` and ``metrics`` when
+they are on.
 """
 
 from __future__ import annotations
@@ -125,6 +132,30 @@ def _fusible(fn):
     return wrapper
 
 
+def _traced(fn):
+    """Wrap an op in a tracer span (JAX ``core/mapreduce.py:142-163``):
+    wall time, counter deltas and the returned pair count as span
+    attributes; nesting follows the calls (collate parents aggregate and
+    convert, compress parents convert and reduce, the exchange and ingest
+    spans hang under their op).  Disabled tracing costs one attribute
+    check."""
+    op = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kw):
+        tr = self.tracer
+        if not tr.enabled:
+            return fn(self, *args, **kw)
+        with tr.span(op, cat="mr_op", shards=self.backend.nprocs) as sp:
+            out = fn(self, *args, **kw)
+            if isinstance(out, int):
+                sp.set(npairs=out)
+            if op.startswith("map_file"):
+                sp.set(ingest=self.last_ingest.get("mode"))
+            return out
+    return wrapper
+
+
 def _defer_ok(op: str, args: tuple, kw: dict) -> bool:
     """Only ops that could fuse are deferred: aggregate, convert, int-flag
     sorts and registered-kernel reduces without a ``ptr`` or
@@ -147,13 +178,35 @@ def _defer_ok(op: str, args: tuple, kw: dict) -> bool:
 class MapReduce:
     """One MapReduce object owns at most one KV and/or one KMV."""
 
-    def __init__(self, device=None, comm=None, **settings):
+    def __init__(self, device=None, comm=None, trace=None,
+                 metrics_port=None, **settings):
         self.settings = Settings(**settings)
         self.settings.validate()
         # ft/: apply MRTPU_FAULTS / MRTPU_RETRY / MRTPU_JOURNAL when they
         # changed (a getenv and a compare each when they did not)
         from ..ft import configure_from_env
         configure_from_env()
+        # tracing is process-global (obs/): trace=path streams the spans
+        # to a JSONL file, trace=True keeps the in-memory ring only
+        from ..obs import get_tracer
+        self.tracer = get_tracer()
+        if trace:
+            self.tracer.enable(jsonl=trace if isinstance(trace, str)
+                               else None)
+        # so are the live metrics: metrics_port=N serves /metrics on
+        # localhost:N; a bind failure warns (metrics never fail the app
+        # they observe), an SLO objective (MRTPU_SLO) raises
+        if metrics_port is not None:
+            from ..obs.metrics import _refuse_slo
+            _refuse_slo()
+            try:
+                from ..obs.httpd import ensure_server
+                ensure_server(int(metrics_port))
+            except Exception as e:
+                import warnings
+                warnings.warn(f"metrics server on port {metrics_port!r} "
+                              f"failed ({e!r}); continuing without live "
+                              f"export", stacklevel=2)
         from ..parallel.mesh import Mesh
         if isinstance(comm, Mesh):
             # one shard is the one-device backend on that shard's device
@@ -248,6 +301,10 @@ class MapReduce:
         rec = self._plan
         if rec is None:
             return
+        # the plan barrier is a cancellation barrier: a cancelled
+        # request's pending chain never runs
+        from ..obs.context import barrier_check
+        barrier_check()
         if rec.auto:
             self._plan = None
         rec.flush()
@@ -280,8 +337,12 @@ class MapReduce:
         return n
 
     def _begin_op(self) -> Timer:
-        """An op's start: its timer, and the I/O counters for the
-        ``verbosity`` 2 deltas."""
+        """An op's start: its timer, the I/O counters for the
+        ``verbosity`` 2 deltas, and the cancellation barrier
+        (``obs/context.barrier_check``): a cancelled request stops here,
+        before the op does any work."""
+        from ..obs.context import barrier_check
+        barrier_check()
         c = self.counters
         self._op_snap = (c.wsize, c.rsize, c.cssize)
         return Timer()
@@ -400,6 +461,9 @@ class MapReduce:
                 n += 1
             return n
         from collections import deque
+
+        from ..obs.context import bind
+        ingest_task = bind(ingest_task)   # pool tasks charge the request
         pool = self._task_pool()
         window = 4 * pool._max_workers
         inflight: deque = deque()      # (future, sink) in task order
@@ -427,6 +491,7 @@ class MapReduce:
             raise
         return n
 
+    @_traced
     def map(self, nmap: int, func: Callable, ptr=None,
             addflag: int = 0) -> int:
         """Task map: ``func(itask, kv, ptr)`` for each of ``nmap`` tasks;
@@ -440,6 +505,7 @@ class MapReduce:
         self._time("map", t)
         return n
 
+    @_traced
     def map_mr(self, mr: "MapReduce", func: Callable, ptr=None,
                addflag: int = 0, batch: bool = False) -> int:
         """Map over an MR's KV pairs, ``mr`` may be this one (its frames
@@ -463,6 +529,7 @@ class MapReduce:
         self._time("map_mr", t)
         return n
 
+    @_traced
     def map_files(self, files: Union[str, Sequence[str]], func: Callable,
                   ptr=None, addflag: int = 0) -> int:
         """File map: ``func(itask, filename, kv, ptr)`` per file, files in
@@ -510,6 +577,7 @@ class MapReduce:
         return (self.backend.nprocs > 1 and not addflag
                 and self.settings.outofcore != 1)
 
+    @_traced
     def map_file_char(self, nmap: int, files, recurse: int, readflag: int,
                       sepchar: Union[str, bytes], delta: int,
                       func: Callable, ptr=None, addflag: int = 0) -> int:
@@ -521,6 +589,7 @@ class MapReduce:
                                 _to_bytes(sepchar), delta, func, ptr,
                                 addflag)
 
+    @_traced
     def map_file_str(self, nmap: int, files, recurse: int, readflag: int,
                      sepstr: Union[str, bytes], delta: int,
                      func: Callable, ptr=None, addflag: int = 0) -> int:
@@ -582,6 +651,7 @@ class MapReduce:
     # distribution ops (one device: local)
     # ------------------------------------------------------------------
     @_fusible
+    @_traced
     def aggregate(self, hash_fn: Optional[Callable] = None) -> int:
         """The shuffle: each key to one shard, by ``hash_fn(keys) % P``
         (a device hash over the key tensor; with a ``host_hash``
@@ -596,6 +666,7 @@ class MapReduce:
         self._time("aggregate", t, comm=True)
         return kv.nkv
 
+    @_traced
     def broadcast(self, root: int = 0) -> int:
         """Replicate root's KV on every proc (reference
         src/mapreduce.cpp:569-623): a barrier on one device; on a mesh
@@ -605,6 +676,7 @@ class MapReduce:
         self.backend.broadcast(self, root)
         return kv.nkv
 
+    @_traced
     def gather(self, nprocs: int) -> int:
         """Funnel the KV onto the first ``nprocs`` procs: a no-op on one
         device, and a plan barrier."""
@@ -614,6 +686,7 @@ class MapReduce:
         self.backend.gather(self, nprocs)
         return kv.nkv
 
+    @_traced
     def scrunch(self, nprocs: int, key) -> int:
         """gather + collapse (reference src/mapreduce.cpp:2075-2095); on a
         mesh the collapse takes the gathered rows in shard order."""
@@ -677,6 +750,7 @@ class MapReduce:
     # grouping ops
     # ------------------------------------------------------------------
     @_fusible
+    @_traced
     def convert(self) -> int:
         """KV → KMV grouping: sort + segment on the device; a multi-page
         out-of-core dataset (or a device KV over the budget, demoted
@@ -707,11 +781,13 @@ class MapReduce:
         self._time("convert", t)
         return n
 
+    @_traced
     def collate(self, hash_fn: Optional[Callable] = None) -> int:
         """aggregate + convert; returns the group count."""
         self.aggregate(hash_fn)
         return self.convert()
 
+    @_traced
     def clone(self) -> int:
         """KV → KMV with every pair its own one-value group (reference
         src/mapreduce.cpp:631-652), on the device; a mesh dataset shard
@@ -725,6 +801,7 @@ class MapReduce:
         self.kmv = kmv
         return kmv.complete()
 
+    @_traced
     def collapse(self, key) -> int:
         """KV → one KMV group ``key`` whose multivalue is
         ``[k1, v1, k2, v2, ...]`` (reference src/mapreduce.cpp:681-702).
@@ -753,6 +830,7 @@ class MapReduce:
     # reduce family
     # ------------------------------------------------------------------
     @_fusible
+    @_traced
     def reduce(self, func: Callable, ptr=None, batch: bool = False,
                block_rows: Optional[int] = None) -> int:
         """Callback per KMV group (or per frame with ``batch=True``) →
@@ -794,6 +872,7 @@ class MapReduce:
             else:
                 func(k, fr.group_values(i).tolist(), kv, ptr)
 
+    @_traced
     def compress(self, func: Callable, ptr=None, batch: bool = False,
                  block_rows: Optional[int] = None) -> int:
         """Local convert + reduce, KV → KV: the combiner (reference
@@ -807,6 +886,7 @@ class MapReduce:
     # sorting (reference src/mapreduce.cpp:2102-2352)
     # ------------------------------------------------------------------
     @_fusible
+    @_traced
     def sort_keys(self, flag=1) -> int:
         """Sort the KV by key: ascending for ``flag > 0``, descending for
         ``flag < 0`` (|flag| picks the reference's comparator family,
@@ -815,6 +895,7 @@ class MapReduce:
         return self._sort_kv("key", flag)
 
     @_fusible
+    @_traced
     def sort_values(self, flag=1) -> int:
         """Sort the KV by value (see :meth:`sort_keys`)."""
         return self._sort_kv("value", flag)
@@ -895,6 +976,7 @@ class MapReduce:
         self._time("sort", t)
         return newkv.nkv
 
+    @_traced
     def sort_multivalues(self, flag=1) -> int:
         """Sort the values inside each group (reference
         src/mapreduce.cpp:2210-2352): dense values on the device; a
@@ -953,6 +1035,7 @@ class MapReduce:
             if file is not None:
                 out.close()
 
+    @_traced
     def scan_kv(self, func: Callable, ptr=None, batch: bool = False) -> int:
         """Read-only iteration over KV pairs: ``func(key, value, ptr)``, or
         ``func(frame, ptr)`` with ``batch=True``."""
@@ -965,6 +1048,7 @@ class MapReduce:
                     func(k, v, ptr)
         return kv.nkv
 
+    @_traced
     def scan_kmv(self, func: Callable, ptr=None, batch: bool = False,
                  block_rows: Optional[int] = None) -> int:
         """Read-only iteration over KMV groups: ``func(key, values, ptr)``
@@ -986,6 +1070,7 @@ class MapReduce:
     # ------------------------------------------------------------------
     # whole-object ops
     # ------------------------------------------------------------------
+    @_traced
     def add(self, mr: "MapReduce") -> int:
         """Append ``mr``'s KV pairs to this KV (frames are shared, not
         copied: no op changes a frame in place)."""
@@ -1052,6 +1137,7 @@ class MapReduce:
     # ------------------------------------------------------------------
     # checkpoint / restore (core/checkpoint.py)
     # ------------------------------------------------------------------
+    @_traced
     def save(self, path: str) -> int:
         """Checkpoint the KV or KMV to directory ``path``; returns the
         number of frames written.  Mesh frames are written as their host
@@ -1064,6 +1150,7 @@ class MapReduce:
         return retry_call("checkpoint.save", lambda: _save(self, path),
                           detail=path)
 
+    @_traced
     def load(self, path: str) -> int:
         """Replace the dataset with a checkpoint written at any width;
         returns the pair or group count.  The frames load as host pages,
@@ -1075,6 +1162,7 @@ class MapReduce:
     # ------------------------------------------------------------------
     # topology (parallel/reshard.py)
     # ------------------------------------------------------------------
+    @_traced
     def reshard(self, comm) -> int:
         """Move the resident dataset onto a new topology and swap the
         backend (JAX ``core/mapreduce.py:1304-1374``).  ``comm``: a
@@ -1177,18 +1265,25 @@ class MapReduce:
 
     def stats(self) -> dict:
         """What ``cummulative_stats`` prints, as a dict: every counter by
-        name, the plan cache's counts (``plan``), the overlap records of
-        exec/ (``exec``) and the fault-tolerance section of ft/ (``ft``:
-        retries per site, faults injected, quarantines, budgets, the
-        journal's progress)."""
+        name; with tracing on, the per-op aggregate over the span ring
+        (``ops``); the plan cache's counts and the fused groups'
+        (``plan``), the overlap records of exec/ (``exec``), the
+        fault-tolerance section of ft/ (``ft``: retries per site, faults
+        injected, quarantines, budgets, the journal's progress), and with
+        the metrics registry armed its snapshot (``metrics``)."""
         self._flush_plan()
         from ..exec import exec_stats
         from ..ft import ft_stats
+        from ..obs import metrics as _metrics
         from ..plan.cache import cache_stats
         out = self.counters.snapshot()
+        if self.tracer.enabled:
+            out["ops"] = self.tracer.stats()
         out["plan"] = cache_stats()
         out["exec"] = exec_stats()
         out["ft"] = ft_stats()
+        if _metrics.enabled():
+            out["metrics"] = _metrics.snapshot()
         return out
 
     def cummulative_stats(self, level: int = 1, reset: int = 0):

@@ -29,6 +29,16 @@ class MRError(RuntimeError):
     """Raised for fatal conditions (the reference aborts; we raise)."""
 
 
+class CancelledError(MRError):
+    """A request was cancelled or ran past its deadline, and the flag
+    tripped at an op barrier (``obs/context.barrier_check``).  An
+    :class:`MRError`, so the ft/ retry layer never retries it."""
+
+    def __init__(self, reason: str = "cancelled"):
+        self.reason = reason
+        super().__init__(f"request cancelled ({reason})")
+
+
 class DeviceError(MRError):
     """The card or a kernel failed: a kernel that did not build, load or
     launch.  The retry layer never retries it, quarantines it or answers
@@ -102,6 +112,9 @@ class Counters:
         with self._lock:
             for name, delta in deltas.items():
                 setattr(self, name, getattr(self, name) + delta)
+        feed = _REQUEST_FEED
+        if feed is not None:
+            feed("add", deltas)
 
     def mem(self, delta: int) -> None:
         """Move the resident bytes by ``delta`` and keep the hi-water."""
@@ -109,6 +122,9 @@ class Counters:
             self.msize += delta
             if self.msize > self.msizemax:
                 self.msizemax = self.msize
+        feed = _REQUEST_FEED
+        if feed is not None:
+            feed("mem", delta)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -126,7 +142,14 @@ class Counters:
             self.commtime = 0.0
 
 
+# the request-context hook: obs/context.py installs its feed here when
+# it is imported (``fn(kind, payload)``: "add" with the deltas dict,
+# "mem" with the byte delta), so core/ never imports obs/ and the
+# unarmed cost is one None check
+_REQUEST_FEED = None
+
 _GLOBAL_COUNTERS = Counters()
+_DISPATCH_TLS = threading.local()
 
 
 def global_counters() -> Counters:
@@ -134,8 +157,17 @@ def global_counters() -> Counters:
 
 
 def bump_dispatch(n: int = 1) -> None:
-    """Count one device program launch."""
+    """Count one device program launch, process-wide and for this
+    thread (:func:`thread_dispatches`)."""
     _GLOBAL_COUNTERS.add(ndispatch=n)
+    _DISPATCH_TLS.n = getattr(_DISPATCH_TLS, "n", 0) + n
+
+
+def thread_dispatches() -> int:
+    """Launches counted by THIS thread so far: two reads around a region
+    give its own count while other threads launch (the plan fuser's
+    per-group meter)."""
+    return getattr(_DISPATCH_TLS, "n", 0)
 
 
 class Timer:

@@ -39,13 +39,25 @@ _OVERLAP: dict = {}     # path → {"busy_s", "wait_s", "items"}
 def note_overlap(path: str, busy_s: float = 0.0, wait_s: float = 0.0,
                  items: int = 0) -> None:
     """Accumulate one path's background busy seconds, foreground wait
-    seconds and item count."""
+    seconds and item count, and refresh its ``mrtpu_overlap_ratio{path}``
+    gauge when the metrics are armed (never raises)."""
     with _LOCK:
         rec = _OVERLAP.setdefault(
             path, {"busy_s": 0.0, "wait_s": 0.0, "items": 0})
         rec["busy_s"] += max(0.0, busy_s)
         rec["wait_s"] += max(0.0, wait_s)
         rec["items"] += items
+        ratio = _ratio(rec)
+    try:
+        from ..obs import metrics as _metrics
+        if _metrics.enabled():
+            _metrics.get_registry().gauge(
+                "mrtpu_overlap_ratio",
+                "fraction of background work hidden behind foreground "
+                "work, per overlap path (1 = fully overlapped)",
+                ("path",)).set(ratio, path=path)
+    except Exception:
+        pass
 
 
 def _ratio(rec: dict) -> float:

@@ -5,7 +5,12 @@ A daemon thread pulls items from the source up to ``depth`` ahead of the
 consumer, so chunk N+1 is read while chunk N's callback runs.  Order is
 the source order (one FIFO queue); a producer exception re-raises in the
 consumer; a consumer that leaves early stops the producer.  Busy and wait
-seconds go to ``exec.note_overlap``.
+seconds go to ``exec.note_overlap``.  The producer runs under the
+consumer's request context (``obs/context.py``) inside one
+``exec.prefetch`` span a stream, and the stream reports
+``mrtpu_prefetch_depth{path}`` (items banked ahead of the consumer) and
+``mrtpu_prefetch_wait_seconds_total{path}`` (the consumer's time blocked
+on the producer).
 """
 
 from __future__ import annotations
@@ -18,6 +23,26 @@ from typing import Iterable, Iterator, Optional
 _END = "end"
 _ITEM = "item"
 _ERR = "err"
+
+
+def _prefetch_metrics(path: str):
+    """(depth setter, wait adder) of one stream's metrics; no-ops when
+    the registry is unavailable."""
+    try:
+        from ..obs.metrics import get_registry
+        reg = get_registry()
+        depth = reg.gauge(
+            "mrtpu_prefetch_depth",
+            "items the prefetch producer holds ahead of the consumer",
+            ("path",))
+        wait = reg.counter(
+            "mrtpu_prefetch_wait_seconds_total",
+            "seconds the consumer spent blocked on the prefetch "
+            "producer (ingest-bound time)", ("path",))
+        return (lambda n: depth.set(n, path=path),
+                lambda s: wait.inc(s, path=path))
+    except Exception:
+        return (lambda n: None), (lambda s: None)
 
 
 def prefetch_iter(src: Iterable, depth: Optional[int] = None,
@@ -35,6 +60,11 @@ def prefetch_iter(src: Iterable, depth: Optional[int] = None,
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     state = {"busy": 0.0, "items": 0}
+    set_depth, add_wait = _prefetch_metrics(path)
+    # the producer runs the consumer's request: its span and counters
+    # charge that request
+    from ..obs import context as _obs_ctx
+    req_ctx = _obs_ctx.capture()
 
     def _put(msg) -> None:
         # a bounded put that gives up once the consumer is gone
@@ -48,19 +78,28 @@ def prefetch_iter(src: Iterable, depth: Optional[int] = None,
     def producer() -> None:
         err = None
         try:
+            from ..obs import get_tracer
             it = iter(src)
-            while not stop.is_set():
-                t0 = time.perf_counter()
-                try:
-                    item = next(it)
-                except StopIteration:
-                    break
-                except BaseException as e:
-                    err = e
-                    break
-                state["busy"] += time.perf_counter() - t0
-                state["items"] += 1
-                _put((_ITEM, item))
+            with _obs_ctx.use(req_ctx), \
+                    get_tracer().span("exec.prefetch", cat="exec",
+                                      path=path, depth=depth) as sp:
+                while not stop.is_set():
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        break
+                    except BaseException as e:
+                        err = e
+                        break
+                    state["busy"] += time.perf_counter() - t0
+                    state["items"] += 1
+                    set_depth(q.qsize() + 1)
+                    _put((_ITEM, item))
+                sp.set(items=state["items"],
+                       busy_s=round(state["busy"], 6),
+                       error=type(err).__name__ if err is not None
+                       else "")
         except BaseException as e:
             err = err or e
         finally:
@@ -75,6 +114,7 @@ def prefetch_iter(src: Iterable, depth: Optional[int] = None,
             t0 = time.perf_counter()
             kind, payload = q.get()
             wait += time.perf_counter() - t0
+            set_depth(q.qsize())
             if kind == _END:
                 break
             if kind == _ERR:
@@ -88,6 +128,8 @@ def prefetch_iter(src: Iterable, depth: Optional[int] = None,
         except queue.Empty:
             pass
         t.join(timeout=10.0)
+        set_depth(0)
+        add_wait(wait)
         from . import note_overlap
         note_overlap(path, busy_s=state["busy"], wait_s=wait,
                      items=state["items"])

@@ -8,7 +8,9 @@ merge calls before its first read of that run, and a writer failure
 re-raises there.  Files are written through :func:`atomic_save` (tmp +
 ``os.replace``), so no torn file ever sits under a final name.  The
 submit queue is bounded (2 pending writes by default), so a fast sorter
-cannot pile unwritten pages in memory.
+cannot pile unwritten pages in memory.  Each write is an
+``exec.spill_write`` span under the request context of the thread that
+submitted it (``obs/context.py``).
 """
 
 from __future__ import annotations
@@ -81,8 +83,12 @@ class SpillWriter:
                     target=self._run, daemon=True,
                     name=f"mrtpu-{self._path}-writer")
                 self._thread.start()
+        # the writer thread is shared: the submitting request's context
+        # rides each item, so a write charges the request that spilled
+        from ..obs import context as _obs_ctx
+        req_ctx = _obs_ctx.capture()
         t0 = time.perf_counter()
-        self._q.put((fn, pending))
+        self._q.put((fn, pending, req_ctx))
         blocked = time.perf_counter() - t0
         if blocked > 1e-4:
             from . import note_overlap
@@ -90,15 +96,21 @@ class SpillWriter:
         return pending
 
     def _run(self) -> None:
+        from ..obs import context as _obs_ctx
+        from ..obs import get_tracer
         from . import note_overlap
+        tracer = get_tracer()
         while True:
             item = self._q.get()
             if item is None:
                 return
-            fn, pending = item
+            fn, pending, req_ctx = item
             t0 = time.perf_counter()
             try:
-                fn()
+                with _obs_ctx.use(req_ctx), \
+                        tracer.span("exec.spill_write", cat="exec",
+                                    path=self._path):
+                    fn()
             except BaseException as e:
                 pending._error = e
             finally:

@@ -275,7 +275,9 @@ def fault_point(site: str, **detail) -> None:
     exc = exc_cls(f"injected {kind} fault at {site}"
                   + (f" ({detail})" if detail else ""))
     exc.ft_site = site
-    raise exc
+    from ..obs import get_tracer
+    with get_tracer().span("ft.inject", cat="ft", site=site, kind=kind):
+        raise exc
 
 
 def _proc_fault(kind: str, site: str) -> None:

@@ -98,7 +98,17 @@ class Journal:
     # -- append -------------------------------------------------------------
     def append(self, rec: dict, sync: bool = True) -> None:
         """Append one record with its crc; on disk when this returns
-        (``sync=False``, for the forensic op records, skips the fsync)."""
+        (``sync=False``, for the forensic op records, skips the fsync).
+        A record carries the active request's trace id (``"trace"``,
+        ``obs/context.py``) unless the caller stamped one."""
+        if "trace" not in rec:
+            try:
+                from ..obs.context import current_trace_id
+                tid = current_trace_id()
+            except Exception:
+                tid = None
+            if tid is not None:
+                rec = {**rec, "trace": tid}
         body = json.dumps(rec, default=str)
         line = json.dumps({**json.loads(body), "c": _rec_crc(body)},
                           default=str)

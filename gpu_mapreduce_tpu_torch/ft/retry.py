@@ -181,6 +181,12 @@ def classify(site: str, exc: BaseException) -> str:
 def _count(site: str, outcome: str) -> None:
     with _LOCK:
         _RETRIES[(site, outcome)] = _RETRIES.get((site, outcome), 0) + 1
+    # the same outcome on the active request account (obs/context.py)
+    try:
+        from ..obs.context import note_retry
+        note_retry(site, outcome)
+    except Exception:
+        pass
 
 
 def retry_call(site: str, fn: Callable, *, detail: str = "",
@@ -204,36 +210,44 @@ def retry_call(site: str, fn: Callable, *, detail: str = "",
 def _retry_tail(site: str, fn: Callable, first: BaseException, b: int,
                 detail: str, retryable) -> object:
     """After a first failure: classify, then retry with backoff until a
-    success, a fatal error or the budget's end."""
-    e = first
-    attempt = 0
-    while True:
-        s = getattr(e, "ft_site", site)   # an injected fault knows its site
-        if classify(s, e) == "fatal" or \
-                (retryable is not None and not retryable(e)):
-            _count(s, "fatal")
-            raise e
-        if attempt >= b:
-            _count(s, "exhausted")
-            err = MRError(
-                f"ft: {s} retry budget exhausted after "
-                f"{attempt + 1} attempts"
-                + (f" ({detail})" if detail else "")
-                + f": {e!r}")
-            err.ft_site = s    # a quarantine downstream keeps the site
-            raise err from e
-        _sleep(_backoff(attempt))
-        _count(s, "retry")
-        attempt += 1
-        try:
-            out = fn()
-        except (KeyboardInterrupt, SystemExit):
-            raise
-        except BaseException as e2:
-            e = e2
-            continue
-        _count(s, "recovered")
-        return out
+    success, a fatal error or the budget's end, all under one
+    ``ft.retry`` span (JAX :204-246)."""
+    from ..obs import get_tracer
+    with get_tracer().span("ft.retry", cat="ft", site=site,
+                           detail=detail) as sp:
+        e = first
+        attempt = 0
+        while True:
+            s = getattr(e, "ft_site", site)   # an injected fault knows its site
+            if classify(s, e) == "fatal" or \
+                    (retryable is not None and not retryable(e)):
+                _count(s, "fatal")
+                sp.set(site=s, outcome="fatal", attempts=attempt)
+                raise e
+            if attempt >= b:
+                _count(s, "exhausted")
+                sp.set(site=s, outcome="exhausted", attempts=attempt,
+                       last_error=type(e).__name__)
+                err = MRError(
+                    f"ft: {s} retry budget exhausted after "
+                    f"{attempt + 1} attempts"
+                    + (f" ({detail})" if detail else "")
+                    + f": {e!r}")
+                err.ft_site = s    # a quarantine downstream keeps the site
+                raise err from e
+            _sleep(_backoff(attempt))
+            _count(s, "retry")
+            attempt += 1
+            try:
+                out = fn()
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e2:
+                e = e2
+                continue
+            _count(s, "recovered")
+            sp.set(site=s, outcome="recovered", attempts=attempt)
+            return out
 
 
 # ---------------------------------------------------------------------------
@@ -242,11 +256,21 @@ def _retry_tail(site: str, fn: Callable, first: BaseException, b: int,
 
 def quarantine(site: str, **record) -> None:
     """Record one skipped input (counted exactly; the last
-    :data:`_QUARANTINE_KEEP` records kept)."""
+    :data:`_QUARANTINE_KEEP` records kept), stamped with the active
+    request's trace id (``obs/context.py``)."""
+    try:
+        from ..obs.context import current_trace_id
+        tid = current_trace_id()
+    except Exception:
+        tid = None
+    if tid is not None:
+        record.setdefault("trace", tid)
     with _LOCK:
         _NQUAR[site] = _NQUAR.get(site, 0) + 1
         _QUARANTINE.append({"site": site, **record})
         del _QUARANTINE[:-_QUARANTINE_KEEP]
+    from ..obs import get_tracer
+    get_tracer().annotate(ft_quarantined=record.get("task"))
 
 
 def ingest_active(onfault: str = "fail") -> bool:

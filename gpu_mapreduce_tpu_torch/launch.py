@@ -30,9 +30,19 @@ summary JSON line (``mrlaunch:``) with the generations, the dead ranks
 and ``recover_seconds`` (first fault seen → every rank of the shrunk
 generation heartbeating), and writes it to ``<rundir>/launch.json``.
 
+One trace id covers the whole launch, kept across shrinks: it is in
+``launch.json`` and in every rank's ``MRTPU_DIST_TRACE_ID`` (an outer
+``MRTPU_DIST_TRACE_ID`` is kept), so every rank's spans, journal
+records, flight dumps and metrics dumps carry it.  A worker leaving
+through ``os._exit`` (which skips the excepthook and atexit) first
+writes its last words: the flight ring's dump and a final metrics dump
+with the exit's reason.
+
 Run directory: ``workload.json``, ``g<gen>-rank<r>.log``, the heartbeat,
-fence and exit-report files under ``hb-g<gen>/``,
-``ckpt/step-<k>/{rank<r>.npz, MANIFEST.json}``, ``final/rank<r>.npz``.
+fence and exit-report files and the sync records under ``hb-g<gen>/``,
+``ckpt/step-<k>/{rank<r>.npz, MANIFEST.json}``, ``final/rank<r>.npz``,
+the trace shards ``trace-r<r>.jsonl``, the metrics dumps
+``metrics-r<r>.json`` and the flight dumps ``mr_flight.<pid>.<seq>.json``.
 """
 
 from __future__ import annotations
@@ -56,7 +66,7 @@ from .parallel import dist as D
 from .parallel.reshard import _offsets
 from .parallel.sharded import even_counts
 from .parallel.shuffle import exchange
-from .utils.env import env_knob
+from .utils.env import env_knob, env_str
 from .utils.fsio import atomic_replace, atomic_write_json, read_json
 from .utils.io import read_words
 
@@ -334,6 +344,31 @@ class _Worker:
             atomic_replace(tmp, out_path)
 
 
+def _worker_last_words(w, reason: str, flight: bool = True) -> None:
+    """The forensic artifacts of a worker on its way out (JAX
+    ``mrlaunch.py:413-435``): ``os._exit`` skips the excepthook and
+    atexit, so the flight ring's dump and the final metrics dump are
+    written here.  Never raises: the exit code comes first."""
+    if flight:
+        try:
+            from .obs import flight as _flight
+            rec = _flight.get()
+            if rec is not None:
+                rec.dump(reason)
+        except Exception:
+            pass
+    try:
+        if w.rt.metrics_dumper is not None:
+            w.rt.metrics_dumper.stop(reason)
+    except Exception:
+        pass
+    try:
+        if w.rt.sync_obs is not None:
+            w.rt.sync_obs.close()
+    except Exception:
+        pass
+
+
 def worker_main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rundir", required=True)
@@ -352,15 +387,20 @@ def worker_main(argv) -> int:
         print(f"mrlaunch worker rank {w.rank}: {e}", file=sys.stderr,
               flush=True)
         D.write_exit_report(w.rundir, w.rank, w.rt.gen, "peer_lost",
-                          dead=e.dead, site=e.site)
+                            dead=e.dead, site=e.site)
+        # every survivor dumps its flight ring (with the lease table) and
+        # its metrics: the post-mortem does not depend on the rank asked
+        _worker_last_words(w, f"peer_lost:{e.site}")
         # os._exit: never tear down a wedged communicator
         os._exit(D.EXIT_PEER_LOST)
     except D.RankFencedError as e:
         print(f"mrlaunch worker rank {w.rank}: {e}", file=sys.stderr,
               flush=True)
         D.write_exit_report(w.rundir, w.rank, w.rt.gen, "fenced")
+        _worker_last_words(w, "fenced")
         os._exit(D.EXIT_FENCED)
     D.write_exit_report(w.rundir, w.rank, w.rt.gen, "done")
+    _worker_last_words(w, "done", flight=False)
     w.rt.stop()
     sys.stdout.flush()
     sys.stderr.flush()
@@ -373,7 +413,8 @@ def worker_main(argv) -> int:
 # the launcher
 # ---------------------------------------------------------------------------
 
-def _spawn_generation(rundir: str, width: int, gen: int, device: str = ""):
+def _spawn_generation(rundir: str, width: int, gen: int, device: str = "",
+                      trace_id: str = ""):
     port = pick_port()
     procs = {}
     for rank in range(width):
@@ -386,6 +427,9 @@ def _spawn_generation(rundir: str, width: int, gen: int, device: str = ""):
             "MRTPU_DIST_GEN": str(gen),
             "MRTPU_DIST_DEVICE": device,
         })
+        if trace_id:
+            # every rank of every generation carries the launch's id
+            env["MRTPU_DIST_TRACE_ID"] = trace_id
         log = open(os.path.join(rundir, f"g{gen}-rank{rank}.log"), "ab")
         procs[rank] = (subprocess.Popen(
             [sys.executable, "-m", "gpu_mapreduce_tpu_torch.launch",
@@ -443,13 +487,17 @@ def run_launcher(args, workload_spec: dict) -> dict:
 
     grace = args.grace
     width, gen = args.np, 0
+    # one trace id for the whole launch, the same across generations; an
+    # outer orchestrator may give its own
+    trace_id = env_str("MRTPU_DIST_TRACE_ID", "") or os.urandom(8).hex()
     t_start = time.monotonic()
     t_detect = None
     recover_s = None
     history = []
 
     while True:
-        procs = _spawn_generation(rundir, width, gen, args.device)
+        procs = _spawn_generation(rundir, width, gen, args.device,
+                                  trace_id)
         if t_detect is not None and recover_s is None:
             # the recovery clock: first fault seen → every rank of the
             # shrunk generation heartbeating (a rank that already exited
@@ -530,7 +578,7 @@ def run_launcher(args, workload_spec: dict) -> dict:
         width, gen = new_width, gen + 1
 
     summary = {"generations": gen + 1, "final_width": width,
-               "history": history, "recover_seconds": recover_s,
+               "trace_id": trace_id, "history": history, "recover_seconds": recover_s,
                "wall_seconds": time.monotonic() - t_start}
     print("mrlaunch: " + json.dumps(summary), flush=True)
     atomic_write_json(os.path.join(rundir, "launch.json"), summary)

@@ -1,0 +1,335 @@
+"""The loopback HTTP plane: metrics export and pluggable routes (the
+port's copy of ``gpu_mapreduce_tpu/obs/httpd.py``).
+
+Built-in routes: ``/metrics`` (Prometheus text, version 0.0.4),
+``/metrics.json`` (the registry snapshot), ``/flight`` (the flight
+recorder's snapshot, 404 when it is not armed) and ``/healthz`` (200
+``{"status": "ok"}`` when ready, 503 with another status from
+:func:`set_health`).  :func:`register_routes` mounts more.  Start with
+``MRTPU_METRICS_PORT``, ``MapReduce(metrics_port=...)`` or
+:func:`ensure_server`; port 0 binds an ephemeral port, and
+:func:`ensure_server` returns the port bound.  Binds 127.0.0.1 only.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, List, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# pluggable routes: (prefix, handler) pairs tried in registration order
+# after the built-in paths.  A handler receives
+# ``(method, path, body_bytes, headers)`` and returns
+# ``(status_code, body, content_type, extra_headers_dict_or_None)`` —
+# ``body`` may be bytes, str, or any json-serializable object.
+# ---------------------------------------------------------------------------
+
+RouteHandler = Callable[[str, str, bytes, dict],
+                        Tuple[int, object, str, Optional[dict]]]
+
+_ROUTES: List[Tuple[str, RouteHandler]] = []
+_ROUTES_LOCK = threading.Lock()
+
+# /healthz readiness provider: () -> status string ("ok" = ready; any
+# other value — "draining", "paused", "fenced" — answers 503 so LBs
+# stop routing while the process stays alive and pingable).  One global
+# provider for the process-default listener; a private MetricsServer
+# can carry its own (the fleet router's listener must not report the
+# co-resident daemon's drain state).
+_HEALTH: Optional[Callable[[], str]] = None
+
+
+def set_health(fn: Optional[Callable[[], str]]) -> None:
+    """Install (or clear, with None) the process-default /healthz
+    readiness provider."""
+    global _HEALTH
+    _HEALTH = fn
+
+
+def register_routes(prefix: str, handler: RouteHandler) -> None:
+    """Mount ``handler`` for every request path starting with
+    ``prefix`` (idempotent per prefix: re-registering replaces — a
+    restarted daemon must not stack dead handlers)."""
+    with _ROUTES_LOCK:
+        for i, (p, _) in enumerate(_ROUTES):
+            if p == prefix:
+                _ROUTES[i] = (prefix, handler)
+                return
+        _ROUTES.append((prefix, handler))
+
+
+def unregister_routes(prefix: str) -> None:
+    with _ROUTES_LOCK:
+        _ROUTES[:] = [(p, h) for p, h in _ROUTES if p != prefix]
+
+
+def _find_route(path: str) -> Optional[RouteHandler]:
+    with _ROUTES_LOCK:
+        for prefix, handler in _ROUTES:
+            if path.startswith(prefix):
+                return handler
+    return None
+
+
+class _Handler(BaseHTTPRequestHandler):
+    def _send(self, code: int, body: bytes, ctype: str,
+              extra: Optional[dict] = None) -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in (extra or {}).items():
+            self.send_header(k, str(v))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _dispatch(self, method: str) -> None:
+        # in-flight tracking: stop() drains these before closing the
+        # socket, so a handler mid-write never races server_close
+        srv = self.server
+        with srv._inflight_lock:
+            srv._inflight += 1
+        try:
+            path = self.path.split("?", 1)[0]
+            if method == "GET" and self._builtin_get(path):
+                return
+            handler = srv.find_route(path)
+            if handler is None:
+                self._send(404, b"not found\n", "text/plain")
+                return
+            n = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(n) if n else b""
+            code, out, ctype, extra = handler(method, path, body,
+                                              dict(self.headers))
+            if callable(getattr(out, "__next__", None)):
+                # a handler returned an ITERATOR body: stream it (a
+                # long-lived event feed)
+                self._send_stream(code, out,
+                                  ctype or "application/x-ndjson", extra)
+                return
+            if isinstance(out, bytes):
+                payload = out
+            elif isinstance(out, str):
+                payload = out.encode()
+            else:
+                payload = json.dumps(out, default=str).encode()
+                ctype = ctype or "application/json"
+            self._send(code, payload, ctype or "application/json", extra)
+        except Exception as e:  # a handler bug must not kill the thread
+            try:
+                self._send(500, f"{e!r}\n".encode(), "text/plain")
+            except Exception:
+                pass
+        finally:
+            with srv._inflight_lock:
+                srv._inflight -= 1
+
+    def _send_stream(self, code: int, it, ctype: str,
+                     extra: Optional[dict] = None) -> None:
+        """Stream an iterator body chunk by chunk, flushed per chunk.
+        No Content-Length: under the handler's HTTP/1.0 semantics the
+        connection close delimits the body, so a stdlib-urllib client
+        reading line by line sees each chunk as it is produced — the
+        no-polling contract of ``/v1/jobs/<id>/events``.  The iterator
+        is always closed (its ``finally`` is how the producer
+        unsubscribes), including when the client disconnects mid-
+        stream."""
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Cache-Control", "no-store")
+        for k, v in (extra or {}).items():
+            self.send_header(k, str(v))
+        self.end_headers()
+        try:
+            for chunk in it:
+                if isinstance(chunk, str):
+                    chunk = chunk.encode()
+                self.wfile.write(chunk)
+                self.wfile.flush()
+        except Exception:
+            # the status line and part of the body are already on the
+            # wire: nothing coherent can follow.  Swallow (producer bug
+            # or client disconnect alike) so the outer handler doesn't
+            # write an HTTP 500 status line INTO the stream body —
+            # ending the connection mid-stream IS the error signal
+            pass
+        finally:
+            close = getattr(it, "close", None)
+            if close:
+                try:
+                    close()
+                except Exception:
+                    pass
+
+    def _builtin_get(self, path: str) -> bool:
+        """The metrics-plane routes; returns whether ``path`` was one."""
+        from . import metrics as _metrics
+        if path == "/metrics":
+            self._send(200, _metrics.prometheus_text().encode(),
+                       "text/plain; version=0.0.4; charset=utf-8")
+        elif path == "/metrics.json":
+            self._send(200,
+                       json.dumps(_metrics.snapshot(),
+                                  default=str).encode(),
+                       "application/json")
+        elif path == "/flight":
+            from . import flight as _flight
+            rec = _flight.get()
+            if rec is None:
+                self._send(404, b"flight recorder not armed\n",
+                           "text/plain")
+            else:
+                from .sinks import _jsonable
+                self._send(200,
+                           json.dumps(rec.snapshot("http"),
+                                      default=_jsonable).encode(),
+                           "application/json")
+        elif path == "/healthz":
+            # liveness (we answered) + readiness (the code): "ok" →
+            # 200, anything else → 503 {"status": ...} so a draining/
+            # paused/fenced replica is alive but not routable
+            provider = getattr(self.server, "_health", None) or _HEALTH
+            status = "ok"
+            if provider is not None:
+                try:
+                    status = str(provider() or "ok")
+                except Exception:
+                    status = "ok"    # a broken provider must not flap
+            self._send(200 if status == "ok" else 503,
+                       json.dumps({"status": status}).encode() + b"\n",
+                       "application/json")
+        else:
+            return False
+        return True
+
+    def do_GET(self):  # noqa: N802 (stdlib API name)
+        self._dispatch("GET")
+
+    def do_POST(self):  # noqa: N802
+        self._dispatch("POST")
+
+    def do_DELETE(self):  # noqa: N802
+        self._dispatch("DELETE")
+
+    def log_message(self, *args):  # silence per-request stderr noise
+        pass
+
+
+class _Httpd(ThreadingHTTPServer):
+    daemon_threads = True
+
+    def __init__(self, *a, routes=None, health=None, **kw):
+        super().__init__(*a, **kw)
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        # server-local routes/health beat the process globals: a fleet
+        # router and an embedded daemon in one process each keep their
+        # own /v1/ (and their own readiness) on their own port
+        self._local_routes: List[Tuple[str, RouteHandler]] = \
+            list(routes or [])
+        self._health = health
+
+    def find_route(self, path: str) -> Optional[RouteHandler]:
+        for prefix, handler in self._local_routes:
+            if path.startswith(prefix):
+                return handler
+        if self._local_routes:
+            return None     # a private listener serves ONLY its routes
+        return _find_route(path)
+
+
+class MetricsServer:
+    """One ThreadingHTTPServer on a daemon thread.  With ``routes``
+    the listener is PRIVATE: it serves only those prefixes (plus the
+    builtin metrics paths) and ignores the process-global route table —
+    how a fleet of in-process replicas (or the router beside a daemon)
+    each get their own port without clobbering each other's ``/v1/``."""
+
+    def __init__(self, port: int = 0, host: str = "127.0.0.1",
+                 routes: Optional[List[Tuple[str, RouteHandler]]] = None,
+                 health: Optional[Callable[[], str]] = None):
+        self.host = host
+        self.port = port
+        self._routes = routes
+        self._health = health
+        self._httpd: Optional[_Httpd] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> int:
+        """Bind + serve; returns the actual port (resolves port 0)."""
+        if self._httpd is not None:
+            return self.port
+        self._httpd = _Httpd((self.host, self.port), _Handler,
+                             routes=self._routes, health=self._health)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True,
+            name="mrtpu-metrics-httpd")
+        self._thread.start()
+        return self.port
+
+    def stop(self, drain_timeout: float = 5.0) -> None:
+        """Stop accepting, DRAIN in-flight handlers, then close the
+        socket.  daemon handler threads are not joined by
+        ``server_close`` (socketserver only tracks non-daemon threads),
+        so closing immediately could yank the socket from under a
+        handler mid-write — the flaky-scrape-on-shutdown failure this
+        ordering removes."""
+        httpd = self._httpd
+        if httpd is None:
+            return
+        self._httpd = None
+        self._thread = None
+        httpd.shutdown()        # stops the accept loop (blocks until idle)
+        deadline = time.monotonic() + drain_timeout
+        while time.monotonic() < deadline:
+            with httpd._inflight_lock:
+                if httpd._inflight == 0:
+                    break
+            time.sleep(0.01)
+        httpd.server_close()
+
+    @property
+    def running(self) -> bool:
+        return self._httpd is not None
+
+
+_SERVER: Optional[MetricsServer] = None
+_LOCK = threading.Lock()
+
+
+def ensure_server(port: int) -> int:
+    """Start the process HTTP server (idempotent: a second call returns
+    the running server's port — the first bound port wins, with a
+    stderr note when it differs from the requested port, so an operator
+    curling the port they asked for and getting connection refused has
+    a trail to the one actually serving).  Returns the port ACTUALLY
+    bound — with ``port=0`` that is the ephemeral port the kernel
+    picked, which is what every caller needs to hand to a client."""
+    global _SERVER
+    import sys
+    from . import metrics as _metrics
+    _metrics.enable_metrics()
+    with _LOCK:
+        if _SERVER is None or not _SERVER.running:
+            _SERVER = MetricsServer(port=port)
+            _SERVER.start()
+        elif port not in (0, _SERVER.port):
+            print(f"metrics server already on port {_SERVER.port}; "
+                  f"ignoring requested port {port}", file=sys.stderr)
+        return _SERVER.port
+
+
+def get_server() -> Optional[MetricsServer]:
+    return _SERVER
+
+
+def stop_server() -> None:
+    """Stop the process-global server (drains in-flight handlers)."""
+    global _SERVER
+    with _LOCK:
+        srv, _SERVER = _SERVER, None
+    if srv is not None:
+        srv.stop()

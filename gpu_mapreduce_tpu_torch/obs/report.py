@@ -1,0 +1,65 @@
+"""Per-op aggregation and table formatting over span events (the
+port's copy of ``gpu_mapreduce_tpu/obs/report.py``): what
+``mr.stats()["ops"]`` reports.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+_BYTE_KEYS = ("shuffle_sent_bytes", "shuffle_pad_bytes",
+              "spill_write_bytes", "spill_read_bytes")
+
+
+def aggregate_ops(events: List[dict]) -> Dict[str, dict]:
+    """events → {span name: {count, total_s, max_s, <byte sums>}} —
+    sorted by total time descending."""
+    agg: Dict[str, dict] = {}
+    for ev in events:
+        name = ev.get("name", "?")
+        dur_s = float(ev.get("dur", 0.0)) / 1e6
+        row = agg.get(name)
+        if row is None:
+            row = agg[name] = {"count": 0, "total_s": 0.0, "max_s": 0.0}
+        row["count"] += 1
+        row["total_s"] += dur_s
+        if dur_s > row["max_s"]:
+            row["max_s"] = dur_s
+        args = ev.get("args") or {}
+        for k in _BYTE_KEYS:
+            v = args.get(k)
+            if v:
+                row[k] = row.get(k, 0) + int(v)
+    for row in agg.values():
+        row["total_s"] = round(row["total_s"], 6)
+        row["max_s"] = round(row["max_s"], 6)
+    return dict(sorted(agg.items(),
+                       key=lambda kv: -kv[1]["total_s"]))
+
+
+def _mb(n) -> str:
+    return f"{n / (1 << 20):.3g}" if n else "-"
+
+
+def per_op_table(events: List[dict]) -> str:
+    """A printable per-op time/bytes table."""
+    agg = aggregate_ops(events)
+    if not agg:
+        return "(no trace events)"
+    rows = [("op", "count", "total_s", "max_s",
+             "sent_Mb", "pad_Mb", "spill_w_Mb", "spill_r_Mb")]
+    for name, r in agg.items():
+        rows.append((name, str(r["count"]), f"{r['total_s']:.4f}",
+                     f"{r['max_s']:.4f}",
+                     _mb(r.get("shuffle_sent_bytes", 0)),
+                     _mb(r.get("shuffle_pad_bytes", 0)),
+                     _mb(r.get("spill_write_bytes", 0)),
+                     _mb(r.get("spill_read_bytes", 0))))
+    widths = [max(len(row[i]) for row in rows) for i in range(len(rows[0]))]
+    lines = []
+    for i, row in enumerate(rows):
+        lines.append("  ".join(c.ljust(w) if j == 0 else c.rjust(w)
+                               for j, (c, w) in enumerate(zip(row, widths))))
+        if i == 0:
+            lines.append("  ".join("-" * w for w in widths))
+    return "\n".join(lines)

@@ -16,7 +16,10 @@ interpreter a world, each over its sub-mesh, in threads
 (``universe.py``).  With ``MRTPU_JOURNAL`` set, every completed command
 is journaled and the named MRs checkpoint every ``MRTPU_CKPT_EVERY``
 commands (``ft/journal.py``); ``resume <dir>`` replays a killed script
-from its last checkpoint.  Not ported yet (each raises ``MRError``): the
+from its last checkpoint.  A top-level script is one request of
+``obs/context.py`` (one trace id), every command and named-MR line is an
+``oink.<command>`` span, and each command round is a cancellation
+barrier.  Not ported yet (each raises ``MRError``): the
 named-MR methods ``mrscript.py`` lists, and the settings the port's
 ``MapReduce`` lacks.
 """
@@ -126,7 +129,16 @@ class OinkScript:
             self._ft_pending_begin = (list(lines), name)
         self._ft_depth += 1
         try:
-            self._run_lines(lines)
+            if self._ft_depth == 1:
+                # a top-level script is one request (obs/context.py): its
+                # spans and journal records carry one trace id; an
+                # enclosing context is kept, and include runs never
+                # scope again
+                from ..obs.context import ensure_scope
+                with ensure_scope(label=f"oink:{name}"):
+                    self._run_lines(lines)
+            else:
+                self._run_lines(lines)
         finally:
             self._ft_depth -= 1
 
@@ -227,8 +239,12 @@ class OinkScript:
         if command in COMMANDS:
             self._run_registered(command, args)
         elif command in self.obj.named:
+            from ..obs import get_tracer
             t0 = _time.perf_counter()
-            MRScriptDispatch(self.obj, self.variables).run(command, args)
+            with get_tracer().span(f"oink.{command}", cat="oink",
+                                   args=" ".join(args)):
+                MRScriptDispatch(self.obj, self.variables).run(command,
+                                                               args)
             self.deltatime = _time.perf_counter() - t0
         else:
             raise MRError(f"Unknown command: {command}")
@@ -243,12 +259,16 @@ class OinkScript:
 
     def _ft_cmd_done(self, command: str):
         """Journal one completed command (the record follows the fact)
-        and checkpoint the named MRs every ``MRTPU_CKPT_EVERY``."""
+        and checkpoint the named MRs every ``MRTPU_CKPT_EVERY``; then the
+        command round's cancellation barrier (``obs/context.py``), with
+        the checkpoint already durable."""
         j = self._ft_journal
         if j is not None:
             self._ft_flush_begin()
             j.cmd_done(command)
             j.maybe_checkpoint(self.obj)
+        from ..obs.context import barrier_check
+        barrier_check()
 
     def _ft_apply_restore(self):
         rec, self._ft_restore = self._ft_restore, None
@@ -303,9 +323,13 @@ class OinkScript:
                 f"Mismatch in command inputs: {name} takes "
                 f"{cmd.ninputs}, got {ninput_args} (use a v_name "
                 f"variable for a multi-file input)")
+        from ..obs import get_tracer
         t0 = _time.perf_counter()
         try:
-            cmd.run()
+            # every script command is one span over its MR ops' spans
+            with get_tracer().span(f"oink.{name}", cat="oink",
+                                   args=" ".join(params)):
+                cmd.run()
         finally:
             self.obj.cleanup()
         self.deltatime = _time.perf_counter() - t0

@@ -39,6 +39,13 @@ mechanisms bound it:
   ``O_CREAT|O_EXCL`` before a shrunk generation resumes; a fenced rank
   that wakes up meets :class:`RankFencedError` and writes nothing.
 
+Each rank also observes itself (:func:`_arm_observability`, the JAX
+package's fleet observability): the launch's one trace id on every span,
+a trace shard ``trace-r<rank>.jsonl`` and the flight recorder in the run
+dir, the sync observer's arrival stamps at every guarded site and a
+metrics dump ``metrics-r<rank>.json`` (``obs/fleetobs.py``), and the
+``mrtpu_dist_*`` metrics.
+
 A survivor leaves with ``os._exit(EXIT_PEER_LOST)``, never through
 ``destroy_process_group`` on a wedged communicator.  Torch's own
 timeout is set past the watchdog's, so the watchdog always fires first.
@@ -65,7 +72,7 @@ import torch
 from ..core.frame import KVFrame
 from ..core.runtime import MRError
 from ..ops.bits import to_torch
-from ..utils.env import env_knob, env_str
+from ..utils.env import env_flag, env_knob, env_str
 from ..utils.fsio import atomic_write_json, fsync_dir, read_json
 from .sharded import ShardedKV, pad_rows, round_cap
 
@@ -230,6 +237,13 @@ class Heartbeat:
                    seq=self.seq)
         if is_fenced(self.rundir, self.rank, self.gen):
             self.fenced = True
+        try:
+            from ..obs.metrics import get_registry
+            get_registry().counter(
+                "mrtpu_dist_heartbeats_total",
+                "data-plane heartbeats written by this rank").inc()
+        except Exception:
+            pass
 
     def _run(self) -> None:
         while not self._stop.wait(self.heartbeat_s):
@@ -293,6 +307,9 @@ class DistRuntime:
                                    heartbeat_s=self.heartbeat_s,
                                    lease_s=self.lease_s, gen=gen)
         self.peer_lost: Optional[PeerLostError] = None
+        # obs/fleetobs, armed by _arm_observability
+        self.sync_obs = None
+        self.metrics_dumper = None
 
     def torch_timeout(self) -> datetime.timedelta:
         """Torch's collective timeout: twice the watchdog's worst case
@@ -323,11 +340,24 @@ class DistRuntime:
         transport saw the death first, confirmed against the leases
         within one expiry window).  ``fn`` runs on a daemon thread, with
         this rank's card current there (CUDA's current device is per
-        thread); on a trip that thread is abandoned mid-collective."""
+        thread); on a trip that thread is abandoned mid-collective.
+
+        The sync observer (``obs/fleetobs.SyncObserver``) stamps this
+        rank's arrival before the collective and reads every peer's
+        after it; observing a sync never fails it."""
         from ..ft.inject import fault_point
         fault_point(f"dist.{site}")
         if self.fenced():
+            self._note_fenced(site)
             raise RankFencedError(self.rank, site)
+        # the arrival stamp lands after fault_point (an injected delay is
+        # in it) and before the collective
+        obs, arec = self.sync_obs, None
+        if obs is not None:
+            try:
+                arec = obs.arrive(site)
+            except Exception:
+                arec = None
 
         done = threading.Event()
         box: list = [None, None]     # [result, exception]
@@ -350,6 +380,7 @@ class DistRuntime:
         poll = max(0.05, self.heartbeat_s / 2.0)
         while not done.wait(poll):
             if self.fenced():
+                self._note_fenced(site)
                 raise RankFencedError(self.rank, site)
             dead = self.dead_peers()
             if dead:
@@ -374,14 +405,59 @@ class DistRuntime:
                         break
                     time.sleep(poll)
             raise box[1]
+        if arec is not None:
+            try:
+                obs.complete(site, arec)
+            except Exception:
+                pass
         return box[0]
 
     def _trip(self, site: str, dead: List[int], reason: str):
         err = PeerLostError(site, dead, reason)
         self.peer_lost = err
+        try:
+            from ..obs import get_tracer
+            from ..obs.metrics import get_registry
+            reg = get_registry()
+            reg.counter(
+                "mrtpu_dist_watchdog_trips_total",
+                "collective watchdog trips (a sync point detected a "
+                "dead/hung peer instead of stalling)", ("site",)
+            ).inc(site=site)
+            reg.counter(
+                "mrtpu_dist_peer_lost_total",
+                "peer ranks lost (as observed by this rank)"
+            ).inc(max(1, len(dead)))
+            with get_tracer().span("dist.peer_lost", cat="dist",
+                                   site=site, rank=self.rank,
+                                   dead=list(dead)):
+                pass
+        except Exception:
+            pass
         raise err
 
+    def _note_fenced(self, site: str):
+        try:
+            from ..obs.metrics import get_registry
+            get_registry().counter(
+                "mrtpu_dist_fenced_total",
+                "sync points this rank declined because it was fenced "
+                "(zombie double-execution guard)", ("site",)
+            ).inc(site=site)
+        except Exception:
+            pass
+
     def stop(self, leave: bool = True) -> None:
+        if self.metrics_dumper is not None:
+            try:
+                self.metrics_dumper.stop("exit")
+            except Exception:
+                pass
+        if self.sync_obs is not None:
+            try:
+                self.sync_obs.close()
+            except Exception:
+                pass
         self.heartbeat.stop(leave=leave)
 
 
@@ -412,6 +488,27 @@ def lease_table(rt: DistRuntime) -> dict:
             "lease_s": rt.lease_s, "skew_s": rt.skew_s,
             "dead": [r for r, row in peers.items() if row["expired"]],
             "peers": peers}
+
+
+def note_sync_rows(counts_mat) -> None:
+    """Hand the sync observer the count matrix's per-destination row
+    totals (its column sums): the data-skew half of the straggler
+    verdict.  Under ``MRTPU_DIST_LOCAL_DEVICES`` the P = world × L shards
+    fold onto their ranks (rank r holds shards r·L … r·L + L − 1).  A
+    no-op outside the process group; never raises."""
+    rt = _ACTIVE
+    if rt is None or rt.sync_obs is None:
+        return
+    try:
+        rows = [int(x) for x in counts_mat.sum(axis=0)]
+        P = len(rows)
+        if P != rt.world and rt.world > 0 and P % rt.world == 0:
+            per = P // rt.world
+            rows = [sum(rows[r * per:(r + 1) * per])
+                    for r in range(rt.world)]
+        rt.sync_obs.note_rows(rows)
+    except Exception:
+        pass
 
 
 _ACTIVE: Optional[DistRuntime] = None
@@ -505,7 +602,69 @@ def init_from_env() -> Optional[DistRuntime]:
     configure_from_env()
     rt.heartbeat.start()
     activate(rt)
+    try:
+        from ..obs import get_tracer
+        from ..obs.metrics import get_registry
+        get_tracer().set_proc_attrs(rank=rank)
+        reg = get_registry()
+        reg.gauge("mrtpu_dist_world",
+                  "process count of the active data plane").set(world)
+        reg.gauge("mrtpu_dist_rank",
+                  "this process's rank in the data plane").set(rank)
+        reg.gauge("mrtpu_dist_gen",
+                  "shrink generation of the active data plane (0 = "
+                  "first launch)").set(gen)
+    except Exception:
+        pass
+    _arm_observability(rt)
     return rt
+
+
+def _arm_observability(rt: DistRuntime) -> None:
+    """A rank's fleet observability (JAX :595-641): the launch's trace id
+    (``MRTPU_DIST_TRACE_ID``) on every span, journal record and flight
+    dump; this rank's trace shard ``<rundir>/trace-r<rank>.jsonl``
+    (``MRTPU_DIST_TRACE``, default on); the flight recorder at the run
+    dir unless ``MRTPU_FLIGHT`` says otherwise; the sync observer
+    (``MRTPU_DIST_SYNC_OBS``) and the metrics dumps
+    (``MRTPU_DIST_METRICS``).  Each piece is crash-proof on its own."""
+    tid = env_str("MRTPU_DIST_TRACE_ID", "")
+    if tid:
+        try:
+            from ..obs.context import set_process_trace_id
+            set_process_trace_id(tid)
+        except Exception:
+            pass
+    if env_flag("MRTPU_DIST_TRACE", True):
+        try:
+            from ..obs import get_tracer
+            get_tracer().enable(jsonl=os.path.join(
+                rt.rundir, f"trace-r{rt.rank}.jsonl"))
+        except Exception:
+            pass
+    if env_str("MRTPU_FLIGHT", "") == "":
+        # no explicit flight config: the recorder dumps into the run dir
+        # (MRTPU_FLIGHT=0 still disables it)
+        try:
+            from ..obs import flight as _flight
+            _flight.enable(dir=rt.rundir)
+        except Exception:
+            pass
+    if env_flag("MRTPU_DIST_SYNC_OBS", True):
+        try:
+            from ..obs.fleetobs import SyncObserver
+            rt.sync_obs = SyncObserver(rt.rundir, rt.rank, rt.world,
+                                       gen=rt.gen)
+        except Exception:
+            rt.sync_obs = None
+    if env_flag("MRTPU_DIST_METRICS", True):
+        try:
+            from ..obs.fleetobs import RankMetricsDumper
+            rt.metrics_dumper = RankMetricsDumper(rt.rundir, rt.rank,
+                                                  gen=rt.gen)
+            rt.metrics_dumper.start()
+        except Exception:
+            rt.metrics_dumper = None
 
 
 def guard_call(site: str, fn: Callable, *args, **kwargs):

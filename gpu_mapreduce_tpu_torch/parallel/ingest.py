@@ -18,6 +18,15 @@ reference's map stage reads each rank's own files on its own node
   (:func:`build_sharded`) whose text tables are dest-sharded
   (``core.column.ShardTables``).
 
+The shards pipeline through the exec/ prefetch (``exec.prefetch_iter``,
+paths ``ingest.files`` and ``ingest.chunks``): a producer thread reads
+and maps shard N+1 while shard N's sinks are collected, in shard order,
+so the output is that of the serial loop.  Telemetry as in the JAX
+package: an ``ingest.read`` span over each shard's tasks (over all the
+files under mapstyle 2), an ``ingest.h2d`` span over each side's
+host-to-device copies, and the pool tasks run under the submitting
+request's context (``obs/context.bind``).
+
 Rows stay on the shard whose files produced them, so a later aggregate
 starts from the JAX package's source layout — except a lopsided ingest
 (the fullest shard past twice the even share), which re-splits evenly.
@@ -67,25 +76,72 @@ def run_sinks(mr, payloads, call: Callable, base: int, device,
               shard=None):
     """``call(base + i, payload, sink)`` for every payload into private
     sinks on ``device``, in task order, each task under
-    ``ft.retry.ingest_task``; under mapstyle 2 the tasks run on the
-    MapReduce's thread pool.  Returns the sinks."""
+    ``ft.retry.ingest_task``, inside one ``ingest.read`` span; under
+    mapstyle 2 the tasks run on the MapReduce's thread pool, each under
+    the submitting request's context.  Returns the sinks."""
     from ..core.mapreduce import _TaskSink
     from ..ft.retry import ingest_active, ingest_task
+    from ..obs import get_tracer
     onfault = mr.settings.onfault
     active = ingest_active(onfault)
     sinks = [_TaskSink(device) for _ in payloads]
-    if mr.settings.mapstyle == 2 and len(payloads) > 1:
-        pool = mr._task_pool()
-        futs = [pool.submit(ingest_task, call, base + i, p, sinks[i],
-                            onfault=onfault, shard=shard, active=active)
-                for i, p in enumerate(payloads)]
-        for f in futs:
-            f.result()          # a callback's exception surfaces here
-    else:
-        for i, p in enumerate(payloads):
-            ingest_task(call, base + i, p, sinks[i], onfault=onfault,
-                        shard=shard, active=active)
+    threaded = mr.settings.mapstyle == 2
+    with get_tracer().span("ingest.read", cat="ingest",
+                           ntasks=len(payloads), threaded=threaded):
+        if threaded and len(payloads) > 1:
+            from ..obs.context import bind
+            task = bind(ingest_task)
+            pool = mr._task_pool()
+            futs = [pool.submit(task, call, base + i, p, sinks[i],
+                                onfault=onfault, shard=shard,
+                                active=active)
+                    for i, p in enumerate(payloads)]
+            for f in futs:
+                f.result()          # a callback's exception surfaces here
+        else:
+            for i, p in enumerate(payloads):
+                ingest_task(call, base + i, p, sinks[i], onfault=onfault,
+                            shard=shard, active=active)
     return sinks
+
+
+def _shard_sink_stream(mr, shards_payloads, call: Callable, devices):
+    """Each shard's sinks in turn (:func:`run_sinks`), tasks numbered
+    across the shards: the producer half of the prefetch pipeline."""
+    base = 0
+    for p, (payloads, dev) in enumerate(zip(shards_payloads, devices)):
+        sinks = run_sinks(mr, payloads, call, base, dev, shard=p)
+        base += len(payloads)
+        yield sinks
+
+
+def _pooled_file_sink_stream(mr, shards, call: Callable, devices):
+    """mapstyle 2 ``map_files``: every file's task goes to the pool at
+    once (one ``ingest.read`` span), then each shard's sinks come out in
+    task order as their futures complete (JAX :325-355)."""
+    from ..core.mapreduce import _TaskSink
+    from ..ft.retry import ingest_active, ingest_task
+    from ..obs import get_tracer
+    from ..obs.context import bind
+    onfault = mr.settings.onfault
+    active = ingest_active(onfault)
+    names = [f for files in shards for f in files]
+    shard_of = [p for p, files in enumerate(shards) for _ in files]
+    sinks = [_TaskSink(devices[p]) for p in shard_of]
+    task = bind(ingest_task)
+    pool = mr._task_pool()
+    with get_tracer().span("ingest.read", cat="ingest",
+                           ntasks=len(names), threaded=True):
+        futs = [pool.submit(task, call, i, name, sinks[i],
+                            onfault=onfault, shard=shard_of[i],
+                            active=active)
+                for i, name in enumerate(names)]
+        i = 0
+        for files in shards:
+            for f in futs[i:i + len(files)]:
+                f.result()      # a callback's exception, in task order
+            yield sinks[i:i + len(files)]
+            i += len(files)
 
 
 def _sink_frames(sinks) -> list:
@@ -135,6 +191,48 @@ def _shard_frame(frames: list, device):
         raise Unshardable(str(e))
 
 
+def _place_shards(frames: List[list], mesh) -> list:
+    """Each shard's frames as one frame on its device, or None for a
+    shard with no rows.  When every frame is a host frame, each shard's
+    frames join on the host and the copies go a side at a time: the
+    keys of every shard, then the values, each side one ``ingest.h2d``
+    span (JAX ``_put_blocks``, :207-230); a text side interns on its
+    shard's device as :func:`~.sharded.shard_frame` does.  Frames
+    already on a device place through :func:`_shard_frame`."""
+    from ..core.dataset import one_frame_of
+    from ..obs import get_tracer
+    from .sharded import ShardedKV, pad_rows, place_column, round_cap
+    if not all(isinstance(f, KVFrame) for fs in frames for f in fs):
+        return [_shard_frame(f, dev) for f, dev in zip(frames, mesh.devices)]
+    merged = []
+    for fs in frames:
+        try:
+            merged.append(one_frame_of(fs) if fs else None)
+        except TypeError as e:   # byte rows beside numbers in one shard
+            raise Unshardable(str(e))
+    tr = get_tracer()
+    sides = []
+    for name in ("key", "value"):
+        with tr.span("ingest.h2d", cat="ingest", shards=mesh.size) as sp:
+            placed = [None if m is None else
+                      place_column(getattr(m, name), dev)
+                      for m, dev in zip(merged, mesh.devices)]
+            sp.set(bytes=sum(t.element_size() * t.numel()
+                             for t, _, _ in filter(None, placed)))
+        sides.append(placed)
+    out = []
+    for m, kp, vp in zip(merged, *sides):
+        if m is None:
+            out.append(None)
+            continue
+        n = len(m)
+        cap = round_cap(n)
+        (k, kd, kt), (v, vd, vt) = kp, vp
+        out.append(ShardedKV(pad_rows(k, cap), pad_rows(v, cap),
+                             np.array([n], np.int32), kd, vd, kt, vt))
+    return out
+
+
 def _align_side(shards: list, which: str, P: int):
     """One side's columns over the shards → (tensors, ShardTables or
     None).  All text or all numbers (else :class:`Unshardable`); a bytes
@@ -164,7 +262,7 @@ def build_sharded(frames: List[list], mesh):
     row order.  Raises :class:`Unshardable` when the shards disagree."""
     from .sharded import mesh_kv
     P = mesh.size
-    placed = [_shard_frame(f, dev) for f, dev in zip(frames, mesh.devices)]
+    placed = _place_shards(frames, mesh)
     full = [s for s in placed if s is not None and len(s)]
     if not full:
         from .sharded import shard_frame_mesh
@@ -259,16 +357,19 @@ def _finish(mr, kv, shard_sinks: List[list], stats: dict) -> dict:
 def mesh_map_files(mr, kv, names: Sequence[str], call: Callable) -> dict:
     """``map_files`` on a mesh: each shard maps its contiguous,
     byte-balanced slice of the files (tasks numbered in file order) into
-    a frame on its device.  Returns the ingest record
-    (``{"mode": "mesh" | "host", ...}``)."""
+    a frame on its device, the shards through the prefetch pipeline
+    (under mapstyle 2 every file's task on the pool at once).  Returns
+    the ingest record (``{"mode": "mesh" | "host", ...}``)."""
+    from ..exec import prefetch_iter
     mesh = mr.backend.mesh
     shards = _balanced(names, mesh.size, mr.settings.onfault)
     stats = {"mode": "mesh", "shards": mesh.size,
              "files_per_shard": [len(s) for s in shards]}
-    sinks, base = [], 0
-    for p, (files, dev) in enumerate(zip(shards, mesh.devices)):
-        sinks.append(run_sinks(mr, files, call, base, dev, shard=p))
-        base += len(files)
+    if mr.settings.mapstyle == 2:
+        stream = _pooled_file_sink_stream(mr, shards, call, mesh.devices)
+    else:
+        stream = _shard_sink_stream(mr, shards, call, mesh.devices)
+    sinks = list(prefetch_iter(stream, path="ingest.files"))
     return _finish(mr, kv, sinks, stats)
 
 
@@ -278,6 +379,7 @@ def mesh_map_chunks(mr, kv, names: Sequence[str], per_file: int,
     the shards, each splits into its ~``per_file`` chunks as on the host
     path (so callbacks see the same payloads, tasks numbered file then
     chunk), and each shard's chunks map into a frame on its device."""
+    from ..exec import prefetch_iter
     from ..ft.retry import ingest_read
     from ..utils.io import file_chunks
     mesh = mr.backend.mesh
@@ -286,19 +388,24 @@ def mesh_map_chunks(mr, kv, names: Sequence[str], per_file: int,
     stats = {"mode": "mesh", "shards": mesh.size,
              "files_per_shard": [len(s) for s in shards],
              "chunks_per_shard": []}
-    sinks, base = [], 0
-    for p, (files, dev) in enumerate(zip(shards, mesh.devices)):
-        # each file reads under the ft/ ingest.read policy (None: the
-        # file was quarantined)
-        payloads = []
-        for fname in files:
-            chunks = ingest_read(
-                lambda f=fname: list(file_chunks(f, per_file, sep, delta)),
-                file=fname, onfault=onfault, shard=p)
-            if chunks is not None:
-                payloads.extend(chunks)
-        stats["chunks_per_shard"].append(len(payloads))
-        sinks.append(run_sinks(mr, payloads, call, base, dev, shard=p))
-        base += len(payloads)
-    stats["ntasks"] = base
+
+    def shard_payloads():
+        # one shard's chunks at a time; each file reads under the ft/
+        # ingest.read policy (None: the file was quarantined)
+        for p, files in enumerate(shards):
+            payloads = []
+            for fname in files:
+                chunks = ingest_read(
+                    lambda f=fname: list(file_chunks(f, per_file, sep,
+                                                     delta)),
+                    file=fname, onfault=onfault, shard=p)
+                if chunks is not None:
+                    payloads.extend(chunks)
+            stats["chunks_per_shard"].append(len(payloads))
+            yield payloads
+
+    sinks = list(prefetch_iter(
+        _shard_sink_stream(mr, shard_payloads(), call, mesh.devices),
+        path="ingest.chunks"))
+    stats["ntasks"] = sum(stats["chunks_per_shard"])
     return _finish(mr, kv, sinks, stats)

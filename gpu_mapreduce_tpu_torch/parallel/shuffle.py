@@ -51,8 +51,16 @@ one.  A rank frame of the process group (``parallel/dist.RankKV``)
 takes the same phase 1 and plan on its blocks, the count and stats
 matrices in one gather across ranks, and phase 2 as one
 ``all_to_all_single`` a chip index (:func:`exchange_ranks`); its blocks
-equal the one-process mesh's shards.  The JAX exchange's buffer
-donation, retry wrapper and trace spans are not ported (ROADMAP.md).
+equal the one-process mesh's shards.
+
+Every exchange runs under the ft/ ``shuffle.exchange`` retry policy
+(:func:`_under_retry`) and is a cancellation barrier
+(``obs/context.barrier_check``); each attempt of an eager or rank
+exchange is a ``shuffle.exchange`` span (the plan's bucket, rounds,
+caps, rows, bytes and whether it was speculative) with a
+``shuffle.count_sync`` child around the count pull, and every exchange's
+telemetry feeds ``obs/metrics.record_exchange``.  The JAX exchange's
+buffer donation is not ported (torch never consumes its inputs).
 """
 
 from __future__ import annotations
@@ -460,7 +468,21 @@ def exchange_stats(skv, counts_mat: np.ndarray, plan, counters=None,
             _wire.col_spec(s.key, skv.key_dtype),
             _wire.col_spec(s.value, skv.value_dtype), counts_mat, plan)
         stats.wire_ratio = _wire.wire_ratio(moved, pad, stats.wire_bytes)
+    # the live metrics and the request account: a direct feed, so the
+    # counters hold even for spans the ring has dropped
+    from ..obs.metrics import record_exchange
+    record_exchange(stats)
     return stats
+
+
+def _span_stats(sp, skv, stats: ExchangeCallStats) -> None:
+    """An exchange's telemetry as its span's attributes (JAX
+    :719-774)."""
+    sp.set(speculative=stats.speculative, bucket=stats.bucket,
+           nrounds=stats.nrounds, cap_out=stats.cap_out, rows=stats.rows,
+           sent_bytes=stats.sent_bytes, pad_bytes=stats.pad_bytes,
+           rowbytes=_rowbytes(skv), wire_bytes=stats.wire_bytes,
+           wire_ratio=stats.wire_ratio)
 
 
 def _spec_key(skv: MeshKV, dest, transport: int, wire_on: bool) -> tuple:
@@ -475,19 +497,29 @@ def _spec_key(skv: MeshKV, dest, transport: int, wire_on: bool) -> tuple:
             wire_on)
 
 
-def _under_retry(skv, run: Callable, detail: str):
+def _under_retry(skv, run: Callable, detail: str,
+                 span: Optional[dict] = None):
     """``run()`` under the ft/ ``shuffle.exchange`` fault site and retry
     policy (JAX ``shuffle.py:575-616``).  The fault point comes before
     any launch, so a faulted attempt leaves no trace: the plan cache, the
     exchange and sync counters change only on a successful attempt.
     Torch never consumes its inputs, but the veto stays explicit: a
-    retry needs every input shard still whole."""
+    retry needs every input shard still whole.  With ``span`` (its
+    attributes), each attempt is ``run(sp)`` inside a
+    ``shuffle.exchange`` span."""
     from ..ft.inject import fault_point
     from ..ft.retry import retry_call
 
     def _once():
         fault_point("shuffle.exchange")
-        return run()
+        if span is None:
+            return run()
+        from ..obs import NULL_SPAN, get_tracer
+        tr = get_tracer()
+        if not tr.enabled:
+            return run(NULL_SPAN)
+        with tr.span("shuffle.exchange", cat="shuffle", **span) as sp:
+            return run(sp)
 
     def _retryable(_e) -> bool:
         return all(s.key is not None and s.value is not None
@@ -506,23 +538,34 @@ def exchange(skv: MeshKV, dest, transport: int = 1, counters=None,
     :class:`ExchangeCallStats` as ``exchange_stats``.  A rank frame
     (``parallel/dist.RankKV``) exchanges across the process group
     (:func:`exchange_ranks`, its rows' sync point named ``site``).  Runs
-    under the ft/ ``shuffle.exchange`` retry policy (:func:`_under_retry`).
+    under the ft/ ``shuffle.exchange`` retry policy (:func:`_under_retry`),
+    after the cancellation barrier (JAX :589-596).
     """
+    from ..obs.context import barrier_check
+    barrier_check()
     if isinstance(skv, RankKV):
         return exchange_ranks(skv, dest, counters, site)
     return _under_retry(
-        skv, lambda: _exchange_mesh(skv, dest, transport, counters),
-        f"P={skv.nprocs}")
+        skv, lambda sp: _exchange_mesh(skv, dest, transport, counters, sp),
+        f"P={skv.nprocs}", span={"nprocs": skv.nprocs,
+                                 "transport": transport})
 
 
-def _exchange_mesh(skv: MeshKV, dest, transport: int,
-                   counters) -> MeshKV:
+def _count_sync_span():
+    """The ``shuffle.count_sync`` span around an exchange's one pull."""
+    from ..obs import get_tracer
+    return get_tracer().span("shuffle.count_sync", cat="shuffle")
+
+
+def _exchange_mesh(skv: MeshKV, dest, transport: int, counters,
+                   sp) -> MeshKV:
     wire_on = _wire.wire_enabled()
     ph = phase1(skv, dest, wire_on)
     key = _spec_key(skv, dest, transport, wire_on)
     with _SPEC_LOCK:
         spec = _SPEC_CACHE.get(key)
-    counts_mat, _ = ph.pull()
+    with _count_sync_span():
+        counts_mat, _ = ph.pull()
     plan, kvrange, bmax, nmax, new_counts = ph.plan()
     if spec is not None and _wire.plan_holds(spec, bmax, nmax, kvrange):
         # the cached plan holds: run at it, keeping its larger cap;
@@ -544,6 +587,7 @@ def _exchange_mesh(skv: MeshKV, dest, transport: int,
                             for (k, v), n in zip(blocks, new_counts)])
     out.exchange_stats = exchange_stats(skv, counts_mat, ran, counters,
                                         speculative)
+    _span_stats(sp, skv, out.exchange_stats)
     return out
 
 
@@ -574,11 +618,13 @@ def exchange_ranks(skv: RankKV, dest, counters=None,
     every rank at the same call and every rank retries into the same
     collectives."""
     return _under_retry(
-        skv, lambda: _exchange_ranks(skv, dest, counters, site),
-        f"P={skv.nprocs} rank {skv.rank}")
+        skv, lambda sp: _exchange_ranks(skv, dest, counters, site, sp),
+        f"P={skv.nprocs} rank {skv.rank}",
+        span={"nprocs": skv.nprocs, "transport": 1})
 
 
-def _exchange_ranks(skv: RankKV, dest, counters, site: str) -> RankKV:
+def _exchange_ranks(skv: RankKV, dest, counters, site: str,
+                    sp) -> RankKV:
     if skv.key_decode is not None or skv.value_decode is not None:
         raise MRError("an exchange of interned columns across ranks is not "
                       "ported yet (intern tables are per process)")
@@ -604,11 +650,14 @@ def _exchange_ranks(skv: RankKV, dest, counters, site: str) -> RankKV:
         metas.append(torch.cat(meta))
     t0 = time.perf_counter()
     SyncStats.bump()          # the op's one pull: the count matrix
-    gathered = _dist.guard_call(
-        "count_sync", lambda: _dist.all_gather_host(
-            torch.cat([m.cpu() for m in metas]).numpy())).reshape(P, -1)
+    with _count_sync_span():
+        gathered = _dist.guard_call(
+            "count_sync", lambda: _dist.all_gather_host(
+                torch.cat([m.cpu() for m in metas]).numpy())).reshape(P, -1)
     t1 = time.perf_counter()
     counts_mat = gathered[:, :P]
+    # the straggler classifier's data-skew evidence (obs/fleetobs)
+    _dist.note_sync_rows(counts_mat)
     stats_mat = gathered[:, P:].reshape(P, P, 4) if wire_on else None
     plan, _kvr, _bmax, _nmax, new_counts = _wire.plan_from_pull(
         kspec, vspec, counts_mat, stats_mat, wire_on, elig)
@@ -637,6 +686,7 @@ def _exchange_ranks(skv: RankKV, dest, counters, site: str) -> RankKV:
                                 skv.key_dtype, skv.value_dtype))
     out = RankKV(rank, shards, new_counts)
     out.exchange_stats = exchange_stats(skv, counts_mat, plan, counters)
+    _span_stats(sp, skv, out.exchange_stats)
     out.sync_seconds = {"count_sync": t1 - t0, site: t2 - t1}
     return out
 

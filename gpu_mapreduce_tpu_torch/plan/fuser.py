@@ -50,9 +50,16 @@ group's output.  ``last_exchange``, the ``cssize``/``cspad`` counters and
 Fusion breaks where the JAX package breaks it (``_fusible_kv``): under
 ``outofcore=1`` (pages spill, a device KV over the budget demotes), on an
 open MR and on an empty KV every stage replays through the ordinary op.
-Left out against the JAX fuser: the single-dispatch megafusion, the
-persistent plan tier, buffer donation, the fault-retry wrapper and the
-tracer spans.
+
+An exchange group runs under the ft/ ``shuffle.exchange`` retry policy
+as the eager exchange does.  Telemetry (JAX :731, :880, :900): a
+``plan.execute`` span over the whole plan and a ``plan.group`` span for
+each fused group (its plan's bucket, rounds, caps, rows and groups,
+whether it ran warm and whether the group table ran), the exchange's
+numbers fed to ``obs/metrics.record_exchange``, and each group's
+launches against the eager ops' (``plan/cache.note_fusion``).  Left out
+against the JAX fuser: the single-dispatch megafusion, the persistent
+plan tier and buffer donation.
 """
 
 from __future__ import annotations
@@ -62,8 +69,12 @@ from typing import Optional
 
 import numpy as np
 
-from .cache import plan_cache, record_history
+from .cache import note_fusion, plan_cache, record_history
 from .ir import Plan, PlanStage, frame_signature
+
+# the eager ops' launches, the baseline a fused group's launches are
+# held against (JAX :82)
+_EAGER_DISPATCHES = {"aggregate": 2, "convert": 2, "reduce": 1}
 
 
 @dataclass
@@ -252,7 +263,7 @@ def _install_kmv(mr, frame) -> None:
 
 
 def _exec_exchange_group(mr, stages, reduce_op, compiled: CompiledPlan,
-                         gidx: int, skv) -> tuple:
+                         gidx: int, skv, sp) -> tuple:
     """Run [aggregate, convert(, reduce(kernel))] over a mesh frame as
     one group.  Returns ``(mode, table)``: mode "exchange" (cold) or
     "exchange1" (warm at the cached plan and gcap), and whether the
@@ -264,12 +275,12 @@ def _exec_exchange_group(mr, stages, reduce_op, compiled: CompiledPlan,
     from ..parallel.shuffle import _under_retry
     return _under_retry(
         skv, lambda: _exchange_group_once(mr, stages, reduce_op, compiled,
-                                          gidx, skv),
+                                          gidx, skv, sp),
         f"P={skv.nprocs} fused")
 
 
 def _exchange_group_once(mr, stages, reduce_op, compiled: CompiledPlan,
-                         gidx: int, skv) -> tuple:
+                         gidx: int, skv, sp) -> tuple:
     from ..core.runtime import Timer
     from ..parallel import shuffle as sh
     from ..parallel import wire
@@ -306,6 +317,7 @@ def _exchange_group_once(mr, stages, reduce_op, compiled: CompiledPlan,
         if outs is None:
             # the speculation failed: discard and run the group cold
             compiled.mega.pop(gidx, None)
+            sp.set(mega_miss=True)
             cfg = None
         else:
             mode = "exchange1"
@@ -322,10 +334,14 @@ def _exchange_group_once(mr, stages, reduce_op, compiled: CompiledPlan,
         gmax = int(gcounts.max())
         outs = _maybe_compact(cap_out, gmax, outs, ngroup)
         compiled.mega[gidx] = ("x", plan, _gcap_for(gmax, cap_out))
-    mr.last_exchange = sh.exchange_stats(skv, counts_mat, plan, mr.counters,
-                                         speculative=mode == "exchange1")
+    st = mr.last_exchange = sh.exchange_stats(
+        skv, counts_mat, plan, mr.counters, speculative=mode == "exchange1")
     mr.counters.add(commtime=t.elapsed())
     ngroups = int(gcounts.sum())
+    sp.set(bucket=st.bucket, nrounds=st.nrounds, cap_out=st.cap_out,
+           rows=st.rows, groups=ngroups, wire_bytes=st.wire_bytes,
+           wire_ratio=st.wire_ratio, mega=mode == "exchange1",
+           pallas=cfg is not None)
     stages[0].result = int(counts_mat.sum())
     stages[1].result = ngroups
     if out_kind == "kv":
@@ -337,7 +353,7 @@ def _exchange_group_once(mr, stages, reduce_op, compiled: CompiledPlan,
 
 
 def _exec_local_group(mr, stages, reduce_op, compiled: CompiledPlan,
-                      gidx: int, frame) -> tuple:
+                      gidx: int, frame, sp) -> tuple:
     """Run [convert, reduce(kernel)] on a device frame (one device or a
     mesh) as one group, every shard at one gcap.  Returns ``(mode,
     table)``: mode "local" (cold) or "local1" (warm at the cached
@@ -364,6 +380,7 @@ def _exec_local_group(mr, stages, reduce_op, compiled: CompiledPlan,
     if gcap is not None and (overflow or int(gcounts.max()) > gcap):
         # the cached capacity no longer covers: discard, run cold
         compiled.mega.pop(gidx, None)
+        sp.set(mega_miss=True)
         gcap, cfg = None, None
         outs, gcounts, _ = run(cap, None)
     if gcap is None:
@@ -372,6 +389,7 @@ def _exec_local_group(mr, stages, reduce_op, compiled: CompiledPlan,
         compiled.mega[gidx] = ("l", _gcap_for(gmax, cap))
     _install_kv(mr, _kv_out(mesh, outs, gcounts, frame, reduce_op))
     ngroups = int(gcounts.sum())
+    sp.set(groups=ngroups, mega=gcap is not None, pallas=cfg is not None)
     stages[0].result = ngroups
     stages[1].result = ngroups
     return ("local" if gcap is None else "local1"), cfg is not None
@@ -398,6 +416,26 @@ def _backend_signature(mr) -> tuple:
     return ("device", str(mr.device)) if mesh is None else ("mesh", mesh)
 
 
+def _key_brief(mr, key) -> Optional[str]:
+    """The plan key as ``dump_plan`` prints it, in the JAX package's words
+    (its ``_key_brief``): a mesh frame is that package's ``ShardedKV``, a
+    host text column has its numpy dtype ``object``, and the backend is
+    ``mesh`` for a MapReduce over a mesh, else ``serial``."""
+    if key is None:
+        return None
+    from ..parallel.mesh import Mesh
+    fp, frame_sig, _backend, transport, ooc, wire = key
+    ops = "→".join(s[0] for s in fp)
+    if frame_sig:
+        kind = "ShardedKV" if frame_sig[0] == "MeshKV" else frame_sig[0]
+        frame_sig = (kind,) + tuple(
+            (c[0], c[1], "object") if c[2] == "bytes" else c
+            for c in frame_sig[1:])
+    backend = "mesh" if isinstance(mr.comm, Mesh) else "serial"
+    return (f"ops[{ops}] frame{frame_sig!r} backend={backend} "
+            f"all2all={transport} outofcore={ooc} wire={int(wire)}")
+
+
 def execute_plan(mr, plan: Plan) -> None:
     """Fuse + run a recorded plan against mr's current dataset.  The
     cache key is (fingerprint, frame signature, device or mesh, all2all,
@@ -418,26 +456,41 @@ def execute_plan(mr, plan: Plan) -> None:
         compiled = CompiledPlan()
         if key is not None:
             plan_cache().put(key, compiled)
+    from ..core.runtime import thread_dispatches
+    from ..obs import get_tracer
+    tracer = get_tracer()
     groups_desc = []
     stages = list(plan.stages)
     i = gidx = 0
-    while i < len(stages):
-        n, kind, rop, frame = _match_group(mr, stages, i)
-        run = stages[i:i + n]
-        mode, table = "eager", False
-        if kind is None:
-            _replay(mr, run[0])
-        elif kind == "exchange":
-            mode, table = _exec_exchange_group(mr, run, rop, compiled, gidx,
-                                               frame)
-        else:
-            mode, table = _exec_local_group(mr, run, rop, compiled, gidx,
-                                            frame)
-        groups_desc.append({"stages": [s.describe() for s in run],
-                            "fused": kind is not None,
-                            "kind": kind or "eager", "reduce_op": rop,
-                            "mode": mode, "table": table})
-        i += n
-        gidx += 1
+    with tracer.span("plan.execute", cat="plan", nstages=len(stages),
+                     cache_hit=cache_hit) as psp:
+        while i < len(stages):
+            n, kind, rop, frame = _match_group(mr, stages, i)
+            run = stages[i:i + n]
+            mode, table = "eager", False
+            # this thread's launches: another thread's never count here
+            d0 = thread_dispatches()
+            if kind is None:
+                _replay(mr, run[0])
+            else:
+                with tracer.span("plan.group", cat="plan", kind=kind,
+                                 fused=True, nstages=n,
+                                 reduce_op=rop or "") as sp:
+                    group = _exec_exchange_group if kind == "exchange" \
+                        else _exec_local_group
+                    mode, table = group(mr, run, rop, compiled, gidx, frame,
+                                        sp)
+            note_fusion(kind or "eager", mode, thread_dispatches() - d0,
+                        sum(_EAGER_DISPATCHES.get(s.op, 1) for s in run),
+                        table=table)
+            groups_desc.append({"stages": [s.describe() for s in run],
+                                "fused": kind is not None,
+                                "kind": kind or "eager", "reduce_op": rop,
+                                "mode": mode, "table": table})
+            i += n
+            gidx += 1
+        psp.set(ngroups=gidx,
+                nfused=sum(1 for d in groups_desc if d["fused"]))
     record_history({"stages": plan.describe(), "groups": groups_desc,
-                    "cache_hit": cache_hit})
+                    "cache_hit": cache_hit,
+                    "cache_key": _key_brief(mr, key)})

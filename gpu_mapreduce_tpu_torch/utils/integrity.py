@@ -8,7 +8,8 @@ disk, checked before the merge reads them.  A digest is
 ``"crc32:xxxxxxxx"`` over the same bytes as the JAX package's, so a
 checkpoint written by either package verifies in the other.
 ``MRTPU_VERIFY=0`` skips the read-side checks; stamps are always written.
-Detections are counted per artifact (:func:`integrity_failures`).
+Detections are counted per artifact (:func:`integrity_failures` and
+``mrtpu_integrity_failures_total{artifact}``).
 """
 
 from __future__ import annotations
@@ -93,9 +94,19 @@ _FAILURES_LOCK = threading.Lock()
 
 
 def record_integrity_failure(artifact: str) -> None:
-    """Count one detection for ``artifact`` (checkpoint, spill)."""
+    """Count one detection for ``artifact`` (checkpoint, spill), here and
+    in ``mrtpu_integrity_failures_total{artifact}`` (a direct feed: it
+    counts before the metrics are armed, and never raises)."""
     with _FAILURES_LOCK:
         _FAILURES[artifact] = _FAILURES.get(artifact, 0) + 1
+    try:
+        from ..obs.metrics import get_registry
+        get_registry().counter(
+            "mrtpu_integrity_failures_total",
+            "durable artifacts that failed checksum verification on "
+            "read, by artifact kind", ("artifact",)).inc(artifact=artifact)
+    except Exception:
+        pass
 
 
 def integrity_failures() -> dict:

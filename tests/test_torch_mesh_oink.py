@@ -81,6 +81,11 @@ SCRIPT = [
     ("wordfreq", "wordfreq 5 -i v_files -o tmp.wf mrwf", ["mrwf"]),
     ("docs", "variable docs index docs", []),
     ("invertedindex", "invertedindex -i v_docs -o tmp.ii NULL", []),
+    # the observability exits, each side's tracer off, registry and plan
+    # history empty when its script starts
+    ("dump_plan", "dump_plan tmp.plan.txt", []),
+    ("dump_trace", "dump_trace tmp.trace.json", []),
+    ("dump_metrics", "dump_metrics tmp.metrics.prom", []),
 ]
 DEGREE_WEIGHT = "degree_weight -i tmp.upper.* tmp.deg.* -o tmp.dw NULL"
 
@@ -129,6 +134,18 @@ def _drive(d, interp, lines):
     return out
 
 
+def _quiet_obs(side):
+    """One package's tracer off and its sinks, metrics registry and plan
+    history dropped."""
+    if side == "jax":
+        from gpu_mapreduce_tpu import obs, plan
+    else:
+        from gpu_mapreduce_tpu_torch import obs, plan
+    obs.get_tracer().reset()
+    obs.metrics.reset()
+    plan.clear_history()
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("mesh_oink")
@@ -141,6 +158,7 @@ def runs(tmp_path_factory):
             d = root / side
             d.mkdir()
             _inputs(d)
+            _quiet_obs(side)
             s = JOinkScript(comm=j_make_mesh(P), screen=False) \
                 if side == "jax" else OinkScript(comm=tmesh(P), screen=False)
             msgs = _drive(d, s, [(lb, ln) for lb, ln, _ in SCRIPT])
@@ -241,6 +259,15 @@ def test_oink_commands_run_on_a_mesh(runs, command):
                               path.split(".")[1])
     if command == "neigh_tri":
         assert same_files(jax["files"], port["files"], "nt")
+    if command.startswith("dump_"):
+        path = words[1]
+        tf, jf = port["files"][path], jax["files"][path]
+        if command == "dump_metrics":      # the same families
+            assert [ln for ln in tf.splitlines() if ln.startswith(b"# TYPE")] \
+                == [ln for ln in jf.splitlines()
+                    if ln.startswith(b"# TYPE")]
+        else:
+            assert tf == jf
     for _, ln, names in SCRIPT:
         if ln.split()[0] == command:
             for name in names:

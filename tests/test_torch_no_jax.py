@@ -63,7 +63,11 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "oink.commands.invertedindex", "oink.objects",
                    "parallel.backend", "parallel.dist", "parallel.reshard",
                    "ft", "ft.inject", "launch", "ft.retry",
-                   "ft.journal", "oink.universe")
+                   "ft.journal", "oink.universe", "obs", "obs.context",
+                   "obs.tracer", "obs.sinks", "obs.report", "obs.metrics",
+                   "obs.flight", "obs.httpd", "obs.fleetobs",
+                   "oink.commands.dump_trace", "oink.commands.dump_metrics",
+                   "oink.commands.dump_plan")
 
 
 def test_port_imports_no_jax():
