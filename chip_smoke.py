@@ -265,6 +265,36 @@ nonzero):
               launch.json, the trace shards, the rank dumps and the
               flight dumps, the sync records' spreads, the chaos
               survivors' flight dumps with the lease table naming rank 2.
+
+16. cache   — the caching tier, the native host runtime and a standing
+              query, after ft.  native-main: InvertedIndex(engine=
+              "native") on the main corpus, the library built under the
+              port's _build/, hits, unique URLs and part-00000 equal to
+              the default engine's on the card, mark_words never
+              launched; _parse_cols' C++ route on the composed-check
+              graph as an edge file equal to its numpy route.
+              persist-intcount: intcount-uniform under MRTPU_FUSE=1 with
+              a content store (MRTPU_CAS_DIR): this process, its plan
+              caches cleared, runs P = 1 and P = 4 cold and stores the
+              plans; a fresh process (``--cache-persist-child``) runs
+              each first warm from disk (seg_table once, once a shard),
+              with this process's counts.  cas-checkpoint: the P = 4 IntCount KV
+              after the aggregate saved without a store and twice under
+              one: one store object, both loads equal to the KV, a byte
+              flipped in the object refused.  stream-zipf: the first
+              wordfreq-zipf file appended to a tailed file in 8 writes,
+              one micro-batch each (Stream words/count, fuse=1) and a
+              window=2 stream beside it: the snapshot equal
+              to a Counter and to a one-shot wordfreq on the card, the
+              window equal to the last two writes', no plan key missed
+              twice, seg_table once for each group whose key ran
+              before, stage seconds a batch; then a child (``--cache-stream-child``) SIGKILLed
+              after batch 4's record and another between batch 5's
+              checkpoint and its record, each resumed here to the same
+              snapshot.  The stream takes the first quarter of the file
+              (16.8 MB, a 2 MB cut), cut to keep the smoke's time.  A
+              line a cell, then the ``cache`` line.
+
               Then a ``total`` line with the smoke's seconds.
 
 Then the ``kernels`` line, nvidia-smi's line, and last the result line
@@ -5806,6 +5836,749 @@ def obs_alone(card: bool) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 16. cache — the content store, the persistent plan tier, the native host
+#     runtime and a standing query on the card
+# ---------------------------------------------------------------------------
+
+CACHE_CPU = False              # --cache-rehearse: CPU shards, small sizes
+CACHE_STREAM_WRITES = 8        # the stream's appends, one batch each
+# the stream's text: the first quarter of the first wordfreq-zipf file,
+# cut from the whole file (the phase 100.9 s on one H100) and then from
+# its half (the phase 90.7 s, the smoke 776.9 s), so one write a batch
+# takes a 2 MB cut
+CACHE_STREAM_SHARE = 4
+CACHE_STREAM_BYTES = 2_000_000  # the cut's bytes trigger (2 MB)
+CACHE_STREAM_ROWS = 1 << 30    # never the rows trigger
+CACHE_WINDOW = 2
+CACHE_KILL_AFTER = 4           # the child dies once batch 4 is committed
+
+
+def cache_device():
+    import torch
+    return torch.device("cpu") if CACHE_CPU else torch.device("cuda", 0)
+
+
+def cache_mesh_devices() -> list:
+    return ["cpu"] * MESH_P if CACHE_CPU else mesh_devices()
+
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def cache_env(**env):
+    """Set environment variables for the block's length."""
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cache_native(paths, nref: int, nuniq: int, tmp: str, kernels,
+                 device) -> dict:
+    """native-main: InvertedIndex(engine="native") on the main corpus
+    against the default engine's run on the card (hits, unique URLs,
+    part-00000 byte for byte), the library the port's own, no kernel
+    launched by the native map; then ``_parse_cols``' native route on the
+    composed-check graph written as an edge file, equal to its numpy
+    route."""
+    import filecmp
+    import io
+    import numpy as np
+    from gpu_mapreduce_tpu_torch import InvertedIndex, OinkScript, native
+    from gpu_mapreduce_tpu_torch.oink import kernels as okernels
+    if not native.available():
+        raise AssertionError(f"native-main: the native runtime did not "
+                             f"build: {native.build_error()}")
+    lib = native.library_path()
+    build = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(native.__file__))), "_build")
+    if os.path.dirname(lib) != build or \
+            os.sep + "gpu_mapreduce_tpu" + os.sep in lib:
+        raise AssertionError(f"native-main: loaded {lib}, not the port's "
+                             f"build")
+    runs = {}
+    for eng in ("cuda", "native"):
+        out = os.path.join(tmp, f"native-{eng}")
+        for k in kernels:
+            k.launches = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        idx = InvertedIndex(device=device, engine=eng)
+        got = idx.run(paths, outdir=out)
+        _sync(device)
+        runs[eng] = {"npairs": got[0], "nunique": got[1],
+                     "seconds": time.perf_counter() - t0,
+                     "stages_s": dict(idx.timer.times),
+                     "launches": {k.__name__: k.launches for k in kernels},
+                     "part": os.path.join(out, "part-00000")}
+    for eng, rec in runs.items():
+        if (rec["npairs"], rec["nunique"]) != (nref, nuniq):
+            raise AssertionError(f"native-main/{eng}: {rec['npairs']}, "
+                                 f"{rec['nunique']} != {(nref, nuniq)}")
+    if not filecmp.cmp(runs["cuda"]["part"], runs["native"]["part"],
+                       shallow=False):
+        raise AssertionError("native-main: part-00000 differs from the "
+                             "card's default engine's")
+    if any(runs["native"]["launches"].values()):
+        raise AssertionError(f"native-main: the native map launched "
+                             f"{runs['native']['launches']}")
+    # the composed-check graph as an edge file
+    gdir = os.path.join(tmp, "native-graph")
+    os.makedirs(gdir)
+    a, b, c, d = GRAPH_ABCD
+    edge_file = os.path.join(gdir, "edges.txt")
+    OinkScript(device=device, screen=io.StringIO()).one(
+        f"rmat {COMPOSED_CHECK_SCALE} {GRAPH_EDGEFACTOR} {a} {b} {c} {d} "
+        f"0.0 {GRAPH_SEED} -o {edge_file} NULL")
+    t0 = time.perf_counter()
+    nat = okernels._parse_cols(edge_file, (np.uint64, np.uint64))
+    nat_s = time.perf_counter() - t0
+    saved = native.available
+    native.available = lambda: False
+    try:
+        t0 = time.perf_counter()
+        ref = okernels._parse_cols(edge_file, (np.uint64, np.uint64))
+        ref_s = time.perf_counter() - t0
+    finally:
+        native.available = saved
+    if not (len(nat[0]) > 0 and all(
+            x.dtype == y.dtype and np.array_equal(x, y)
+            for x, y in zip(nat, ref))):
+        raise AssertionError("native-main: parse_table's edges differ from "
+                             "the numpy route's")
+    lines = sum(1 for _ in open(runs["native"]["part"]))
+    shutil.rmtree(gdir)
+    for rec in runs.values():
+        shutil.rmtree(os.path.dirname(rec.pop("part")))
+    return {"library": os.path.relpath(lib, os.path.dirname(build)),
+            "npairs": nref, "nunique": nuniq, "part_lines": lines,
+            "part_equal": True, "native": runs["native"],
+            "cuda": runs["cuda"],
+            "parse_cols": {"edges": int(len(nat[0])), "native_s": nat_s,
+                           "numpy_s": ref_s, "equal": True}}
+
+
+def cache_persist_child(cas: str, dev: str, p1: str, p4s) -> int:
+    """``chip_smoke.py --cache-persist-child``: a fresh process's first
+    fused IntCount at P = 1 and its first at P = 4 under the store
+    ``cas``: one JSON line with each run's result, seconds, fused-group
+    mode, table flag, launches and the persistent tier's counts.  The
+    process's first CUDA use (the context, a first allocation) comes
+    before the runs and is timed apart (``cuda_init_s``), so a run's
+    seconds hold what the plan tier can change."""
+    import torch
+    from gpu_mapreduce_tpu_torch.ops.cuda import group, match
+    os.environ.update(MRTPU_CAS_DIR=cas, MRTPU_FUSE="1")
+    device = torch.device(dev)
+    t0 = time.perf_counter()
+    torch.ones(1, device=device).sum().item()
+    out = {"cuda_init_s": time.perf_counter() - t0}
+    kernels = [match.mark_words, group.segment_table, match.mark]
+    out.update({f"p{P}": cache_intcount(paths, P, device,
+                                        [device] * MESH_P, kernels)
+                for P, paths in ((1, [p1]), (MESH_P, p4s))})
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def cache_intcount(paths, P, device, devs, kernels) -> dict:
+    """One fused IntCount run over ``devs[:P]`` (``device`` at P = 1),
+    its launches counted from 0."""
+    from gpu_mapreduce_tpu_torch import intcount
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.plan import plan_history
+    from gpu_mapreduce_tpu_torch.plan.cache import cache_stats
+    for k in kernels:
+        k.launches = 0
+    before = cache_stats()["persistent"]
+    comm = make_mesh(P, devices=devs) if P > 1 else None
+    _sync(device)
+    t0 = time.perf_counter()
+    res = intcount(paths, ntop=10, device=device if P == 1 else None,
+                   comm=comm)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    group = next(g for e in reversed(plan_history()) for g in e["groups"]
+                 if g["fused"])
+    after = cache_stats()["persistent"]
+    return {"result": res, "seconds": dt, "mode": group["mode"],
+            "table": group["table"],
+            "launches": {k.__name__: k.launches for k in kernels},
+            "persistent_hits": after["hits"] - before["hits"],
+            "persistent_entries": after["entries"]}
+
+
+def cache_persist(keys_u32, tmp: str, kernels, device) -> dict:
+    """persist-intcount: intcount-uniform under MRTPU_FUSE=1 with a store
+    in the phase's directory.  Process A (this one, its plan caches
+    cleared) runs the P = 1 and the P = 4 (mesh-fuse-uniform) chains
+    cold and stores each plan; a fresh process B's first run of each
+    takes the persisted entry: warm, seg_table once at P = 1 and once a
+    shard at P = 4, the results A's."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.parallel import shuffle
+    from gpu_mapreduce_tpu_torch.plan import plan_cache
+    from gpu_mapreduce_tpu_torch.utils import cas
+    d = os.path.join(tmp, "persist")
+    os.makedirs(d)
+    p1 = os.path.join(d, "uniform.bin")
+    np.asarray(keys_u32, np.uint32).tofile(p1)
+    p4s = split_files(keys_u32, os.path.join(d, "p4"), MESH_P)
+    store = os.path.join(d, "cas")
+    a = {}
+    with cache_env(MRTPU_CAS_DIR=store, MRTPU_FUSE="1"):
+        cas.reset_store()
+        plan_cache().clear()
+        shuffle._SPEC_CACHE.clear()
+        for P, paths in ((1, [p1]), (MESH_P, p4s)):
+            a[P] = cache_intcount(paths, P, device, cache_mesh_devices(),
+                                  kernels)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--cache-persist-child", store, device.type, p1,
+                        *p4s], capture_output=True, text=True,
+                       timeout=DIST_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"persist-intcount: process B failed "
+                             f"({r.returncode}): {r.stderr[-2000:]}")
+    b = json.loads(r.stdout.strip().splitlines()[-1])
+    out = {}
+    for P in (1, MESH_P):
+        ra, rb = a[P], b[f"p{P}"]
+        got_b = (rb["result"][0], rb["result"][1],
+                 [tuple(t) for t in rb["result"][2]])
+        fused = "local" if P == 1 else "exchange"
+        if got_b != ra["result"]:
+            raise AssertionError(f"persist-intcount P = {P}: B "
+                                 f"{got_b[:2]} != A {ra['result'][:2]}")
+        if ra["mode"] != fused or rb["mode"] != fused + "1" \
+                or rb["persistent_hits"] < 1 or not rb["table"]:
+            raise AssertionError(f"persist-intcount P = {P}: A {ra['mode']}"
+                                 f", B {rb['mode']} with "
+                                 f"{rb['persistent_hits']} persistent hits")
+        launch = "segment_table"
+        if not CACHE_CPU and (ra["launches"][launch] != 0
+                              or rb["launches"][launch] != P):
+            raise AssertionError(f"persist-intcount P = {P}: seg_table "
+                                 f"{ra['launches'][launch]} in A, "
+                                 f"{rb['launches'][launch]} in B")
+        out[f"p{P}"] = {"a_cold": {k: ra[k] for k in (
+            "seconds", "mode", "table", "launches", "persistent_entries")},
+            "b_warm": {k: rb[k] for k in (
+                "seconds", "mode", "table", "launches", "persistent_hits",
+                "persistent_entries")}}
+    cas.reset_store()
+    plan_cache().clear()
+    shutil.rmtree(d)
+    return {"nints": a[1]["result"][0], "nunique": a[1]["result"][1], **out,
+            "process_b_s": child_s, "process_b_cuda_init_s":
+                b["cuda_init_s"]}
+
+
+def cache_checkpoint(keys_u32, tmp: str, kernels) -> dict:
+    """cas-checkpoint: the P = 4 IntCount KV right after the aggregate
+    saved without a store, then into two directories under one store:
+    both frame files hardlink one store object (one copy), both loads
+    verify and equal the KV, and a byte flipped in the object is refused
+    on load."""
+    import numpy as np
+    from gpu_mapreduce_tpu_torch import MapReduce
+    from gpu_mapreduce_tpu_torch.apps.intcount import _map_file
+    from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    from gpu_mapreduce_tpu_torch.utils import cas
+    from gpu_mapreduce_tpu_torch.utils.integrity import IntegrityError
+    d = os.path.join(tmp, "cas-ckpt")
+    paths = split_files(keys_u32, os.path.join(d, "keys"), MESH_P)
+    for k in kernels:
+        k.launches = 0
+    mr = MapReduce(comm=make_mesh(MESH_P, devices=cache_mesh_devices()),
+                   fuse=0)
+    mr.map_files(paths, _map_file)
+    mr.aggregate()
+    sync_all()
+    want = kv_arrays(mr)
+    save_s = {}
+    t0 = time.perf_counter()
+    mr.save(os.path.join(d, "plain"))
+    save_s["plain"] = time.perf_counter() - t0
+    store = os.path.join(d, "cas")
+    with cache_env(MRTPU_CAS_DIR=store):
+        cas.reset_store()
+        st = cas.cas_store()
+        for name in ("a", "b"):
+            t0 = time.perf_counter()
+            mr.save(os.path.join(d, name))
+            save_s[name] = time.perf_counter() - t0
+        stats = st.stats()
+        frames = sorted(f for f in os.listdir(os.path.join(d, "a"))
+                        if f.startswith("frame-"))
+        nbytes = sum(os.path.getsize(os.path.join(d, "a", f))
+                     for f in os.listdir(os.path.join(d, "a")))
+        objects = {}
+        for f in frames:
+            ino = {os.stat(os.path.join(d, x, f)).st_ino for x in "ab"}
+            digest = cas.sha256_file(os.path.join(d, "a", f))
+            if len(ino) != 1 or os.stat(st._opath(digest)).st_ino \
+                    not in ino or st.refcount(digest) != 2:
+                raise AssertionError(f"cas-checkpoint: {f} was not "
+                                     f"linked to one store object")
+            objects[f] = digest
+        if stats["chunks"] != len(frames):
+            raise AssertionError(f"cas-checkpoint: the store holds "
+                                 f"{stats['chunks']} objects for "
+                                 f"{len(frames)} frames")
+        loads = {}
+        for name in ("a", "b"):
+            other = MapReduce(comm=make_mesh(MESH_P,
+                                             devices=cache_mesh_devices()),
+                              fuse=0)
+            t0 = time.perf_counter()
+            n = other.load(os.path.join(d, name))
+            loads[name] = time.perf_counter() - t0
+            got = kv_arrays(other)
+            if n != len(keys_u32) or not all(
+                    np.array_equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"cas-checkpoint: load {name} differs "
+                                     f"from the saved KV")
+            del other, got
+        opath = st._opath(objects[frames[0]])
+        with open(opath, "r+b") as f:
+            f.seek(os.path.getsize(opath) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x40]))
+        try:
+            MapReduce(comm=make_mesh(MESH_P, devices=cache_mesh_devices()),
+                      fuse=0).load(os.path.join(d, "b"))
+        except IntegrityError as e:
+            refused = str(e)[:160]
+        else:
+            raise AssertionError("cas-checkpoint: a flipped byte in the "
+                                 "store object loaded")
+        cas.reset_store()
+    launches = {k.__name__: k.launches for k in kernels}
+    del mr, want
+    shutil.rmtree(d)
+    return {"pairs": len(keys_u32), "bytes": nbytes, "frames": len(frames),
+            "store_objects": stats["chunks"], "store_bytes": stats["bytes"],
+            "shared_inodes": True, "save_s": save_s, "load_s": loads,
+            "dedup_extra_s": (save_s["a"] + save_s["b"]) / 2
+            - save_s["plain"], "flipped_refused": refused,
+            "launches": launches}
+
+
+def stream_parts(path: str, n: int, share: int = 1) -> list:
+    """The first 1/``share`` of a file's bytes (cut after a newline) as
+    ``n`` pieces of about equal size, each ending at a newline (the last
+    takes the rest)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if share > 1:
+        data = data[:data.find(b"\n", len(data) // share) + 1]
+    cuts, start = [], 0
+    for i in range(1, n):
+        j = data.find(b"\n", max(start, len(data) * i // n)) + 1
+        cuts.append(data[start:j])
+        start = j
+    cuts.append(data[start:])
+    return cuts
+
+
+def stream_snapshot_oracle(text: bytes) -> str:
+    """A ``Stream.snapshot()`` from ``collections.Counter`` of the
+    whitespace-split bytes."""
+    from collections import Counter
+    c = Counter(text.split())
+    return "".join(f"{k.decode('utf-8', 'replace')} {c[k]}\n"
+                   for k in sorted(c))
+
+
+@contextlib.contextmanager
+def stream_clock(device, per_batch: dict, resident):
+    """Exclusive seconds of a stream's stages, each call between device
+    synchronises, into ``per_batch`` (the caller empties it a batch):
+    ``parse`` (the delta's map: bytes.split and the column build),
+    ``intern`` (the delta's aggregate: its words placed on the card and
+    interned), ``delta_group`` and ``merge_group`` (the two fused groups,
+    told apart by their MapReduce: ``resident`` is the merge's),
+    ``merge_aggregate``, ``checkpoint`` (the commit's save, the merge
+    group it forces aside) and ``record`` (the journal append)."""
+    from gpu_mapreduce_tpu_torch.core import checkpoint
+    from gpu_mapreduce_tpu_torch.core.mapreduce import MapReduce
+    from gpu_mapreduce_tpu_torch.ft.journal import Journal
+    from gpu_mapreduce_tpu_torch.plan import fuser
+    stack = []
+    by_mr = {"aggregate": ("intern", "merge_aggregate"),
+             "group": ("delta_group", "merge_group")}
+
+    def wrap(fn, kind):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            label = kind
+            if kind in by_mr:
+                label = by_mr[kind][args[0] is resident]
+            _sync(device)
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                _sync(device)
+                dt = time.perf_counter() - t0
+                inner = stack.pop()
+                if stack:
+                    stack[-1] += dt
+                per_batch[label] = per_batch.get(label, 0.0) + dt - inner
+        return wrapper
+
+    spans = [(MapReduce, "map", "parse"),
+             (MapReduce, "aggregate", "aggregate"),
+             (fuser, "_exec_local_group", "group"),
+             (checkpoint, "save", "checkpoint"),
+             (Journal, "append", "record")]
+    saved = [(o, a, getattr(o, a)) for o, a, _ in spans]
+    for (o, a, kind), (_, _, fn) in zip(spans, saved):
+        setattr(o, a, wrap(fn, kind))
+    try:
+        yield per_batch
+    finally:
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+
+
+def stream_settings(parts) -> dict:
+    return {"settings": {"fuse": 1}, "rows": CACHE_STREAM_ROWS,
+            "nbytes": min(CACHE_STREAM_BYTES, min(len(p) for p in parts)),
+            "wait_s": 3600.0}
+
+
+def cache_stream_child(sdir: str, src: str, parts_dir: str, mode: str,
+                       dev: str) -> int:
+    """``chip_smoke.py --cache-stream-child``: the stream-zipf stream in a
+    fresh process, appending the parts from ``parts_dir`` one write a
+    batch, SIGKILLed once batch CACHE_KILL_AFTER is committed
+    (``after``) or, in batch CACHE_KILL_AFTER + 1, between the
+    checkpoint's rename and the journal record (``between``)."""
+    import signal
+    import torch
+    from gpu_mapreduce_tpu_torch.stream import Stream
+    parts = [open(os.path.join(parts_dir, n), "rb").read()
+             for n in sorted(os.listdir(parts_dir))]
+    s = Stream(sdir, [src], device=torch.device(dev), **stream_settings(parts))
+    for i, part in enumerate(parts):
+        with open(src, "ab") as f:
+            f.write(part)
+        if mode == "between" and i == CACHE_KILL_AFTER:
+            s._journal.append = \
+                lambda rec: os.kill(os.getpid(), signal.SIGKILL)
+        s.poll_once(final=i == len(parts) - 1)
+        if mode == "after" and s.seq == CACHE_KILL_AFTER:
+            os.kill(os.getpid(), signal.SIGKILL)
+    return 3                          # unreachable: SIGKILL fired
+
+
+def cache_stream_kill(parts, tmp: str, mode: str, device):
+    """Start the stream in a child process that will be killed as
+    ``mode`` says; returns (its directory, the Popen, its start time)."""
+    d = os.path.join(tmp, f"kill-{mode}")
+    pdir = os.path.join(d, "parts")
+    os.makedirs(pdir)
+    for i, p in enumerate(parts):
+        with open(os.path.join(pdir, f"{i:02d}"), "wb") as f:
+            f.write(p)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cache-stream-child",
+         os.path.join(d, "st"), os.path.join(d, "log.txt"), pdir, mode,
+         device.type], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return d, proc, time.perf_counter()
+
+
+def cache_stream_resume(parts, started, mode: str, device, want: str,
+                        rows_total: int) -> dict:
+    """Wait for the killed child, resume its stream here and append the
+    rest: the snapshot must be the uninterrupted run's, and no row
+    counted twice."""
+    from gpu_mapreduce_tpu_torch.stream import Stream
+    d, proc, t0 = started
+    _, err = proc.communicate(timeout=DIST_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != -9:
+        raise AssertionError(f"stream kill-{mode}: the child exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    src, sdir = os.path.join(d, "log.txt"), os.path.join(d, "st")
+    t0 = time.perf_counter()
+    s = Stream(sdir, [src], device=device, **stream_settings(parts))
+    seq0 = s.seq
+    if seq0 != CACHE_KILL_AFTER or not s.status()["resumed"]:
+        raise AssertionError(f"stream kill-{mode}: resumed at batch "
+                             f"{seq0}, expected {CACHE_KILL_AFTER}")
+    appended = os.path.getsize(src)
+    done = next(i for i in range(len(parts) + 1)
+                if sum(len(p) for p in parts[:i]) >= appended)
+    s.poll_once(force=True)                  # the bytes already there
+    for i in range(done, len(parts)):
+        with open(src, "ab") as f:
+            f.write(parts[i])
+        s.poll_once(final=i == len(parts) - 1)
+    s.drain(final=True)
+    got = s.snapshot()
+    st = s.status()
+    s.close()
+    if got != want or st["rows"] != rows_total:
+        raise AssertionError(f"stream kill-{mode}: the resumed snapshot "
+                             f"differs ({st['rows']} rows against "
+                             f"{rows_total})")
+    shutil.rmtree(d)
+    return {"killed_at_batch": seq0, "writes_before_kill": done,
+            "child_s": child_s, "resume_s": time.perf_counter() - t0,
+            "batches_after_resume": st["batches"] - seq0,
+            "byte_identical": True, "rows": st["rows"]}
+
+
+def cache_stream(zpath: str, tmp: str, kernels, device) -> dict:
+    """stream-zipf: the first quarter of the first wordfreq-zipf file
+    appended to a tailed file in CACHE_STREAM_WRITES writes, one
+    micro-batch each, through
+    ``Stream(parser="words", reduce="count", fuse=1)`` on the card, a
+    ``window=2`` stream beside it; the snapshot against a one-shot
+    wordfreq on the card and a Counter, the window against the last two
+    writes' Counter, the plan misses, two kill -9 resumes."""
+    from gpu_mapreduce_tpu_torch.plan import (clear_history, plan_cache,
+                                              plan_history)
+    from gpu_mapreduce_tpu_torch.plan.cache import cache_stats
+    from gpu_mapreduce_tpu_torch.stream import Stream
+    plan_cache().clear()          # the streams start cold
+    d = os.path.join(tmp, "stream")
+    os.makedirs(d)
+    parts = stream_parts(zpath, CACHE_STREAM_WRITES, CACHE_STREAM_SHARE)
+    text = b"".join(parts)
+    src = os.path.join(d, "log.txt")
+    open(src, "wb").close()
+    kw = stream_settings(parts)
+    s = Stream(os.path.join(d, "st"), [src], device=device, **kw)
+    win = Stream(os.path.join(d, "win"), [src], device=device,
+                 window=CACHE_WINDOW, **kw)
+    name = "segment_table"
+    batches, keys_seen = [], set()
+    stage = {}
+    with stream_clock(device, stage, s.resident):
+        for i, part in enumerate(parts):
+            with open(src, "ab") as f:
+                f.write(part)
+            lag_before = s.status()["lag_s"]
+            for k in kernels:
+                k.launches = 0
+            stage.clear()
+            clear_history()           # it keeps the last 64 plans only
+            m0 = cache_stats()["plan"]["misses"]
+            t0 = time.perf_counter()
+            rows = s.poll_once(final=i == len(parts) - 1)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in kernels}
+            runs = plan_history()
+            groups = [(g["mode"], g["table"], e["cache_key"] in keys_seen)
+                      for e in runs for g in e["groups"] if g["fused"]]
+            new_keys = {e["cache_key"] for e in runs} - keys_seen
+            keys_seen |= new_keys
+            if s.seq != i + 1 or rows <= 0:
+                raise AssertionError(f"stream-zipf: write {i + 1} cut "
+                                     f"{s.seq} batches")
+            batches.append({
+                "rows": rows, "bytes": len(part), "seconds": dt,
+                "rows_per_s": rows / dt,
+                "stages_s": dict(stage),
+                "groups": [g[:2] for g in groups],
+                "speculation_misses": sum(1 for g in groups
+                                          if g[2] and g[0] != "local1"),
+                "plan_misses": cache_stats()["plan"]["misses"] - m0,
+                "new_plan_keys": len(new_keys),
+                "launches": launches, "lag_s_before": lag_before,
+                "lag_s_after": s.status()["lag_s"]})
+            # a plan key seen in an earlier batch never misses the plan
+            # cache again; its group runs warm (on the card, on the group
+            # table) unless the cached gcap no longer holds the groups
+            # (the speculation check sends it back cold)
+            if batches[-1]["plan_misses"] > len(new_keys) or any(
+                    g[0] == "local1" and not (g[2] and g[1])
+                    for g in groups):
+                raise AssertionError(f"stream-zipf: batch {i + 1}: "
+                                     f"{batches[-1]['plan_misses']} misses "
+                                     f"for {len(new_keys)} new keys, "
+                                     f"groups {groups}")
+            # every group whose key ran before tries its cached gcap on
+            # the table: one launch each, kept or thrown away
+            if not CACHE_CPU and launches[name] != sum(
+                    1 for g in groups if g[2]):
+                raise AssertionError(f"stream-zipf: batch {i + 1}: "
+                                     f"seg_table {launches[name]} for "
+                                     f"groups {groups}")
+            # the window stream's plans share the process's plan cache
+            clear_history()
+            win.poll_once(final=i == len(parts) - 1)
+            keys_seen |= {e["cache_key"] for e in plan_history()}
+    t0 = time.perf_counter()
+    got = s.snapshot()
+    snapshot_s = time.perf_counter() - t0
+    st = s.status()
+    want = stream_snapshot_oracle(text)
+    if got != want:
+        raise AssertionError("stream-zipf: the snapshot differs from the "
+                             "Counter oracle")
+    # a one-shot wordfreq of the same bytes on the card
+    full = os.path.join(d, "full.txt")
+    with open(full, "wb") as f:
+        f.write(text)
+    t0 = time.perf_counter()
+    _, wf_out = run_wordfreq_script(device, [full], os.path.join(d, "wf.out"),
+                                    fuse=1)
+    one_shot_s = time.perf_counter() - t0
+    if sorted(wf_out.splitlines()) != sorted(got.splitlines()):
+        raise AssertionError("stream-zipf: the snapshot differs from the "
+                             "one-shot wordfreq on the card")
+    wgot = win.snapshot()
+    if wgot != stream_snapshot_oracle(b"".join(parts[-CACHE_WINDOW:])) \
+            or win.status()["buckets"] != CACHE_WINDOW:
+        raise AssertionError("stream-zipf: window=2 differs from the merge "
+                             "of the last two deltas")
+    s.close()
+    win.close()
+    # the two kill -9 children run side by side, then resume here
+    started = {mode: cache_stream_kill(parts, tmp, mode, device)
+               for mode in ("after", "between")}
+    kills = {mode: cache_stream_resume(parts, started[mode], mode, device,
+                                       got, st["rows"])
+             for mode in started}
+    shutil.rmtree(d)
+    return {"bytes": len(text), "writes": len(parts),
+            "nbytes_trigger": kw["nbytes"], "rows": st["rows"],
+            "unique": got.count("\n"), "batches": batches,
+            "plan_keys": len(keys_seen),
+            "warm_groups": sum(1 for b in batches for g in b["groups"]
+                               if g[0] == "local1"),
+            "groups": sum(len(b["groups"]) for b in batches),
+            "snapshot_s": snapshot_s, "one_shot_wordfreq_s": one_shot_s,
+            "equals_counter_and_one_shot": True,
+            "window": {"n": CACHE_WINDOW, "equals_last_two": True,
+                       "unique": wgot.count("\n")},
+            "kill9": kills,
+            "launches": {k.__name__: [b["launches"][k.__name__]
+                                      for b in batches] for k in kernels}}
+
+
+def run_cache(paths, nref: int, nuniq: int, keys_u32, zpath: str, tmp: str,
+              kernels, smi: str, device) -> dict:
+    """The cache phase: native-main, persist-intcount, cas-checkpoint and
+    stream-zipf, a line each, then the phase's line (seconds, launches
+    and what each cell held)."""
+    t_phase = time.perf_counter()
+    cells, secs = {}, {}
+    for cell, fn in (
+            ("native_main", lambda: cache_native(paths, nref, nuniq, tmp,
+                                                 kernels, device)),
+            ("persist_intcount", lambda: cache_persist(keys_u32, tmp,
+                                                       kernels, device)),
+            ("cas_checkpoint", lambda: cache_checkpoint(keys_u32, tmp,
+                                                        kernels)),
+            ("stream_zipf", lambda: cache_stream(zpath, tmp, kernels,
+                                                 device))):
+        t0 = time.perf_counter()
+        cells[cell] = fn()
+        secs[cell] = time.perf_counter() - t0
+        emit({"phase": "cache-" + cell.replace("_", "-"), "card": smi,
+              **cells[cell], "seconds": secs[cell]})
+    p, st = cells["persist_intcount"], cells["stream_zipf"]
+    launches = {
+        k.__name__: {
+            "native_main": cells["native_main"]["native"]["launches"][
+                k.__name__],
+            **{f"persist_p{P}_{run}": p[f"p{P}"][run]["launches"][
+                k.__name__] for P in (1, MESH_P)
+               for run in ("a_cold", "b_warm")},
+            "cas_checkpoint": cells["cas_checkpoint"]["launches"][
+                k.__name__],
+            "stream_batches": st["launches"][k.__name__]}
+        for k in kernels}
+    return {"phase": "cache", "card": smi, "cell_s": secs,
+            "native_s": {e: cells["native_main"][e]["seconds"]
+                         for e in ("native", "cuda")},
+            "persist_first_run_s": {
+                f"p{P}": {r: p[f"p{P}"][r]["seconds"]
+                          for r in ("a_cold", "b_warm")}
+                for P in (1, MESH_P)},
+            "checkpoint_save_s": cells["cas_checkpoint"]["save_s"],
+            "stream_batch_s": [b["seconds"] for b in st["batches"]],
+            "stream_warm_groups": st["warm_groups"],
+            "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def cache_alone(card: bool) -> int:
+    """``chip_smoke.py --cache-alone``: the cache phase alone on the card
+    at its full size, its inputs made here (the main corpus, the
+    intcount-uniform keys, the first wordfreq-zipf file: the zipf
+    generator at a quarter of its size and one file writes the same
+    bytes).  ``--cache-rehearse``: the same on the CPU at a small size
+    (2 MB corpora, 2^18 keys), every gate but the launch counts.  Prints
+    the cache line."""
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.ops import cuda as kcuda
+    from gpu_mapreduce_tpu_torch.ops.cuda import group, match
+    global CACHE_CPU
+    if card:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 2
+        kcuda.build_all()
+        smi = nvidia_smi()
+        main_mb, zipf_mb, nkeys = MAIN_MB, WF_MB // 4, INTCOUNT_KEYS
+    else:
+        CACHE_CPU = True
+        os.environ["MRTPU_PALLAS_GROUP"] = "1"   # the plain table on CPU
+        smi = "cpu rehearsal"
+        main_mb, zipf_mb, nkeys = 2, 2, 1 << 18
+    device = cache_device()
+    kernels = [match.mark_words, group.segment_table, match.mark]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "main"))
+        paths, nref, nuniq = make_corpus(os.path.join(tmp, "main"), main_mb)
+        keys = np.random.default_rng(7).integers(0, 1 << 32, nkeys,
+                                                 dtype=np.uint32)
+        zdir = os.path.join(tmp, "zipf")
+        os.makedirs(zdir)
+        zpaths = zipf_corpus(zdir, zipf_mb, 1)[0]
+        inputs_s = time.perf_counter() - t0
+        rec = run_cache(paths, nref, nuniq, keys, zpaths[0], tmp, kernels,
+                        smi, device)
+        rec["inputs_s"] = inputs_s
+        rec["alone_seconds"] = time.perf_counter() - t0
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6106,6 +6879,9 @@ def main() -> int:
                         int_keys["uniform"], tmp, device, kernels, smi,
                         graph)
         emit(ft_rec)
+        cache_rec = run_cache(paths, nref, nuniq, int_keys["uniform"],
+                              zipf[0][0], tmp, kernels, smi, device)
+        emit(cache_rec)
         shutil.rmtree(main_dir)
         shutil.rmtree(os.path.dirname(zipf[0][0]))
     finally:
@@ -6154,7 +6930,11 @@ def main() -> int:
                     "launches_obs": {
                         "main_traced": obs_rec["main"]["launches"][k],
                         "intcount_warm_metrics":
-                            obs_rec["metrics"]["launches"][k]}}
+                            obs_rec["metrics"]["launches"][k]},
+                    # the cache phase: the native engine's map, the
+                    # persisted plans' processes A (cold) and B (warm),
+                    # the dedup'd checkpoint, each stream batch
+                    "launches_stream": cache_rec["launches"][k]}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -6230,4 +7010,11 @@ if __name__ == "__main__":
         sys.exit(ft_alone(sys.argv[1] == "--ft-alone"))
     if sys.argv[1:2] in (["--obs-rehearse"], ["--obs-alone"]):
         sys.exit(obs_alone(sys.argv[1] == "--obs-alone"))
+    if sys.argv[1:2] == ["--cache-persist-child"]:
+        sys.exit(cache_persist_child(sys.argv[2], sys.argv[3], sys.argv[4],
+                                     sys.argv[5:]))
+    if sys.argv[1:2] == ["--cache-stream-child"]:
+        sys.exit(cache_stream_child(*sys.argv[2:7]))
+    if sys.argv[1:2] in (["--cache-rehearse"], ["--cache-alone"]):
+        sys.exit(cache_alone(sys.argv[1] == "--cache-alone"))
     sys.exit(main())

@@ -13,6 +13,7 @@ from .apps.wordfreq import wordfreq, wordfreq_interned
 from .core.mapreduce import MapReduce
 from .core.runtime import MRError
 from .oink.script import OinkScript
+from .stream import Stream
 
-__all__ = ["InvertedIndex", "MapReduce", "MRError", "OinkScript", "ft",
+__all__ = ["InvertedIndex", "MapReduce", "MRError", "OinkScript", "Stream", "ft",
            "intcount", "wordfreq", "wordfreq_interned"]

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -197,6 +198,7 @@ class StageTimer:
     def __init__(self, device: torch.device, devices=()):
         self.devices = tuple(dict.fromkeys(devices or (device,)))
         self.times: Dict[str, float] = {}
+        self._lock = threading.Lock()    # native map tasks time in threads
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -208,17 +210,30 @@ class StageTimer:
             finally:
                 for dev in self.devices:
                     synchronize(dev)
-                self.times[name] = self.times.get(name, 0.0) \
-                    + time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    self.times[name] = self.times.get(name, 0.0) + dt
 
 
 class InvertedIndex:
     """Builds an inverted URL→documents index over the MapReduce ops."""
 
     _BATCH_BYTES = 1 << 30   # per-corpus cap: byte offsets are int32
+    # compaction floor of the native engine's id check: below this many
+    # accumulated pairs a compaction costs more than it saves
+    _CHK_MIN_COMPACT = 1 << 16
 
-    def __init__(self, device=None, comm=None):
+    def __init__(self, device=None, comm=None, engine: Optional[str] = None,
+                 mapstyle: Optional[int] = None):
+        """``engine``: ``None`` or ``"cuda"`` (the card's kernels) or
+        ``"native"`` (the host C++ scanner; ``MRError`` when the native
+        runtime does not build).  ``mapstyle``: the map tasks' schedule,
+        2 (a thread pool) by default for the native engine."""
+        from ..core.runtime import MRError
         from ..parallel.mesh import Mesh
+        engine = engine or "cuda"
+        if engine not in ("cuda", "native"):
+            raise MRError(f"unknown InvertedIndex engine {engine!r}")
         self.comm = comm
         if isinstance(comm, Mesh):
             self.device = comm.devices[0]
@@ -226,10 +241,22 @@ class InvertedIndex:
         else:
             self.device = resolve_device(device)
             self.timer = StageTimer(self.device)
+        if engine == "native":
+            from .. import native
+            if not native.available():
+                raise MRError(f"native engine unavailable: "
+                              f"{native.build_error()}")
+        self.engine = engine
+        self.mapstyle = (2 if engine == "native" else 0) \
+            if mapstyle is None else mapstyle
         self._urls: Dict[int, bytes] = {}
         self.shard_urls: Optional[List[Dict[int, bytes]]] = None
         self.docs: List[str] = []
         self.npairs = 0
+        self._intern_lock = threading.Lock()
+        self._compact_lock = threading.Lock()
+        self._keep_bytes = True
+        self._reset_chk(counters=True)
         self._reset_stats()
 
     def _reset_stats(self):
@@ -476,21 +503,140 @@ class InvertedIndex:
                         f"{ncoll} 64-bit URL intern collision(s) detected "
                         f"(distinct URLs share a u64 id)")
 
+    # -- map stage: the native (host C++) engine ----------------------
+
+    def _map_file_native(self, itask, filename, kv, ptr):
+        """One file's pairs (JAX :556-596), thread-safe under mapstyle 2:
+        the document id is the task id, the URL dictionary and the check
+        runs are lock-guarded, and the read, the scan and the hashing
+        release the GIL."""
+        from .. import native
+        with open(filename, "rb") as f:
+            data = np.frombuffer(f.read(), dtype=np.uint8)
+        if len(data) == 0:
+            return
+        with self.timer.stage("native_scan"):
+            starts, lengths = native.find_hrefs(data)
+        # the card drops a URL whose quote is not inside its MAX_URL-byte
+        # window (longest URL MAX_URL - 1); so does this engine
+        lengths = np.where(lengths >= MAX_URL, -1, lengths)
+        with self.timer.stage("host_add"):
+            keep = lengths >= 0
+            kst, kln = starts[keep], lengths[keep]
+            if self._keep_bytes:
+                ids = native.intern_ranges(data, kst, kln)
+                urls = [data[s:s + n].tobytes()
+                        for s, n in zip(kst.tolist(), kln.tolist())]
+                with self._intern_lock:
+                    self._intern(self._urls, ids, urls)
+            else:
+                ids, alts = native.intern_ranges2(data, kst, kln,
+                                                  _ALT_HI, _ALT_LO)
+                self._fold_id_check(ids, alts)
+            docs = np.full(len(ids), itask, dtype=np.uint32)
+            kv.add_batch(to_torch(ids, kv.device), to_torch(docs, kv.device),
+                         key_dtype=np.uint64, value_dtype=np.uint32)
+
+    def _fold_id_check(self, ids, alts):
+        """Record a batch of (id, alt) pairs for the collision check (a
+        collision is one id with two alt values): one locked append; the
+        sort and check run in :meth:`_compact_chk_runs` once the raw
+        pairs pass the last compacted size, and once at the map's end
+        (JAX :598-627)."""
+        if not len(ids):
+            return
+        with self._intern_lock:
+            self._chk_tails.append((ids, alts))
+            self._chk_raw += len(ids)
+            trigger = self._chk_raw > max(self._chk_base,
+                                          self._CHK_MIN_COMPACT)
+        if trigger:
+            self._compact_chk_runs()
+
+    def _reset_chk(self, counters: bool) -> None:
+        """Drop the check's accumulators (``counters`` also zeroes the
+        raw and base counts); called outside the map's threads."""
+        self._chk_tails = []
+        self._chk_sorted = None
+        if counters:
+            self._chk_raw = self._chk_base = 0
+
+    def _compact_chk_runs(self):
+        """Fold the recorded tails into the standing sorted, deduplicated
+        run by rank (the tail sorted, then two searchsorteds), raising
+        if any id carries two alt values (JAX :640-685).  The tails are
+        swapped out under the intern lock, the merge runs outside it,
+        and compactions are serial."""
+        with self._compact_lock:
+            with self._intern_lock:
+                tails, self._chk_tails = self._chk_tails, []
+            if not tails:
+                return
+            ti = np.concatenate([t[0] for t in tails])
+            ta = np.concatenate([t[1] for t in tails])
+            taken = len(ti)
+            o = np.argsort(ti)
+            ti, ta = ti[o], ta[o]
+            if self._chk_sorted is not None:
+                ri, ra = self._chk_sorted
+                n, t = len(ri), len(ti)
+                # run elements first on ties: the two position families
+                # are disjoint and cover [0, n + t)
+                pos_r = np.searchsorted(ti, ri, side="left") \
+                    + np.arange(n, dtype=np.int64)
+                pos_t = np.searchsorted(ri, ti, side="right") \
+                    + np.arange(t, dtype=np.int64)
+                mi = np.empty(n + t, ri.dtype)
+                ma = np.empty(n + t, ra.dtype)
+                mi[pos_r], ma[pos_r] = ri, ra
+                mi[pos_t], ma[pos_t] = ti, ta
+            else:
+                mi, ma = ti, ta
+            same = mi[1:] == mi[:-1]
+            if (same & (ma[1:] != ma[:-1])).any():
+                raise ValueError("64-bit URL intern collision(s) detected")
+            keep = np.ones(len(mi), bool)
+            keep[1:] = ~same
+            mi, ma = mi[keep], ma[keep]
+            with self._intern_lock:
+                self._chk_sorted = (mi, ma)
+                self._chk_raw -= taken
+                self._chk_base = len(mi)
+
+    def _map_native(self, mr, files, want_urls: bool) -> int:
+        """The native engine's map stage: one task a file (JAX
+        :971-987); a collision surfaces while files map or in the
+        closing compaction, which stays in the ``host_add`` stage."""
+        self.docs = list(files)
+        self._keep_bytes = _url_dict_wanted(files, want_urls)
+        self._reset_chk(counters=True)
+        self.stats["nbatches"] = len(files)
+        npairs = mr.map_files(files, self._map_file_native)
+        if self._chk_tails:
+            with self.timer.stage("host_add"):
+                self._compact_chk_runs()
+        self._reset_chk(counters=False)
+        return npairs
+
     def run(self, paths: Sequence[str],
             outdir: Optional[str] = None) -> Tuple[int, int]:
         """Returns (total hits, unique urls).  Writes ``url \\t files``
         lines to ``outdir/part-<shard>`` (``part-00000`` on one device)
         when outdir is given (reference myreduce,
         cuda/InvertedIndex.cu:463-513)."""
-        mr = MapReduce(self.device, comm=self.comm)
+        mr = MapReduce(self.device, comm=self.comm, mapstyle=self.mapstyle)
         self._reset_stats()
         self._urls, self.shard_urls = {}, None
         files = findfiles(list(paths))
         mapper = self._map_corpus_mesh if mr.nprocs > 1 \
             else self._map_corpus
         with self.timer.stage("map"):
-            self.npairs = mr.map(1, lambda itask, kv, ptr: mapper(
-                files, kv, want_urls=outdir is not None))
+            if self.engine == "native":
+                self.npairs = self._map_native(mr, files,
+                                               outdir is not None)
+            else:
+                self.npairs = mr.map(1, lambda itask, kv, ptr: mapper(
+                    files, kv, want_urls=outdir is not None))
         with self.timer.stage("aggregate"):
             mr.aggregate()
         with self.timer.stage("convert"):

@@ -13,7 +13,10 @@ atomic at directory granularity (tmp sibling + rename, the previous
 checkpoint kept when the swap and its undo both fail); the load checks
 every frame file against its digest before it reads it (``MRTPU_VERIFY``)
 and streams frames one at a time into the receiving MapReduce's page
-budget.  v1 manifests (no ``frames``) still load.
+budget.  v1 manifests (no ``frames``) still load.  With a content store
+armed (``MRTPU_CAS_DIR``, ``utils/cas.py``) each frame file becomes a
+hardlink to its content object after the swap, so saves of one dataset
+hold one copy of its bytes.
 """
 
 from __future__ import annotations
@@ -165,6 +168,20 @@ def save(mr, path: str) -> int:
             shutil.rmtree(old, ignore_errors=True)
         shutil.rmtree(tmp, ignore_errors=True)
     fsync_dir(os.path.dirname(os.path.abspath(path)) or ".")
+    # chunk dedup (utils/cas.py, JAX :188-208): with a content store
+    # armed every frame file becomes a hardlink to its content object,
+    # so saves of the same dataset hold one copy of the bytes.  Same
+    # bytes, manifest and digests; readers unchanged; any failure
+    # leaves the plain file
+    try:
+        from ..utils.cas import cas_store
+        store = cas_store()
+        if store is not None:
+            for fname in os.listdir(path):
+                if fname.startswith("frame-"):
+                    store.dedup_file(os.path.join(path, fname))
+    except Exception:
+        pass
     return nframes
 
 

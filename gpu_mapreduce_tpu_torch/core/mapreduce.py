@@ -9,8 +9,9 @@ host form, ``batch=True``, and ``block_rows`` for large groups),
 ``compress``, ``add``, ``copy``, ``open``/``close``, ``set``,
 ``sort_keys``/``sort_values`` (int flags, or a comparator ``cmp(a, b)`` on
 the host), ``sort_multivalues``, ``print``, ``scan_kv``, ``scan_kmv``,
-``kv_stats``, ``kmv_stats``, ``save``/``load``, ``reshard``, ``stats`` and
-``cummulative_stats``, with the reference's callback arities: ``map``
+``kv_stats``, ``kmv_stats``, ``save``/``load``, ``reshard``, ``stats``,
+``cummulative_stats`` and ``stream`` (a standing query merging into this
+object), with the reference's callback arities: ``map``
 calls ``func(itask, kv, ptr)``, ``map_files`` ``func(itask, filename, kv,
 ptr)``, the chunk maps ``func(itask, chunk_bytes, kv, ptr)``, ``map_mr``
 ``func(itask, key, value, kv, ptr)`` per pair or ``func(frame, kv, ptr)``
@@ -1101,6 +1102,22 @@ class MapReduce:
                 mr.kmv.push(fr)
             mr.kmv.complete()
         return mr
+
+    def stream(self, sources, dir: str, parser: str = "words",
+               reduce: str = "count", **kw):
+        """Open a standing query whose resident dataset is this object
+        (``stream/engine.py``, JAX ``core/mapreduce.py:1208-1224``): tail
+        ``sources`` (append-only files or directories), cut micro-batches,
+        run the ``parser``/``reduce`` chain on each delta on this MR's
+        device or mesh and merge it here, so after every committed batch
+        ``self.kv`` holds the running result.  ``dir`` is the stream's
+        durable home (journal and checkpoints); a directory with committed
+        batches resumes from the last committed cursor.  Returns the
+        :class:`~..stream.Stream` handle."""
+        from ..stream import Stream
+        return Stream(dir, sources, parser=parser, reduce=reduce,
+                      device=self.device, comm=self.comm, resident=self,
+                      **kw)
 
     def open(self, addflag: int = 0) -> KeyValue:
         """Begin cross-MR adds: until :meth:`close`, other MRs' callbacks

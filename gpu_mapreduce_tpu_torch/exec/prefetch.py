@@ -1,5 +1,7 @@
-"""Bounded background prefetch over an iterator (the port's copy of
-``gpu_mapreduce_tpu/exec/prefetch.py``'s ``prefetch_iter``).
+"""Bounded background prefetch over an iterator, and the follow-mode
+poll of an append-only file (the port's copy of
+``gpu_mapreduce_tpu/exec/prefetch.py``'s ``prefetch_iter`` and
+``tail_chunks``).
 
 A daemon thread pulls items from the source up to ``depth`` ahead of the
 consumer, so chunk N+1 is read while chunk N's callback runs.  Order is
@@ -15,10 +17,11 @@ on the producer).
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, List, Optional, Tuple
 
 _END = "end"
 _ITEM = "item"
@@ -133,3 +136,42 @@ def prefetch_iter(src: Iterable, depth: Optional[int] = None,
         from . import note_overlap
         note_overlap(path, busy_s=state["busy"], wait_s=wait,
                      items=state["items"])
+
+
+def tail_chunks(path: str, offset: int = 0,
+                max_bytes: Optional[int] = None,
+                final: bool = False) -> Tuple[List[bytes], int]:
+    """One follow-mode poll of an append-only file: the bytes ``path``
+    grew past ``offset``, newline-aligned, as ``(chunks, new_offset)``.
+
+    Only whole lines are taken: a torn tail (a writer caught mid-line)
+    stays pending until its newline lands, so a record never splits
+    across two micro-batches; ``final=True`` takes the unterminated tail
+    too.  ``max_bytes`` bounds one poll.  A missing file has nothing
+    pending; a file shorter than ``offset`` (not append-only) raises
+    ``OSError``."""
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        return [], offset
+    if size < offset:
+        raise OSError(f"{path!r} shrank below cursor {offset} "
+                      f"(size {size}): tailed sources must be "
+                      f"append-only")
+    if size == offset:
+        return [], offset
+    want = size - offset
+    if max_bytes is not None:
+        want = min(want, max_bytes)
+    with open(path, "rb") as f:
+        f.seek(offset)
+        buf = f.read(want)
+    if not buf:
+        return [], offset
+    cut = len(buf)
+    if not final:
+        nl = buf.rfind(b"\n")
+        if nl < 0:
+            return [], offset           # a torn line: wait for its \n
+        cut = nl + 1
+    return [buf[:cut]], offset + cut

@@ -10,7 +10,9 @@ re-raises there.  Files are written through :func:`atomic_save` (tmp +
 submit queue is bounded (2 pending writes by default), so a fast sorter
 cannot pile unwritten pages in memory.  Each write is an
 ``exec.spill_write`` span under the request context of the thread that
-submitted it (``obs/context.py``).
+submitted it (``obs/context.py``).  With a content store armed
+(``utils/cas.py``) each run file becomes a hardlink to its content
+object.
 """
 
 from __future__ import annotations
@@ -28,7 +30,10 @@ def atomic_save(path: str, arr: np.ndarray, allow_pickle: bool = False
                 ) -> str:
     """``np.save`` through a tmp sibling + ``os.replace``; ``path`` must
     carry its ``.npy`` suffix.  Returns the crc stamp of the bytes
-    written (``utils/integrity.py``)."""
+    written (``utils/integrity.py``).  With a content store armed
+    (``utils/cas.py``) the run file is then re-homed as a hardlink to its
+    content object (JAX :56-66): the same bytes, so the stamp holds; any
+    failure leaves the plain file."""
     from ..utils.fsio import atomic_replace
     from ..utils.integrity import ChecksumWriter
     tmp = path + ".tmp"
@@ -38,6 +43,13 @@ def atomic_save(path: str, arr: np.ndarray, allow_pickle: bool = False
         f.flush()
         os.fsync(f.fileno())
     atomic_replace(tmp, path)
+    try:
+        from ..utils.cas import cas_store
+        store = cas_store()
+        if store is not None:
+            store.dedup_file(path)
+    except Exception:
+        pass
     return cw.digest()
 
 

@@ -46,6 +46,7 @@ class Command:
     def __init__(self, obj: ObjectManager, screen=None):
         self.obj = obj     # its MRs live on obj's device or mesh
         self.screen = screen  # None → print to stdout, False → silent
+        self.result_msg = ""  # the last message, as the JAX package keeps it
 
     def params(self, args: List[str]):
         if args:
@@ -56,6 +57,7 @@ class Command:
 
     def message(self, msg: str):
         """Result message (reference error->message on rank 0)."""
+        self.result_msg = msg
         if self.screen is None:
             print(msg)
         elif self.screen is not False:

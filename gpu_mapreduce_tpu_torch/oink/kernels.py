@@ -40,9 +40,19 @@ def _null(n: int) -> np.ndarray:
 
 def _parse_cols(filename: str, dtypes) -> list:
     """Whitespace table → one exact-dtype array per column (u64 ids parse
-    as integers, never through a float)."""
+    as integers, never through a float).  When every column is u64 or
+    f64 and the native runtime is built, the table goes through its C++
+    parser (``native.parse_table``, JAX :89-110); else through numpy."""
     with open(filename, "rb") as f:
-        toks = np.asarray(f.read().split())
+        raw = f.read()
+    from .. import native
+    if all(dt in (np.uint64, np.float64) for dt in dtypes) \
+            and native.available():
+        try:
+            return native.parse_table(raw, dtypes)
+        except ValueError as e:
+            raise ValueError(f"{filename}: {e}")
+    toks = np.asarray(raw.split())
     ncols = len(dtypes)
     if len(toks) % ncols:
         raise ValueError(f"{filename}: token count not divisible by {ncols}")

@@ -57,9 +57,15 @@ as the eager exchange does.  Telemetry (JAX :731, :880, :900): a
 each fused group (its plan's bucket, rounds, caps, rows and groups,
 whether it ran warm and whether the group table ran), the exchange's
 numbers fed to ``obs/metrics.record_exchange``, and each group's
-launches against the eager ops' (``plan/cache.note_fusion``).  Left out
-against the JAX fuser: the single-dispatch megafusion, the persistent
-plan tier and buffer donation.
+launches against the eager ops' (``plan/cache.note_fusion``).
+
+The persistent tier (``plan/cache.persistent_cache``, JAX :861-875,
+:936-945): an in-memory miss loads the key's on-disk entry and rebuilds
+the ``CompiledPlan`` from it, so a fresh process's first run of a known
+plan goes warm; after every run the plan's state is stored (a no-op when
+unchanged).  A persisted plan or gcap is speculation only, checked on
+every run as above.  Left out against the JAX fuser: the single-dispatch
+megafusion and buffer donation.
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ from typing import Optional
 
 import numpy as np
 
-from .cache import note_fusion, plan_cache, record_history
+from .cache import (note_fusion, persistent_cache, plan_cache,
+                    record_history, stable_plan_digest)
 from .ir import Plan, PlanStage, frame_signature
 
 # the eager ops' launches, the baseline a fused group's launches are
@@ -85,6 +92,40 @@ class CompiledPlan:
     gcap)`` for an exchange group, ``("l", gcap)`` for a local one)."""
     caps: dict = field(default_factory=dict)
     mega: dict = field(default_factory=dict)
+
+
+def _plan_payload(compiled: CompiledPlan) -> Optional[dict]:
+    """The speculation state as a JSON-safe payload (JAX :947-962), or
+    None when a component has no serialization.  No run count: it would
+    change every run and defeat the store's unchanged-bytes no-op."""
+    from .cache import to_jsonable
+    try:
+        return {"caps": {str(k): to_jsonable(v)
+                         for k, v in compiled.caps.items()},
+                "mega": {str(k): to_jsonable(v)
+                         for k, v in compiled.mega.items()}}
+    except TypeError:
+        return None
+
+
+def _plan_from_payload(payload: dict) -> CompiledPlan:
+    """Inverse of :func:`_plan_payload` (JAX :965-977): group indices
+    back to ints, lists back to tuples (wire plans are compared and used
+    as keys).  A malformed payload gives an empty (cold) plan."""
+    from .cache import from_jsonable
+    cp = CompiledPlan()
+    try:
+        cp.caps = {int(k): from_jsonable(v)
+                   for k, v in dict(payload.get("caps") or {}).items()}
+        cp.mega = {int(k): from_jsonable(v)
+                   for k, v in dict(payload.get("mega") or {}).items()}
+    except (TypeError, ValueError, AttributeError):
+        return CompiledPlan()
+    # an entry of another shape is dropped: that group runs cold
+    cp.mega = {k: v for k, v in cp.mega.items()
+               if isinstance(v, tuple) and len(v) == {"x": 3, "l": 2}.get(
+                   v[0] if v else None)}
+    return cp
 
 
 def _kernel_op(fn) -> Optional[str]:
@@ -411,7 +452,8 @@ def _replay(mr, stage: PlanStage) -> None:
 
 def _backend_signature(mr) -> tuple:
     """The third component of the plan-cache key: the device, or the
-    mesh (its devices in shard order)."""
+    mesh (its devices in shard order).  The persistent tier renders
+    either by its devices' type (``plan/cache._stable_part``)."""
     mesh = mr.backend.mesh
     return ("device", str(mr.device)) if mesh is None else ("mesh", mesh)
 
@@ -452,6 +494,15 @@ def execute_plan(mr, plan: Plan) -> None:
     except TypeError:       # an unhashable stage argument: run uncached
         key, compiled = None, None
     cache_hit = compiled is not None
+    # the persistent tier: an in-memory miss reads the on-disk entry
+    pkey = stable_plan_digest(key) if key is not None \
+        and persistent_cache() is not None else None
+    if compiled is None and pkey is not None:
+        payload = persistent_cache().load(pkey)
+        if payload is not None:
+            compiled = _plan_from_payload(payload)
+            plan_cache().put(key, compiled)
+            cache_hit = True
     if compiled is None:
         compiled = CompiledPlan()
         if key is not None:
@@ -491,6 +542,13 @@ def execute_plan(mr, plan: Plan) -> None:
             gidx += 1
         psp.set(ngroups=gidx,
                 nfused=sum(1 for d in groups_desc if d["fused"]))
+    if pkey is not None:
+        # what this run learned, for the next process (no-op when
+        # unchanged; an empty state still marks the digest as seen)
+        payload = _plan_payload(compiled)
+        pp = persistent_cache()
+        if payload is not None and pp is not None:
+            pp.store(pkey, payload)
     record_history({"stages": plan.describe(), "groups": groups_desc,
                     "cache_hit": cache_hit,
                     "cache_key": _key_brief(mr, key)})

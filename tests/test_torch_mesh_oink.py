@@ -86,6 +86,12 @@ SCRIPT = [
     ("dump_plan", "dump_plan tmp.plan.txt", []),
     ("dump_trace", "dump_trace tmp.trace.json", []),
     ("dump_metrics", "dump_metrics tmp.metrics.prom", []),
+    # the standing-query family over one word file (no final newline:
+    # poll leaves the torn tail, close takes it)
+    ("stream_open", "stream open st w1.txt", []),
+    ("stream_poll", "stream poll st", []),
+    ("stream_close", "stream close st", []),
+    ("stream_snapshot", "stream snapshot st tmp.stream.snap", []),
 ]
 DEGREE_WEIGHT = "degree_weight -i tmp.upper.* tmp.deg.* -o tmp.dw NULL"
 
@@ -259,6 +265,9 @@ def test_oink_commands_run_on_a_mesh(runs, command):
                               path.split(".")[1])
     if command == "neigh_tri":
         assert same_files(jax["files"], port["files"], "nt")
+    if command == "stream":
+        snap = port["files"]["tmp.stream.snap"]
+        assert snap == jax["files"]["tmp.stream.snap"] and snap
     if command.startswith("dump_"):
         path = words[1]
         tf, jf = port["files"][path], jax["files"][path]

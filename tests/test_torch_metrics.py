@@ -58,14 +58,10 @@ NOT_PORTED = {
     "mrtpu_serve_degraded", "mrtpu_memo_total", "mrtpu_fleet_replicas",
     "mrtpu_fleet_failovers_total", "mrtpu_fleet_failover_seconds",
     "mrtpu_fleet_fenced_total", "mrtpu_fleet_router_total",
-    # utils/cas.py, the content store the serve tier's memo rides on
+    # the serve daemon's census and GC of the content store
     "mrtpu_cas_gc_total", "mrtpu_cas_chunks", "mrtpu_cas_bytes",
     # obs/slo.py
     "mrtpu_slo_burn_ratio", "mrtpu_slo_alerts_total",
-    # stream/
-    "mrtpu_stream_batches_total", "mrtpu_stream_rows_total",
-    "mrtpu_stream_resumes_total", "mrtpu_stream_pending_bytes",
-    "mrtpu_stream_lag_seconds",
 }
 
 

@@ -3,7 +3,10 @@ default to the card.
 
 A subprocess poisons ``sys.modules`` so that importing ``jax`` or
 ``gpu_mapreduce_tpu`` raises, then imports every module of the port and
-``chip_smoke``."""
+``chip_smoke``.  Under an audit hook it also runs the native engine, a
+stream and a checkpoint on the CPU: no file under ``gpu_mapreduce_tpu/``
+is opened or loaded (the native loader builds and loads the port's own
+library)."""
 
 import os
 import subprocess
@@ -16,6 +19,16 @@ SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
     for name in ("jax", "jaxlib", "gpu_mapreduce_tpu"):
         sys.modules[name] = None          # any import of them now raises
+    import os
+    jax_pkg = os.path.join(os.getcwd(), "gpu_mapreduce_tpu") + os.sep
+    touched = []
+    def audit(event, args):
+        if event in ("open", "ctypes.dlopen", "os.listdir") and args \
+                and isinstance(args[0], (str, bytes, os.PathLike)):
+            path = os.path.abspath(os.fsdecode(args[0]))
+            if path.startswith(jax_pkg) or path + os.sep == jax_pkg:
+                touched.append((event, path))
+    sys.addaudithook(audit)
     import gpu_mapreduce_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
@@ -29,12 +42,32 @@ SCRIPT = textwrap.dedent("""
     import torch
     from gpu_mapreduce_tpu_torch.parallel.dist import topology
     from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
+    import tempfile
+    from gpu_mapreduce_tpu_torch import native
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    with tempfile.TemporaryDirectory() as tmp:
+        assert native.available(), native.build_error()
+        paths, nrefs, _ = make_corpus(tmp, 1, 2)
+        ii = pkg.InvertedIndex(device="cpu", engine="native")
+        assert ii.run(paths, outdir=os.path.join(tmp, "o"))[0] == nrefs
+        os.environ["MRTPU_CAS_DIR"] = os.path.join(tmp, "cas")
+        src = os.path.join(tmp, "s.txt")
+        with open(src, "w") as f:
+            f.write("a b a\\n")
+        s = pkg.Stream(os.path.join(tmp, "st"), [src], device="cpu",
+                       settings={"fuse": 1})
+        s.drain()
+        assert s.snapshot() == "a 2\\nb 1\\n"
+        s.close()
+    assert not touched, touched
     if not torch.cuda.is_available():
         for entry in (pkg.InvertedIndex, pkg.MapReduce, pkg.OinkScript,
                       lambda: pkg.intcount([]), lambda: pkg.wordfreq([]),
                       lambda: pkg.wordfreq_interned([]),
                       lambda: make_mesh(), lambda: make_mesh(2),
-                      lambda: topology(0, 2)):
+                      lambda: topology(0, 2),
+                      lambda: pkg.Stream(tempfile.mkdtemp(), []),
+                      lambda: pkg.InvertedIndex(engine="native")):
             try:
                 entry()
             except pkg.MRError:
@@ -67,7 +100,9 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "obs.tracer", "obs.sinks", "obs.report", "obs.metrics",
                    "obs.flight", "obs.httpd", "obs.fleetobs",
                    "oink.commands.dump_trace", "oink.commands.dump_metrics",
-                   "oink.commands.dump_plan")
+                   "oink.commands.dump_plan", "utils.cas", "native",
+                   "stream", "stream.engine", "stream.scheduler",
+                   "stream.tailer", "oink.commands.stream")
 
 
 def test_port_imports_no_jax():
