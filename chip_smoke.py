@@ -278,7 +278,9 @@ nonzero):
               caches cleared, runs P = 1 and P = 4 cold and stores the
               plans; a fresh process (``--cache-persist-child``) runs
               each first warm from disk (seg_table once, once a shard),
-              with this process's counts.  cas-checkpoint: the P = 4 IntCount KV
+              with this process's counts, and a second fresh process
+              with the tier off (MRTPU_PLAN_PERSIST=0) runs each first
+              cold; each runs each chain twice.  cas-checkpoint: the P = 4 IntCount KV
               after the aggregate saved without a store and twice under
               one: one store object, both loads equal to the KV, a byte
               flipped in the object refused.  stream-zipf: the first
@@ -288,7 +290,8 @@ nonzero):
               to a Counter and to a one-shot wordfreq on the card, the
               window equal to the last two writes', no plan key missed
               twice, seg_table once for each group whose key ran
-              before, stage seconds a batch; then a child (``--cache-stream-child``) SIGKILLed
+              before, stage seconds a batch from the tracer's spans
+              under ``stream.batch``; then a child (``--cache-stream-child``) SIGKILLed
               after batch 4's record and another between batch 5's
               checkpoint and its record, each resumed here to the same
               snapshot.  The stream takes the first quarter of the file
@@ -5975,12 +5978,14 @@ def cache_native(paths, nref: int, nuniq: int, tmp: str, kernels,
 
 def cache_persist_child(cas: str, dev: str, p1: str, p4s) -> int:
     """``chip_smoke.py --cache-persist-child``: a fresh process's first
-    fused IntCount at P = 1 and its first at P = 4 under the store
-    ``cas``: one JSON line with each run's result, seconds, fused-group
-    mode, table flag, launches and the persistent tier's counts.  The
-    process's first CUDA use (the context, a first allocation) comes
-    before the runs and is timed apart (``cuda_init_s``), so a run's
-    seconds hold what the plan tier can change."""
+    fused IntCount at P = 1, then its second, and the same at P = 4,
+    under the store ``cas`` (the caller's ``MRTPU_PLAN_PERSIST`` arms the
+    persistent tier or not): one JSON line with each run's result,
+    seconds, fused-group mode, table flag, launches and the persistent
+    tier's counts.  The process's first CUDA use (the context, a first
+    allocation) comes before the runs and is timed apart
+    (``cuda_init_s``); the second run, warm in memory, holds neither the
+    plan tier's load nor the process's first use of each kernel."""
     import torch
     from gpu_mapreduce_tpu_torch.ops.cuda import group, match
     os.environ.update(MRTPU_CAS_DIR=cas, MRTPU_FUSE="1")
@@ -5989,9 +5994,10 @@ def cache_persist_child(cas: str, dev: str, p1: str, p4s) -> int:
     torch.ones(1, device=device).sum().item()
     out = {"cuda_init_s": time.perf_counter() - t0}
     kernels = [match.mark_words, group.segment_table, match.mark]
-    out.update({f"p{P}": cache_intcount(paths, P, device,
-                                        [device] * MESH_P, kernels)
-                for P, paths in ((1, [p1]), (MESH_P, p4s))})
+    for P, paths in ((1, [p1]), (MESH_P, p4s)):
+        for run in ("", "_again"):
+            out[f"p{P}{run}"] = cache_intcount(paths, P, device,
+                                               [device] * MESH_P, kernels)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -6023,13 +6029,35 @@ def cache_intcount(paths, P, device, devs, kernels) -> dict:
             "persistent_entries": after["entries"]}
 
 
+def cache_persist_fresh(store: str, device, p1: str, p4s,
+                        persist: bool) -> tuple:
+    """A fresh process's runs (``cache_persist_child``) under ``store``,
+    the persistent tier armed or not: (its JSON line, its wall s)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--cache-persist-child", store, device.type, p1,
+                        *p4s], capture_output=True, text=True,
+                       timeout=DIST_TIMEOUT_S,
+                       env={**os.environ,
+                            "MRTPU_PLAN_PERSIST": "1" if persist else "0"})
+    child_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"persist-intcount: a fresh process failed "
+                             f"({r.returncode}): {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1]), child_s
+
+
 def cache_persist(keys_u32, tmp: str, kernels, device) -> dict:
     """persist-intcount: intcount-uniform under MRTPU_FUSE=1 with a store
     in the phase's directory.  Process A (this one, its plan caches
     cleared) runs the P = 1 and the P = 4 (mesh-fuse-uniform) chains
     cold and stores each plan; a fresh process B's first run of each
     takes the persisted entry: warm, seg_table once at P = 1 and once a
-    shard at P = 4, the results A's."""
+    shard at P = 4, the results A's.  A fresh process C with the tier
+    off (``MRTPU_PLAN_PERSIST=0``) runs each first cold: C's first run
+    against B's is what the tier saves at a restart, and each fresh
+    process's second run (warm in memory) against its first is what the
+    process's first use of each kernel costs."""
     import numpy as np
     from gpu_mapreduce_tpu_torch.parallel import shuffle
     from gpu_mapreduce_tpu_torch.plan import plan_cache
@@ -6048,47 +6076,48 @@ def cache_persist(keys_u32, tmp: str, kernels, device) -> dict:
         for P, paths in ((1, [p1]), (MESH_P, p4s)):
             a[P] = cache_intcount(paths, P, device, cache_mesh_devices(),
                                   kernels)
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--cache-persist-child", store, device.type, p1,
-                        *p4s], capture_output=True, text=True,
-                       timeout=DIST_TIMEOUT_S)
-    child_s = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise AssertionError(f"persist-intcount: process B failed "
-                             f"({r.returncode}): {r.stderr[-2000:]}")
-    b = json.loads(r.stdout.strip().splitlines()[-1])
+    b, b_s = cache_persist_fresh(store, device, p1, p4s, True)
+    c, c_s = cache_persist_fresh(store, device, p1, p4s, False)
+    keys = ("seconds", "mode", "table", "launches", "persistent_hits",
+            "persistent_entries")
+    launch = "segment_table"
     out = {}
     for P in (1, MESH_P):
-        ra, rb = a[P], b[f"p{P}"]
-        got_b = (rb["result"][0], rb["result"][1],
-                 [tuple(t) for t in rb["result"][2]])
         fused = "local" if P == 1 else "exchange"
-        if got_b != ra["result"]:
-            raise AssertionError(f"persist-intcount P = {P}: B "
-                                 f"{got_b[:2]} != A {ra['result'][:2]}")
-        if ra["mode"] != fused or rb["mode"] != fused + "1" \
-                or rb["persistent_hits"] < 1 or not rb["table"]:
-            raise AssertionError(f"persist-intcount P = {P}: A {ra['mode']}"
-                                 f", B {rb['mode']} with "
-                                 f"{rb['persistent_hits']} persistent hits")
-        launch = "segment_table"
-        if not CACHE_CPU and (ra["launches"][launch] != 0
-                              or rb["launches"][launch] != P):
-            raise AssertionError(f"persist-intcount P = {P}: seg_table "
-                                 f"{ra['launches'][launch]} in A, "
-                                 f"{rb['launches'][launch]} in B")
-        out[f"p{P}"] = {"a_cold": {k: ra[k] for k in (
-            "seconds", "mode", "table", "launches", "persistent_entries")},
-            "b_warm": {k: rb[k] for k in (
-                "seconds", "mode", "table", "launches", "persistent_hits",
-                "persistent_entries")}}
+        # (the run, its fused group's mode, seg_table launches, whether
+        # the persistent tier must have answered it)
+        runs = {"a_cold": (a[P], fused, 0, False),
+                "b_warm": (b[f"p{P}"], fused + "1", P, True),
+                "b_again": (b[f"p{P}_again"], fused + "1", P, False),
+                "c_cold": (c[f"p{P}"], fused, 0, False),
+                "c_again": (c[f"p{P}_again"], fused + "1", P, False)}
+        for run, (r, mode, n, hit) in runs.items():
+            got = (r["result"][0], r["result"][1],
+                   [tuple(t) for t in r["result"][2]])
+            if got != a[P]["result"]:
+                raise AssertionError(f"persist-intcount P = {P}: {run} "
+                                     f"{got[:2]} != A {a[P]['result'][:2]}")
+            if r["mode"] != mode or (hit and (r["persistent_hits"] < 1
+                                              or not r["table"])):
+                raise AssertionError(f"persist-intcount P = {P}: {run} "
+                                     f"{r['mode']} (expected {mode}) with "
+                                     f"{r['persistent_hits']} persistent "
+                                     f"hits")
+            if not CACHE_CPU and r["launches"][launch] != n:
+                raise AssertionError(f"persist-intcount P = {P}: seg_table "
+                                     f"{r['launches'][launch]} in {run}, "
+                                     f"expected {n}")
+        if c[f"p{P}"]["persistent_hits"] != 0:
+            raise AssertionError(f"persist-intcount P = {P}: the tier "
+                                 f"answered with MRTPU_PLAN_PERSIST=0")
+        out[f"p{P}"] = {run: {k: r[k] for k in keys if k in r}
+                        for run, (r, *_) in runs.items()}
     cas.reset_store()
     plan_cache().clear()
     shutil.rmtree(d)
     return {"nints": a[1]["result"][0], "nunique": a[1]["result"][1], **out,
-            "process_b_s": child_s, "process_b_cuda_init_s":
-                b["cuda_init_s"]}
+            "process_b_s": b_s, "process_b_cuda_init_s": b["cuda_init_s"],
+            "process_c_s": c_s, "process_c_cuda_init_s": c["cuda_init_s"]}
 
 
 def cache_checkpoint(keys_u32, tmp: str, kernels) -> dict:
@@ -6209,57 +6238,47 @@ def stream_snapshot_oracle(text: bytes) -> str:
                    for k in sorted(c))
 
 
-@contextlib.contextmanager
-def stream_clock(device, per_batch: dict, resident):
-    """Exclusive seconds of a stream's stages, each call between device
-    synchronises, into ``per_batch`` (the caller empties it a batch):
-    ``parse`` (the delta's map: bytes.split and the column build),
-    ``intern`` (the delta's aggregate: its words placed on the card and
-    interned), ``delta_group`` and ``merge_group`` (the two fused groups,
-    told apart by their MapReduce: ``resident`` is the merge's),
-    ``merge_aggregate``, ``checkpoint`` (the commit's save, the merge
-    group it forces aside) and ``record`` (the journal append)."""
-    from gpu_mapreduce_tpu_torch.core import checkpoint
-    from gpu_mapreduce_tpu_torch.core.mapreduce import MapReduce
-    from gpu_mapreduce_tpu_torch.ft.journal import Journal
-    from gpu_mapreduce_tpu_torch.plan import fuser
-    stack = []
-    by_mr = {"aggregate": ("intern", "merge_aggregate"),
-             "group": ("delta_group", "merge_group")}
+def stream_stages(events: list) -> dict:
+    """Seconds of one stream batch's stages, read from the tracer's spans
+    under its ``stream.batch`` span (the host's clock; nothing
+    synchronises the card between stages, so its queued work lands in the
+    stage that waits for it): ``parse`` (the delta's map: bytes.split and
+    the column build), ``intern`` and ``delta_group`` (the delta's fused
+    chain: its aggregate, which places the words on the card and interns
+    them, and its group), ``merge_aggregate`` and ``merge_group`` (the
+    merge into the resident, the batch's second plan), ``checkpoint``
+    (the commit's saves, the merge they force aside) and ``other`` (the
+    rest of the batch, the journal record among it)."""
+    byid = {e["id"]: e for e in events}
+    batch = next(e for e in events if e["name"] == "stream.batch")
 
-    def wrap(fn, kind):
-        @functools.wraps(fn)
-        def wrapper(*args, **kw):
-            label = kind
-            if kind in by_mr:
-                label = by_mr[kind][args[0] is resident]
-            _sync(device)
-            stack.append(0.0)
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                _sync(device)
-                dt = time.perf_counter() - t0
-                inner = stack.pop()
-                if stack:
-                    stack[-1] += dt
-                per_batch[label] = per_batch.get(label, 0.0) + dt - inner
-        return wrapper
+    def within(e) -> bool:
+        while e["parent"] in byid:
+            e = byid[e["parent"]]
+            if e is batch:
+                return True
+        return False
 
-    spans = [(MapReduce, "map", "parse"),
-             (MapReduce, "aggregate", "aggregate"),
-             (fuser, "_exec_local_group", "group"),
-             (checkpoint, "save", "checkpoint"),
-             (Journal, "append", "record")]
-    saved = [(o, a, getattr(o, a)) for o, a, _ in spans]
-    for (o, a, kind), (_, _, fn) in zip(spans, saved):
-        setattr(o, a, wrap(fn, kind))
-    try:
-        yield per_batch
-    finally:
-        for o, a, fn in saved:
-            setattr(o, a, fn)
+    def secs(es) -> float:
+        return sum(e["dur"] for e in es) / 1e6
+
+    mine = sorted((e for e in events if within(e)), key=lambda e: e["ts"])
+    plans = [e for e in mine if e["name"] == "plan.execute"]
+    if len(plans) != 2:
+        raise AssertionError(f"stream-zipf: {len(plans)} plans in a batch, "
+                             f"expected the delta's and the merge's")
+    out = {"parse": secs(e for e in mine if e["name"] == "map"
+                         and e["parent"] == batch["id"])}
+    for plan, (agg, grp) in zip(plans, (("intern", "delta_group"),
+                                        ("merge_aggregate", "merge_group"))):
+        kids = [e for e in mine if e["parent"] == plan["id"]]
+        out[agg] = secs(e for e in kids if e["name"] == "aggregate")
+        out[grp] = secs(e for e in kids if e["name"] == "plan.group")
+    ckpt = [e for e in mine if e["name"] == "stream.checkpoint"]
+    out["checkpoint"] = secs(ckpt) - secs(
+        e for e in plans if e["parent"] in {c["id"] for c in ckpt})
+    out["other"] = batch["dur"] / 1e6 - sum(out.values())
+    return out
 
 
 def stream_settings(parts) -> dict:
@@ -6360,6 +6379,7 @@ def cache_stream(zpath: str, tmp: str, kernels, device) -> dict:
     ``window=2`` stream beside it; the snapshot against a one-shot
     wordfreq on the card and a Counter, the window against the last two
     writes' Counter, the plan misses, two kill -9 resumes."""
+    from gpu_mapreduce_tpu_torch.obs import get_tracer
     from gpu_mapreduce_tpu_torch.plan import (clear_history, plan_cache,
                                               plan_history)
     from gpu_mapreduce_tpu_torch.plan.cache import cache_stats
@@ -6377,21 +6397,24 @@ def cache_stream(zpath: str, tmp: str, kernels, device) -> dict:
                  window=CACHE_WINDOW, **kw)
     name = "segment_table"
     batches, keys_seen = [], set()
-    stage = {}
-    with stream_clock(device, stage, s.resident):
+    tracer = get_tracer()
+    traced = tracer.enabled
+    tracer.enable()
+    try:
         for i, part in enumerate(parts):
             with open(src, "ab") as f:
                 f.write(part)
             lag_before = s.status()["lag_s"]
             for k in kernels:
                 k.launches = 0
-            stage.clear()
+            tracer.clear()
             clear_history()           # it keeps the last 64 plans only
             m0 = cache_stats()["plan"]["misses"]
             t0 = time.perf_counter()
             rows = s.poll_once(final=i == len(parts) - 1)
             _sync(device)
             dt = time.perf_counter() - t0
+            stages = stream_stages(tracer.events())
             launches = {k.__name__: k.launches for k in kernels}
             runs = plan_history()
             groups = [(g["mode"], g["table"], e["cache_key"] in keys_seen)
@@ -6404,7 +6427,7 @@ def cache_stream(zpath: str, tmp: str, kernels, device) -> dict:
             batches.append({
                 "rows": rows, "bytes": len(part), "seconds": dt,
                 "rows_per_s": rows / dt,
-                "stages_s": dict(stage),
+                "stages_s": stages,
                 "groups": [g[:2] for g in groups],
                 "speculation_misses": sum(1 for g in groups
                                           if g[2] and g[0] != "local1"),
@@ -6434,6 +6457,9 @@ def cache_stream(zpath: str, tmp: str, kernels, device) -> dict:
             clear_history()
             win.poll_once(final=i == len(parts) - 1)
             keys_seen |= {e["cache_key"] for e in plan_history()}
+    finally:
+        if not traced:
+            tracer.disable()
     t0 = time.perf_counter()
     got = s.snapshot()
     snapshot_s = time.perf_counter() - t0
@@ -6511,7 +6537,7 @@ def run_cache(paths, nref: int, nuniq: int, keys_u32, zpath: str, tmp: str,
                 k.__name__],
             **{f"persist_p{P}_{run}": p[f"p{P}"][run]["launches"][
                 k.__name__] for P in (1, MESH_P)
-               for run in ("a_cold", "b_warm")},
+               for run in ("a_cold", "b_warm", "c_cold")},
             "cas_checkpoint": cells["cas_checkpoint"]["launches"][
                 k.__name__],
             "stream_batches": st["launches"][k.__name__]}
@@ -6521,7 +6547,8 @@ def run_cache(paths, nref: int, nuniq: int, keys_u32, zpath: str, tmp: str,
                          for e in ("native", "cuda")},
             "persist_first_run_s": {
                 f"p{P}": {r: p[f"p{P}"][r]["seconds"]
-                          for r in ("a_cold", "b_warm")}
+                          for r in ("a_cold", "b_warm", "b_again",
+                                    "c_cold", "c_again")}
                 for P in (1, MESH_P)},
             "checkpoint_save_s": cells["cas_checkpoint"]["save_s"],
             "stream_batch_s": [b["seconds"] for b in st["batches"]],

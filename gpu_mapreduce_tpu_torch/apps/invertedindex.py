@@ -223,12 +223,10 @@ class InvertedIndex:
     # accumulated pairs a compaction costs more than it saves
     _CHK_MIN_COMPACT = 1 << 16
 
-    def __init__(self, device=None, comm=None, engine: Optional[str] = None,
-                 mapstyle: Optional[int] = None):
+    def __init__(self, device=None, comm=None, engine: Optional[str] = None):
         """``engine``: ``None`` or ``"cuda"`` (the card's kernels) or
-        ``"native"`` (the host C++ scanner; ``MRError`` when the native
-        runtime does not build).  ``mapstyle``: the map tasks' schedule,
-        2 (a thread pool) by default for the native engine."""
+        ``"native"`` (the host C++ scanner under mapstyle 2, a thread
+        pool; ``MRError`` when the native runtime does not build)."""
         from ..core.runtime import MRError
         from ..parallel.mesh import Mesh
         engine = engine or "cuda"
@@ -247,8 +245,7 @@ class InvertedIndex:
                 raise MRError(f"native engine unavailable: "
                               f"{native.build_error()}")
         self.engine = engine
-        self.mapstyle = (2 if engine == "native" else 0) \
-            if mapstyle is None else mapstyle
+        self.mapstyle = 2 if engine == "native" else 0
         self._urls: Dict[int, bytes] = {}
         self.shard_urls: Optional[List[Dict[int, bytes]]] = None
         self.docs: List[str] = []

@@ -23,9 +23,11 @@ Sliding windows are bucketed retire-and-merge: ``window=N`` keeps the
 last N batch deltas as reduced buckets; the resident view is their
 merge, rebuilt from the survivors when a bucket retires.
 
-Every batch replays one recorded chain over same-shaped deltas, so under
-``fuse=1`` warm micro-batches take the cached plan (no new plan misses)
-and the group table on the card.
+Every batch replays one recorded chain over its delta.  A plan's key
+carries the delta's exact row count, so under ``fuse=1`` only deltas of
+equal row count repeat a key: such warm micro-batches take the cached
+plan (no new plan misses) and the group table on the card, while a delta
+of a new length misses once.
 """
 
 from __future__ import annotations
@@ -207,6 +209,7 @@ class Stream:
             # committed state still restores below
             pass
         from ..core import checkpoint as ckpt_mod
+        from ..ft.retry import device_error
         for rec in reversed(batches):
             tag = rec.get("ckpt", "")
             path = os.path.join(self._ckpt_dir(tag), "resident")
@@ -219,7 +222,9 @@ class Stream:
                     ckpt_mod.load(b, os.path.join(
                         self._ckpt_dir(tag), f"b{i}"))
                     buckets.append(b)
-            except Exception:
+            except Exception as e:
+                if device_error(e):
+                    raise                # a card failure is fatal
                 continue                 # fall back a generation
             self._set_resident(resident)
             self._buckets = buckets
@@ -370,13 +375,16 @@ class Stream:
         leaves the PREVIOUS record authoritative, and its cursors
         re-read exactly the bytes whose merge was lost."""
         from ..core import checkpoint as ckpt_mod
+        from ..obs import get_tracer
         seq = self.seq + 1
         tag = f"g{seq:06d}"
-        ckpt_mod.save(self.resident,
-                      os.path.join(self._ckpt_dir(tag), "resident"))
-        for i, b in enumerate(self._buckets):
-            ckpt_mod.save(b, os.path.join(self._ckpt_dir(tag),
-                                          f"b{i}"))
+        with get_tracer().span("stream.checkpoint", cat="stream",
+                               stream=self.name, seq=seq):
+            ckpt_mod.save(self.resident,
+                          os.path.join(self._ckpt_dir(tag), "resident"))
+            for i, b in enumerate(self._buckets):
+                ckpt_mod.save(b, os.path.join(self._ckpt_dir(tag),
+                                              f"b{i}"))
         with self._lock:
             self.seq = seq
             self.rows_total += rows

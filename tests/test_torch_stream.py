@@ -371,6 +371,26 @@ def test_generation_fallback_and_checkpoint_gc(tmp_path, monkeypatch):
     s2.close()
 
 
+def test_resume_surfaces_a_card_failure(tmp_path, monkeypatch):
+    """A card failure while a generation loads is fatal: the resume
+    raises it rather than fall back a generation or restart at seq 0."""
+    from gpu_mapreduce_tpu_torch.core import checkpoint
+    from gpu_mapreduce_tpu_torch.core.runtime import DeviceError
+    src = str(tmp_path / "in.txt")
+    sdir = str(tmp_path / "st")
+    s = Stream(sdir, [src], device="cpu")
+    for part in PARTS:
+        append(src, part)
+        s.drain()
+    s.suspend()
+
+    def load(mr, path):
+        raise DeviceError("CUDA error: an illegal memory access")
+    monkeypatch.setattr(checkpoint, "load", load)
+    with pytest.raises(DeviceError):
+        Stream(sdir, [src], device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # the plan cache, the command family, a mesh
 # ---------------------------------------------------------------------------
