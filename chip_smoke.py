@@ -297,6 +297,29 @@ nonzero):
               snapshot.  The stream takes the first quarter of the file
               (16.8 MB, a 2 MB cut), cut to keep the smoke's time.  A
               line a cell, then the ``cache`` line.
+8. serve    — the serve daemon on the card (``serve/``): serve-main, an
+              in-process ``Server(workers=2)`` with tenant tokens armed:
+              tenant ta's invertedindex (the main corpus, -o) and tb's
+              fused wordfreq (the zipf corpus, -o) at once, against the
+              regex oracle and the draws' counts (mark_words launched,
+              seg_table not), tb again warm (0 plan misses, seg_table
+              once, the same files), each session's dispatches equal to
+              its job run directly; serve-control on the same daemon:
+              401 with the journal untouched, a tenant's drain 403, a
+              foreign id 404, a 1 ms deadline cancelled with tb's pages
+              at 0, a DELETE of a running invertedindex cancelled at a
+              barrier, /v1/slo and /metrics with MRTPU_SLO armed, then a
+              paused daemon's full queue 429 + Retry-After; serve-memo:
+              with a content store, one daemon computes tb's job and a
+              second serves it as a hit (0 launches, 0 dispatches, a
+              cache_hit record); serve-recover: a scale-20 graph script
+              (rmat, degree, edge_upper, cc_find, histo, three -o files)
+              and two op batches through ``python -m
+              gpu_mapreduce_tpu_torch.serve`` on one worker, SIGKILLed
+              once the session's journal holds a checkpoint, restarted:
+              the session resumed, every file equal to an uninterrupted
+              in-process run's, the batches in admission order.  Alone:
+              ``--serve-alone``; on the CPU at 2 MB: ``--serve-rehearse``.
 
               Then a ``total`` line with the smoke's seconds.
 
@@ -6606,6 +6629,695 @@ def cache_alone(card: bool) -> int:
     return 0
 
 
+SERVE_CPU = False              # --serve-rehearse: the CPU, small sizes
+SERVE_TOKENS = "ta=tok-a,tb=tok-b,*=tok-admin"
+SERVE_GRAPH_SCALE = 20         # serve-recover's graph: 2^20 vertices
+SERVE_GRAPH_EDGEFACTOR = 16
+SERVE_SLO = "tenant=*;p99_ms=60000;err_pct=50;windows=60,600"
+SERVE_WAIT_S = 600.0           # every poll's deadline
+SERVE_DELETE_AFTER_S = 0.2     # the DELETE's delay after `running`
+
+
+def serve_device():
+    import torch
+    return torch.device("cpu") if SERVE_CPU else torch.device("cuda", 0)
+
+
+def serve_ii_script(paths, out: str = "ii", times: int = 1) -> str:
+    """ta's job: the invertedindex command over the main corpus, its part
+    file under the session's out/<out>/ (``out`` None: no file)."""
+    o = f"-o {out} NULL" if out else "-o NULL NULL"
+    return (f"variable files index {' '.join(paths)}\n" +
+            f"invertedindex -i v_files {o}\n" * times)
+
+
+def serve_wf_script(zpaths) -> str:
+    """tb's job: the fused wordfreq over the wordfreq-zipf corpus."""
+    return ("set fuse 1\n"
+            f"variable files index {' '.join(zpaths)}\n"
+            f"wordfreq {WF_NTOP} -i v_files -o wf.out NULL\n")
+
+
+def serve_graph_script(scale: int) -> str:
+    """serve-recover's session: exact commands only (no PageRank, whose
+    float sums are not bit-reproducible), three of them writing files."""
+    a, b, c, d = GRAPH_ABCD
+    return "\n".join([
+        f"rmat {scale} {SERVE_GRAPH_EDGEFACTOR} {a} {b} {c} {d} 0.0 "
+        f"{GRAPH_SEED} -o NULL mre",
+        "degree 0 -i mre -o deg.out mrd",
+        "edge_upper -i mre -o NULL mru",
+        "cc_find 0 -i mru -o cc.out mrc",
+        "mr mrv",
+        "mrv map/mr mre edge_to_vertices",
+        "histo -i mrv -o histo.out NULL"]) + "\n"
+
+
+def serve_batches(paths, scale: int) -> list:
+    """serve-recover's two op batches, queued behind the graph session."""
+    a, b, c, d = GRAPH_ABCD
+    return [[f"variable files index {paths[0]}",
+             f"wordfreq {WF_NTOP} -i v_files -o b1.out NULL"],
+            [f"rmat {max(8, scale - 4)} 8 {a} {b} {c} {d} 0.0 {LUBY_SEED} "
+             f"-o NULL e", "degree 0 -i e -o b2.out NULL"]]
+
+
+def _part_urls(path: str) -> dict:
+    """One file's distinct URLs with their u64 ids (a spawned worker of
+    :func:`oracle_part_file_parallel`)."""
+    from gpu_mapreduce_tpu_torch.ops.hash import hash_bytes64
+    with open(path, "rb") as f:
+        urls = set(re.findall(rb'<a href="([^"]{0,255})"', f.read()))
+    return {u: hash_bytes64(u) for u in urls}
+
+
+def oracle_part_file_parallel(paths):
+    """:func:`oracle_part_file` with each file's URLs hashed in a spawned
+    process (never forked: this process has touched CUDA).  Returns a
+    future-like callable giving the text."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(4, len(paths)),
+        mp_context=multiprocessing.get_context("spawn"))
+    futs = [pool.submit(_part_urls, p) for p in paths]
+
+    def result() -> str:
+        try:
+            refs, ids = {}, {}
+            for p, fut in zip(paths, futs):
+                for u, h in fut.result().items():
+                    refs.setdefault(u, set()).add(p)
+                    ids[u] = h
+        finally:
+            pool.shutdown(cancel_futures=True)
+        lines = sorted((ids[u], u.decode(errors="replace"),
+                        " ".join(sorted(fs))) for u, fs in refs.items())
+        return "".join(f"{u}\t{fs}\n" for _, u, fs in lines)
+    return result
+
+
+def _wait_all(client, sids, t_ref: float) -> dict:
+    """Poll the sessions at 10 ms until each is terminal: {sid: seconds
+    from t_ref to the poll that first saw it finished}."""
+    from gpu_mapreduce_tpu_torch.serve.session import TERMINAL
+    done = {}
+    deadline = time.perf_counter() + SERVE_WAIT_S
+    while len(done) < len(sids):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"serve: sessions {sids} not finished "
+                                 f"after {SERVE_WAIT_S} s: "
+                                 f"{[client.status(s) for s in sids]}")
+        for sid in sids:
+            if sid not in done and client.status(sid)["state"] in TERMINAL:
+                done[sid] = time.perf_counter() - t_ref
+        time.sleep(0.01)
+    return done
+
+
+def _session_file(srv, sid: str, rel: str) -> str:
+    return os.path.join(srv.session_dir(sid), "out", rel)
+
+
+def _file_sha(res: dict) -> dict:
+    return {k: v["sha256"] for k, v in res["files"].items()}
+
+
+def _wf_lines(output: str) -> list:
+    return [ln for ln in output.splitlines()
+            if ln.startswith(("WordFreq:", "  "))]
+
+
+def _launches(kernels) -> dict:
+    return {k.__name__: k.launches for k in kernels}
+
+
+def _zero(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def serve_direct(text: str, device, d: str) -> dict:
+    """The same job run directly (no daemon) under its own request
+    account, its -o files under ``d``: (wall seconds, dispatches, the
+    screen)."""
+    import io
+    from gpu_mapreduce_tpu_torch.obs import context as obs_context
+    from gpu_mapreduce_tpu_torch.oink.script import OinkScript
+    os.makedirs(d, exist_ok=True)
+    screen = io.StringIO()
+    s = OinkScript(device=device, screen=screen)
+    s._path_prepend = d
+    req = obs_context.RequestAccount(label="serve-direct")
+    _sync(device)
+    t0 = time.perf_counter()
+    with obs_context.use(req):
+        s.run_string(text)
+        s.obj.cleanup()
+        for name in list(s.obj.named):
+            s.obj.delete_mr(name)
+    _sync(device)
+    return {"wall_s": time.perf_counter() - t0,
+            "dispatches": req.profile()["dispatches"],
+            "output": screen.getvalue()}
+
+
+def _check_ii(srv, res: dict, nref: int, nuniq: int, oracle) -> None:
+    if res["status"] != "done":
+        raise AssertionError(f"serve: ta's session {res['status']}: "
+                             f"{res['error']}")
+    msg = f"InvertedIndex: 4 files, {nref} pairs, {nuniq} unique urls"
+    if msg not in res["output"]:
+        raise AssertionError(f"serve: ta's output {res['output'][:300]!r}"
+                             f" lacks {msg!r}")
+    with open(_session_file(srv, res["id"], "ii/part-00000")) as f:
+        if f.read() != oracle:
+            raise AssertionError("serve: ta's part-00000 differs from the "
+                                 "regex oracle")
+
+
+def _check_wf(srv, res: dict, zoracle: dict, who: str) -> None:
+    if res["status"] != "done":
+        raise AssertionError(f"serve: {who} {res['status']}: "
+                             f"{res['error']}")
+    if _wf_lines(res["output"]) != zoracle["message"]:
+        raise AssertionError(f"serve: {who}'s message lines "
+                             f"{_wf_lines(res['output'])[:3]} != oracle "
+                             f"{zoracle['message'][:3]}")
+    with open(_session_file(srv, res["id"], "wf.out")) as f:
+        if sorted(f.read().splitlines()) != zoracle["out_lines"]:
+            raise AssertionError(f"serve: {who}'s -o file differs from "
+                                 f"the oracle")
+
+
+def serve_main(paths, nref, nuniq, zpaths, zoracle, tmp, kernels,
+               device, oracle_part) -> dict:
+    """serve-main and serve-control on one in-process daemon with tenant
+    tokens armed: ta's invertedindex and tb's fused wordfreq at once, tb
+    again (warm), each beside the same job run directly; then the
+    control plane's refusals, a deadline and a DELETE mid-run, the SLO
+    surfaces; then a paused daemon's full queue."""
+    import torch
+    from gpu_mapreduce_tpu_torch.obs import slo as obs_slo
+    from gpu_mapreduce_tpu_torch.plan import plan_cache
+    from gpu_mapreduce_tpu_torch.serve import ServeClient, ServeError, Server
+    rec = {}
+    plan_cache().clear()                 # tb's first session is cold
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with cache_env(MRTPU_SERVE_TOKENS=SERVE_TOKENS, MRTPU_CAS_DIR=None,
+                   MRTPU_SLO=None):
+        t_start = time.perf_counter()
+        srv = Server(port=0, workers=2, device=device,
+                     state_dir=os.path.join(tmp, "serve-main"))
+        srv.start()
+        rec["serving_s"] = time.perf_counter() - t_start
+        rec["warm_build_s"] = getattr(srv, "warm", {}).get("seconds")
+        try:
+            ta = ServeClient.local(srv.port, token="tok-a", timeout=120)
+            tb = ServeClient.local(srv.port, token="tok-b", timeout=120)
+            admin = ServeClient.local(srv.port, token="tok-admin",
+                                      timeout=120)
+            # (a) the pair, at once
+            _zero(kernels)
+            t0 = time.perf_counter()
+            ra = ta.submit(script=serve_ii_script(paths))
+            rb = tb.submit(script=serve_wf_script(zpaths))
+            rt_submit = time.perf_counter() - t0
+            fin = _wait_all(admin, [ra["id"], rb["id"]], t0)
+            _sync(device)
+            pair_launches = _launches(kernels)
+            rec["first_result_s"] = rec["serving_s"] + min(fin.values())
+            res_a, res_b = ta.result(ra["id"]), tb.result(rb["id"])
+            _check_ii(srv, res_a, nref, nuniq, oracle_part())
+            _check_wf(srv, res_b, zoracle, "tb")
+            if not SERVE_CPU and (pair_launches["mark_words"] < 1 or
+                                  pair_launches["segment_table"] != 0):
+                raise AssertionError(f"serve: the pair launched "
+                                     f"{pair_launches} (mark_words >= 1, "
+                                     f"seg_table 0 expected)")
+            # tb again: warm plans, the group table once
+            _zero(kernels)
+            t1 = time.perf_counter()
+            rb2 = tb.submit(script=serve_wf_script(zpaths))
+            fin2 = _wait_all(admin, [rb2["id"]], t1)
+            _sync(device)
+            warm_launches = _launches(kernels)
+            res_b2 = tb.result(rb2["id"])
+            _check_wf(srv, res_b2, zoracle, "tb (warm)")
+            if res_b2["meta"]["plan_cache"]["plan"]["misses"] != 0:
+                raise AssertionError(f"serve: tb's resubmit missed the "
+                                     f"plan cache: "
+                                     f"{res_b2['meta']['plan_cache']}")
+            if _file_sha(res_b2) != _file_sha(res_b):
+                raise AssertionError("serve: tb's resubmit wrote other "
+                                     "files")
+            if not SERVE_CPU and warm_launches["segment_table"] != 1:
+                raise AssertionError(f"serve: tb's warm resubmit launched "
+                                     f"{warm_launches}")
+            peak = {"max_memory_allocated":
+                    torch.cuda.max_memory_allocated()
+                    if device.type == "cuda" else None,
+                    "memory_reserved": torch.cuda.memory_reserved()
+                    if device.type == "cuda" else None,
+                    "tenants_hi_water": {t: s["hi_water"] for t, s in
+                                         srv.budgets.snapshot().items()}}
+            # the same jobs run directly (tb's cold, as its first session)
+            d_a = serve_direct(serve_ii_script(paths), device,
+                               os.path.join(tmp, "direct-a"))
+            plan_cache().clear()
+            d_b = serve_direct(serve_wf_script(zpaths), device,
+                               os.path.join(tmp, "direct-b"))
+            d_b2 = serve_direct(serve_wf_script(zpaths), device,
+                                os.path.join(tmp, "direct-b2"))
+            for who, res, d in (("ta", res_a, d_a), ("tb", res_b, d_b),
+                                ("tb warm", res_b2, d_b2)):
+                if res["meta"]["dispatches"] != d["dispatches"]:
+                    raise AssertionError(
+                        f"serve: {who}'s meta.dispatches "
+                        f"{res['meta']['dispatches']} != the job alone's "
+                        f"{d['dispatches']}")
+                if _wf_lines(res["output"]) != _wf_lines(d["output"]):
+                    raise AssertionError(f"serve: {who}'s screen differs "
+                                         f"from the direct run's")
+            sessions = {}
+            for who, r, res, d, f in (
+                    ("ta", ra, res_a, d_a, fin[ra["id"]]),
+                    ("tb", rb, res_b, d_b, fin[rb["id"]]),
+                    ("tb_warm", rb2, res_b2, d_b2, fin2[rb2["id"]])):
+                sessions[who] = {
+                    "wall_s": res["meta"]["wall_s"],
+                    "queue_s": f - res["meta"]["wall_s"],
+                    "round_trip_s": f,
+                    "direct_s": d["wall_s"],
+                    "overhead_s": f - d["wall_s"],
+                    "dispatches": res["meta"]["dispatches"],
+                    "plan": res["meta"]["plan_cache"]["plan"],
+                    "pages": res["meta"]["pages"]}
+            rec.update(sessions=sessions, submit_s=rt_submit,
+                       launches_pair=pair_launches,
+                       launches_warm=warm_launches, memory=peak,
+                       tb_files=_file_sha(res_b))
+            rec["control"] = serve_control(srv, ta, tb, admin, paths,
+                                           zpaths, kernels, device)
+            # the SLO surfaces
+            os.environ["MRTPU_SLO"] = SERVE_SLO
+            obs_slo.reset()
+            slo = admin.slo()
+            if not slo["objectives"]:
+                raise AssertionError(f"serve: /v1/slo lists no objective: "
+                                     f"{slo}")
+            import urllib.request
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/metrics", timeout=60) as r:
+                text = r.read().decode()
+            if "mrtpu_slo_burn_ratio" not in text:
+                raise AssertionError("serve: /metrics lacks "
+                                     "mrtpu_slo_burn_ratio")
+            rec["control"]["slo_burn"] = slo["burn"]
+        finally:
+            srv.shutdown()
+            obs_slo.reset()
+        # the same pair on one worker, one session after the other
+        rec["pair_one_worker"] = serve_pair_one_worker(paths, zpaths, tmp,
+                                                       device)
+        # a paused daemon with a full queue answers 429 + Retry-After
+        p = Server(port=0, workers=0, paused=True, queue_cap=2,
+                   device=device, state_dir=os.path.join(tmp, "serve-p"))
+        p.start()
+        try:
+            c = ServeClient.local(p.port, token="tok-a")
+            for _ in range(2):
+                c.submit(ops=["mr x"])
+            try:
+                c.submit(ops=["mr x"])
+                raise AssertionError("serve: a full queue admitted")
+            except ServeError as e:
+                if e.code != 429 or not e.retry_after:
+                    raise AssertionError(f"serve: a full queue answered "
+                                         f"{e.code}, Retry-After "
+                                         f"{e.retry_after}")
+                rec["control"]["full_queue"] = [e.code, e.retry_after]
+        finally:
+            p.shutdown()
+    return rec
+
+
+def serve_pair_one_worker(paths, zpaths, tmp, device) -> dict:
+    """serve-main's pair (tb cold again) on a one-worker daemon: each
+    session's round trip, beside the two-worker run's."""
+    from gpu_mapreduce_tpu_torch.plan import plan_cache
+    from gpu_mapreduce_tpu_torch.serve import ServeClient, Server
+    plan_cache().clear()
+    srv = Server(port=0, workers=1, device=device,
+                 state_dir=os.path.join(tmp, "serve-one-worker"))
+    srv.start()
+    try:
+        c = ServeClient.local(srv.port, token="tok-admin", timeout=120)
+        t0 = time.perf_counter()
+        ra = c.submit(script=serve_ii_script(paths), tenant="ta")
+        rb = c.submit(script=serve_wf_script(zpaths), tenant="tb")
+        fin = _wait_all(c, [ra["id"], rb["id"]], t0)
+        res = {who: c.result(r["id"]) for who, r in (("ta", ra), ("tb", rb))}
+    finally:
+        srv.shutdown()
+    if any(x["status"] != "done" for x in res.values()):
+        raise AssertionError(f"serve: the one-worker pair "
+                             f"{[(x['status'], x['error']) for x in res.values()]}")
+    return {"ta": {"round_trip_s": fin[ra["id"]],
+                   "wall_s": res["ta"]["meta"]["wall_s"]},
+            "tb": {"round_trip_s": fin[rb["id"]],
+                   "wall_s": res["tb"]["meta"]["wall_s"]},
+            "both_s": max(fin.values())}
+
+
+def serve_control(srv, ta, tb, admin, paths, zpaths, kernels,
+                  device) -> dict:
+    """serve-control: 401 with the journal unchanged, a tenant's drain
+    403, a foreign id 404, a 1 ms deadline on wordfreq cancelled with
+    the tenant's pages back at 0, a DELETE of a running invertedindex
+    cancelled at a barrier (its latency)."""
+    from gpu_mapreduce_tpu_torch.serve import ServeClient, ServeError
+    out = {}
+    jpath = os.path.join(srv.state_dir, "journal.jsonl")
+    size = os.path.getsize(jpath)
+    codes = {}
+    for name, call in (
+            ("no_token", lambda: ServeClient.local(srv.port).submit(
+                ops=["mr x"])),
+            ("bad_token", lambda: ServeClient.local(
+                srv.port, token="nope").submit(ops=["mr x"])),
+            ("tenant_drain", lambda: ta.drain()),
+            ("foreign_id", lambda: tb.status("s000001")),
+            ("foreign_cancel", lambda: tb.cancel("s000001"))):
+        try:
+            call()
+            codes[name] = 200
+        except ServeError as e:
+            codes[name] = e.code
+    if codes != {"no_token": 401, "bad_token": 401, "tenant_drain": 403,
+                 "foreign_id": 404, "foreign_cancel": 404}:
+        raise AssertionError(f"serve: control codes {codes}")
+    if os.path.getsize(jpath) != size:
+        raise AssertionError("serve: a refused request wrote the journal")
+    out["codes"] = codes
+    # a 1 ms deadline
+    r = tb.submit(script=serve_wf_script(zpaths), deadline_ms=1)
+    res = tb.wait(r["id"], timeout=SERVE_WAIT_S, poll_s=0.01)
+    if res["status"] != "cancelled" or \
+            res["meta"]["cancel_reason"] != "deadline":
+        raise AssertionError(f"serve: the 1 ms deadline gave "
+                             f"{res['status']} ({res.get('error')})")
+    pages = srv.budgets.snapshot()["tb"]["bytes_in_use"]
+    if pages != 0:
+        raise AssertionError(f"serve: tb holds {pages} bytes after the "
+                             f"deadline")
+    out["deadline"] = {"status": res["status"],
+                       "wall_s": res["meta"]["wall_s"], "tb_bytes": pages}
+    # DELETE of a running invertedindex
+    r = ta.submit(script=serve_ii_script(paths, out=None, times=4))
+    deadline = time.perf_counter() + SERVE_WAIT_S
+    while ta.status(r["id"])["state"] == "queued":
+        if time.perf_counter() > deadline:
+            raise AssertionError("serve: the DELETE's session never ran")
+        time.sleep(0.005)
+    # land the DELETE inside the first invertedindex command (≈ 0.4 s
+    # on the card), so the latency is the wait for its next barrier
+    time.sleep(SERVE_DELETE_AFTER_S)
+    t0 = time.perf_counter()
+    ack = ta.cancel(r["id"])
+    fin = _wait_all(admin, [r["id"]], t0)
+    res = ta.result(r["id"])
+    if res["status"] != "cancelled" or \
+            res["meta"]["cancel_reason"] != "client":
+        raise AssertionError(f"serve: DELETE gave {res['status']} "
+                             f"({res.get('error')})")
+    out["cancel"] = {"ack": ack["state"], "latency_s": fin[r["id"]],
+                     "wall_s": res["meta"]["wall_s"],
+                     "ta_bytes": srv.budgets.snapshot()["ta"][
+                         "bytes_in_use"]}
+    return out
+
+
+def serve_memo(zpaths, zoracle, tmp, kernels, device, want: dict) -> dict:
+    """serve-memo: with a content store armed, one daemon computes tb's
+    script and stores its record; a second daemon serves it as a hit: 0
+    launches, 0 dispatches, a ``cache_hit`` journal record, the files
+    serve-main wrote."""
+    from gpu_mapreduce_tpu_torch.ft.journal import read_journal
+    from gpu_mapreduce_tpu_torch.serve import ServeClient, Server
+    from gpu_mapreduce_tpu_torch.utils.cas import reset_store
+    out = {}
+    with cache_env(MRTPU_CAS_DIR=os.path.join(tmp, "serve-cas"),
+                   MRTPU_SERVE_TOKENS=None, MRTPU_MEMOIZE=None):
+        reset_store()
+        try:
+            for name in ("compute", "hit"):
+                state = os.path.join(tmp, f"serve-memo-{name}")
+                srv = Server(port=0, workers=1, device=device,
+                             state_dir=state)
+                srv.start()
+                try:
+                    c = ServeClient.local(srv.port, timeout=120)
+                    _zero(kernels)
+                    t0 = time.perf_counter()
+                    r = c.submit(script=serve_wf_script(zpaths),
+                                 tenant="tb")
+                    fin = _wait_all(c, [r["id"]], t0)
+                    _sync(device)
+                    res = c.result(r["id"])
+                finally:
+                    srv.shutdown()
+                memo = res["meta"]["memo"]
+                if res["status"] != "done" or \
+                        memo["hit"] != (name == "hit"):
+                    raise AssertionError(f"serve-memo {name}: "
+                                         f"{res['status']}, memo {memo}")
+                if _file_sha(res) != want:
+                    raise AssertionError(f"serve-memo {name}: other files")
+                if _wf_lines(res["output"]) != zoracle["message"]:
+                    raise AssertionError(f"serve-memo {name}: the message "
+                                         f"lines differ from the oracle")
+                kinds = [x["kind"] for x in read_journal(state)]
+                out[name] = {"round_trip_s": fin[r["id"]],
+                             "wall_s": res["meta"]["wall_s"],
+                             "dispatches": res["meta"]["dispatches"],
+                             "launches": _launches(kernels),
+                             "journal": kinds}
+            hit = out["hit"]
+            if hit["dispatches"] != 0 or any(hit["launches"].values()) or \
+                    hit["journal"] != ["serve_submit", "cache_hit",
+                                       "serve_done"]:
+                raise AssertionError(f"serve-memo: the hit ran work: {hit}")
+        finally:
+            reset_store()
+    return out
+
+
+def _spawn_serve(state: str, workers: int, env: dict, log: str):
+    """``python -m gpu_mapreduce_tpu_torch.serve`` in a fresh interpreter
+    (never a fork of this process): (process, port, seconds to its
+    ``serving`` line)."""
+    import json as _json
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = [sys.executable, "-m", "gpu_mapreduce_tpu_torch.serve", "--port",
+            "0", "--state", state, "--workers", str(workers)]
+    if SERVE_CPU:
+        args += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(args, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=open(log, "ab"))
+    line = p.stdout.readline()
+    if not line:
+        p.wait(timeout=60)
+        with open(log, errors="replace") as f:
+            raise AssertionError(f"serve-recover: the daemon exited "
+                                 f"{p.returncode}:\n{f.read()[-3000:]}")
+    return p, int(_json.loads(line)["serving"]), time.perf_counter() - t0
+
+
+def serve_recover(paths, tmp, device, scale: int) -> dict:
+    """serve-recover: the graph script and two op batches through an
+    in-process daemon (the golden), then through ``python -m
+    gpu_mapreduce_tpu_torch.serve`` on one worker, SIGKILLed once the
+    graph session's journal holds a checkpointed command, and restarted
+    on the same state directory: the session resumes, every file equals
+    the golden's, the batches replay in admission order."""
+    from gpu_mapreduce_tpu_torch.ft.journal import read_journal
+    from gpu_mapreduce_tpu_torch.serve import ServeClient, Server
+    script = serve_graph_script(scale)
+    batches = serve_batches(paths, scale)
+    out = {}
+    with cache_env(MRTPU_SERVE_TOKENS=None, MRTPU_CAS_DIR=None):
+        g = Server(port=0, workers=1, device=device,
+                   state_dir=os.path.join(tmp, "serve-golden"))
+        g.start()
+        try:
+            c = ServeClient.local(g.port, timeout=120)
+            t0 = time.perf_counter()
+            sids = [c.submit(script=script)["id"]] + \
+                [c.submit(ops=b)["id"] for b in batches]
+            _wait_all(c, sids, t0)
+            golden = [c.result(s) for s in sids]
+            out["golden_s"] = time.perf_counter() - t0
+        finally:
+            g.shutdown()
+        if any(r["status"] != "done" for r in golden):
+            raise AssertionError(f"serve-recover: the golden run "
+                                 f"{[(r['status'], r['error']) for r in golden]}")
+        state = os.path.join(tmp, "serve-recover")
+        log = os.path.join(tmp, "serve-recover.log")
+        env = dict(os.environ, MRTPU_CKPT_EVERY="1",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        p, port, first_s = _spawn_serve(state, 1, env, log)
+        sjournal = os.path.join(state, "sessions", "s000001")
+        try:
+            c = ServeClient.local(port, timeout=120)
+            sids = [c.submit(script=script)["id"]] + \
+                [c.submit(ops=b)["id"] for b in batches]
+            deadline = time.perf_counter() + SERVE_WAIT_S
+            while True:
+                try:
+                    kinds = [x["kind"] for x in read_journal(sjournal)]
+                except Exception:
+                    kinds = []
+                if "ckpt" in kinds:
+                    break
+                if p.poll() is not None or time.perf_counter() > deadline:
+                    raise AssertionError("serve-recover: no checkpoint "
+                                         "before the daemon ended")
+                time.sleep(0.02)
+            p.kill()                                # SIGKILL
+            p.wait(timeout=60)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        done_before = [x.get("sid") for x in read_journal(state)
+                       if x.get("kind") == "serve_done"]
+        if done_before:
+            raise AssertionError(f"serve-recover: {done_before} finished "
+                                 f"before the kill")
+        env.pop("MRTPU_CKPT_EVERY")
+        t_restart = time.perf_counter()
+        p, port, serving_s = _spawn_serve(state, 1, env, log)
+        try:
+            c = ServeClient.local(port, timeout=120)
+            fin = _wait_all(c, sids, t_restart)
+            got = [c.result(s) for s in sids]
+            c.shutdown()
+            p.wait(timeout=120)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if not got[0]["meta"]["resumed"]:
+        raise AssertionError("serve-recover: the graph session was not "
+                             "resumed")
+    for g_res, res in zip(golden, got):
+        if res["status"] != "done" or _file_sha(res) != _file_sha(g_res) \
+                or res["files"].keys() != g_res["files"].keys():
+            raise AssertionError(f"serve-recover: {res['id']} "
+                                 f"{res['status']} ({res.get('error')}): "
+                                 f"its files differ from the golden run")
+    order = [x["sid"] for x in read_journal(state)
+             if x.get("kind") == "serve_done"]
+    if order != sids:
+        raise AssertionError(f"serve-recover: replayed in order {order}")
+    out.update(first_serving_s=first_s, restart_serving_s=serving_s,
+               restart_first_result_s=min(fin.values()),
+               restart_all_s=max(fin.values()),
+               resumed_wall_s=got[0]["meta"]["wall_s"],
+               golden_wall_s=golden[0]["meta"]["wall_s"],
+               files={k: v["bytes"] for k, v in got[0]["files"].items()})
+    return out
+
+
+def run_serve(paths, nref: int, nuniq: int, zpaths, zoracle: dict,
+              tmp: str, kernels, smi: str, device,
+              scale: int = SERVE_GRAPH_SCALE) -> dict:
+    """The serve phase: serve-main (with serve-control), serve-memo and
+    serve-recover; the ``serve`` line."""
+    t_phase = time.perf_counter()
+    oracle_part = oracle_part_file_parallel(paths)
+    secs = {}
+    t0 = time.perf_counter()
+    main = serve_main(paths, nref, nuniq, zpaths, zoracle, tmp, kernels,
+                      device, oracle_part)
+    secs["main"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    memo = serve_memo(zpaths, zoracle, tmp, kernels, device,
+                      main.pop("tb_files"))
+    secs["memo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recover = serve_recover(paths, tmp, device, scale)
+    secs["recover"] = time.perf_counter() - t0
+    launches = {k.__name__: {"pair": main["launches_pair"][k.__name__],
+                             "warm_resubmit":
+                                 main["launches_warm"][k.__name__],
+                             "memo_hit": memo["hit"]["launches"][
+                                 k.__name__]}
+                for k in kernels}
+    return {"phase": "serve", "card": smi, "device": str(device),
+            "serving_s": main["serving_s"],
+            "first_result_s": main["first_result_s"],
+            "warm_build_s": main["warm_build_s"],
+            "sessions": main["sessions"], "submit_s": main["submit_s"],
+            "pair_one_worker": main["pair_one_worker"],
+            "memory": main["memory"], "control": main["control"],
+            "memo": memo, "recover": recover, "launches": launches,
+            "part_seconds": secs,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def serve_alone(card: bool) -> int:
+    """``chip_smoke.py --serve-alone``: the serve phase alone on the card
+    at its full size, its inputs made here (the 256 MB main corpus and
+    the 256 MB wordfreq-zipf corpus with its oracle).
+    ``--serve-rehearse``: the same on the CPU at 2 MB and a scale-10
+    graph, every gate but the launch counts.  Prints the serve line."""
+    import torch
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.ops import cuda as kcuda
+    from gpu_mapreduce_tpu_torch.ops.cuda import group, match
+    global SERVE_CPU
+    if card:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 2
+        kcuda.build_all()
+        smi = nvidia_smi()
+        main_mb, zipf_mb, scale = MAIN_MB, WF_MB, SERVE_GRAPH_SCALE
+    else:
+        SERVE_CPU = True
+        smi = "cpu rehearsal"
+        main_mb, zipf_mb, scale = 2, 2, 10
+    device = serve_device()
+    kernels = [match.mark_words, group.segment_table, match.mark]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "main"))
+        paths, nref, nuniq = make_corpus(os.path.join(tmp, "main"), main_mb)
+        zdir = os.path.join(tmp, "zipf")
+        os.makedirs(zdir)
+        zpaths, counts, vbuf, voffs = zipf_corpus(zdir, zipf_mb)
+        words = [vbuf[voffs[i]:voffs[i + 1]].tobytes()
+                 for i in range(len(voffs) - 1)]
+        zoracle = wordfreq_oracle(words, counts, len(zpaths))
+        del words, counts, vbuf, voffs
+        inputs_s = time.perf_counter() - t0
+        rec = run_serve(paths, nref, nuniq, zpaths, zoracle, tmp, kernels,
+                        smi, device, scale=scale)
+        rec["inputs_s"] = inputs_s
+        rec["alone_seconds"] = time.perf_counter() - t0
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6909,6 +7621,9 @@ def main() -> int:
         cache_rec = run_cache(paths, nref, nuniq, int_keys["uniform"],
                               zipf[0][0], tmp, kernels, smi, device)
         emit(cache_rec)
+        serve_rec = run_serve(paths, nref, nuniq, zipf[0], zipf[1], tmp,
+                              kernels, smi, device)
+        emit(serve_rec)
         shutil.rmtree(main_dir)
         shutil.rmtree(os.path.dirname(zipf[0][0]))
     finally:
@@ -6961,7 +7676,11 @@ def main() -> int:
                     # the cache phase: the native engine's map, the
                     # persisted plans' processes A (cold) and B (warm),
                     # the dedup'd checkpoint, each stream batch
-                    "launches_stream": cache_rec["launches"][k]}
+                    "launches_stream": cache_rec["launches"][k],
+                    # the serve phase: the pair at once (ta's
+                    # invertedindex, tb's cold fused wordfreq), tb's warm
+                    # resubmit, the memo hit
+                    "launches_serve": serve_rec["launches"][k]}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -7044,4 +7763,6 @@ if __name__ == "__main__":
         sys.exit(cache_stream_child(*sys.argv[2:7]))
     if sys.argv[1:2] in (["--cache-rehearse"], ["--cache-alone"]):
         sys.exit(cache_alone(sys.argv[1] == "--cache-alone"))
+    if sys.argv[1:2] in (["--serve-rehearse"], ["--serve-alone"]):
+        sys.exit(serve_alone(sys.argv[1] == "--serve-alone"))
     sys.exit(main())

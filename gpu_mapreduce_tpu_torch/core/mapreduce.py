@@ -196,10 +196,8 @@ class MapReduce:
                                else None)
         # so are the live metrics: metrics_port=N serves /metrics on
         # localhost:N; a bind failure warns (metrics never fail the app
-        # they observe), an SLO objective (MRTPU_SLO) raises
+        # they observe)
         if metrics_port is not None:
-            from ..obs.metrics import _refuse_slo
-            _refuse_slo()
             try:
                 from ..obs.httpd import ensure_server
                 ensure_server(int(metrics_port))

@@ -14,6 +14,7 @@ used only when the caller asks for it (the tests do).
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import threading
 import time
@@ -112,16 +113,24 @@ class Counters:
         with self._lock:
             for name, delta in deltas.items():
                 setattr(self, name, getattr(self, name) + delta)
+        if "wsize" in deltas or "rsize" in deltas:
+            acct = getattr(_ACCOUNT_TLS, "acct", None)
+            if acct is not None:
+                acct.note_io(deltas.get("wsize", 0), deltas.get("rsize", 0))
         feed = _REQUEST_FEED
         if feed is not None:
             feed("add", deltas)
 
     def mem(self, delta: int) -> None:
-        """Move the resident bytes by ``delta`` and keep the hi-water."""
+        """Move the resident bytes by ``delta`` and keep the hi-water;
+        the thread's tenant :class:`PageAccount`, if any, is charged too."""
         with self._lock:
             self.msize += delta
             if self.msize > self.msizemax:
                 self.msizemax = self.msize
+        acct = getattr(_ACCOUNT_TLS, "acct", None)
+        if acct is not None:
+            acct.charge(delta)
         feed = _REQUEST_FEED
         if feed is not None:
             feed("mem", delta)
@@ -140,6 +149,84 @@ class Counters:
                          "crsize", "cspad", "ndispatch"):
                 setattr(self, name, 0)
             self.commtime = 0.0
+
+
+class PageAccount:
+    """Per-tenant frame-residency accounting (``serve/budget.py``).
+
+    A tenant's budget is enforced by the page machinery itself: a
+    session's MRs get ``maxpage``/``memsize``/``outofcore`` from the
+    tenant's allowance and spill like any memory-bound run.  This class
+    attributes: bytes charged through :meth:`Counters.mem` while a tenant
+    scope is installed land here (the ``mrtpu_tenant_pages{tenant}``
+    gauge).  Attribution is thread-scoped (:func:`page_account_scope`):
+    helper threads a session starts bill the global counters only.  The
+    bytes are frame bytes, not the caching allocator's reserve."""
+
+    __slots__ = ("tenant", "page_bytes", "limit_pages", "bytes_in_use",
+                 "hi_water", "spilled_bytes", "reread_bytes", "_lock")
+
+    def __init__(self, tenant: str, page_bytes: int, limit_pages: int = 0):
+        self.tenant = tenant
+        self.page_bytes = max(1, int(page_bytes))
+        self.limit_pages = int(limit_pages)      # 0 = unlimited
+        self.bytes_in_use = 0
+        self.hi_water = 0
+        self.spilled_bytes = 0       # disk traffic this tenant paid
+        self.reread_bytes = 0
+        self._lock = threading.Lock()
+
+    def charge(self, delta: int) -> None:
+        with self._lock:
+            self.bytes_in_use = max(0, self.bytes_in_use + int(delta))
+            if self.bytes_in_use > self.hi_water:
+                self.hi_water = self.bytes_in_use
+
+    def note_io(self, wsize: int, rsize: int) -> None:
+        with self._lock:
+            self.spilled_bytes += int(wsize)
+            self.reread_bytes += int(rsize)
+
+    def pages_in_use(self) -> float:
+        with self._lock:
+            return self.bytes_in_use / self.page_bytes
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"tenant": self.tenant,
+                    "bytes_in_use": self.bytes_in_use,
+                    "hi_water": self.hi_water,
+                    "spilled_bytes": self.spilled_bytes,
+                    "reread_bytes": self.reread_bytes,
+                    "page_bytes": self.page_bytes,
+                    "pages_in_use": round(self.bytes_in_use
+                                          / self.page_bytes, 4),
+                    "limit_pages": self.limit_pages}
+
+
+_ACCOUNT_TLS = threading.local()
+
+
+def set_page_account(acct):
+    """Install ``acct`` as THIS thread's tenant account; returns the
+    previous one (callers restore it)."""
+    prev = getattr(_ACCOUNT_TLS, "acct", None)
+    _ACCOUNT_TLS.acct = acct
+    return prev
+
+
+def current_page_account():
+    return getattr(_ACCOUNT_TLS, "acct", None)
+
+
+@contextlib.contextmanager
+def page_account_scope(acct):
+    """``with page_account_scope(acct):`` installs and restores."""
+    prev = set_page_account(acct)
+    try:
+        yield acct
+    finally:
+        set_page_account(prev)
 
 
 # the request-context hook: obs/context.py installs its feed here when

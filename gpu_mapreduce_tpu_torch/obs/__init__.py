@@ -21,8 +21,9 @@ snapshot, artifact and file formats, and the same metric names).
 
 Enable tracing with ``MRTPU_TRACE=/path/trace.jsonl`` (``1``: the ring
 only), ``MapReduce(trace=...)`` or ``get_tracer().enable()``.  Disabled,
-``tracer.span()`` returns a shared no-op singleton.  Not ported yet: the
-tenant SLO engine (``obs/slo.py``, with ``serve/``).
+``tracer.span()`` returns a shared no-op singleton.  The tenant SLO
+engine (``slo.py``) turns the serve daemon's session metrics into
+multi-window burn rates.
 """
 
 from .tracer import (NULL_SPAN, Span, Tracer, configure_from_env,

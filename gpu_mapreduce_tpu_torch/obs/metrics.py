@@ -15,8 +15,8 @@ the hi-water of bytes resident on the card here), the plan cache, ft/
 and exec/ into the registry.  Everything here is crash-proof: a metrics
 fault never fails the op that reported it.
 
-The SLO collector needs ``obs/slo.py``, which comes with ``serve/``:
-with ``MRTPU_SLO`` set, :func:`enable_metrics` raises ``MRError``.
+The SLO collector ticks the tenant SLO engine (``obs/slo.py``) at each
+scrape, refreshing ``mrtpu_slo_burn_ratio{tenant,window}``.
 """
 
 from __future__ import annotations
@@ -424,14 +424,15 @@ def _collect_exec(reg: MetricsRegistry) -> None:
         g.set(rec["overlap_ratio"], path=path)
 
 
-def _refuse_slo() -> None:
-    """The tenant SLO engine (``obs/slo.py``) comes with ``serve/``: an
-    objective set in ``MRTPU_SLO`` is refused, never silently unwatched."""
-    from ..utils.env import env_str
-    if env_str("MRTPU_SLO", ""):
-        from ..core.runtime import MRError
-        raise MRError("MRTPU_SLO: the tenant SLO engine (obs/slo.py) is "
-                      "not ported yet")
+def _collect_slo(reg: MetricsRegistry) -> None:
+    """Tick the tenant SLO engine (obs/slo.py) at scrape time: windowed
+    burn rates over the serve session counters this registry holds,
+    refreshing ``mrtpu_slo_burn_ratio{tenant,window}``.  A no-op when no
+    objective is configured (``MRTPU_SLO`` unset)."""
+    from . import slo as _slo
+    eng = _slo.get_engine()
+    if eng is not None:
+        eng.tick(reg=reg)
 
 
 def enable_metrics(flight: Optional[bool] = None) -> MetricsRegistry:
@@ -439,14 +440,14 @@ def enable_metrics(flight: Optional[bool] = None) -> MetricsRegistry:
     to the process tracer (this enables tracing), register the Counters,
     plan-cache, exec/ and ft/ collectors, and — unless ``flight=False``
     or ``MRTPU_FLIGHT=0`` — arm the flight recorder (obs/flight.py).
-    Raises ``MRError`` when ``MRTPU_SLO`` is set (not ported yet)."""
+    The SLO collector ticks ``MRTPU_SLO``'s objectives at scrape time."""
     global _ENABLED
-    _refuse_slo()
     reg = get_registry()
     reg.register_collector(_collect_counters)
     reg.register_collector(_collect_plan)
     reg.register_collector(_collect_exec)
     reg.register_collector(_collect_ft)
+    reg.register_collector(_collect_slo)
     from .tracer import get_tracer
     get_tracer().subscribe_once(_bridge_emit)
     _ENABLED = True

@@ -1,0 +1,411 @@
+"""Tenant SLO engine: declarative objectives, multi-window burn rates.
+
+The serve/ daemon already exports per-tenant session counters and a
+latency histogram (``mrtpu_serve_sessions_total{tenant,status}``,
+``mrtpu_serve_session_seconds{tenant,status}``) — but an operator
+watching raw counters has to do the error-budget arithmetic by hand.
+This module closes the loop:
+
+* **objectives** are declared in ``MRTPU_SLO`` (or programmatically via
+  :func:`configure`)::
+
+      MRTPU_SLO="tenant=*;p99_ms=5000;err_pct=1"
+      MRTPU_SLO="tenant=acme;p99_ms=2000;err_pct=0.5;windows=300,3600|tenant=*;err_pct=5"
+
+  ``tenant=*`` matches every tenant without a more specific objective.
+  ``p99_ms`` means "99% of sessions complete under this"; its error
+  budget is the remaining 1%.  ``err_pct`` is the failed-session
+  budget.  ``windows`` (seconds, comma-separated; default 300,3600)
+  are the burn-rate evaluation windows.
+
+* **burn rate** = (budget consumed in a window) / (budget available
+  for that window): 1.0 means exactly on budget, 10 means the budget
+  burns 10× too fast.  Evaluated per tenant per window from DELTAS of
+  the metrics-registry counters — the engine keeps a ring of periodic
+  registry snapshots, so it composes with any feeder of those metrics,
+  not just the in-process daemon.  Latency burn uses the histogram's
+  bucket resolution (a threshold between boundaries rounds UP to the
+  next bucket edge — conservative: never under-reports slowness).
+
+* **exposure**: ``mrtpu_slo_burn_ratio{tenant,window}`` gauges
+  (refreshed at scrape time via the obs/metrics collector), the serve/
+  daemon's ``GET /v1/slo``, and :meth:`SLOEngine.snapshot`.
+
+* **burn alerts**: when a tenant burns >``MRTPU_SLO_BURN`` (default 1)
+  in EVERY window of its objective — the classic multi-window AND that
+  filters blips — the engine records an alert, bumps
+  ``mrtpu_slo_alerts_total{tenant}`` and ARMS the flight recorder
+  (obs/flight.py), so the forensic ring is already collecting when the
+  operator comes looking.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+DEFAULT_WINDOWS = (300.0, 3600.0)
+
+_SESSIONS_METRIC = "mrtpu_serve_sessions_total"
+_LATENCY_METRIC = "mrtpu_serve_session_seconds"
+
+
+class SLOObjective:
+    """One declarative objective: a tenant selector plus latency and/or
+    error-rate targets over a set of burn windows."""
+
+    __slots__ = ("tenant", "p99_ms", "err_pct", "windows")
+
+    def __init__(self, tenant: str = "*", p99_ms: Optional[float] = None,
+                 err_pct: Optional[float] = None,
+                 windows: Tuple[float, ...] = DEFAULT_WINDOWS):
+        if p99_ms is None and err_pct is None:
+            raise ValueError("SLO objective needs p99_ms and/or err_pct")
+        if p99_ms is not None and p99_ms <= 0:
+            raise ValueError(f"p99_ms must be > 0, got {p99_ms}")
+        if err_pct is not None and not 0 < err_pct <= 100:
+            raise ValueError(f"err_pct must be in (0, 100], got {err_pct}")
+        if not windows:
+            raise ValueError("SLO objective needs at least one window")
+        self.tenant = tenant
+        self.p99_ms = p99_ms
+        self.err_pct = err_pct
+        self.windows = tuple(sorted(float(w) for w in windows))
+
+    def describe(self) -> dict:
+        return {"tenant": self.tenant, "p99_ms": self.p99_ms,
+                "err_pct": self.err_pct, "windows": list(self.windows)}
+
+
+def parse_slo(text: str) -> List[SLOObjective]:
+    """``"tenant=*;p99_ms=5000;err_pct=1|tenant=acme;..."`` →
+    objectives.  Unknown fields raise (→ one stderr warning via
+    :func:`get_engine`) — a typo'd knob silently watching nothing would
+    be the worst failure mode for an alerting layer."""
+    out = []
+    for spec in text.split("|"):
+        spec = spec.strip()
+        if not spec:
+            continue
+        fields: Dict[str, str] = {}
+        for part in spec.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(f"bad SLO field {part!r} (need k=v)")
+            k, v = part.split("=", 1)
+            fields[k.strip()] = v.strip()
+        unknown = set(fields) - {"tenant", "p99_ms", "err_pct", "windows"}
+        if unknown:
+            raise ValueError(f"unknown SLO fields {sorted(unknown)} "
+                             f"(known: tenant, p99_ms, err_pct, windows)")
+        windows = DEFAULT_WINDOWS
+        if "windows" in fields:
+            windows = tuple(float(w) for w in
+                            fields["windows"].split(",") if w.strip())
+        out.append(SLOObjective(
+            tenant=fields.get("tenant", "*"),
+            p99_ms=float(fields["p99_ms"]) if "p99_ms" in fields
+            else None,
+            err_pct=float(fields["err_pct"]) if "err_pct" in fields
+            else None,
+            windows=windows))
+    return out
+
+
+def _bucket_slow_count(sample: dict, threshold_s: float) -> int:
+    """Sessions in one histogram child slower than ``threshold_s``:
+    total count minus the cumulative count of the smallest bucket edge
+    ≥ the threshold (bucket resolution; conservative)."""
+    best_le, best_cum = None, None
+    for le, cum in sample.get("buckets", {}).items():
+        edge = float("inf") if le == "+Inf" else float(le)
+        if edge >= threshold_s and (best_le is None or edge < best_le):
+            best_le, best_cum = edge, cum
+    if best_cum is None:
+        return 0
+    return max(0, int(sample.get("count", 0)) - int(best_cum))
+
+
+class SLOEngine:
+    """Snapshot ring + burn-rate evaluator + alert edge detector."""
+
+    def __init__(self, objectives: List[SLOObjective]):
+        self.objectives = list(objectives)
+        self._lock = threading.Lock()
+        self._snaps: List[tuple] = []       # (ts, {tenant: counts})
+        self._last_tick = 0.0
+        self._burn: Dict[str, Dict[str, float]] = {}
+        self._firing: Dict[str, dict] = {}  # tenant → active alert
+        self.alerts: List[dict] = []        # history (bounded)
+        self._t0 = time.time()
+
+    # -- objective lookup --------------------------------------------------
+    def objective_for(self, tenant: str) -> Optional[SLOObjective]:
+        """Most specific objective: exact tenant match beats ``*``."""
+        fallback = None
+        for obj in self.objectives:
+            if obj.tenant == tenant:
+                return obj
+            if obj.tenant == "*":
+                fallback = fallback or obj
+        return fallback
+
+    # -- registry reading --------------------------------------------------
+    def _read(self, reg) -> Dict[str, dict]:
+        """Per-tenant cumulative counts from the registry's serve
+        metrics, WITHOUT running collectors (this runs inside one):
+        total/failed sessions plus slow counts for every latency
+        threshold an objective declares."""
+        thresholds = sorted({o.p99_ms / 1000.0 for o in self.objectives
+                             if o.p99_ms is not None})
+        out: Dict[str, dict] = {}
+
+        def row(tenant: str) -> dict:
+            r = out.get(tenant)
+            if r is None:
+                r = out[tenant] = {"total": 0, "failed": 0,
+                                   "slow": {t: 0 for t in thresholds}}
+            return r
+
+        sess = reg._metrics.get(_SESSIONS_METRIC)
+        if sess is not None:
+            for s in sess.samples():
+                lab = s["labels"]
+                r = row(lab.get("tenant", "default"))
+                n = int(s["value"])
+                r["total"] += n
+                if lab.get("status") == "failed":
+                    r["failed"] += n
+        lat = reg._metrics.get(_LATENCY_METRIC)
+        if lat is not None and thresholds:
+            for s in lat.samples():
+                r = row(s["labels"].get("tenant", "default"))
+                for t in thresholds:
+                    r["slow"][t] += _bucket_slow_count(s, t)
+        return out
+
+    # -- evaluation --------------------------------------------------------
+    def tick(self, now: Optional[float] = None, reg=None,
+             force: bool = False) -> Dict[str, Dict[str, float]]:
+        """Snapshot the registry and re-evaluate every objective.
+        Rate-limited (a tenth of the shortest window, ≥0.5 s) so scrape
+        storms don't grow the ring; ``force`` and an explicit ``now``
+        bypass it (tests drive synthetic clocks)."""
+        if not self.objectives:
+            return {}
+        if reg is None:
+            from .metrics import get_registry
+            reg = get_registry()
+        t = time.time() if now is None else now
+        min_w = min(w for o in self.objectives for w in o.windows)
+        with self._lock:
+            if not force and now is None and \
+                    t - self._last_tick < max(0.5, min_w / 10.0):
+                return dict(self._burn)
+            self._last_tick = t
+        snap = self._read(reg)
+        max_w = max(w for o in self.objectives for w in o.windows)
+        with self._lock:
+            self._snaps.append((t, snap))
+            # keep 1.5× the longest window of history, min 8 entries
+            cutoff = t - max_w * 1.5
+            while len(self._snaps) > 8 and self._snaps[0][0] < cutoff:
+                self._snaps.pop(0)
+            snaps = list(self._snaps)
+        burn = self._evaluate(t, snaps)
+        self._export(reg, burn)
+        self._alerting(t, burn)
+        with self._lock:
+            self._burn = burn
+        return burn
+
+    def _baseline(self, snaps, t: float, window: float) -> dict:
+        """The newest snapshot at or before ``t - window``.  A young
+        engine (no snapshot that old) uses zero — all observed traffic
+        counts against the window, which over-reports burn briefly
+        rather than under-reporting it."""
+        base: dict = {}
+        for ts, snap in snaps:
+            if ts <= t - window:
+                base = snap
+            else:
+                break
+        return base
+
+    def _evaluate(self, t: float, snaps) -> Dict[str, Dict[str, float]]:
+        cur = snaps[-1][1] if snaps else {}
+        burn: Dict[str, Dict[str, float]] = {}
+        for tenant, row in cur.items():
+            obj = self.objective_for(tenant)
+            if obj is None:
+                continue
+            per = burn.setdefault(tenant, {})
+            for w in obj.windows:
+                base = self._baseline(snaps, t, w).get(tenant, {})
+                d_total = row["total"] - base.get("total", 0)
+                if d_total <= 0:
+                    per[f"{int(w)}s"] = 0.0
+                    continue
+                b = 0.0
+                if obj.err_pct is not None:
+                    d_failed = row["failed"] - base.get("failed", 0)
+                    b = max(b, (d_failed / d_total)
+                            / (obj.err_pct / 100.0))
+                if obj.p99_ms is not None:
+                    thr = obj.p99_ms / 1000.0
+                    d_slow = row["slow"].get(thr, 0) \
+                        - base.get("slow", {}).get(thr, 0)
+                    b = max(b, (d_slow / d_total) / 0.01)
+                per[f"{int(w)}s"] = round(b, 4)
+        return burn
+
+    def _export(self, reg, burn) -> None:
+        try:
+            g = reg.gauge("mrtpu_slo_burn_ratio",
+                          "SLO error-budget burn rate per tenant and "
+                          "evaluation window (1 = exactly on budget)",
+                          ("tenant", "window"))
+            for tenant, per in burn.items():
+                for window, b in per.items():
+                    g.set(b, tenant=tenant, window=window)
+        except Exception:
+            pass
+
+    def _alerting(self, t: float, burn) -> None:
+        """Multi-window AND edge detection; a rising edge arms the
+        flight recorder so evidence collection starts BEFORE anyone
+        investigates."""
+        from ..utils.env import env_knob
+        thresh = env_knob("MRTPU_SLO_BURN", float, 1.0)
+        for tenant, per in burn.items():
+            obj = self.objective_for(tenant)
+            if obj is None or not per:
+                continue
+            firing = all(per.get(f"{int(w)}s", 0.0) > thresh
+                         for w in obj.windows)
+            with self._lock:
+                was = tenant in self._firing
+                if firing and not was:
+                    alert = {"tenant": tenant,
+                             "utc": time.strftime(
+                                 "%Y-%m-%dT%H:%M:%SZ", time.gmtime(t)),
+                             "burn": dict(per),
+                             "objective": obj.describe()}
+                    self._firing[tenant] = alert
+                    self.alerts.append(alert)
+                    del self.alerts[:-64]
+                elif not firing and was:
+                    del self._firing[tenant]
+                    continue
+                elif not firing or was:
+                    continue
+            # rising edge only (outside the lock: flight/metrics take
+            # their own locks and must never nest under ours)
+            try:
+                from . import flight as _flight
+                _flight.enable()
+            except Exception:
+                pass
+            try:
+                from .metrics import get_registry
+                get_registry().counter(
+                    "mrtpu_slo_alerts_total",
+                    "SLO burn alerts raised (multi-window AND edge)",
+                    ("tenant",)).inc(tenant=tenant)
+            except Exception:
+                pass
+            print(f"SLO burn alert: tenant {tenant!r} over budget in "
+                  f"every window ({per}) — flight recorder armed",
+                  file=sys.stderr)
+
+    def burning(self, tenant: str,
+                thresh: Optional[float] = None) -> bool:
+        """The multi-window AND, as a query: is ``tenant`` currently
+        burning past ``thresh`` (default ``MRTPU_SLO_BURN``) in EVERY
+        window of its objective?  Same predicate as the alert edge
+        detector — the serve/ admission shedder keys off it, so a
+        tenant is shed exactly when it would (or did) alert
+        (doc/serve.md#slo-burn-shedding)."""
+        obj = self.objective_for(tenant)
+        if obj is None:
+            return False
+        if thresh is None:
+            from ..utils.env import env_knob
+            thresh = env_knob("MRTPU_SLO_BURN", float, 1.0)
+        with self._lock:
+            per = dict(self._burn.get(tenant) or {})
+        if not per:
+            return False
+        return all(per.get(f"{int(w)}s", 0.0) > thresh
+                   for w in obj.windows)
+
+    def min_window(self) -> float:
+        """Shortest declared window — the honest Retry-After scale for
+        burn-driven shedding (the burn decays over this window)."""
+        return min((w for o in self.objectives for w in o.windows),
+                   default=DEFAULT_WINDOWS[0])
+
+    # -- read-out ----------------------------------------------------------
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"objectives": [o.describe() for o in self.objectives],
+                    "burn": {t: dict(p) for t, p in self._burn.items()},
+                    "firing": sorted(self._firing),
+                    "alerts": list(self.alerts)}
+
+
+# ---------------------------------------------------------------------------
+# process-global engine (env-armed, like every other obs knob)
+# ---------------------------------------------------------------------------
+
+_ENGINE: Optional[SLOEngine] = None
+_ENV_APPLIED: Optional[str] = None
+_LOCK = threading.Lock()
+
+
+def configure(objectives: List[SLOObjective]) -> SLOEngine:
+    """Programmatic twin of ``MRTPU_SLO`` (replaces the active engine)."""
+    import os
+    global _ENGINE, _ENV_APPLIED
+    with _LOCK:
+        _ENGINE = SLOEngine(objectives)
+        # record the CURRENT env value as applied: explicit config wins
+        # until MRTPU_SLO actually changes — otherwise the very next
+        # get_engine() (any metrics scrape) would see an "unapplied"
+        # env string and silently evict the configured engine
+        from ..utils.env import env_str
+        _ENV_APPLIED = env_str("MRTPU_SLO", "")
+        return _ENGINE
+
+
+def get_engine() -> Optional[SLOEngine]:
+    """The active engine: env-armed from ``MRTPU_SLO`` (re-read when
+    the value changes; malformed values warn and disarm), or whatever
+    :func:`configure` installed.  None when no objectives exist."""
+    global _ENGINE, _ENV_APPLIED
+    from ..utils.env import env_str
+    raw = env_str("MRTPU_SLO", "")
+    with _LOCK:
+        if raw != (_ENV_APPLIED or ""):
+            _ENV_APPLIED = raw
+            if raw:
+                try:
+                    _ENGINE = SLOEngine(parse_slo(raw))
+                except (ValueError, TypeError) as e:
+                    print(f"MRTPU_SLO ignored: {e!r}", file=sys.stderr)
+                    _ENGINE = None
+            else:
+                _ENGINE = None
+        return _ENGINE
+
+
+def reset() -> None:
+    """Test isolation: drop the engine and the env cache."""
+    global _ENGINE, _ENV_APPLIED
+    with _LOCK:
+        _ENGINE = None
+        _ENV_APPLIED = None

@@ -62,6 +62,7 @@ class ObjectManager:
         self._anon_names: List[str] = []
         self._anon_counter = 0
         self.defaults: Dict[str, object] = {}
+        self.pinned: Dict[str, object] = {}
         self.inputs: List[InputDescriptor] = []
         self.outputs: List[OutputDescriptor] = []
         # per-slot settings of the `input`/`output` builtins, kept as the
@@ -72,7 +73,20 @@ class ObjectManager:
     def set_default(self, name: str, value):
         if name not in self.MR_SETTINGS:
             raise MRError(f"unknown set parameter {name!r}")
+        if name in self.pinned and value != self.pinned[name]:
+            # a tenant's budget settings are the daemon's, not the
+            # script's: `set maxpage 100000` fails the session loudly
+            raise MRError(f"setting {name!r} is pinned by the server "
+                          f"(tenant budget; doc/serve.md)")
         self.defaults[name] = value
+
+    def pin(self, **settings):
+        """Install settings as defaults and lock them: a later
+        ``set_default`` (the script's `set`) of another value raises —
+        where serve/ enforces a tenant's budget."""
+        for name, value in settings.items():
+            self.set_default(name, value)
+            self.pinned[name] = value
 
     # -- MR lifecycle ------------------------------------------------------
     def create_mr(self) -> MapReduce:

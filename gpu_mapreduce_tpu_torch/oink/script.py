@@ -49,8 +49,12 @@ class OinkScript:
     universe (None: one world)."""
 
     def __init__(self, device=None, screen=None,
-                 logfile: Optional[str] = None, comm=None, world=None):
-        self.obj = ObjectManager(device, comm=comm)
+                 logfile: Optional[str] = None, comm=None, world=None,
+                 obj: Optional[ObjectManager] = None):
+        # obj: a caller-owned namespace (a serve/ session's, with its
+        # pinned budget settings)
+        self.obj = obj if obj is not None \
+            else ObjectManager(device, comm=comm)
         self.variables = Variables(world=world)
         self.screen: Optional[TextIO]
         if screen is None:
@@ -85,6 +89,7 @@ class OinkScript:
         self._ft_resharded = False    # restored from another width
         self._ft_depth = 0
         self._ft_pending_begin: Optional[tuple] = None
+        self.post_cmd: List = []
 
     def _nprocs(self) -> int:
         return getattr(self.obj.comm, "size", 1)
@@ -267,6 +272,15 @@ class OinkScript:
             self._ft_flush_begin()
             j.cmd_done(command)
             j.maybe_checkpoint(self.obj)
+        # post-command hooks run after the journal and checkpoint landed
+        # (the serve/ mesh autoscaler promotes here); a raising hook is
+        # dropped, never fatal
+        for hook in list(self.post_cmd):
+            try:
+                hook(self)
+            except Exception:
+                if hook in self.post_cmd:
+                    self.post_cmd.remove(hook)
         from ..obs.context import barrier_check
         barrier_check()
 
@@ -364,8 +378,11 @@ class OinkScript:
         for name in list(self.obj.named):
             self.obj.delete_mr(name)
         defaults = dict(self.obj.defaults)
+        pinned = dict(self.obj.pinned)
         self.obj = ObjectManager(self.obj.device, comm=self.obj.comm)
-        self.obj.defaults.update(defaults)    # `set` defaults survive
+        # `set` defaults, and a serve/ tenant's pinned budget, survive
+        self.obj.defaults.update(defaults)
+        self.obj.pinned.update(pinned)
 
     def cmd_echo(self, args):
         modes = {"none": (False, False), "screen": (True, False),
@@ -508,6 +525,17 @@ class OinkScript:
             elif key == "onfault":            # string-valued
                 self.obj.set_default("onfault", val)
             elif key == "prepend":
+                root = getattr(self, "_path_root", None)
+                if root is not None:
+                    # a serve/ session roots relative output in its own
+                    # directory; an absolute prepend would move -o files
+                    # out of the session's result, so it fails loudly
+                    if os.path.isabs(val):
+                        raise MRError(
+                            "absolute prepend is pinned by the server "
+                            "(session outputs stay in the session "
+                            "directory; doc/serve.md)")
+                    val = os.path.join(root, val)
                 self._path_prepend = val
             elif key == "substitute":
                 self._path_substitute = int(val)

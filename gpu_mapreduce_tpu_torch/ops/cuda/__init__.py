@@ -130,3 +130,15 @@ def library(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
             bind(lib)
             _LIBS[name] = lib
     return lib
+
+
+def load_all() -> dict:
+    """Build every stale kernel source (:func:`build_all`) and load each
+    library: a resident process (the serve daemon) pays for both before
+    its first request.  Returns :func:`build_all`'s record."""
+    from . import group, match
+    info = build_all()
+    library("seg_table", group._bind)
+    library("mark_words", match._bind)
+    library("mark_bytes", match._bind_bytes)
+    return info

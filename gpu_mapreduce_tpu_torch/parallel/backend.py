@@ -7,8 +7,9 @@ The counterpart of ``gpu_mapreduce_tpu/parallel/backend.py``:
   (``parallel/shuffle.aggregate_kv``, src/mapreduce.cpp:403-406): no
   exchange, but a dense host frame moves onto the device so that convert
   and reduce run the device tier, and several frames concatenate into
-  one.  ``gather`` and ``broadcast`` are no-ops at P = 1, as the JAX
-  package's serial backend's are.
+  one.  ``gather`` keeps the rows where they are and cuts a lone device
+  frame to the power of two of its rows (the JAX one-shard exchange's
+  cap); ``broadcast`` is a no-op at P = 1.
 * :class:`MeshBackend` — datasets over a :class:`~.mesh.Mesh` of P > 1
   shards (JAX parallel/backend.py:17-42): ``aggregate``, ``gather`` and
   ``broadcast`` run the exchange and the collectives; host datasets of a
@@ -18,13 +19,15 @@ The counterpart of ``gpu_mapreduce_tpu/parallel/backend.py``:
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..core.column import DenseColumn
 from ..core.dataset import one_frame_of
 from ..core.frame import KVFrame
-from .sharded import shard_frame, shard_frames
+from .sharded import ShardedKV, round_cap, shard_frame, shard_frames
 
 
 def _dense_page(fr, first) -> bool:
@@ -84,7 +87,19 @@ class DeviceBackend:
         kv.replace_frames(self.place_kv(kv))
 
     def gather(self, mr, nprocs: int) -> None:
-        """Every pair is on the one device already."""
+        """Every pair is on the one device already.  A lone device frame
+        is cut to the power of two of its rows, as the JAX package's
+        one-shard gather exchange re-caps it: a later plan keys on the
+        cap, so frames of the same rows, from a cold or a warm group,
+        key alike."""
+        frames = list(mr.kv.frames())
+        if len(frames) != 1 or not isinstance(frames[0], ShardedKV):
+            return
+        fr = frames[0]
+        n = round_cap(len(fr))
+        if n < fr.cap:
+            mr.kv.replace_frames(dataclasses.replace(
+                fr, key=fr.key[:n].clone(), value=fr.value[:n].clone()))
 
     def broadcast(self, mr, root: int) -> None:
         """One device holds the only replica."""

@@ -677,10 +677,14 @@ def guard_call(site: str, fn: Callable, *args, **kwargs):
 
 
 def surviving_width() -> Optional[int]:
-    """The width after a shrink: the active runtime's world; None when
-    no process group is active."""
+    """The width after a shrink: the active runtime's world, or the
+    operator-set ``MRTPU_DIST_WIDTH_CAP`` (how a serve daemon that is
+    not itself a rank learns of a shrink).  None = uncapped."""
     rt = _ACTIVE
-    return rt.world if rt is not None else None
+    if rt is not None:
+        return rt.world
+    cap = env_knob("MRTPU_DIST_WIDTH_CAP", int, 0)
+    return cap if cap > 0 else None
 
 
 def _require_active() -> DistRuntime:

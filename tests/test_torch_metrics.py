@@ -8,7 +8,8 @@ package's (``gpu_mapreduce_tpu_torch/obs/metrics.py``, ``httpd.py``).
   equal exchange counters, which also equal the port's ``mr.stats()``;
 * the registry under a thread hammer, the endpoint's scrape round trip
   on port 0, the snapshotter, one span bridge under racing enables;
-* ``MRTPU_SLO`` is refused ("not ported yet");
+* ``MRTPU_SLO``: a malformed objective is refused in both packages, a
+  valid one arms the same SLO engine and its burn gauge;
 * the catalog: every ``mrtpu_*`` name in the port is in
   ``doc/observability.md``, and every catalog name is in the port but
   those of modules not ported yet, listed here by name."""
@@ -47,21 +48,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # counterpart of (it compiles no programs)
 JAX_ONLY_CACHES = {"shuffle_phase1", "shuffle_phase2"}
 
-# catalog names whose owners are not ported yet
+# catalog names whose owners are not ported yet: the serve fleet
+# (serve/fleet.py, serve/router.py) and its federation
 NOT_PORTED = {
-    # serve/ (the daemon, its admission, GC, shedding and fleet)
-    "mrtpu_sessions_active", "mrtpu_serve_queue_depth",
-    "mrtpu_tenant_pages", "mrtpu_serve_admission_total",
-    "mrtpu_serve_sessions_total", "mrtpu_serve_session_seconds",
-    "mrtpu_serve_gc_total", "mrtpu_serve_shed_total",
-    "mrtpu_serve_cancel_total", "mrtpu_serve_stalled_total",
-    "mrtpu_serve_degraded", "mrtpu_memo_total", "mrtpu_fleet_replicas",
-    "mrtpu_fleet_failovers_total", "mrtpu_fleet_failover_seconds",
-    "mrtpu_fleet_fenced_total", "mrtpu_fleet_router_total",
-    # the serve daemon's census and GC of the content store
-    "mrtpu_cas_gc_total", "mrtpu_cas_chunks", "mrtpu_cas_bytes",
-    # obs/slo.py
-    "mrtpu_slo_burn_ratio", "mrtpu_slo_alerts_total",
+    "mrtpu_fleet_replicas", "mrtpu_fleet_failovers_total",
+    "mrtpu_fleet_failover_seconds", "mrtpu_fleet_fenced_total",
+    "mrtpu_fleet_router_total",
 }
 
 
@@ -331,12 +323,38 @@ def test_snapshotter(tmp_path):
 
 
 def test_slo_is_refused(monkeypatch):
-    monkeypatch.setenv("MRTPU_SLO", "tenant=*;err_pct=5;windows=60,300")
-    with pytest.raises(MRError, match="not ported yet"):
-        metrics.enable_metrics(flight=False)
-    with pytest.raises(MRError, match="not ported yet"):
+    """A malformed ``MRTPU_SLO`` is refused (warned and left unarmed) in
+    both packages alike; a valid one arms the same engine in both, and
+    the metrics' scrape-time collector exports its burn gauge."""
+    from gpu_mapreduce_tpu.obs import slo as jslo
+    from gpu_mapreduce_tpu_torch.obs import slo
+    try:
+        for spec in ("tenant=*", "tenant=*;bogus=1", "tenant=*;p99_ms=0"):
+            monkeypatch.setenv("MRTPU_SLO", spec)
+            slo.reset()
+            jslo.reset()
+            assert slo.get_engine() is None and jslo.get_engine() is None
+        spec = "tenant=*;err_pct=5;windows=60,300"
+        monkeypatch.setenv("MRTPU_SLO", spec)
+        for mod in (slo, jslo):
+            mod.reset()
+        eng, jeng = slo.get_engine(), jslo.get_engine()
+        assert eng.snapshot() == jeng.snapshot()
+        assert slo.get_engine() is eng       # re-read only on a change
+        reg = metrics.enable_metrics(flight=False)
+        c = reg.counter("mrtpu_serve_sessions_total", "x",
+                        ("tenant", "status"))
+        c.inc(tenant="acme", status="failed")
+        eng.tick(force=True)
+        snap = reg.collect()
+        assert snap["mrtpu_slo_burn_ratio"]["samples"][0]["labels"] == \
+            {"tenant": "acme", "window": "60s"}
         MapReduce(device="cpu", metrics_port=0)
-    assert httpd.get_server() is None
+        assert httpd.get_server() is not None
+    finally:
+        slo.reset()
+        jslo.reset()
+        httpd.stop_server()
 
 
 # -- the catalog -------------------------------------------------------------------

@@ -4,7 +4,7 @@ default to the card.
 A subprocess poisons ``sys.modules`` so that importing ``jax`` or
 ``gpu_mapreduce_tpu`` raises, then imports every module of the port and
 ``chip_smoke``.  Under an audit hook it also runs the native engine, a
-stream and a checkpoint on the CPU: no file under ``gpu_mapreduce_tpu/``
+stream and a serve session on the CPU: no file under ``gpu_mapreduce_tpu/``
 is opened or loaded (the native loader builds and loads the port's own
 library)."""
 
@@ -59,6 +59,18 @@ SCRIPT = textwrap.dedent("""
         s.drain()
         assert s.snapshot() == "a 2\\nb 1\\n"
         s.close()
+        # a session through the daemon on the CPU
+        from gpu_mapreduce_tpu_torch.serve import ServeClient, Server
+        srv = Server(port=0, workers=1, device="cpu",
+                     state_dir=os.path.join(tmp, "serve"))
+        srv.start()
+        try:
+            c = ServeClient.local(srv.port)
+            res = c.wait(c.submit(script=f"variable files index {src}\\n"
+                                  "wordfreq 2 -i v_files\\n")["id"])
+            assert res["status"] == "done", res
+        finally:
+            srv.shutdown()
     assert not touched, touched
     if not torch.cuda.is_available():
         for entry in (pkg.InvertedIndex, pkg.MapReduce, pkg.OinkScript,
@@ -67,7 +79,9 @@ SCRIPT = textwrap.dedent("""
                       lambda: make_mesh(), lambda: make_mesh(2),
                       lambda: topology(0, 2),
                       lambda: pkg.Stream(tempfile.mkdtemp(), []),
-                      lambda: pkg.InvertedIndex(engine="native")):
+                      lambda: pkg.InvertedIndex(engine="native"),
+                      lambda: sys.modules["gpu_mapreduce_tpu_torch.serve"]
+                      .Server(port=0, state_dir=tempfile.mkdtemp())):
             try:
                 entry()
             except pkg.MRError:
@@ -102,7 +116,11 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "oink.commands.dump_trace", "oink.commands.dump_metrics",
                    "oink.commands.dump_plan", "utils.cas", "native",
                    "stream", "stream.engine", "stream.scheduler",
-                   "stream.tailer", "oink.commands.stream")
+                   "stream.tailer", "oink.commands.stream", "obs.slo",
+                   "serve", "serve.budget", "serve.auth", "serve.admission",
+                   "serve.overload", "serve.memo", "serve.session",
+                   "serve.autoscale", "serve.streams", "serve.daemon",
+                   "serve.client", "serve.__main__")
 
 
 def test_port_imports_no_jax():

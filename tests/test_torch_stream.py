@@ -473,3 +473,127 @@ def test_stream_on_a_mesh_matches_jax(tmp_path):
         pair.drain()
         assert pair.snapshot() == oracle(seen)
     pair.close()
+
+
+# ---------------------------------------------------------------------------
+# the serve surface: /v1/streams on one daemon of each package
+# ---------------------------------------------------------------------------
+
+def _stream_view(st):
+    """A stream's summary without ids, times and lags."""
+    out = {k: st[k] for k in ("tenant", "state", "error", "feed",
+                              "deadline_ms", "failed_over")}
+    s = st.get("stream") or {}
+    out["stream"] = {k: s.get(k) for k in ("batches", "rows", "resumed")}
+    return out
+
+
+def test_serve_stream_http_roundtrip_and_events(tmp_path):
+    import threading
+
+    from gpu_mapreduce_tpu.serve import ServeError as JServeError
+    from gpu_mapreduce_tpu_torch.serve import ServeError
+    from test_torch_serve import Pair, wait_until
+    with Pair(tmp_path, workers=1) as p:
+        got = {}
+        for name, c in (("jax", p.jc), ("port", p.tc)):
+            r = c.stream_open(tenant="acme")
+            assert r["state"] == "open" and r["feed"] and r["id"] == "st000001"
+            stid = r["id"]
+            events = []
+
+            def watch(c=c, stid=stid, events=events):
+                for ev in c.stream_events(stid, timeout=60.0):
+                    events.append(ev)
+                    if ev.get("state") in ("closed", "failed"):
+                        return
+            t = threading.Thread(target=watch, daemon=True)
+            t.start()
+            wait_until(lambda: events, msg="the events snapshot")
+            c.stream_feed(stid, b"apple banana apple\ncherry\n")
+            wait_until(lambda: c.stream_status(stid)["stream"]["batches"]
+                       >= 1, msg="the first micro-batch")
+            st = c.stream_status(stid)
+            assert st["stream"]["watermark"] > 0
+            assert "prefetch_depth" in st["stream"]["ingest"]
+            listed = [_stream_view(s) for s in c.streams()]
+            closed = c.stream_close(stid)
+            t.join(timeout=60)
+            assert not t.is_alive()
+            with pytest.raises((ServeError, JServeError)) as ei:
+                c.stream_feed(stid, b"late\n")
+            assert ei.value.code == 409
+            got[name] = (_stream_view(st), listed, _stream_view(closed),
+                         [e["event"] for e in events],
+                         [(e["rows"], e["seq"]) for e in events
+                          if e["event"] == "batch"])
+        assert got["jax"] == got["port"]
+        assert got["port"][2]["stream"]["rows"] == 2
+        assert got["port"][3][0] == "status" and \
+            got["port"][3][-1] == "status"
+        assert p.t.stats()["streams"] == p.j.stats()["streams"]
+        assert p.journal_kinds() == ["stream_open", "stream_close"]
+
+
+def test_serve_stream_validation_cap_and_budget_pin(tmp_path, monkeypatch):
+    from test_torch_serve import Pair
+    monkeypatch.setenv("MRTPU_SERVE_STREAMS", "1")
+    with Pair(tmp_path, workers=1) as p:
+        for body in ({"parser": "nope"}, {"reduce": "cull"},
+                     {"window": "x"}, {"sources": "a.txt"},
+                     {"deadline_ms": 0}):
+            (code, _, _), _ = p.http("POST", "/v1/streams", body)
+            assert code == 400
+        stid = p.tc.stream_open()["id"]
+        assert p.jc.stream_open()["id"] == stid
+        (code, _, hdr), _ = p.http("POST", "/v1/streams", {})
+        assert code == 429 and "Retry-After" in hdr
+        eng = p.t.streams.get(stid).engine
+        assert eng.settings.get("fpath", "").startswith(
+            p.t.streams.stream_dir(stid))
+        for c in (p.jc, p.tc):
+            c.stream_close(stid)
+        assert p.tc.stream_open()["id"] == p.jc.stream_open()["id"] != stid
+        for name in ("GET /v1/streams/st999999",
+                     "POST /v1/streams/st999999/feed"):
+            method, path = name.split()
+            (code, _, _), _ = p.http(method, path)
+            assert code == 404
+
+
+def test_serve_stream_resumes_across_daemon_restart(tmp_path):
+    from gpu_mapreduce_tpu_torch.serve import ServeClient, Server
+    from test_torch_serve import wait_until
+    state = str(tmp_path / "state")
+    srv = Server(port=0, workers=1, state_dir=state, device="cpu")
+    srv.start()
+    c = ServeClient.local(srv.port)
+    stid = c.stream_open()["id"]
+    c.stream_feed(stid, b"x y x\n")
+    wait_until(lambda: c.stream_status(stid)["stream"]["batches"] >= 1,
+               msg="a batch before the restart")
+    srv.shutdown()                    # suspends: no stream_close
+    srv2 = Server(port=0, workers=1, state_dir=state, device="cpu")
+    srv2.start()
+    try:
+        c2 = ServeClient.local(srv2.port)
+        st = c2.stream_status(stid)
+        assert st["state"] == "open"
+        assert st["stream"]["batches"] == 1 and st["stream"]["resumed"]
+        c2.stream_feed(stid, b"z z\n")
+        wait_until(lambda: c2.stream_status(stid)["stream"]["batches"] >= 2,
+                   msg="a batch after the restart")
+        assert c2.stream_close(stid)["state"] == "closed"
+        assert srv2.streams.get(stid).engine.snapshot() == \
+            oracle("x y x\nz z\n")
+    finally:
+        srv2.shutdown()
+    assert [r["kind"] for r in read_journal(state)] == \
+        [r["kind"] for r in j_read_journal(state)] == \
+        ["stream_open", "stream_close"]
+    srv3 = Server(port=0, workers=1, state_dir=state, device="cpu")
+    srv3.start()
+    try:
+        assert srv3.streams.get(stid) is None   # closed stays closed
+    finally:
+        srv3.shutdown()
