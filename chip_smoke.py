@@ -312,7 +312,7 @@ nonzero):
               paused daemon's full queue 429 + Retry-After; serve-memo:
               with a content store, one daemon computes tb's job and a
               second serves it as a hit (0 launches, 0 dispatches, a
-              cache_hit record); serve-recover: a scale-20 graph script
+              cache_hit record); serve-recover: a scale-18 graph script
               (rmat, degree, edge_upper, cc_find, histo, three -o files)
               and two op batches through ``python -m
               gpu_mapreduce_tpu_torch.serve`` on one worker, SIGKILLed
@@ -320,6 +320,30 @@ nonzero):
               the session resumed, every file equal to an uninterrupted
               in-process run's, the batches in admission order.  Alone:
               ``--serve-alone``; on the CPU at 2 MB: ``--serve-rehearse``.
+9. fleet    — the serve fleet on the card (``serve/fleet.py``,
+              ``serve/router.py``): three replicas (``python -m
+              gpu_mapreduce_tpu_torch.serve --fleet D --replica-id r<k>
+              --workers 1 --lease 2 --heartbeat 0.25``, a checkpoint after
+              each command) and the router started together, the router's
+              pid holding no context on the card; through the router, ta's
+              invertedindex with the port's ``ctl`` and tb's fused wordfreq
+              cold then warm under one session key (one replica, seg_table
+              once), each file equal to the serve phase's; a session
+              submitted straight to r1 SIGKILLed (by its lease's pid) after
+              its first checkpoint with a second queued behind it: a
+              survivor claims r1 and replays both, byte-identical, the
+              first resumed (the seconds from the kill to the claim, to the
+              first result, and ``mrtpu_fleet_failover_seconds``), and the
+              router still reads them; r1 restarted paused replays nothing,
+              takes a session, is SIGSTOPped until a survivor claims it
+              again and runs that session, and once SIGCONTed its /healthz
+              says ``fenced``; ``ctl top --json`` lists the members; every
+              replica stopped (``ctl shutdown``), the router answers 503
+              with Retry-After in under 0.5 s and still reads results from
+              the store; each session has exactly one ``serve_done`` across
+              the journals; ``obs.trace_view`` summarises a replica's trace.
+              Alone: ``--fleet-alone``; on the CPU at 2 MB:
+              ``--fleet-rehearse``.
 
               Then a ``total`` line with the smoke's seconds.
 
@@ -2162,9 +2186,6 @@ def same_pairs_on_card(a, b) -> bool:
     return torch.equal(ka[sa], kb[sb]) and torch.equal(va[sa], vb[sb])
 
 
-GRAPH_KEEP: dict = {}          # the graph phase's cc, PageRank and lines
-
-
 def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
               edgefactor: int = GRAPH_EDGEFACTOR, p4: bool = False) -> dict:
     """The graph phase: the OINK script of :func:`graph_script` through
@@ -2237,10 +2258,6 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
         luby_rounds = int(msgs["luby_find"].split()[-2])
         sssp_rounds = [int(ln.split()[3]) for ln in screens["sssp"]]
         got["pagerank"] = (pr_verts, pr_ranks, pr_iters)
-        # what ft-resume holds its resumed run against
-        GRAPH_KEEP.update(cc=got["cc"], pagerank=got["pagerank"],
-                          screens={k: screens[k] for k in (
-                              "degree_stats", "cc_stats")})
         del run, comp, named
         t0 = time.perf_counter()
         found = graph_oracles(scale, edgefactor, screens, got)
@@ -4585,6 +4602,7 @@ def run_wire(int_keys: dict, tmp: str, kernels, smi: str, mesh_wf: dict,
 FT_BACKOFF_S = "0.002"         # MRTPU_RETRY_BACKOFF in the phase: the
 #                                rerun work is timed, not the sleep
 FT_CKPT_EVERY = 3              # the journaled graph script: 3 sets
+FT_GRAPH_SCALE = 18            # ft-resume's graph: 2^18 vertices
 FT_SEED = 11                   # tests/test_ft.py's _arm_all_sites
 FT_BUDGET = 3
 FT_CPU = False                 # --ft-rehearse: CPU shards, small sizes
@@ -4925,11 +4943,40 @@ def ft_ooc(keys_u32, tmp: str, device, kernels) -> dict:
 
 
 def ft_graph_lines() -> list:
-    """The graph phase's script as the journaled run takes it: its
-    checkpoint lines left out (the journal's checkpoints stand in)."""
+    """The graph phase's script as the journaled run takes it: at
+    FT_GRAPH_SCALE (cut from the graph phase's 22 so that the whole smoke
+    keeps its budget), its checkpoint lines left out (the journal's
+    checkpoints stand in)."""
     skip = set(checkpoint_lines()) | {"mrb delete"}
-    return [ln for ln in graph_script(GRAPH_SCALE, GRAPH_EDGEFACTOR)
+    return [ln for ln in graph_script(FT_GRAPH_SCALE, GRAPH_EDGEFACTOR)
             if ln not in skip]
+
+
+def ft_graph_reference(device, tmp: str) -> dict:
+    """The journaled run's script run uninterrupted in this process, from
+    a directory of its own: what ft-resume holds the resumed run against
+    (cc, PageRank and its steps, the degree_stats and cc_stats lines) and
+    each command's seconds."""
+    from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
+    d = os.path.join(tmp, "ft-resume-ref")
+    os.makedirs(d)
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        run = drive_script(device, ft_graph_lines(), ())
+    finally:
+        os.chdir(cwd)
+    named = run["interp"].obj.named
+    pr = mapreduce_to_numpy(named["mrpr"])
+    keep = {"cc": mapreduce_to_numpy(named["mrc"]),
+            "pagerank": (pr[0], pr[1],
+                         int(run["screens"]["pagerank"][0].split()[-2])),
+            "screens": {k: run["screens"][k] for k in ("degree_stats",
+                                                       "cc_stats")},
+            "command_s": run["seconds"]}
+    del run, named
+    shutil.rmtree(d)
+    return keep
 
 
 def ft_graph_child(d: str, mode: str) -> int:
@@ -5004,16 +5051,17 @@ def _read_jsonl(path: str) -> list:
         return [json.loads(ln) for ln in f if ln.strip()]
 
 
-def ft_resume(tmp: str, graph: dict) -> dict:
+def ft_resume(tmp: str, device) -> dict:
     """ft-resume: the graph script journaled in a child process
     (MRTPU_JOURNAL, MRTPU_CKPT_EVERY=3), SIGKILLed once the journal holds
     the checkpoint taken after pagerank, then ``resume`` in a fresh
-    child: cc labels, the degree_stats and cc_stats lines exactly the
-    graph phase's, PageRank within rtol 1e-5 and ±1 step, and the journal
-    showing the resume and only the tail re-run."""
+    child: cc labels, the degree_stats and cc_stats lines exactly those
+    of the same script run uninterrupted here (:func:`ft_graph_reference`),
+    PageRank within rtol 1e-5 and ±1 step, and the journal showing the
+    resume and only the tail re-run."""
     import numpy as np
     from gpu_mapreduce_tpu_torch.ft import journal
-    keep = GRAPH_KEEP
+    keep = ft_graph_reference(device, tmp)
     d = os.path.join(tmp, "ft-resume")
     os.makedirs(d)
     jdir = os.path.join(d, "journal")
@@ -5112,7 +5160,7 @@ def ft_resume(tmp: str, graph: dict) -> dict:
             "restore_s": sum(t["seconds"] for t in second
                              if t.get("skipped")),
             "command_s": cmd_s,
-            "graph_command_s": graph["command_s"],
+            "graph_command_s": keep["command_s"],
             "ckpt_s": [{"seq": t["ckpt"], "ok": t["ok"],
                         "seconds": t["seconds"]}
                        for t in first + second if "ckpt" in t],
@@ -5198,7 +5246,7 @@ def ft_partition(zpaths, oracle: dict, tmp: str) -> dict:
 
 
 def run_ft(paths, nref: int, nuniq: int, zpaths, zoracle: dict, keys_u32,
-           tmp: str, device, kernels, smi: str, graph: dict) -> dict:
+           tmp: str, device, kernels, smi: str) -> dict:
     """The ft phase: every case fault-free and then under the JAX
     golden's schedule (ft_armed), each with its gate."""
     t0 = time.perf_counter()
@@ -5209,7 +5257,7 @@ def run_ft(paths, nref: int, nuniq: int, zpaths, zoracle: dict, keys_u32,
             ("ft-fuse-p4", lambda: ft_fuse(keys_u32, tmp, kernels)),
             ("ft-ooc", lambda: ft_ooc(keys_u32, tmp, device, kernels)),
             ("ft-quarantine", lambda: ft_quarantine(zpaths, zoracle, tmp)),
-            ("ft-resume", lambda: ft_resume(tmp, graph)),
+            ("ft-resume", lambda: ft_resume(tmp, device)),
             ("ft-partition", lambda: ft_partition(zpaths, zoracle, tmp))):
         c0 = time.perf_counter()
         cases[name] = fn()
@@ -5256,9 +5304,9 @@ def run_ft(paths, nref: int, nuniq: int, zpaths, zoracle: dict, keys_u32,
 def ft_rehearse_sizes() -> None:
     """The rehearsal's sizes: pages that spill at a few MB, a small
     graph."""
-    global FT_CPU, OOC_MEMSIZE, OOC_MAXPAGE, GRAPH_SCALE
+    global FT_CPU, OOC_MEMSIZE, OOC_MAXPAGE, FT_GRAPH_SCALE
     FT_CPU = True
-    OOC_MEMSIZE, OOC_MAXPAGE, GRAPH_SCALE = 1, 1, 10
+    OOC_MEMSIZE, OOC_MAXPAGE, FT_GRAPH_SCALE = 1, 1, 10
 
 
 def ft_alone(card: bool) -> int:
@@ -5267,12 +5315,10 @@ def ft_alone(card: bool) -> int:
     keys, the graph script at scale 10), every gate but the kernels'
     launch counts (the plain versions launch nothing): a rehearsal of the
     phase's code without a card.  ``--ft-alone``: the phase alone on the
-    card at its full size, its inputs made here (the graph script's run
-    standing in for the graph phase's).  Prints the ft lines."""
+    card at its full size, its inputs made here.  Prints the ft lines."""
     import numpy as np
     import torch
     from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
-    from gpu_mapreduce_tpu_torch.interop import mapreduce_to_numpy
     from gpu_mapreduce_tpu_torch.ops import cuda as kcuda
     from gpu_mapreduce_tpu_torch.ops.cuda import group, match
     if card:
@@ -5305,23 +5351,8 @@ def ft_alone(card: bool) -> int:
         del vbuf, voffs, words
         keys = np.random.default_rng(7).integers(0, 1 << 32, nkeys,
                                                  dtype=np.uint32)
-        gdir = os.path.join(tmp, "graph")
-        os.makedirs(gdir)
-        os.chdir(gdir)
-        run = drive_script(device, ft_graph_lines(), ())
-        os.chdir(cwd)
-        named = run["interp"].obj.named
-        run_s = run["seconds"]
-        pr = mapreduce_to_numpy(named["mrpr"])
-        GRAPH_KEEP.update(
-            cc=mapreduce_to_numpy(named["mrc"]),
-            pagerank=(pr[0], pr[1],
-                      int(run["screens"]["pagerank"][0].split()[-2])),
-            screens={k: run["screens"][k] for k in ("degree_stats",
-                                                    "cc_stats")})
-        del run, named
         rec = run_ft(paths, nref, nuniq, zpaths, zoracle, keys, tmp,
-                     device, kernels, smi, {"command_s": run_s})
+                     device, kernels, smi)
         emit(rec)
     finally:
         os.chdir(cwd)
@@ -6631,7 +6662,7 @@ def cache_alone(card: bool) -> int:
 
 SERVE_CPU = False              # --serve-rehearse: the CPU, small sizes
 SERVE_TOKENS = "ta=tok-a,tb=tok-b,*=tok-admin"
-SERVE_GRAPH_SCALE = 20         # serve-recover's graph: 2^20 vertices
+SERVE_GRAPH_SCALE = 18         # serve-recover's graph: 2^18 vertices
 SERVE_GRAPH_EDGEFACTOR = 16
 SERVE_SLO = "tenant=*;p99_ms=60000;err_pct=50;windows=60,600"
 SERVE_WAIT_S = 600.0           # every poll's deadline
@@ -6918,7 +6949,7 @@ def serve_main(paths, nref, nuniq, zpaths, zoracle, tmp, kernels,
             rec.update(sessions=sessions, submit_s=rt_submit,
                        launches_pair=pair_launches,
                        launches_warm=warm_launches, memory=peak,
-                       tb_files=_file_sha(res_b))
+                       ta_files=_file_sha(res_a), tb_files=_file_sha(res_b))
             rec["control"] = serve_control(srv, ta, tb, admin, paths,
                                            zpaths, kernels, device)
             # the SLO surfaces
@@ -7115,26 +7146,32 @@ def serve_memo(zpaths, zoracle, tmp, kernels, device, want: dict) -> dict:
     return out
 
 
-def _spawn_serve(state: str, workers: int, env: dict, log: str):
+def _root() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _spawn(args: list, env: dict, log: str):
     """``python -m gpu_mapreduce_tpu_torch.serve`` in a fresh interpreter
-    (never a fork of this process): (process, port, seconds to its
-    ``serving`` line)."""
-    import json as _json
-    root = os.path.dirname(os.path.abspath(__file__))
-    args = [sys.executable, "-m", "gpu_mapreduce_tpu_torch.serve", "--port",
-            "0", "--state", state, "--workers", str(workers)]
-    if SERVE_CPU:
-        args += ["--device", "cpu"]
-    t0 = time.perf_counter()
-    p = subprocess.Popen(args, cwd=root, env=env, stdout=subprocess.PIPE,
-                         stderr=open(log, "ab"))
+    (never a fork of this process, which has touched CUDA), its stdout
+    piped for the ``serving`` line."""
+    return subprocess.Popen([sys.executable, "-m",
+                             "gpu_mapreduce_tpu_torch.serve"] + args,
+                            cwd=_root(), env=env, stdout=subprocess.PIPE,
+                            stderr=open(log, "ab"))
+
+
+def _serving(p, t0: float, log: str, what: str) -> dict:
+    """Block on the process's first line: its port and seconds from
+    spawn."""
     line = p.stdout.readline()
     if not line:
         p.wait(timeout=60)
         with open(log, errors="replace") as f:
-            raise AssertionError(f"serve-recover: the daemon exited "
-                                 f"{p.returncode}:\n{f.read()[-3000:]}")
-    return p, int(_json.loads(line)["serving"]), time.perf_counter() - t0
+            raise AssertionError(f"{what} exited {p.returncode}:\n"
+                                 f"{f.read()[-3000:]}")
+    doc = json.loads(line)
+    return {"port": int(doc["serving"]), "pid": p.pid, "doc": doc,
+            "serving_s": time.perf_counter() - t0}
 
 
 def serve_recover(paths, tmp, device, scale: int) -> dict:
@@ -7168,9 +7205,13 @@ def serve_recover(paths, tmp, device, scale: int) -> dict:
                                  f"{[(r['status'], r['error']) for r in golden]}")
         state = os.path.join(tmp, "serve-recover")
         log = os.path.join(tmp, "serve-recover.log")
-        env = dict(os.environ, MRTPU_CKPT_EVERY="1",
-                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-        p, port, first_s = _spawn_serve(state, 1, env, log)
+        env = dict(os.environ, MRTPU_CKPT_EVERY="1", PYTHONPATH=_root())
+        args = ["--port", "0", "--state", state, "--workers", "1"] + \
+            (["--device", "cpu"] if SERVE_CPU else [])
+        t0 = time.perf_counter()
+        p = _spawn(args, env, log)
+        up = _serving(p, t0, log, "serve-recover: the daemon")
+        port, first_s = up["port"], up["serving_s"]
         sjournal = os.path.join(state, "sessions", "s000001")
         try:
             c = ServeClient.local(port, timeout=120)
@@ -7201,7 +7242,9 @@ def serve_recover(paths, tmp, device, scale: int) -> dict:
                                  f"before the kill")
         env.pop("MRTPU_CKPT_EVERY")
         t_restart = time.perf_counter()
-        p, port, serving_s = _spawn_serve(state, 1, env, log)
+        p = _spawn(args, env, log)
+        up = _serving(p, t_restart, log, "serve-recover: the daemon")
+        port, serving_s = up["port"], up["serving_s"]
         try:
             c = ServeClient.local(port, timeout=120)
             fin = _wait_all(c, sids, t_restart)
@@ -7247,6 +7290,7 @@ def run_serve(paths, nref: int, nuniq: int, zpaths, zoracle: dict,
                       device, oracle_part)
     secs["main"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    files = {"ta": main.pop("ta_files"), "tb": main["tb_files"]}
     memo = serve_memo(zpaths, zoracle, tmp, kernels, device,
                       main.pop("tb_files"))
     secs["memo"] = time.perf_counter() - t0
@@ -7267,7 +7311,7 @@ def run_serve(paths, nref: int, nuniq: int, zpaths, zoracle: dict,
             "pair_one_worker": main["pair_one_worker"],
             "memory": main["memory"], "control": main["control"],
             "memo": memo, "recover": recover, "launches": launches,
-            "part_seconds": secs,
+            "files": files, "part_seconds": secs,
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -7310,6 +7354,512 @@ def serve_alone(card: bool) -> int:
         inputs_s = time.perf_counter() - t0
         rec = run_serve(paths, nref, nuniq, zpaths, zoracle, tmp, kernels,
                         smi, device, scale=scale)
+        rec["inputs_s"] = inputs_s
+        rec["alone_seconds"] = time.perf_counter() - t0
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+FLEET_CPU = False              # --fleet-rehearse: the CPU, small sizes
+FLEET_LEASE = "2"              # seconds: well clear of a heartbeat held
+FLEET_HEARTBEAT = "0.25"       # up by a host-heavy session's GIL
+FLEET_SKEW = "0.5"
+FLEET_WAIT_S = 600.0           # every poll's deadline
+FLEET_KERNELS = ("mark_words", "segment_table", "mark")
+
+
+def fleet_env() -> dict:
+    """The replicas' and the router's environment: no tokens, no content
+    store (every session computes), a checkpoint after each command."""
+    env = dict(os.environ, PYTHONPATH=_root(), MRTPU_FLEET_SKEW=FLEET_SKEW,
+               MRTPU_CKPT_EVERY="1")
+    for k in ("MRTPU_SERVE_TOKENS", "MRTPU_CAS_DIR", "MRTPU_FLEET_DIR",
+              "MRTPU_SLO", "MRTPU_SERVE_STATE"):
+        env.pop(k, None)
+    return env
+
+
+def replica_args(fleet: str, rid: str, paused: bool = False) -> list:
+    args = ["--port", "0", "--fleet", fleet, "--replica-id", rid,
+            "--workers", "1", "--lease", FLEET_LEASE, "--heartbeat",
+            FLEET_HEARTBEAT]
+    if paused:
+        args.append("--paused")
+    if FLEET_CPU:
+        args += ["--device", "cpu"]
+    return args
+
+
+def lease_pid(fleet: str, rid: str) -> int:
+    with open(os.path.join(fleet, "fleet", f"{rid}.lease.json")) as f:
+        return int(json.load(f)["pid"])
+
+
+def kill_by_lease(fleet: str, rid: str, procs: dict, sig) -> None:
+    """Signal a replica by the pid its lease names (never by a pattern)."""
+    pid = lease_pid(fleet, rid)
+    if pid != procs[rid].pid:
+        raise AssertionError(f"fleet: {rid}'s lease names pid {pid}, its "
+                             f"process is {procs[rid].pid}")
+    os.kill(pid, sig)
+
+
+def _poll(fn, what: str, deadline_s: float = FLEET_WAIT_S):
+    deadline = time.perf_counter() + deadline_s
+    while True:
+        got = fn()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"fleet: {what} not seen after "
+                                 f"{deadline_s} s")
+        time.sleep(0.01)
+
+
+def card_contexts(pids) -> dict:
+    """Which processes have touched the card: nvidia-smi's compute-app
+    pids (inside a container they need not be this namespace's pids),
+    and each process's open device files (``/dev/nvidia<N>``,
+    ``/dev/nvidia-uvm``: opened once CUDA's driver starts, which a
+    context needs; torch's import alone maps ``libcuda.so`` in every
+    process, so the mapping says nothing)."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    smi = sorted({int(x) for x in r.stdout.split() if x.strip().isdigit()})
+    fds = {}
+    for name, pid in pids.items():
+        devs = set()
+        try:
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                try:
+                    t = os.readlink(f"/proc/{pid}/fd/{fd}")
+                except OSError:
+                    continue
+                if re.fullmatch(r"/dev/nvidia(\d+|-uvm)", t):
+                    devs.add(t)
+        except OSError:
+            pass
+        fds[name] = sorted(devs)
+    return {"smi_pids": smi, "device_files": fds}
+
+
+def run_tool(module: str, args: list, env: dict) -> tuple:
+    """``python -m <module> ...`` (an operator tool, which imports no
+    torch): (exit code, stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module] + args, cwd=_root(),
+                       env=env, capture_output=True, text=True,
+                       timeout=FLEET_WAIT_S)
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def fleet_failover_script(zpaths) -> str:
+    """The session killed mid-run: tb's job, then the same wordfreq
+    again into a second file (a checkpoint after each command)."""
+    return serve_wf_script(zpaths) + \
+        f"wordfreq {WF_NTOP} -i v_files -o wf2.out NULL\n"
+
+
+def fleet_refs(paths, zpaths, tmp: str, device, serve_files) -> dict:
+    """The uninterrupted outputs' sha256: the serve phase's (the same
+    scripts on one daemon), or with ``--fleet-alone`` the same jobs run
+    here directly."""
+    if serve_files is not None:
+        return serve_files
+    import hashlib
+
+    def sha(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+    d_a = os.path.join(tmp, "fleet-ref-a")
+    d_b = os.path.join(tmp, "fleet-ref-b")
+    serve_direct(serve_ii_script(paths), device, d_a)
+    serve_direct(serve_wf_script(zpaths), device, d_b)
+    return {"ta": {"ii/part-00000": sha(os.path.join(d_a, "ii",
+                                                     "part-00000"))},
+            "tb": {"wf.out": sha(os.path.join(d_b, "wf.out"))}}
+
+
+def _result(fleet: str, sid: str):
+    try:
+        with open(os.path.join(fleet, "results", sid + ".json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _kernels_of(res: dict) -> dict:
+    got = res["meta"].get("kernels") or {}
+    return {k: int(got.get(k, 0)) for k in FLEET_KERNELS}
+
+
+def _failover_seconds(port: int) -> dict:
+    """``mrtpu_fleet_failover_seconds`` (sum and count) from a replica's
+    own /metrics."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        text = r.read().decode()
+    out = {}
+    for ln in text.splitlines():
+        for key in ("sum", "count"):
+            if ln.startswith(f"mrtpu_fleet_failover_seconds_{key} "):
+                out[key] = float(ln.split()[-1])
+    return out
+
+
+def run_fleet(paths, nref: int, nuniq: int, zpaths, zoracle: dict,
+              tmp: str, smi: str, device, serve_files=None) -> dict:
+    """The fleet phase: three replicas and the router as processes; tenant
+    ta's invertedindex and tb's fused wordfreq (cold, then warm on the
+    same replica by its session key) through the router with the port's
+    ctl; a replica SIGKILLed mid-session and its two sessions replayed by
+    a survivor; the victim restarted, claimed again while stopped and
+    fenced once revived; every replica stopped and the router's 503 with
+    reads served from the result store; ``ctl top`` and ``trace_view``."""
+    import signal
+    from gpu_mapreduce_tpu_torch.ft.journal import read_journal
+    from gpu_mapreduce_tpu_torch.serve import FleetMember, ServeClient
+    from gpu_mapreduce_tpu_torch.serve import ServeError, owner_of
+    t_phase = time.perf_counter()
+    refs = fleet_refs(paths, zpaths, tmp, device, serve_files)
+    fleet = os.path.join(tmp, "fleet")
+    os.makedirs(fleet)
+    env = fleet_env()
+    log = os.path.join(tmp, "fleet.log")
+    rec = {"phase": "fleet", "card": smi, "device": str(device),
+           "lease_s": float(FLEET_LEASE),
+           "heartbeat_s": float(FLEET_HEARTBEAT),
+           "skew_s": float(FLEET_SKEW)}
+    procs = {}
+    try:
+        # -- setup: three replicas and the router, started together ------
+        t0 = time.perf_counter()
+        for k in range(3):
+            rid = f"r{k}"
+            procs[rid] = _spawn(replica_args(fleet, rid),
+                                dict(env, MRTPU_TRACE=os.path.join(
+                                    fleet, f"trace-{rid}.jsonl")), log)
+        procs["router"] = _spawn(["--router", "--fleet", fleet, "--port",
+                                  "0"], env, log)
+        up = {name: _serving(p, t0, log, f"fleet: {name}")
+              for name, p in procs.items()}
+        rec["serving_s"] = {name: u["serving_s"] for name, u in up.items()}
+        if up["router"]["doc"] != {"serving": up["router"]["port"],
+                                   "router": True, "fleet": fleet}:
+            raise AssertionError(f"fleet: the router said "
+                                 f"{up['router']['doc']}")
+        probe = FleetMember(fleet, "probe")
+        _poll(lambda: probe.healthy() == ["r0", "r1", "r2"],
+              "three healthy replicas")
+        if not FLEET_CPU:
+            ctx = card_contexts({n: u["pid"] for n, u in up.items()})
+            rec["contexts"] = ctx
+            # a context needs the driver started, which opens the
+            # device files: the replicas show them, the router must not
+            seen = [n for n in ("r0", "r1", "r2") if ctx["device_files"][n]]
+            if len(seen) != 3:
+                raise AssertionError(f"fleet: the replicas' use of the "
+                                     f"card is not visible: {ctx}")
+            if ctx["device_files"]["router"] or \
+                    up["router"]["pid"] in ctx["smi_pids"]:
+                raise AssertionError(f"fleet: the router touched the "
+                                     f"card: {ctx}")
+        router = ServeClient.local(up["router"]["port"], timeout=120)
+
+        # -- traffic through the router ---------------------------------
+        sessions = {}
+        ii = os.path.join(tmp, "fleet-ii.oink")
+        with open(ii, "w") as f:
+            f.write(serve_ii_script(paths))
+        # ta through ctl, then tb's pair through the client (ctl has no
+        # session key, as mrctl has none)
+        rc, out, err, secs = run_tool(
+            "gpu_mapreduce_tpu_torch.ctl",
+            ["--state", fleet, "submit", ii, "--tenant", "ta", "--wait",
+             "--timeout", str(int(FLEET_WAIT_S))], env)
+        if rc != 0:
+            raise AssertionError(f"fleet: ctl submit exited {rc}: {err}")
+        res_a = json.loads(out)
+        sessions["ta"] = (res_a, secs)
+        wf = serve_wf_script(zpaths)
+        for who in ("tb_cold", "tb_warm"):
+            t1 = time.perf_counter()
+            sid = router.submit(script=wf, tenant="tb",
+                                session="tb-key")["id"]
+            res = router.wait(sid, timeout=FLEET_WAIT_S)
+            sessions[who] = (res, time.perf_counter() - t1)
+        for who, (res, _) in sessions.items():
+            if res["status"] != "done":
+                raise AssertionError(f"fleet: {who} {res['status']}: "
+                                     f"{res['error']}")
+            want = refs["ta" if who == "ta" else "tb"]
+            if _file_sha(res) != want:
+                raise AssertionError(f"fleet: {who}'s files differ from "
+                                     f"the serve phase's")
+        if f"{nref} pairs, {nuniq} unique urls" not in res_a["output"]:
+            raise AssertionError(f"fleet: ta's output "
+                                 f"{res_a['output'][:300]!r}")
+        for who in ("tb_cold", "tb_warm"):
+            if _wf_lines(sessions[who][0]["output"]) != \
+                    zoracle["message"]:
+                raise AssertionError(f"fleet: {who}'s message lines")
+        cold, warm = sessions["tb_cold"][0], sessions["tb_warm"][0]
+        if owner_of(cold["id"]) != owner_of(warm["id"]):
+            raise AssertionError(f"fleet: tb's key landed on "
+                                 f"{cold['id']} and {warm['id']}")
+        if warm["meta"]["plan_cache"]["plan"]["misses"] != 0:
+            raise AssertionError(f"fleet: tb's warm run missed the plan "
+                                 f"cache: {warm['meta']['plan_cache']}")
+        launches = {who: _kernels_of(res)
+                    for who, (res, _) in sessions.items()}
+        if not FLEET_CPU and (launches["ta"]["mark_words"] < 1 or
+                              launches["tb_warm"]["segment_table"] != 1
+                              or launches["tb_cold"]["segment_table"]):
+            raise AssertionError(f"fleet: the traffic launched {launches}")
+        rec["traffic"] = {who: {"id": res["id"],
+                                "round_trip_s": secs,
+                                "wall_s": res["meta"]["wall_s"],
+                                "plan": res["meta"]["plan_cache"]["plan"]}
+                          for who, (res, secs) in sessions.items()}
+
+        # -- failover: SIGKILL r1 mid-session ----------------------------
+        r1 = ServeClient.local(up["r1"]["port"], timeout=120)
+        fo_sids = [r1.submit(script=fleet_failover_script(zpaths),
+                             tenant="tb")["id"],
+                   r1.submit(script=serve_ii_script(paths),
+                             tenant="ta")["id"]]
+        sj = os.path.join(fleet, "replicas", "r1", "sessions", fo_sids[0])
+
+        def checkpointed():
+            try:
+                return "ckpt" in [x["kind"] for x in read_journal(sj)]
+            except Exception:
+                return False
+        _poll(checkpointed, "r1's first checkpoint")
+        kill_by_lease(fleet, "r1", procs, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        procs["r1"].wait(timeout=60)
+        if any(_result(fleet, s) for s in fo_sids):
+            raise AssertionError("fleet: r1 finished a session before the "
+                                 "kill")
+        _poll(lambda: probe.claims("r1"), "a claim on r1")
+        claim_s = time.perf_counter() - t_kill
+        _poll(lambda: probe.current_claim("r1")[1].get("done"),
+              "the claim's done flag")
+        claim_done_s = time.perf_counter() - t_kill
+        first = _poll(lambda: [s for s in fo_sids if _result(fleet, s)],
+                      "a replayed result")
+        first_s = time.perf_counter() - t_kill
+        _poll(lambda: all(_result(fleet, s) for s in fo_sids),
+              "both replayed results")
+        all_s = time.perf_counter() - t_kill
+        claims = probe.claims("r1")
+        if len(claims) != 1 or not claims[0][1].get("done"):
+            raise AssertionError(f"fleet: r1's claims {claims}")
+        by = claims[0][1]["by"]
+        fo = [_result(fleet, s) for s in fo_sids]
+        for res in fo:
+            if res["status"] != "done" or not res["meta"]["failed_over"]:
+                raise AssertionError(f"fleet: {res['id']} {res['status']} "
+                                     f"({res['error']})")
+        if not fo[0]["meta"]["resumed"]:
+            raise AssertionError("fleet: the killed session was not "
+                                 "resumed from its checkpoint")
+        tb_sha = refs["tb"]["wf.out"]
+        if _file_sha(fo[0]) != {"wf.out": tb_sha, "wf2.out": tb_sha} or \
+                _file_sha(fo[1]) != refs["ta"]:
+            raise AssertionError(f"fleet: the replayed files differ from "
+                                 f"an uninterrupted run's: "
+                                 f"{_file_sha(fo[0])} {_file_sha(fo[1])}")
+        launches["failover_resumed"] = _kernels_of(fo[0])
+        launches["failover_queued"] = _kernels_of(fo[1])
+        if not FLEET_CPU and launches["failover_queued"]["mark_words"] < 1:
+            raise AssertionError(f"fleet: the replayed invertedindex "
+                                 f"launched {launches['failover_queued']}")
+        for s in fo_sids:
+            got = router.result(s)
+            if got["status"] != "done":
+                raise AssertionError(f"fleet: the router read {s} as "
+                                     f"{got['status']}")
+        rec["failover"] = {
+            "sids": fo_sids, "claimed_by": by, "first_result": first[0],
+            "kill_to_claim_s": claim_s, "kill_to_claim_done_s": claim_done_s,
+            "kill_to_first_result_s": first_s, "kill_to_all_s": all_s,
+            "metric": _failover_seconds(up[by]["port"]),
+            "resumed_wall_s": fo[0]["meta"]["wall_s"],
+            "queued_wall_s": fo[1]["meta"]["wall_s"]}
+
+        # -- fencing: r1 restarted, claimed again while stopped, revived --
+        t2 = time.perf_counter()
+        procs["r1"] = _spawn(replica_args(fleet, "r1", paused=True),
+                             env, log)
+        up["r1"] = _serving(procs["r1"], t2, log, "fleet: r1 restarted")
+        r1 = ServeClient.local(up["r1"]["port"], timeout=120)
+        st = r1.stats()
+        if st["sessions"]["total"] != 0 or st["queue"]["depth"] != 0:
+            raise AssertionError(f"fleet: the restarted r1 replays its "
+                                 f"claimed work: {st['sessions']}")
+        small = os.path.join(tmp, "fleet-small.txt")
+        with open(small, "w") as f:
+            f.write("fence fence post\n" * 100)
+        zsid = r1.submit(script=f"variable files index {small}\n"
+                                f"wordfreq 2 -i v_files\n")["id"]
+        kill_by_lease(fleet, "r1", procs, signal.SIGSTOP)
+        t_stop = time.perf_counter()
+        try:
+            _poll(lambda: len(probe.claims("r1")) == 2 and
+                  probe.current_claim("r1")[1].get("done"),
+                  "the second claim on r1")
+            reclaim_s = time.perf_counter() - t_stop
+            _poll(lambda: _result(fleet, zsid), "the stopped r1's session")
+            replay_s = time.perf_counter() - t_stop
+        finally:
+            # the claim retired r1's old lease: signal the process itself
+            os.kill(procs["r1"].pid, signal.SIGCONT)
+        import urllib.error
+        import urllib.request
+
+        def healthz():
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{up['r1']['port']}/healthz",
+                        timeout=30) as r:
+                    return r.status, json.loads(r.read().decode())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read().decode())
+        _poll(lambda: healthz() == (503, {"status": "fenced"}),
+              "r1 fenced", 60)
+        rc, out, err, secs = run_tool("gpu_mapreduce_tpu_torch.ctl",
+                                      ["--state", fleet, "top", "--json"],
+                                      env)
+        try:
+            r1.submit(script="mr x\n")
+            raise AssertionError("fleet: the fenced r1 admitted a session")
+        except ServeError as e:
+            if e.code != 503:
+                raise
+        rec["fence"] = {"restart_serving_s": up["r1"]["serving_s"],
+                        "stop_to_claim_done_s": reclaim_s,
+                        "stop_to_result_s": replay_s,
+                        "stopped_sid": zsid,
+                        "claimed_by": probe.current_claim("r1")[1]["by"],
+                        "healthz": list(healthz()),
+                        "fleet": r1.stats()["fleet"]}
+
+        # -- operator tools: ctl top --------------------------------------
+        if rc != 0:
+            raise AssertionError(f"fleet: ctl top exited {rc}: {err}")
+        members = {m["replica"]: (m["state"], m["up"])
+                   for m in json.loads(out)["members"]}
+        if members != {"r0": ("ready", True), "r1": ("fenced", False),
+                       "r2": ("ready", True)}:
+            raise AssertionError(f"fleet: ctl top listed {members}")
+        rec["top"] = {"members": members, "seconds": secs}
+
+        # -- degraded mode: every replica stopped -------------------------
+        sent = router.shutdown()["sent"]
+        if sent != {"r0": 200, "r1": 200, "r2": 200}:
+            raise AssertionError(f"fleet: the shutdown broadcast {sent}")
+        for rid in ("r0", "r1", "r2"):
+            procs[rid].wait(timeout=120)
+        _poll(lambda: probe.healthy() == [], "no healthy replica")
+        t3 = time.perf_counter()
+        try:
+            router.submit(script="mr x\n")
+            raise AssertionError("fleet: the router admitted with no "
+                                 "replica")
+        except ServeError as e:
+            t503, ra = time.perf_counter() - t3, e.retry_after
+            if e.code != 503 or not ra or t503 >= 0.5:
+                raise AssertionError(f"fleet: with no replica the router "
+                                     f"answered {e.code}, Retry-After "
+                                     f"{ra}, in {t503} s")
+        reads = {s: router.result(s)["status"]
+                 for s in [res_a["id"], cold["id"]] + fo_sids}
+        if set(reads.values()) != {"done"}:
+            raise AssertionError(f"fleet: the result store read {reads}")
+        rec["degraded"] = {"code": 503, "retry_after": ra,
+                           "answer_s": t503, "store_reads": reads}
+
+        # -- each sid done exactly once across every journal -------------
+        done = {}
+        for rid in ("r0", "r1", "r2"):
+            for x in read_journal(os.path.join(fleet, "replicas", rid)):
+                if x.get("kind") == "serve_done":
+                    done.setdefault(x["sid"], []).append(rid)
+        twice = {s: r for s, r in done.items() if len(r) != 1}
+        want = {res_a["id"], cold["id"], warm["id"], zsid, *fo_sids}
+        if twice or not want <= set(done):
+            raise AssertionError(f"fleet: serve_done records {done}")
+        rec["serve_done"] = {s: r[0] for s, r in sorted(done.items())}
+
+        # trace_view over the survivor that replayed the invertedindex
+        rc, out, err, secs = run_tool(
+            "gpu_mapreduce_tpu_torch.obs.trace_view",
+            [os.path.join(fleet, f"trace-{by}.jsonl")], env)
+        if rc != 0 or "oink.invertedindex" not in out:
+            raise AssertionError(f"fleet: trace_view exited {rc}: "
+                                 f"{out[:500]} {err[-500:]}")
+        rec["trace_view"] = {"replica": by, "seconds": secs,
+                             "lines": len(out.splitlines())}
+    finally:
+        for name, p in procs.items():
+            if p.poll() is None:
+                try:
+                    p.send_signal(signal.SIGCONT)
+                    p.terminate()
+                    p.wait(timeout=60)
+                except Exception:
+                    p.kill()
+                    p.wait()
+    rec["launches"] = {k: {who: n[k] for who, n in launches.items()}
+                       for k in FLEET_KERNELS}
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def fleet_alone(card: bool) -> int:
+    """``chip_smoke.py --fleet-alone``: the fleet phase alone on the card
+    at its full size, its inputs made here (the 256 MB main corpus and
+    the 256 MB wordfreq-zipf corpus with its oracle) and its reference
+    files from the same jobs run here directly.  ``--fleet-rehearse``:
+    the same on the CPU at 2 MB, every gate but the launch counts and
+    the card's contexts.  Prints the fleet line."""
+    import torch
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.ops import cuda as kcuda
+    global FLEET_CPU, SERVE_CPU
+    if card:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 2
+        kcuda.build_all()
+        smi = nvidia_smi()
+        main_mb, zipf_mb = MAIN_MB, WF_MB
+    else:
+        FLEET_CPU = SERVE_CPU = True
+        smi = "cpu rehearsal"
+        main_mb, zipf_mb = 2, 2
+    device = serve_device()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "main"))
+        paths, nref, nuniq = make_corpus(os.path.join(tmp, "main"), main_mb)
+        zdir = os.path.join(tmp, "zipf")
+        os.makedirs(zdir)
+        zpaths, counts, vbuf, voffs = zipf_corpus(zdir, zipf_mb)
+        words = [vbuf[voffs[i]:voffs[i + 1]].tobytes()
+                 for i in range(len(voffs) - 1)]
+        zoracle = wordfreq_oracle(words, counts, len(zpaths))
+        del words, counts, vbuf, voffs
+        inputs_s = time.perf_counter() - t0
+        rec = run_fleet(paths, nref, nuniq, zpaths, zoracle, tmp, smi,
+                        device)
         rec["inputs_s"] = inputs_s
         rec["alone_seconds"] = time.perf_counter() - t0
         emit(rec)
@@ -7615,8 +8165,7 @@ def main() -> int:
         emit({k: wire[k] for k in ("phase", "card", "p", "cards", "devices",
                                    "check", "launches", "seconds")})
         ft_rec = run_ft(paths, nref, nuniq, zipf[0], zipf[1],
-                        int_keys["uniform"], tmp, device, kernels, smi,
-                        graph)
+                        int_keys["uniform"], tmp, device, kernels, smi)
         emit(ft_rec)
         cache_rec = run_cache(paths, nref, nuniq, int_keys["uniform"],
                               zipf[0][0], tmp, kernels, smi, device)
@@ -7624,6 +8173,9 @@ def main() -> int:
         serve_rec = run_serve(paths, nref, nuniq, zipf[0], zipf[1], tmp,
                               kernels, smi, device)
         emit(serve_rec)
+        fleet_rec = run_fleet(paths, nref, nuniq, zipf[0], zipf[1], tmp,
+                              smi, device, serve_files=serve_rec["files"])
+        emit(fleet_rec)
         shutil.rmtree(main_dir)
         shutil.rmtree(os.path.dirname(zipf[0][0]))
     finally:
@@ -7680,7 +8232,10 @@ def main() -> int:
                     # the serve phase: the pair at once (ta's
                     # invertedindex, tb's cold fused wordfreq), tb's warm
                     # resubmit, the memo hit
-                    "launches_serve": serve_rec["launches"][k]}
+                    "launches_serve": serve_rec["launches"][k],
+                    # the fleet phase, per session, from each result's
+                    # meta (the replicas are processes of their own)
+                    "launches_fleet": fleet_rec["launches"][k]}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -7765,4 +8320,6 @@ if __name__ == "__main__":
         sys.exit(cache_alone(sys.argv[1] == "--cache-alone"))
     if sys.argv[1:2] in (["--serve-rehearse"], ["--serve-alone"]):
         sys.exit(serve_alone(sys.argv[1] == "--serve-alone"))
+    if sys.argv[1:2] in (["--fleet-rehearse"], ["--fleet-alone"]):
+        sys.exit(fleet_alone(sys.argv[1] == "--fleet-alone"))
     sys.exit(main())

@@ -24,26 +24,7 @@ import numpy as np
 import torch
 
 from ..utils.env import env_knob, env_str
-
-
-class MRError(RuntimeError):
-    """Raised for fatal conditions (the reference aborts; we raise)."""
-
-
-class CancelledError(MRError):
-    """A request was cancelled or ran past its deadline, and the flag
-    tripped at an op barrier (``obs/context.barrier_check``).  An
-    :class:`MRError`, so the ft/ retry layer never retries it."""
-
-    def __init__(self, reason: str = "cancelled"):
-        self.reason = reason
-        super().__init__(f"request cancelled ({reason})")
-
-
-class DeviceError(MRError):
-    """The card or a kernel failed: a kernel that did not build, load or
-    launch.  The retry layer never retries it, quarantines it or answers
-    it with a plain version (``ft/retry.device_error``)."""
+from .errors import CancelledError, DeviceError, MRError  # noqa: F401
 
 
 @dataclass

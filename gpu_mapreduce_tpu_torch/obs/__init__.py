@@ -26,14 +26,23 @@ engine (``slo.py``) turns the serve daemon's session metrics into
 multi-window burn rates.
 """
 
-from .tracer import (NULL_SPAN, Span, Tracer, configure_from_env,
-                     get_tracer)
-from .sinks import (CallbackSink, JsonlSink, RingSink, chrome_trace,
-                    read_jsonl, write_chrome_trace)
-from .report import aggregate_ops, per_op_table
-from .metrics import MetricsRegistry, enable_metrics, get_registry
-from .context import (RequestAccount, current_trace_id, new_trace_id,
-                      request_scope)
+import importlib
+
+# each public name and its module, imported at first use: ``trace_view``
+# (sinks, report, fleetobs) then starts without torch, which the tracer
+# needs
+_EXPORTS = {
+    "Tracer": ".tracer", "Span": ".tracer", "NULL_SPAN": ".tracer",
+    "get_tracer": ".tracer", "configure_from_env": ".tracer",
+    "RingSink": ".sinks", "JsonlSink": ".sinks", "CallbackSink": ".sinks",
+    "chrome_trace": ".sinks", "write_chrome_trace": ".sinks",
+    "read_jsonl": ".sinks",
+    "aggregate_ops": ".report", "per_op_table": ".report",
+    "MetricsRegistry": ".metrics", "get_registry": ".metrics",
+    "enable_metrics": ".metrics",
+    "RequestAccount": ".context", "request_scope": ".context",
+    "current_trace_id": ".context", "new_trace_id": ".context",
+}
 
 __all__ = [
     "Tracer", "Span", "NULL_SPAN", "get_tracer", "configure_from_env",
@@ -45,7 +54,15 @@ __all__ = [
     "new_trace_id",
 ]
 
-# apply MRTPU_METRICS_PORT / MRTPU_METRICS_SNAP / MRTPU_FLIGHT once, when
-# the package is first imported; never raises
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(_EXPORTS[name], __name__),
+                        name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 from .metrics import configure_from_env as _metrics_env   # noqa: E402
 _metrics_env()

@@ -82,7 +82,7 @@ class RequestAccount:
                  "mem_in_use", "mem_hi_water",
                  "retries", "plan", "fusion", "stages", "sync_sites",
                  "cancel_reason", "deadline", "last_barrier", "barriers",
-                 "cancel_closed")
+                 "cancel_closed", "kernels")
 
     def __init__(self, trace_id: Optional[str] = None,
                  tenant: str = "", label: str = ""):
@@ -124,6 +124,13 @@ class RequestAccount:
         # collectives, fed via obs/fleetobs.SyncObserver): worst spread,
         # the rank most often last, attributed cause counts
         self.sync_sites: Dict[str, dict] = {}
+        # launches of the port's hand-written CUDA kernels (ops/cuda),
+        # by wrapper name: a serve result's ``meta.kernels``; not part
+        # of profile(), whose keys are the JAX package's.  Charged on
+        # the threads that carry this context: the request's own and
+        # the workers that re-install it (capture/use, bind); a thread
+        # started without it charges no request
+        self.kernels: Dict[str, int] = {}
 
     # -- feeds (each must never raise into the work it observes) ----------
     def note_counters(self, deltas: dict) -> None:
@@ -137,6 +144,10 @@ class RequestAccount:
             self.spill_write += deltas.get("wsize", 0)
             self.spill_read += deltas.get("rsize", 0)
             self.comm_s += deltas.get("commtime", 0.0)
+
+    def note_kernel(self, name: str) -> None:
+        with self._lock:
+            self.kernels[name] = self.kernels.get(name, 0) + 1
 
     def charge_mem(self, delta: int) -> None:
         """One ``Counters.mem`` charge: per-request HBM residency and
@@ -469,6 +480,17 @@ def _counters_feed(kind: str, payload) -> None:
             acct.note_counters(payload)
         else:
             acct.charge_mem(payload)
+    except Exception:
+        pass
+
+
+def note_kernel(name: str) -> None:
+    """One hand-written kernel launch, charged to the current request
+    (outside a request it is only the wrapper's own counter)."""
+    try:
+        acct = _CTXVAR.get()
+        if acct is not None:
+            acct.note_kernel(name)
     except Exception:
         pass
 

@@ -12,7 +12,9 @@ Events go to the sinks already in Chrome trace-event form (``ph: "X"``,
 
 On the card a span is also a profiler range: it opens
 ``torch.profiler.record_function(name)`` and, when CUDA is available
-(decided once, from ``torch.cuda.is_available()``), an NVTX range
+(decided once, from ``torch.cuda.is_available()``, when a span first
+asks: a process that records no span, as the fleet router, never calls
+into CUDA), an NVTX range
 (``torch.cuda.nvtx.range_push``/``range_pop`` on the span's own thread),
 so ``torch.profiler`` and Nsight Systems show each span over the card's
 kernels.  ``MRTPU_TRACE_JAX`` (default on, the JAX package's knob for its
@@ -184,9 +186,9 @@ class Tracer:
         self.proc_attrs: dict = {}
         # the profiler ranges (MRTPU_TRACE_JAX, the JAX package's knob
         # for its profiler annotations); NVTX only where CUDA is
-        # available, decided here once
+        # available, decided once at the first span that asks
         self.annotations = env_flag("MRTPU_TRACE_JAX", True)
-        self.nvtx = self.annotations and torch.cuda.is_available()
+        self._nvtx: Optional[bool] = None
         self.epoch = time.perf_counter()
         # wall-clock origin of the perf_counter timeline: lets a
         # cross-process merge (fleetobs.read_trace_dir) rebase
@@ -228,6 +230,16 @@ class Tracer:
         """Merge process-wide span attrs (e.g. ``rank=3``) — stamped on
         every span this tracer creates from now on."""
         self.proc_attrs.update(attrs)
+
+    @property
+    def nvtx(self) -> bool:
+        if self._nvtx is None:
+            self._nvtx = self.annotations and torch.cuda.is_available()
+        return self._nvtx
+
+    @nvtx.setter
+    def nvtx(self, on: bool) -> None:
+        self._nvtx = bool(on)
 
     # -- configuration ------------------------------------------------------
     def enable(self, jsonl: Optional[str] = None, ring: Optional[int] = None):

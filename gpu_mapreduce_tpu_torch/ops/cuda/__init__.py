@@ -3,8 +3,8 @@
 Launch counters: every kernel wrapper carries a plain integer attribute
 ``launches`` and calls :func:`note_kernel_launch` right where it launches
 its kernel (the counterpart of ``ops/pallas/__init__.note_kernel_launch``;
-it also bumps ``Counters.ndispatch``).  A run reads the counters to show
-that its path went through the kernels.
+it also bumps ``Counters.ndispatch`` and the current request's count).
+A run reads the counters to show that its path went through the kernels.
 
 Loader: at first use, each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
 ``_build/lib<name>.so`` (a plain C interface, no PyTorch headers, so a
@@ -25,6 +25,7 @@ import time
 from typing import Callable, Dict, List
 
 from ...core.runtime import DeviceError, bump_dispatch
+from ...obs.context import note_kernel
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -38,9 +39,11 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def note_kernel_launch(wrapper: Callable) -> None:
-    """Count one launch of ``wrapper``'s kernel."""
+    """Count one launch of ``wrapper``'s kernel (and charge it to the
+    current request: a serve session's ``meta.kernels``)."""
     wrapper.launches += 1
     bump_dispatch()
+    note_kernel(wrapper.__name__)
 
 
 def sources() -> List[str]:

@@ -1,8 +1,8 @@
 """Thin HTTP client for the serve/ daemon (stdlib urllib only).
 
-One implementation of the wire protocol, so "what does a 429 look
-like" has a single answer.  Fleet discovery (a router in front of
-replicas) is not ported yet: a fleet directory raises ``MRError``.
+Used by ``python -m gpu_mapreduce_tpu_torch.ctl``, ``chip_smoke.py``
+and the tests — one implementation of the wire protocol, so "what does
+a 429 look like" has a single answer.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import urllib.error
 import urllib.request
 from typing import Optional
 
-from ..core.runtime import MRError
+from ..core.errors import MRError
 
 
 class ServeError(MRError):
@@ -34,16 +34,17 @@ class ServeClient:
                  token: Optional[str] = None):
         self.base = base.rstrip("/")
         self.timeout = timeout
-        # connection-level resilience: retry a refused/reset connection
-        # up to ``retries`` times with the ft/ backoff curve, re-reading
-        # serve.json between attempts when we know the state dir (a
-        # restarted daemon binds another ephemeral port)
+        # connection-level resilience (fleet clients, ctl): retry a
+        # refused/reset connection up to ``retries`` times with the ft/
+        # backoff curve, re-discovering the fleet between attempts when
+        # we know the state dir — a client pointed at a dead replica
+        # finds the survivors instead of exiting
         self.retries = max(0, int(retries))
         self.state_dir = state_dir
         # tenant bearer token (MRTPU_SERVE_TOKENS on the daemon side):
         # rides every request, including the /events stream and the
-        # healthz probe; defaults from MRTPU_SERVE_TOKEN —
-        # doc/serve.md#tenant-auth
+        # healthz probe; defaults from MRTPU_SERVE_TOKEN so ctl
+        # inherits it — doc/serve.md#tenant-auth
         if token is None:
             from ..utils.env import env_str
             token = env_str("MRTPU_SERVE_TOKEN", "") or None
@@ -56,19 +57,24 @@ class ServeClient:
     @classmethod
     def from_state_dir(cls, state_dir: str, **kw) -> "ServeClient":
         """Discover the daemon's bound port from ``<state>/serve.json``
-        (written atomically at start — ephemeral-port friendly).  A fleet
-        directory (``<state>/fleet/`` exists) raises ``MRError``: the
-        fleet router is not ported yet."""
+        (written atomically at start — ephemeral-port friendly).  A
+        FLEET directory (``<state>/fleet/`` exists) discovers the
+        router (``router.json``) first, then any live ready replica."""
         import os
         kw.setdefault("state_dir", state_dir)
         if os.path.isdir(os.path.join(state_dir, "fleet")):
-            raise MRError("serve fleet: the fleet router and its "
-                          "discovery are not ported yet")
+            from .router import discover
+            found = discover(state_dir)
+            if found is not None:
+                return cls.local(found[1], **kw)
+            raise OSError(f"no live router or replica under "
+                          f"{state_dir!r}")
         with open(os.path.join(state_dir, "serve.json")) as f:
             return cls.local(int(json.load(f)["port"]), **kw)
 
     def _rediscover(self) -> None:
-        """Between connection retries: re-read who is serving."""
+        """Between connection retries: re-resolve who is serving (the
+        dead replica's lease lapses; the router or a survivor answers)."""
         if self.state_dir is None:
             return
         try:
@@ -123,7 +129,7 @@ class ServeClient:
         return h
 
     def _req_once(self, method: str, path: str,
-                  obj: Optional[dict] = None) -> dict:
+                  obj: Optional[dict] = None, hops: int = 0) -> dict:
         data = json.dumps(obj).encode() if obj is not None else None
         req = urllib.request.Request(
             self.base + path, data=data, method=method,
@@ -132,6 +138,25 @@ class ServeClient:
             with urllib.request.urlopen(req, timeout=self.timeout) as r:
                 return json.loads(r.read().decode() or "{}")
         except urllib.error.HTTPError as e:
+            if e.code in (307, 308) and hops < 4:
+                # the fleet router's replica redirect: follow it to the
+                # owning replica (urllib only auto-follows GET 30x; the
+                # explicit hop also covers POST and keeps the count
+                # bounded)
+                loc = e.headers.get("Location")
+                e.read()
+                if loc:
+                    from urllib.parse import urlsplit
+                    u = urlsplit(loc)
+                    base = f"{u.scheme}://{u.netloc}"
+                    saved, self.base = self.base, base
+                    try:
+                        return self._req_once(
+                            method, u.path + (f"?{u.query}" if u.query
+                                              else ""), obj,
+                            hops=hops + 1)
+                    finally:
+                        self.base = saved
             raw = e.read().decode(errors="replace")
             try:
                 body = json.loads(raw)
@@ -147,6 +172,7 @@ class ServeClient:
                ops: Optional[list] = None,
                tenant: Optional[str] = None,
                priority: Optional[int] = None,
+               session: Optional[str] = None,
                deadline_ms: Optional[int] = None,
                retry_after_wait: float = 0.0) -> dict:
         """Submit one job.  ``tenant`` omitted means "whatever my
@@ -169,6 +195,10 @@ class ServeClient:
             body["priority"] = int(priority)
         if deadline_ms is not None:
             body["deadline_ms"] = int(deadline_ms)
+        if session is not None:
+            # fleet-router affinity key: submissions sharing a key land
+            # on the same replica of the healthy ring (serve/router.py)
+            body["session"] = str(session)
         budget = max(0.0, float(retry_after_wait))
         slept = 0.0
         while True:
@@ -346,6 +376,12 @@ class ServeClient:
     def stats(self) -> dict:
         return self._req("GET", "/v1/stats")
 
+    def fleet_metrics(self) -> dict:
+        """``GET /metrics/fleet.json`` (router-only): every federation
+        member — replicas and data-plane ranks — with liveness,
+        staleness and its merged registry snapshot (``ctl top``)."""
+        return self._req("GET", "/metrics/fleet.json")
+
     def drain(self) -> dict:
         return self._req("POST", "/v1/drain")
 
@@ -354,8 +390,8 @@ class ServeClient:
 
     def healthz(self) -> bool:
         """READY (200 ``{"status": "ok"}``), not merely alive: a
-        draining/paused/degraded daemon answers 503 here and reads
-        False — the load balancer's routing predicate."""
+        draining/paused/fenced replica answers 503 here and reads
+        False — the router/LB routing predicate."""
         try:
             req = urllib.request.Request(self.base + "/healthz",
                                          headers=self._headers())

@@ -45,9 +45,10 @@ Serve-journal record kinds: ``serve_submit`` (before the 202),
 the memo store — replay re-serves, never recomputes), ``serve_gc`` /
 ``memo_gc`` / ``cas_gc`` (sweep intents, written BEFORE deletion so a
 kill -9 mid-GC finishes on restart), ``serve_shed``, ``stream_open`` /
-``stream_close``.  The file formats are the JAX package's, so either
-package's daemon replays the other's state directory.  Unknown kinds
-are ignored by recovery, so journals roll forward.
+``stream_close`` and ``fleet_claimed``.  The file formats are the JAX
+package's, so either package's daemon replays the other's state
+directory.  Unknown kinds are ignored by recovery, so journals roll
+forward.
 
 The port runs on the card: ``Server()`` resolves its device with
 ``core.runtime.resolve_device`` (the card, or ``MRError`` where there
@@ -60,9 +61,20 @@ sticky CUDA error the daemon must be restarted (the journal then
 replays its unfinished sessions).  Pools are threads, never forked
 processes: a process that has touched CUDA must not fork.
 
-Fleet mode (``fleet_dir`` / ``MRTPU_FLEET_DIR``, replicas behind a
-router, lease takeover) is not ported yet: asking for it raises
-``MRError`` before any state is written.
+Fleet mode (``fleet_dir`` / ``MRTPU_FLEET_DIR`` — doc/serve.md#the-
+serve-fleet): N replicas share one directory tree.  Each replica
+heartbeats a lease (serve/fleet.py), mints globally-unique session ids
+(``<rid>.s<seq>``), writes results into the SHARED ``<fleet>/results/``
+store, and watches its peers: an expired lease triggers a journal
+claim — fenced record into the dead journal, then the dead's
+accepted-but-unfinished sessions replay here (mid-run ones resume from
+their copied auto-checkpoints), flagged ``meta.failed_over``.  Fencing
+discipline: a worker executes a session only while this replica's OWN
+lease is current and unclaimed — a paused-then-revived replica finds
+the claim and drops its stale queue instead of double-executing.  Each
+replica is its own process with its own CUDA context; a replica after a
+sticky CUDA error keeps renewing its lease as the JAX package's does
+and fails every session until it is restarted.
 """
 
 from __future__ import annotations
@@ -140,15 +152,8 @@ class Server:
                  replica_id: Optional[str] = None,
                  heartbeat_s: Optional[float] = None,
                  lease_s: Optional[float] = None):
-        # fleet mode is refused before anything is read or written: a
-        # refusal must never quietly become a lone daemon
-        asked = [name for name, v in (
-            ("fleet_dir", fleet_dir or env_str("MRTPU_FLEET_DIR", "")),
-            ("replica_id", replica_id), ("heartbeat_s", heartbeat_s),
-            ("lease_s", lease_s)) if v]
-        if asked:
-            raise MRError(f"serve fleet mode ({', '.join(asked)}) is not "
-                          f"ported yet")
+        # the device first: a replica with no card (and not asked onto
+        # the CPU) raises before it writes any state
         self.device = comm.devices[0] if comm is not None \
             else resolve_device(device)
         self.port = port if port is not None \
@@ -157,7 +162,27 @@ class Server:
             else env_knob("MRTPU_SERVE_WORKERS", int, 2)
         cap = queue_cap if queue_cap is not None \
             else env_knob("MRTPU_SERVE_QUEUE", int, 16)
-        self.rid = f"r{os.getpid()}"      # the memo records' writer
+        # fleet membership (serve/fleet.py): replicas of one fleet
+        # share a directory; each keeps its own state dir under
+        # <fleet>/replicas/<rid> (unless overridden) and its results in
+        # the SHARED <fleet>/results/ store
+        self.fleet_dir = fleet_dir or env_str("MRTPU_FLEET_DIR", "") \
+            or None
+        self.rid = replica_id or env_str("MRTPU_FLEET_ID", "") \
+            or f"r{os.getpid()}"
+        self._fleet = None
+        if self.fleet_dir is not None:
+            from .fleet import FleetMember
+            self._fleet = FleetMember(self.fleet_dir, self.rid,
+                                      heartbeat_s=heartbeat_s,
+                                      lease_s=lease_s)
+        self._fenced = False
+        self.fenced_drops = 0           # claimed sessions we declined
+        self._fleet_suspended = False   # test hook: a stalled replica
+        self._fleet_thread: Optional[threading.Thread] = None
+        if self.fleet_dir is not None and state_dir is None:
+            state_dir = os.path.join(self.fleet_dir, "replicas",
+                                     self.rid)
         self.state_dir = state_dir \
             or env_str("MRTPU_SERVE_STATE", "mrtpu-serve")
         # paused = admit + journal but do not execute (maintenance /
@@ -229,6 +254,7 @@ class Server:
         self._ewma_wall = 1.0              # Retry-After estimator
         self._journal = None
         self._owns_httpd = False
+        self._listener = None              # fleet mode: private httpd
         # request-scoped observability (obs/context.py): trace_id →
         # sid routing for the span feed, and per-session watcher queues
         # behind /v1/jobs/<id>/events
@@ -238,7 +264,7 @@ class Server:
         # standing queries: POST /v1/streams opens micro-batch streams
         # that outlive any one request (serve/streams.py +
         # stream/engine.py); journaled like submits, recovered like
-        # sessions
+        # sessions, adopted on fleet takeover
         from .streams import StreamManager
         self.streams = StreamManager(self)
 
@@ -247,12 +273,22 @@ class Server:
         return os.path.join(self.state_dir, "sessions", sid)
 
     def result_path(self, sid: str) -> str:
+        # fleet mode: ONE shared result store for every replica —
+        # takeover dedupe ("is this session already finished?") and the
+        # router's read fallback both need results findable without the
+        # replica that wrote them (sids are rid-prefixed, no collisions)
+        if self.fleet_dir is not None:
+            return os.path.join(self.fleet_dir, "results", sid + ".json")
         return os.path.join(self.state_dir, "results", sid + ".json")
 
     def _mint_sid(self) -> str:
-        """Caller holds ``_submit_lock``."""
+        """Caller holds ``_submit_lock``.  Fleet sids carry the replica
+        id (``<rid>.s<seq>``) so they are fleet-unique AND routable —
+        the router parses the owner straight out of the id."""
         self._seq += 1
-        return f"s{self._seq:06d}"
+        base = f"s{self._seq:06d}"
+        return f"{self.rid}.{base}" if self.fleet_dir is not None \
+            else base
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> int:
@@ -273,17 +309,37 @@ class Server:
         from ..obs.tracer import get_tracer
         get_tracer().subscribe_once(self._span_feed)
         _CURRENT = self
-        httpd.register_routes("/v1/", self._handle)
-        httpd.set_health(self._health_status)
-        prev = httpd.get_server()
-        self._owns_httpd = prev is None or not prev.running
         # the card and the kernels are ready before the listener
         # answers (the kernels build at first use otherwise)
         self._warm_imports()
-        self.port = httpd.ensure_server(self.port)
+        if self._fleet is not None:
+            # fleet replicas ALWAYS listen privately: two in-process
+            # replicas (tests, embedded fleets) must not fight over the
+            # process-global /v1/ route table, and each replica's
+            # /healthz must report ITS readiness
+            self._listener = httpd.MetricsServer(
+                port=self.port, routes=[("/v1/", self._handle)],
+                health=self._health_status)
+            self.port = self._listener.start()
+        else:
+            httpd.register_routes("/v1/", self._handle)
+            httpd.set_health(self._health_status)
+            prev = httpd.get_server()
+            self._owns_httpd = prev is None or not prev.running
+            self.port = httpd.ensure_server(self.port)
         atomic_write_json(os.path.join(self.state_dir, "serve.json"),
                           {"port": self.port, "pid": os.getpid(),
                            "paused": self.paused, "rid": self.rid})
+        if self._fleet is not None:
+            from . import fleet as _fleet_mod
+            self._fleet.join(self.port, self.state_dir,
+                             state="draining" if self.paused
+                             else "ready")
+            _fleet_mod.enable_fleet_metrics(self._fleet)
+            self._fleet_thread = threading.Thread(
+                target=self._fleet_loop, name=f"mrtpu-fleet-{self.rid}",
+                daemon=True)
+            self._fleet_thread.start()
         if not self.paused:
             self._start_workers()
         if self.ttl_s > 0:
@@ -307,8 +363,10 @@ class Server:
 
     def _health_status(self) -> str:
         """/healthz readiness (obs/httpd.set_health): liveness is the
-        response existing at all; the STATUS tells load balancers
-        whether to send work here."""
+        response existing at all; the STATUS tells load balancers and
+        the fleet router whether to send work here."""
+        if self._fenced:
+            return "fenced"
         if self._draining or self.paused or self._stopped.is_set():
             # paused is a maintenance drain too: admitted work queues
             # but does not execute, so routers/LBs must look elsewhere
@@ -316,7 +374,8 @@ class Server:
         if self.disk.check():
             # resource pressure: alive, running sessions finish, but
             # new work must go elsewhere (doc/reliability.md#daemon-
-            # under-overload)
+            # under-overload) — fleet replicas publish this state on
+            # their lease, so the router drops them from the ring
             return "degraded"
         return "ok"
 
@@ -417,14 +476,50 @@ class Server:
                     memo_mod.sweep_finish(keys)
             except Exception:
                 pass
-        if claim_recs:
-            # a journal a fleet peer claimed (a JAX fleet's state dir):
-            # no lease state to arbitrate with — conservatively leave
-            # everything before the last claim to its claimant
+        if claim_recs and self._fleet is None:
+            # restarted OUTSIDE fleet mode with a claimed journal: no
+            # lease/claim state to arbitrate with — conservatively
+            # leave everything before the last claim to its claimant
             submits = [r for r in submits
                        if r["_idx"] > claim_recs[-1][0]]
             stream_opens = [r for r in stream_opens
                             if r["_idx"] > claim_recs[-1][0]]
+        elif claim_recs:
+            # a peer claimed this journal (we died, it took over).
+            # Every submit before a COMPLETED claim belongs to that
+            # claimant — replaying it here would be the double
+            # execution fencing exists to prevent.  Submits after it
+            # (post-revival work at a newer epoch) replay normally.
+            done_gens = {gen for gen, crec in
+                         self._fleet.claims(self.rid)
+                         if crec.get("done")}
+            boundary = max((i for i, r in claim_recs
+                            if r.get("gen", -1) in done_gens),
+                           default=-1)
+            submits = [r for r in submits if r["_idx"] > boundary]
+            stream_opens = [r for r in stream_opens
+                            if r["_idx"] > boundary]
+            cur = self._fleet.current_claim(self.rid)
+            if cur is not None and not cur[1].get("done"):
+                # an UNFINISHED claim: those sessions are in takeover
+                # limbo — if we simply dropped them and rejoined at a
+                # newer epoch, a claimant that died mid-takeover would
+                # orphan them forever (we look alive, so no peer ever
+                # supersedes).  Re-claim our own journal through the
+                # same O_EXCL arbitration every survivor uses: a LIVE
+                # claimant keeps the claim (it replays, we drop), a
+                # dead one loses the supersede race to us and the
+                # sessions stay ours
+                reclaim = self._fleet.claim(self.rid)
+                if reclaim is None:
+                    last = max(i for i, r in claim_recs)
+                    submits = [r for r in submits if r["_idx"] > last]
+                    stream_opens = [r for r in stream_opens
+                                    if r["_idx"] > last]
+                else:
+                    # ours again — already durably journaled HERE,
+                    # which is exactly what claim_done certifies
+                    self._fleet.claim_done(self.rid, reclaim["gen"])
         for r in submits:
             sid = r["sid"]
             if done.get(sid) == "rejected":
@@ -497,6 +592,237 @@ class Server:
             [r for r in stream_opens
              if r.get("stid", "") not in stream_closes])
 
+    # -- fleet: heartbeat, failover, fencing -------------------------------
+    def _fleet_loop(self) -> None:
+        """Heartbeat our lease, notice our own fencing, and claim any
+        peer whose lease expired.  Membership upkeep must never take
+        the daemon down."""
+        fleet = self._fleet
+        while not self._stopped.wait(fleet.heartbeat_s):
+            if self._fleet_suspended:     # test hook: a stalled replica
+                continue
+            try:
+                if not self._fenced and fleet.fenced():
+                    self._fenced = True   # a peer owns our old work now
+                st = self._health_status()
+                fleet.renew(state="ready" if st == "ok" else st)
+                # only a replica that can actually EXECUTE work claims:
+                # paused/draining/fenced replicas would sit on a claim,
+                # and a disk-degraded one would adopt sessions straight
+                # into the ENOSPC failures its own submit path sheds —
+                # leave the dead peer to a healthy survivor
+                if self._fenced or self.paused or self._draining \
+                        or not self._workers or self.disk.check():
+                    continue
+                now = time.time()
+                for rid, lease in fleet.peers().items():
+                    if rid == self.rid:
+                        continue
+                    st = fleet.replica_state(rid, lease, now)
+                    if st == "expired":
+                        self._takeover(rid, lease)
+                    elif st == "fenced" and fleet.expired(lease, now):
+                        # a DEAD peer under an UNFINISHED claim: the
+                        # claimant died mid-takeover (or it is our own
+                        # claim, resuming after a restart) — without
+                        # this branch the supersede path in claim()
+                        # is unreachable and the dead peer's
+                        # un-re-journaled sessions are orphaned.  A
+                        # fenced-but-RENEWING lease (revived zombie)
+                        # fails the expired() check and stays skipped;
+                        # claim() itself arbitrates a live claimant
+                        # (returns None while the takeover is in
+                        # flight)
+                        cur = fleet.current_claim(rid)
+                        if cur is not None and not cur[1].get("done"):
+                            self._takeover(rid, lease)
+            except Exception:
+                pass
+
+    def _fence_ok(self) -> bool:
+        """The lease discipline a worker checks before EVERY session:
+        execute only while our own lease is current (by our own clock —
+        no skew allowance on ourselves) and no peer has claimed our
+        journal.  A paused-then-revived replica fails this check and
+        drops its stale queue instead of double-executing sessions the
+        claimant already owns."""
+        if self._fleet is None:
+            return True
+        if self._fenced or self._fleet.fenced():
+            self._fenced = True
+            return False
+        return not self._fleet.self_expired()
+
+    def _takeover(self, dead_rid: str, lease: dict) -> None:
+        """Claim + replay one dead peer's journal.  The claim file
+        (O_EXCL — serve/fleet.py) settles the survivor race; the
+        ``fleet_claimed`` record lands in the DEAD journal before any
+        replay so a restarted/revived dead replica skips the sessions
+        we now own; each replayed session is re-journaled HERE before
+        it enters the queue, so our own death mid- or post-takeover is
+        covered by the normal recovery path."""
+        import shutil
+        claim = self._fleet.claim(dead_rid)
+        if claim is None:
+            return                        # peer won (or already done)
+        t0 = time.monotonic()
+        from ..ft.journal import Journal, read_journal
+        from ..obs import get_tracer
+        from . import fleet as fleet_mod
+        dead_state = lease.get("state_dir") or os.path.join(
+            self.fleet_dir, "replicas", dead_rid)
+        with get_tracer().span("fleet.failover", cat="fleet",
+                               dead=dead_rid, by=self.rid,
+                               epoch=claim["epoch"]) as sp:
+            try:
+                recs = read_journal(dead_state)
+            except MRError:
+                recs = []                 # died before its first record
+            # sids an EARLIER (superseded) claimant already re-journaled
+            # belong to ITS claim chain — its own failover replays them
+            owned_elsewhere: set = set()
+            done_gens: set = set()
+            for gen, crec in self._fleet.claims(dead_rid):
+                if crec.get("done"):
+                    done_gens.add(gen)
+                prev = crec.get("by")
+                if gen >= claim["gen"] or not prev or prev == self.rid:
+                    continue
+                please = self._fleet.lease(prev) or {}
+                pstate = please.get("state_dir") or os.path.join(
+                    self.fleet_dir, "replicas", prev)
+                try:
+                    prs = read_journal(pstate)
+                    owned_elsewhere.update(
+                        pr.get("sid", "") for pr in prs
+                        if pr.get("kind") == "serve_submit")
+                    owned_elsewhere.update(
+                        pr.get("stid", "") for pr in prs
+                        if pr.get("kind") == "stream_open")
+                except MRError:
+                    pass
+            # the fence record, BEFORE any replay
+            fj = Journal(dead_state, script_mode=True)
+            try:
+                fj.append({"kind": "fleet_claimed", "dead": dead_rid,
+                           "by": self.rid, "epoch": claim["epoch"],
+                           "gen": claim["gen"]})
+            finally:
+                fj.close()
+            done: Dict[str, str] = {}
+            gcd: set = set()
+            cancels: Dict[str, str] = {}
+            submits: List[dict] = []
+            stream_opens: List[dict] = []
+            stream_closes: set = set()
+            boundary = -1
+            for i, r in enumerate(recs):
+                kind = r.get("kind")
+                if kind == "serve_submit":
+                    submits.append({**r, "_idx": i})
+                elif kind == "stream_open":
+                    stream_opens.append({**r, "_idx": i})
+                elif kind == "stream_close":
+                    stream_closes.add(r.get("stid", ""))
+                elif kind == "serve_done":
+                    done[r.get("sid", "")] = r.get("status", DONE)
+                elif kind == "serve_cancel":
+                    cancels[r.get("sid", "")] = r.get("reason",
+                                                      "client")
+                elif kind == "serve_gc":
+                    gcd.add(r.get("sid", ""))
+                elif kind == "fleet_claimed" and \
+                        r.get("by") != self.rid and \
+                        r.get("gen", -1) in done_gens:
+                    # only a COMPLETED prior claim is a hard boundary
+                    # (its submits were fully re-journaled under the
+                    # claimant — the rejoin-then-die case).  An
+                    # UNFINISHED claim we are superseding must NOT
+                    # hide the dead replica's submits: the ones its
+                    # claimant did adopt are excluded per-sid via
+                    # owned_elsewhere, the rest replay here
+                    boundary = i
+            n = 0
+            for r in submits:
+                sid = r.get("sid", "")
+                if not sid or done.get(sid) is not None or sid in gcd \
+                        or sid in owned_elsewhere:
+                    continue
+                if r["_idx"] <= boundary:
+                    continue              # a prior claim chain owns it
+                if os.path.exists(self.result_path(sid)):
+                    continue              # finished; shared store has it
+                if sid in cancels:
+                    # the dead replica ACKNOWLEDGED this cancel but
+                    # died before the barrier finalized it: honor it —
+                    # write the terminal record into the shared store
+                    # (reads keep working fleet-wide) and never adopt
+                    try:
+                        atomic_write_json(
+                            self.result_path(sid),
+                            cancelled_record(
+                                sid, r.get("tenant", "default"),
+                                cancels[sid],
+                                trace_id=r.get("trace"),
+                                deadline_ms=r.get("dl") or None,
+                                failed_over=True))
+                    except Exception:
+                        pass
+                    continue
+                with self._lock:
+                    if sid in self.sessions:
+                        continue          # idempotent takeover resume
+                src = os.path.join(dead_state, "sessions", sid)
+                dst = self.session_dir(sid)
+                if os.path.isdir(src) and not os.path.isdir(dst):
+                    # a mid-run session's journal + auto-checkpoints
+                    # ride along; run_session detects them and resumes
+                    shutil.copytree(src, dst)
+                from ..obs.context import new_trace_id
+                sess = Session(
+                    sid=sid, tenant=r.get("tenant", "default"),
+                    payload=r.get("payload", ""),
+                    fmt=r.get("fmt", "oink"),
+                    submitted_utc=r.get("utc", ""),
+                    priority=int(r.get("priority", 0)),
+                    failed_over=True,
+                    deadline_ms=r.get("dl") or None,
+                    trace_id=r.get("trace") or new_trace_id())
+                with self._submit_lock:
+                    if self._journal is None:
+                        return            # shutting down mid-takeover
+                    self._journal.append(
+                        {"kind": "serve_submit", "sid": sid,
+                         "tenant": sess.tenant, "fmt": sess.fmt,
+                         "payload": sess.payload, "seq": 0,
+                         "priority": sess.priority,
+                         "utc": sess.submitted_utc, "fo": dead_rid,
+                         "dl": sess.deadline_ms,
+                         "trace": sess.trace_id})
+                    self.queue.offer(sess, force=True,
+                                     priority=sess.priority)
+                    with self._lock:
+                        self.sessions[sid] = sess
+                        self._order.append(sid)
+                    with self._watch_lock:
+                        self._trace_sids[sess.trace_id] = sid
+                n += 1
+            # the dead replica's OPEN streams move here too: copy each
+            # durable stream directory, re-journal stream_open under
+            # OUR journal, resume from its last committed cursor
+            nst = 0
+            for r in stream_opens:
+                stid = r.get("stid", "")
+                if not stid or stid in stream_closes \
+                        or stid in owned_elsewhere \
+                        or r["_idx"] <= boundary:
+                    continue
+                if self.streams.adopt(r, dead_state, dead_rid):
+                    nst += 1
+            self._fleet.claim_done(dead_rid, claim["gen"])
+            sp.set(sessions=n, streams=nst)
+        fleet_mod.note_failover(time.monotonic() - t0)
+
     def drain(self) -> None:
         self._draining = True
 
@@ -509,7 +835,7 @@ class Server:
         self._stopped.set()
         # open streams SUSPEND (runners stop, engine journals close, no
         # stream_close record): they are durable state the next start —
-        # resumes from the last committed cursor
+        # or a fleet survivor — resumes from the last committed cursor
         try:
             self.streams.suspend_all()
         except Exception:
@@ -523,8 +849,20 @@ class Server:
             get_tracer().unsubscribe(self._span_feed)
         except Exception:
             pass
-        httpd.unregister_routes("/v1/")
-        httpd.set_health(None)
+        if self._fleet is not None:
+            # graceful exit is not a failure: drop the lease so no
+            # survivor claims a journal whose queue we just drained.  The
+            # heartbeat stops first: a renew in flight would write the
+            # lease again after the leave
+            if self._fleet_thread is not None:
+                self._fleet_thread.join(timeout=timeout)
+            self._fleet.leave()
+        if self._listener is not None:
+            self._listener.stop()
+            self._listener = None
+        else:
+            httpd.unregister_routes("/v1/")
+            httpd.set_health(None)
         if _CURRENT is self:
             _CURRENT = None
         if self._owns_httpd:
@@ -546,6 +884,13 @@ class Server:
         if self._draining:
             return 503, {"error": "draining: not admitting new work"}, \
                 {"Retry-After": 60}
+        if self._fenced:
+            # a fenced replica's journal belongs to its claimant; new
+            # accepts here could never be claimed coherently — refuse
+            # and let the client's retry find the healthy ring
+            return 503, {"error": f"replica {self.rid!r} is fenced "
+                                  f"(its journal was claimed)"}, \
+                {"Retry-After": 5}
         try:
             payload = normalize_payload(body)
         except MRError as e:
@@ -1016,6 +1361,15 @@ class Server:
                 if self._stopped.is_set() and self.queue.depth() == 0:
                     return
                 continue
+            if not self._fence_ok():
+                # our lease lapsed or a peer claimed our journal: this
+                # session belongs to the claimant now.  Dropping it is
+                # the fence — executing it would be the double run
+                from . import fleet as fleet_mod
+                with self._lock:
+                    self.fenced_drops += 1
+                fleet_mod.note_fenced_drop(self.rid)
+                continue
             with self._lock:
                 if sess.cancel_requested is not None and \
                         sess.state != RUNNING:
@@ -1315,8 +1669,16 @@ class Server:
             for s in self.sessions.values():
                 states[s.state] = states.get(s.state, 0) + 1
             active = self._active
+        fleet = None
+        if self._fleet is not None:
+            fleet = {"rid": self.rid, "epoch": self._fleet.epoch,
+                     "fenced": self._fenced,
+                     "fenced_drops": self.fenced_drops,
+                     "replicas": {rid: self._fleet.replica_state(rid, l)
+                                  for rid, l in
+                                  self._fleet.peers().items()}}
         return {"queue": self.queue.stats(),
-                "fleet": None,
+                "fleet": fleet,
                 "sessions": {"active": active, "by_state": states,
                              "total": len(self._order)},
                 "streams": self.streams.snapshot(),

@@ -33,7 +33,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
-from ..core.runtime import CancelledError, MRError, page_account_scope
+from ..core.errors import CancelledError, MRError
 
 QUEUED, RUNNING, DONE, FAILED, CANCELLED = \
     "queued", "running", "done", "failed", "cancelled"
@@ -245,6 +245,7 @@ def _serve_memoized(server, sess: Session, mkey: str,
             "plan_cache": {"plan": {"hits": 0, "misses": 0}},
             "pages": {},
             "profile": {"dispatches": 0},
+            "kernels": {},
             "memo": {"hit": True, "key": mkey,
                      "source_wall_s": prior_meta.get("wall_s"),
                      "source_trace_id": prior_meta.get("trace_id")},
@@ -269,6 +270,7 @@ def run_session(server, sess: Session) -> dict:
     the session's trace_id and charges its :class:`RequestAccount`, so
     the ``meta`` deltas are EXACT under concurrency, not
     "exact only when idle"."""
+    from ..core.runtime import page_account_scope
     from ..ft.journal import Journal, resume_into
     from ..obs import context as obs_context
     from ..oink.objects import ObjectManager
@@ -472,6 +474,9 @@ def run_session(server, sess: Session) -> dict:
             "plan_cache": plan_delta,
             "pages": acct.snapshot(),
             "profile": profile,
+            # the port's own: this session's launches of each
+            # hand-written kernel (a replica's card is its process's)
+            "kernels": dict(req.kernels),
             "memo": {"hit": False, "key": mkey},
         },
     }

@@ -1,7 +1,8 @@
 """Serve-plane standing queries: the daemon side of ``/v1/streams``.
 
 One :class:`StreamManager` per Server owns every open stream: minting
-ids (``st<seq>``), the ``stream_open``/``stream_close`` serve-journal records that
+ids (fleet: ``<rid>.st<seq>`` — globally unique and routable, like
+sids), the ``stream_open``/``stream_close`` serve-journal records that
 make streams recoverable (journal before the 202, same discipline as
 submits), one runner thread per stream driving the engine's scheduler,
 and the tenant plumbing — budget defaults pin the resident dataset's
@@ -10,11 +11,13 @@ carries the deadline and charges every batch's spans/counters to the
 tenant, and ``page_account_scope`` bills resident pages to the tenant
 gauge.
 
-Recovery rides the session machinery's rails: a restarted daemon
-re-opens every stream whose ``stream_open`` has no ``stream_close``
-(the engine resumes from its journal's last committed cursor) —
-doc/streaming.md#the-serve-surface.  The fleet takeover of a dead
-replica's streams comes with fleet mode, which is not ported yet.
+Recovery and failover ride the session machinery's rails: a restarted
+daemon re-opens every stream whose ``stream_open`` has no
+``stream_close`` (the engine resumes from its journal's last committed
+cursor), and a fleet takeover (serve/daemon._takeover) copies the dead
+replica's stream directories, re-journals ``stream_open`` here with
+the ``fo`` flag, and resumes them like any mid-run session —
+doc/streaming.md#the-serve-surface.
 
 Memoization never applies to streams: a standing query's result is a
 moving target, not a pure function of its submission
@@ -94,7 +97,10 @@ class StreamManager:
     # -- id minting --------------------------------------------------------
     def _mint(self) -> str:
         self._seq += 1
-        return f"st{self._seq:06d}"
+        base = f"st{self._seq:06d}"
+        srv = self.server
+        return f"{srv.rid}.{base}" if srv.fleet_dir is not None \
+            else base
 
     def note_seq(self, rec: dict) -> None:
         """Recovery: keep the mint counter ahead of every journaled
@@ -112,6 +118,9 @@ class StreamManager:
         if srv._draining:
             return 503, {"error": "draining: not admitting new "
                                   "streams"}, {"Retry-After": 60}
+        if srv._fenced:
+            return 503, {"error": f"replica {srv.rid!r} is fenced"}, \
+                {"Retry-After": 5}
         pressure = srv.disk.check()
         if pressure:
             srv._note_shed(str(body.get("tenant") or "default"),
@@ -377,10 +386,73 @@ class StreamManager:
                 with self.server._watch_lock:
                     self.server._trace_sids[ss.trace_id] = stid
 
+    def adopt(self, rec: dict, dead_state: str, dead_rid: str) -> bool:
+        """Fleet takeover of ONE dead-replica stream: copy its durable
+        directory (journal + committed checkpoints + feed file),
+        re-journal ``stream_open`` HERE (our own death is then covered
+        by normal recovery), resume.  Idempotent per stid."""
+        import shutil
+        srv = self.server
+        stid = rec.get("stid", "")
+        if not stid:
+            return False
+        with self._lock:
+            if stid in self.streams:
+                return False
+        src = os.path.join(dead_state, "streams", stid)
+        dst = self.stream_dir(stid)
+        if os.path.isdir(src) and not os.path.isdir(dst):
+            shutil.copytree(src, dst)
+            # the copied journal's cursors name paths under the DEAD
+            # replica's home; a rehome record rebases them so the
+            # engine resumes the moved feed file at its committed
+            # offset instead of re-reading from 0 (stream/engine.py
+            # ``_restore``) — journaled, so OUR later restarts rebase
+            # the same way
+            from ..ft.journal import Journal
+            j = Journal(dst, script_mode=True)
+            try:
+                j.append({"kind": "stream_rehome", "map": {src: dst}})
+            finally:
+                j.close()
+        sources = list(rec.get("sources") or [])
+        if rec.get("feed") and sources:
+            # the feed file moved with the directory copy
+            sources = [os.path.join(dst, os.path.basename(sources[0]))]
+        with srv._submit_lock:
+            if srv._journal is None:
+                return False
+            srv._journal.append({
+                "kind": "stream_open", "stid": stid,
+                "tenant": rec.get("tenant", "default"),
+                "stseq": int(rec.get("stseq", 0)),
+                "spec": rec.get("spec") or {}, "sources": sources,
+                "feed": bool(rec.get("feed")),
+                "dl": rec.get("dl"), "trace": rec.get("trace"),
+                "fo": dead_rid})
+        ss = StreamSession(stid, rec.get("tenant", "default"),
+                           rec.get("spec") or {}, sources, dst,
+                           rec.get("dl") or None,
+                           rec.get("trace") or "", failed_over=True)
+        if rec.get("feed"):
+            ss.feed_path = sources[0] if sources else None
+        try:
+            self._boot(ss)
+        except Exception as e:          # noqa: BLE001
+            ss.state = ST_FAILED
+            ss.error = f"{type(e).__name__}: {e}"
+        with self._lock:
+            self.streams[stid] = ss
+            self._order.append(stid)
+        if ss.trace_id:
+            with srv._watch_lock:
+                srv._trace_sids[ss.trace_id] = stid
+        return True
+
     def suspend_all(self) -> None:
         """Daemon shutdown: stop runners and release journal handles
         WITHOUT stream_close records — open streams are durable state,
-        and the next start resumes them."""
+        and the next start (or a fleet survivor) resumes them."""
         with self._lock:
             sessions = list(self.streams.values())
         for ss in sessions:

@@ -48,13 +48,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # counterpart of (it compiles no programs)
 JAX_ONLY_CACHES = {"shuffle_phase1", "shuffle_phase2"}
 
-# catalog names whose owners are not ported yet: the serve fleet
-# (serve/fleet.py, serve/router.py) and its federation
-NOT_PORTED = {
-    "mrtpu_fleet_replicas", "mrtpu_fleet_failovers_total",
-    "mrtpu_fleet_failover_seconds", "mrtpu_fleet_fenced_total",
-    "mrtpu_fleet_router_total",
-}
+# catalog names whose owners are not ported yet: none (the serve fleet's
+# names come with serve/fleet.py and serve/router.py)
+NOT_PORTED = set()
 
 
 def _reset_all():

@@ -6,7 +6,8 @@ A subprocess poisons ``sys.modules`` so that importing ``jax`` or
 ``chip_smoke``.  Under an audit hook it also runs the native engine, a
 stream and a serve session on the CPU: no file under ``gpu_mapreduce_tpu/``
 is opened or loaded (the native loader builds and loads the port's own
-library)."""
+library).  Then a fleet replica behind the router answers the operator
+client (``ctl``), and the trace viewer runs, JAX still poisoned."""
 
 import os
 import subprocess
@@ -88,6 +89,33 @@ SCRIPT = textwrap.dedent("""
                 pass
             else:
                 raise SystemExit(f"{entry}() ran without a card")
+    # a fleet replica behind the router, driven by the operator tools,
+    # with JAX poisoned
+    import contextlib, io
+    from gpu_mapreduce_tpu_torch import ctl
+    from gpu_mapreduce_tpu_torch.obs import trace_view
+    from gpu_mapreduce_tpu_torch.serve import Router
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet = os.path.join(tmp, "fleet")
+        rep = Server(port=0, workers=1, device="cpu", fleet_dir=fleet,
+                     replica_id="r0")
+        rep.start()
+        rt = Router(fleet)
+        rt.start()
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                assert ctl.main(["--state", fleet, "top", "--json"]) == 0
+                assert ctl.main(["--state", fleet, "stats"]) == 0
+                assert trace_view.main(["--help"]) == 0
+        finally:
+            rt.stop()
+            rep.shutdown()
+        assert '"replica": "r0"' in out.getvalue()
+    leaked = [m for m in sys.modules if m.split(".")[0] in
+              ("jax", "jaxlib", "gpu_mapreduce_tpu")
+              and sys.modules[m] is not None]
+    assert not leaked, leaked
     print("OK", len(names), *names)
 """)
 
@@ -120,7 +148,8 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "serve", "serve.budget", "serve.auth", "serve.admission",
                    "serve.overload", "serve.memo", "serve.session",
                    "serve.autoscale", "serve.streams", "serve.daemon",
-                   "serve.client", "serve.__main__")
+                   "serve.client", "serve.__main__", "serve.fleet",
+                   "serve.router", "ctl", "obs.trace_view")
 
 
 def test_port_imports_no_jax():
@@ -133,3 +162,58 @@ def test_port_imports_no_jax():
     assert int(words[1]) >= 60                 # every module was imported
     for name in NEW_SUBPACKAGES:
         assert "gpu_mapreduce_tpu_torch." + name in words[2:], name
+
+
+TOOL = textwrap.dedent("""
+    import runpy, sys
+    for name in ("torch", "jax", "jaxlib", "gpu_mapreduce_tpu"):
+        sys.modules[name] = None          # any import of them now raises
+    mod = sys.argv[1]
+    sys.argv = [mod] + sys.argv[2:]
+    runpy.run_module(mod, run_name="__main__")
+""")
+
+
+def test_operator_tools_start_without_torch(tmp_path):
+    """``ctl`` and ``obs.trace_view`` are a urllib client and a JSONL
+    reader: with torch (and JAX) poisoned they still drive a daemon and
+    read its trace (the daemon itself runs in a process of its own)."""
+    import json
+    state, trace = tmp_path / "state", tmp_path / "t.jsonl"
+    corpus = tmp_path / "w.txt"
+    corpus.write_text("to be or not to be\n" * 20)
+    job = tmp_path / "job.oink"
+    job.write_text(f"variable files index {corpus}\nwordfreq 3 -i v_files\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, MRTPU_TRACE=str(trace))
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "gpu_mapreduce_tpu_torch.serve", "--device",
+         "cpu", "--port", "0", "--state", str(state)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port = int(json.loads(daemon.stdout.readline())["serving"])
+        env.pop("MRTPU_TRACE")
+
+        def tool(*argv):
+            return subprocess.run([sys.executable, "-c", TOOL, *argv],
+                                  cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=120)
+        r = tool("gpu_mapreduce_tpu_torch.ctl", "--port", str(port),
+                 "submit", str(job), "--wait")
+        assert r.returncode == 0, r.stderr
+        res = json.loads(r.stdout)
+        assert res["status"] == "done" and "WordFreq" in res["output"]
+        r = tool("gpu_mapreduce_tpu_torch.ctl", "--state", str(state),
+                 "stats")
+        assert r.returncode == 0, r.stderr
+        assert json.loads(r.stdout)["sessions"]["total"] == 1
+        r = tool("gpu_mapreduce_tpu_torch.ctl", "--port", str(port),
+                 "shutdown")
+        assert r.returncode == 0, r.stderr
+        daemon.wait(timeout=120)
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+        daemon.communicate(timeout=60)
+    r = tool("gpu_mapreduce_tpu_torch.obs.trace_view", str(trace))
+    assert r.returncode == 0, r.stderr
+    assert "oink.wordfreq" in r.stdout

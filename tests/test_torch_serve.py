@@ -9,8 +9,9 @@ codes must be equal — ids, timestamps, trace ids and seconds aside.  Two
 cases run the port's daemon as a subprocess with ``--device cpu`` and
 ``kill -9`` it: a paused queue replays byte-identical, and a session
 killed after a checkpoint resumes from it.  A state directory is read
-across both ways, and fleet mode refuses before writing any state.  No
-case sleeps a fixed time: each polls with a deadline of 60 s or more."""
+across both ways, and a daemon without a card refuses before writing any
+state (fleet replicas too; the fleet itself is in ``test_torch_fleet.py``).
+No case sleeps a fixed time: each polls with a deadline of 60 s or more."""
 
 import json
 import os
@@ -313,40 +314,44 @@ def test_budgets_page_account_and_hooks():
 
 
 def test_fleet_mode_and_no_card_refuse_before_state(tmp_path, monkeypatch):
-    state = tmp_path / "state"
-    for kw in ({"fleet_dir": str(tmp_path / "fleet")}, {"replica_id": "r0"},
-               {"heartbeat_s": 0.25}, {"lease_s": 1.0}):
-        with pytest.raises(MRError, match="not ported yet"):
-            Server(port=0, state_dir=str(state), device="cpu", **kw)
-    monkeypatch.setenv("MRTPU_FLEET_DIR", str(tmp_path / "fleet"))
-    with pytest.raises(MRError, match="not ported yet"):
-        Server(port=0, state_dir=str(state), device="cpu")
-    monkeypatch.delenv("MRTPU_FLEET_DIR")
+    """What still refuses now that fleet mode is ported: a replica with
+    no card and no ``--device cpu`` (before any state or fleet file is
+    written), and ``--router`` without ``--fleet`` (the JAX package's
+    usage error)."""
+    from gpu_mapreduce_tpu.serve.__main__ import main as j_main
     from gpu_mapreduce_tpu_torch.serve.__main__ import main
-    for extra in (["--fleet", str(tmp_path / "fleet")], ["--router"],
-                  ["--replica-id", "r1"], ["--heartbeat", "0.25"],
-                  ["--lease", "1.0"]):
-        with pytest.raises(MRError, match="not ported yet"):
-            main(["--device", "cpu", "--port", "0", "--state", str(state),
-                  *extra])
-    # the command line exits with the error, before any state
+    state, fleet = tmp_path / "state", tmp_path / "fleet"
+    for m in (main, j_main):
+        with pytest.raises(SystemExit) as ei:
+            m(["--router", "--port", "0"])
+        assert ei.value.code == 2
     r = subprocess.run(
-        [sys.executable, "-m", "gpu_mapreduce_tpu_torch.serve", "--device",
-         "cpu", "--port", "0", "--state", str(state), "--fleet",
-         str(tmp_path / "fleet")], cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
-        text=True, timeout=120)
-    assert r.returncode != 0 and "not ported yet" in r.stderr
-    assert not state.exists() and not (tmp_path / "fleet").exists()
-    os.makedirs(tmp_path / "f2" / "fleet")
-    with pytest.raises(MRError, match="not ported yet"):
-        ServeClient.from_state_dir(str(tmp_path / "f2"))
+        [sys.executable, "-m", "gpu_mapreduce_tpu_torch.serve", "--router",
+         "--port", "0"], cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 2 and "--router requires --fleet DIR" in r.stderr
+    # fleet mode is no refusal any more: a replica on the CPU joins
+    srv = Server(port=0, device="cpu", fleet_dir=str(fleet),
+                 replica_id="r0", lease_s=1.0, heartbeat_s=0.25)
+    assert srv.state_dir == str(fleet / "replicas" / "r0")
+    assert not fleet.joinpath("replicas").exists()
     if not torch.cuda.is_available():
-        # the daemon runs on the card or not at all: never on the host
-        # unless asked
+        # the daemon runs on the card or not at all, a fleet replica too:
+        # never on the host unless asked, and nothing written first
         with pytest.raises(MRError):
             Server(port=0, state_dir=str(state))
-        assert not state.exists()
+        monkeypatch.setenv("MRTPU_FLEET_DIR", str(tmp_path / "f2"))
+        with pytest.raises(MRError):
+            Server(port=0, replica_id="r1")
+        monkeypatch.delenv("MRTPU_FLEET_DIR")
+        r = subprocess.run(
+            [sys.executable, "-m", "gpu_mapreduce_tpu_torch.serve", "--port",
+             "0", "--fleet", str(tmp_path / "f3"), "--replica-id", "r0"],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+            capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0 and "MRError" in r.stderr
+        for d in (state, tmp_path / "f2", tmp_path / "f3"):
+            assert not d.exists()
 
 
 # ---------------------------------------------------------------------------
