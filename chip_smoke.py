@@ -890,7 +890,8 @@ def run_intcount(cell, path, keys_u32, kernels, smi) -> dict:
     from gpu_mapreduce_tpu_torch.plan import plan_cache, plan_history
     want = intcount_oracle(keys_u32, 10)
     runs = {}
-    saved = os.environ.get("MRTPU_FUSE")
+    from gpu_mapreduce_tpu_torch.utils.env import env_str
+    saved = env_str("MRTPU_FUSE", None)
     try:
         for run, fuse in (("eager", "0"), ("cold", "1"), ("warm", "1")):
             os.environ["MRTPU_FUSE"] = fuse
@@ -1175,6 +1176,8 @@ def run_wordfreq(cell: str, paths, oracle: dict, tmp: str, kernels,
         runs[run] = rec
     if any(o != outputs[0] for o in outputs):
         raise AssertionError(f"{cell}: the three runs differ")
+    import hashlib
+    out_sha = hashlib.sha256(outputs[0][1].encode()).hexdigest()
     name = segment_table.__name__
     if runs["eager"]["launches"][name] or runs["cold"]["launches"][name] \
             or runs["warm"]["launches"][name] < 1 \
@@ -1188,7 +1191,8 @@ def run_wordfreq(cell: str, paths, oracle: dict, tmp: str, kernels,
             "bytes": nbytes, "nwords": oracle["nwords"],
             "nunique": oracle["nunique"],
             "top3": [(w.decode(errors="replace"), c)
-                     for w, c in oracle["top"][:3]], **runs}
+                     for w, c in oracle["top"][:3]],
+            "out_sha256": out_sha, **runs}
 
 
 def interned_ids(paths, device):
@@ -3365,7 +3369,8 @@ def run_mesh_fuse(cell: str, keys_u32, tmp: str, kernels, smi: str,
     P = mesh.size
     paths = split_files(keys_u32, os.path.join(tmp, f"mesh-fuse-{cell}"), P)
     want = intcount_oracle_mesh(keys_u32, 10, P)
-    saved = os.environ.get("MRTPU_FUSE")
+    from gpu_mapreduce_tpu_torch.utils.env import env_str
+    saved = env_str("MRTPU_FUSE", None)
     runs, capture = {}, {}
     try:
         os.environ["MRTPU_FUSE"] = "1"
@@ -4234,7 +4239,8 @@ def same_frames(a, b) -> bool:
 @contextlib.contextmanager
 def wire_env(value: str):
     """``MRTPU_WIRE`` set to ``value`` for the block."""
-    saved = os.environ.get("MRTPU_WIRE")
+    from gpu_mapreduce_tpu_torch.utils.env import env_str
+    saved = env_str("MRTPU_WIRE", None)
     os.environ["MRTPU_WIRE"] = value
     try:
         yield
@@ -4521,7 +4527,8 @@ def wire_cpu_check(keys_u32, tmp: str, card=None) -> dict:
                 rec.append((out, vars(out.exchange_stats)))
         rec.append((shuffle.exchange(wire_frame(keys, make_mesh2(
             2, 2, devices=devs)), ("hash", None)), None))
-        saved = os.environ.get("MRTPU_FUSE")
+        from gpu_mapreduce_tpu_torch.utils.env import env_str
+        saved = env_str("MRTPU_FUSE", None)
         os.environ["MRTPU_FUSE"] = "1"
         try:
             plan_cache().clear()
@@ -4621,7 +4628,8 @@ def ft_armed(arm: bool = True, sites=None):
     site, budget 3; ft/ state reset before and after, the backoff base a
     few ms."""
     from gpu_mapreduce_tpu_torch import ft
-    saved = os.environ.get("MRTPU_RETRY_BACKOFF")
+    from gpu_mapreduce_tpu_torch.utils.env import env_str
+    saved = env_str("MRTPU_RETRY_BACKOFF", None)
     os.environ["MRTPU_RETRY_BACKOFF"] = FT_BACKOFF_S
     ft.reset()
     if arm:
@@ -5729,7 +5737,8 @@ def run_obs(paths, nref: int, nuniq: int, main_launches: dict, int_path,
     t_phase = time.perf_counter()
     d = os.path.join(tmp, "obs")
     os.makedirs(d)
-    saved_flight = os.environ.get("MRTPU_FLIGHT")
+    from gpu_mapreduce_tpu_torch.utils.env import env_str
+    saved_flight = env_str("MRTPU_FLIGHT", None)
     os.environ["MRTPU_FLIGHT"] = os.path.join(d, "flight")
     rec = {"phase": "obs", "card": smi}
     try:
@@ -7463,24 +7472,25 @@ def fleet_failover_script(zpaths) -> str:
         f"wordfreq {WF_NTOP} -i v_files -o wf2.out NULL\n"
 
 
+def _sha(path: str) -> str:
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
 def fleet_refs(paths, zpaths, tmp: str, device, serve_files) -> dict:
     """The uninterrupted outputs' sha256: the serve phase's (the same
     scripts on one daemon), or with ``--fleet-alone`` the same jobs run
     here directly."""
     if serve_files is not None:
         return serve_files
-    import hashlib
-
-    def sha(path):
-        with open(path, "rb") as f:
-            return hashlib.sha256(f.read()).hexdigest()
     d_a = os.path.join(tmp, "fleet-ref-a")
     d_b = os.path.join(tmp, "fleet-ref-b")
     serve_direct(serve_ii_script(paths), device, d_a)
     serve_direct(serve_wf_script(zpaths), device, d_b)
-    return {"ta": {"ii/part-00000": sha(os.path.join(d_a, "ii",
-                                                     "part-00000"))},
-            "tb": {"wf.out": sha(os.path.join(d_b, "wf.out"))}}
+    return {"ta": {"ii/part-00000": _sha(os.path.join(d_a, "ii",
+                                                      "part-00000"))},
+            "tb": {"wf.out": _sha(os.path.join(d_b, "wf.out"))}}
 
 
 def _result(fleet: str, sid: str):
@@ -7868,6 +7878,419 @@ def fleet_alone(card: bool) -> int:
     return 0
 
 
+BINDINGS_CPU = False           # --bindings-rehearse: the CPU, small sizes
+BINDINGS_EXAMPLES = ("cwordfreq", "coink", "crmat", "cblocked")
+BINDINGS_CWF_MB = 8            # cwordfreq's zipf text: one MR_kv_add a word
+BINDINGS_CRMAT_SCALE = 14      # crmat: 2^14 rows x 16 nonzeroes, each edge
+BINDINGS_CRMAT_NZ = 16         # one MR_kv_add and one C reduce callback a pass
+BINDINGS_CRMAT_ARGS = ("0.25", "0.25", "0.25", "0.25", "0.0", "7")
+BINDINGS_TIMEOUT_S = 300       # a C process's limit
+
+
+def bindings_device() -> list:
+    """The examples' leading arguments: none on the card (their default),
+    ``-device cpu`` in the rehearsal."""
+    return ["-device", "cpu"] if BINDINGS_CPU else []
+
+
+def bindings_env(trace=None) -> dict:
+    env = dict(os.environ, PYTHONPATH=_root())
+    env.pop("MRTPU_TRACE", None)
+    if trace:
+        env["MRTPU_TRACE"] = trace
+    return env
+
+
+def c_run(cmd, cwd: str, trace=None) -> dict:
+    """One C example as a process, which must exit 0: its output, wall
+    seconds and, with a trace, the seconds to its first span (the process's
+    start: the interpreter, torch's import, MR_init, the device's
+    resolution) and each OINK command's seconds in order."""
+    t_wall = time.time()
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=cwd, env=bindings_env(trace),
+                       capture_output=True, text=True,
+                       timeout=BINDINGS_TIMEOUT_S)
+    rec = {"stdout": r.stdout, "seconds": time.perf_counter() - t0}
+    if r.returncode != 0:
+        raise AssertionError(f"bindings: {os.path.basename(cmd[0])} exited "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+    if trace:
+        events = _read_jsonl(trace)
+        if not events:
+            raise AssertionError(f"bindings: {trace} holds no span")
+        rec["start_s"] = min(e["wall"] for e in events) - t_wall
+        rec["command_s"] = [(e["name"], e["dur"] / 1e6) for e in events
+                            if e["name"].startswith("oink.")
+                            and not e.get("parent")]
+    return rec
+
+
+def coink_script(paths, zpaths) -> str:
+    """coink's script: the invertedindex command over the main corpus,
+    then the fused wordfreq over the zipf corpus twice (cold, warm)."""
+    return (f"variable files index {' '.join(paths)}\n"
+            "invertedindex -i v_files -o ii NULL\n"
+            "set fuse 1\n"
+            f"variable zfiles index {' '.join(zpaths)}\n"
+            f"wordfreq {WF_NTOP} -i v_zfiles -o wf-cold.out NULL\n"
+            f"wordfreq {WF_NTOP} -i v_zfiles -o wf-warm.out NULL\n")
+
+
+def bindings_coink(exe: str, paths, nref: int, nuniq: int, zpaths,
+                   zoracle: dict, refs: dict, d: str) -> dict:
+    """coink on the card (no -device) over the main corpus and the zipf
+    corpus: its part file the regex oracle's, each wordfreq's message
+    lines the generator's and its -o file the text phase's own."""
+    os.makedirs(d)
+    script = os.path.join(d, "in.coink")
+    with open(script, "w") as f:
+        f.write(coink_script(paths, zpaths))
+    rec = c_run([exe, *bindings_device(), script, os.path.join(d, "log")],
+                d, trace=os.path.join(d, "trace.jsonl"))
+    msg = f"InvertedIndex: {len(paths)} files, {nref} pairs, {nuniq} " \
+          f"unique urls"
+    if msg not in rec["stdout"]:
+        raise AssertionError(f"bindings: coink printed no {msg!r}: "
+                             f"{rec['stdout'][:400]!r}")
+    if _sha(os.path.join(d, "ii", "part-00000")) != refs["ii"]:
+        raise AssertionError("bindings: coink's part-00000 differs from "
+                             "the regex oracle")
+    if _wf_lines(rec["stdout"]) != zoracle["message"] * 2:
+        raise AssertionError(f"bindings: coink's wordfreq lines "
+                             f"{_wf_lines(rec['stdout'])[:3]} != oracle")
+    for run in ("cold", "warm"):
+        if _sha(os.path.join(d, f"wf-{run}.out")) != refs["wf"]:
+            raise AssertionError(f"bindings: coink's {run} -o file differs "
+                                 f"from the text phase's")
+    names = [n for n, _ in rec["command_s"]]
+    if names != ["oink.invertedindex", "oink.wordfreq", "oink.wordfreq"]:
+        raise AssertionError(f"bindings: coink's commands {names}")
+    secs = [s for _, s in rec["command_s"]]
+    return {"seconds": rec["seconds"], "start_s": rec["start_s"],
+            "invertedindex_s": secs[0], "wordfreq_cold_s": secs[1],
+            "wordfreq_warm_s": secs[2], "part_equals_oracle": True,
+            "wordfreq_equals_text_phase": True}
+
+
+def bindings_cwordfreq(exe: str, d: str) -> dict:
+    """cwordfreq over the zipf generator's text: its counts against a
+    Counter of the files' whitespace tokens cut as fscanf's %255s cuts
+    them."""
+    import collections
+    os.makedirs(d)
+    mb = 2 if BINDINGS_CPU else BINDINGS_CWF_MB
+    paths, _, _, _ = zipf_corpus(d, mb, nfiles=2)
+    c = collections.Counter()
+    for p in paths:
+        with open(p, "rb") as f:
+            for w in f.read().split():
+                c.update(w[i:i + 255] for i in range(0, len(w), 255))
+    rec = c_run([exe, *bindings_device(), *paths], d,
+                trace=os.path.join(d, "trace.jsonl"))
+    lines = rec["stdout"].strip().splitlines()
+    nwords = sum(c.values())
+    if lines[0] != f"{nwords} total words, {len(c)} unique words":
+        raise AssertionError(f"bindings: cwordfreq {lines[0]!r}, the "
+                             f"Counter {nwords} words, {len(c)} unique")
+    top = [(ln.split()[1].encode(), int(ln.split()[0])) for ln in lines[1:]]
+    want = sorted(c.values(), reverse=True)[:5]
+    if len(top) != 5 or [n for _, n in top] != want \
+            or any(c[w] != n for w, n in top):
+        raise AssertionError(f"bindings: cwordfreq top {top}, the "
+                             f"Counter's counts {want}")
+    run_s = rec["seconds"] - rec["start_s"]
+    return {"mb": mb, "bytes": sum(os.path.getsize(p) for p in paths),
+            "nwords": nwords, "nunique": len(c), "seconds": rec["seconds"],
+            "start_s": rec["start_s"], "words_per_s": nwords / run_s,
+            "equals_counter": True}
+
+
+def bindings_crmat(exe: str, d: str) -> dict:
+    """crmat: the generate-until-unique loop and the degree histogram; its
+    edges unique and in range, the degree sums and the zero line."""
+    import collections
+    os.makedirs(d)
+    scale = 8 if BINDINGS_CPU else BINDINGS_CRMAT_SCALE
+    rec = c_run([exe, *bindings_device(), str(scale),
+                 str(BINDINGS_CRMAT_NZ), *BINDINGS_CRMAT_ARGS,
+                 os.path.join(d, "mat")], d)
+    lines = rec["stdout"].splitlines()
+    order, ntotal = 1 << scale, (1 << scale) * BINDINGS_CRMAT_NZ
+    if lines[:2] != [f"{order} rows in matrix",
+                     f"{ntotal} nonzeroes in matrix"]:
+        raise AssertionError(f"bindings: crmat {lines[:2]}")
+    with open(os.path.join(d, "mat.0")) as f:
+        edges = f.read().splitlines()
+    pairs = [tuple(map(int, ln.split())) for ln in edges]
+    if len(pairs) != ntotal or len(set(pairs)) != ntotal \
+            or not all(0 <= i < order and 0 <= j < order for i, j in pairs):
+        raise AssertionError(f"bindings: crmat's {len(pairs)} edges are not "
+                             f"{ntotal} unique in-range pairs")
+    hist = [tuple(map(int, ln.split())) for ln in lines[2:-2]]
+    degs = [dg for dg, _ in hist]
+    rows = sum(n for _, n in hist)
+    rows_of = collections.Counter(i for i, _ in pairs)
+    if degs != sorted(degs, reverse=True) \
+            or sum(dg * n for dg, n in hist) != ntotal \
+            or sorted(collections.Counter(rows_of.values()).items(),
+                      reverse=True) != hist \
+            or lines[-2] != f"{order - rows} rows with 0 nonzeroes":
+        raise AssertionError(f"bindings: crmat's histogram {hist[:4]} or "
+                             f"{lines[-2]!r} disagrees with its edges")
+    return {"scale": scale, "nonzeroes": ntotal, "seconds": rec["seconds"],
+            "iterations": int(lines[-1].split()[-2]),
+            "edges_unique": True, "degree_sums": True}
+
+
+def bindings_cblocked(exe: str, d: str) -> dict:
+    os.makedirs(d)
+    rec = c_run([exe, *bindings_device()], d)
+    lines = rec["stdout"].splitlines()
+    counts = dict(ln.split() for ln in lines[3:9])
+    if lines[:3] != ["pairs 36", "scrunch groups 1",
+                     "groups 6 blocked 3 values 36"] \
+            or counts != {"aa": "4", "bbb": "4", "cccc": "4", "k0": "8",
+                          "k1": "8", "k2": "8"} \
+            or sorted(counts) != list(counts) \
+            or not any("Cummulative" in ln for ln in lines):
+        raise AssertionError(f"bindings: cblocked printed {lines[:9]}")
+    return {"seconds": rec["seconds"], "lines_equal": True}
+
+
+def bindings_pydll(lib_path: str, outdir: tuple, check_paths, d: str,
+                   kernels, device) -> dict:
+    """The shim as a shared object loaded into this process with
+    ``ctypes.PyDLL`` (the reference's python/mrmpi.py way): MR_init,
+    OINK_open and OINK_command over the outdir cell's corpus and the
+    text check's text, each command's launches read as deltas of the
+    wrappers' counters; the files equal this process's own runs, and
+    MR_finalize leaves this interpreter running."""
+    import contextlib
+    import ctypes
+    import io
+    from gpu_mapreduce_tpu_torch.plan import plan_cache
+    os.makedirs(d)
+    lib = ctypes.PyDLL(lib_path)
+    lib.MR_init.restype = ctypes.c_int
+    lib.MR_init.argtypes = []
+    lib.MR_finalize.restype = None
+    lib.MR_finalize.argtypes = []
+    lib.MR_last_error.restype = ctypes.c_char_p
+    lib.MR_last_error.argtypes = []
+    lib.OINK_open_device.restype = ctypes.c_void_p
+    lib.OINK_open_device.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.OINK_command.restype = ctypes.c_int
+    lib.OINK_command.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.OINK_close.restype = None
+    lib.OINK_close.argtypes = [ctypes.c_void_p]
+    opaths, opart = outdir
+    lines = {"variable": f"variable files index {' '.join(opaths)}",
+             "invertedindex": f"invertedindex -i v_files -o "
+                              f"{os.path.join(d, 'ii')} NULL",
+             "fuse": "set fuse 1",
+             "zvariable": f"variable zfiles index {' '.join(check_paths)}",
+             "cold": f"wordfreq {WF_NTOP} -i v_zfiles -o "
+                     f"{os.path.join(d, 'wf-cold.out')} NULL",
+             "warm": f"wordfreq {WF_NTOP} -i v_zfiles -o "
+                     f"{os.path.join(d, 'wf-warm.out')} NULL"}
+    if lib.MR_init() != 0:
+        raise AssertionError(f"bindings: MR_init {lib.MR_last_error()}")
+    screen = io.StringIO()
+    with contextlib.redirect_stdout(screen):    # the script's screen
+        h = lib.OINK_open_device(None, b"cpu" if BINDINGS_CPU else None)
+    if not h:
+        raise AssertionError(f"bindings: OINK_open {lib.MR_last_error()}")
+    plan_cache().clear()                        # the fused run goes cold
+    launches, secs = {}, {}
+    for key, line in lines.items():
+        _zero(kernels)
+        _sync(device)
+        t0 = time.perf_counter()
+        if lib.OINK_command(h, line.encode()) != 0:
+            raise AssertionError(f"bindings: {line!r}: "
+                                 f"{lib.MR_last_error()}")
+        _sync(device)
+        secs[key] = time.perf_counter() - t0
+        launches[key] = _launches(kernels)
+    lib.OINK_close(h)
+    lib.MR_finalize()
+    # this interpreter still runs, and the bridge comes back on MR_init
+    if lib.MR_init() != 0:
+        raise AssertionError(f"bindings: MR_init after MR_finalize: "
+                             f"{lib.MR_last_error()}")
+    lib.MR_finalize()
+    with open(os.path.join(d, "ii", "part-00000")) as f:
+        if f.read() != opart:
+            raise AssertionError("bindings: the shim's part-00000 differs "
+                                 "from this process's outdir run")
+    message, text = run_wordfreq_script(device, check_paths,
+                                        os.path.join(d, "py.out"), 1)
+    if _wf_lines(screen.getvalue()) != message * 2:
+        raise AssertionError("bindings: the shim's wordfreq lines differ "
+                             "from this process's run")
+    for run in ("cold", "warm"):
+        with open(os.path.join(d, f"wf-{run}.out")) as f:
+            if f.read() != text:
+                raise AssertionError(f"bindings: the shim's {run} -o file "
+                                     f"differs from this process's run")
+    if not BINDINGS_CPU:
+        got = (launches["invertedindex"]["mark_words"],
+               launches["cold"]["segment_table"],
+               launches["warm"]["segment_table"])
+        if got != (1, 0, 1):
+            raise AssertionError(f"bindings: launches through the shim "
+                                 f"{launches}, want mark_words 1 on "
+                                 f"invertedindex and segment_table 0 cold, "
+                                 f"1 warm")
+    return {"command_s": {k: secs[k] for k in ("invertedindex", "cold",
+                                               "warm")},
+            "launches": {k: launches[k] for k in ("invertedindex", "cold",
+                                                  "warm")},
+            "equals_in_process": True, "finalize_left_interpreter": True}
+
+
+def bindings_lint() -> dict:
+    """``python -m gpu_mapreduce_tpu_torch.lint --json -`` on this tree."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "gpu_mapreduce_tpu_torch.lint",
+                        "--json", "-"], cwd=_root(), env=bindings_env(),
+                       capture_output=True, text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"bindings: mrlint exited {r.returncode}: "
+                             f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    payload = json.loads(r.stdout)
+    if payload["total"] != 0:
+        raise AssertionError(f"bindings: mrlint {payload['counts']}")
+    return {"total": payload["total"], "suppressed": payload["suppressed"],
+            "files_scanned": payload["files_scanned"], "seconds": dt}
+
+
+def run_bindings(paths, nref: int, nuniq: int, zpaths, zoracle: dict,
+                 tmp: str, kernels, smi: str, device, refs: dict,
+                 outdir: tuple) -> dict:
+    """The bindings phase: the four C examples and the shared shim built
+    with gcc; coink on the card over the main and zipf corpora; the shim
+    in this process; cwordfreq, crmat and cblocked on the card together;
+    then the lint line."""
+    import concurrent.futures
+    from gpu_mapreduce_tpu_torch import bindings
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "bindings")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        futs = {n: pool.submit(bindings.build_example, n)
+                for n in BINDINGS_EXAMPLES}
+        futs["shim"] = pool.submit(bindings.build_shared)
+        exe = {n: f.result() for n, f in futs.items()}
+    build_s = time.perf_counter() - t0
+    coink = bindings_coink(exe["coink"], paths, nref, nuniq, zpaths,
+                           zoracle, refs, os.path.join(d, "coink"))
+    pydll = bindings_pydll(exe["shim"], outdir, refs["check_paths"],
+                           os.path.join(d, "pydll"), kernels, device)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        small = {"cwordfreq": pool.submit(bindings_cwordfreq,
+                                          exe["cwordfreq"],
+                                          os.path.join(d, "cwordfreq")),
+                 "crmat": pool.submit(bindings_crmat, exe["crmat"],
+                                      os.path.join(d, "crmat")),
+                 "cblocked": pool.submit(bindings_cblocked, exe["cblocked"],
+                                         os.path.join(d, "cblocked"))}
+        small = {k: f.result() for k, f in small.items()}
+    lint_rec = bindings_lint()
+    shutil.rmtree(d)
+    return {"phase": "bindings", "card": smi,
+            "device": "cpu" if BINDINGS_CPU else str(device),
+            "build_s": build_s, "coink": coink, "pydll": pydll, **small,
+            "lint": lint_rec,
+            "launches": {k.__name__: {c: pydll["launches"][c][k.__name__]
+                                      for c in pydll["launches"]}
+                         for k in kernels},
+            "reduced": [
+                f"cwordfreq reads {BINDINGS_CWF_MB} MB of the zipf "
+                f"generator, not 256: each word is one MR_kv_add crossing "
+                f"into Python, the reference's per-pair add",
+                f"crmat runs at scale {BINDINGS_CRMAT_SCALE} with "
+                f"{BINDINGS_CRMAT_NZ} nonzeroes a row: each edge is one "
+                f"MR_kv_add and one C reduce callback in each of its "
+                f"passes",
+                "the shim in this process reads the outdir cell's 2 MB "
+                "corpus and the text check's 2 MB text",
+                "cwordfreq, crmat and cblocked run at once, beside each "
+                "other on the card"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+def bindings_alone(card: bool) -> int:
+    """``chip_smoke.py --bindings-alone``: the bindings phase alone on the
+    card at its full size, its inputs and references made here (the 256
+    MB main corpus with its regex oracle, the 256 MB zipf corpus with the
+    same wordfreq run in this process, the outdir cell's corpus with its
+    part file, the text check's text).  ``--bindings-rehearse``: the same
+    on the CPU at 2 MB, every gate but the launch counts.  Prints the
+    bindings line."""
+    import torch
+    from gpu_mapreduce_tpu_torch import InvertedIndex
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.ops import cuda as kcuda
+    from gpu_mapreduce_tpu_torch.ops.cuda import group, match
+    global BINDINGS_CPU
+    if card:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 2
+        kcuda.build_all()
+        smi = nvidia_smi()
+        device = torch.device("cuda", 0)
+        main_mb, zipf_mb = MAIN_MB, WF_MB
+    else:
+        BINDINGS_CPU = True
+        smi = "cpu rehearsal"
+        device = torch.device("cpu")
+        main_mb, zipf_mb = 2, 2
+    kernels = [match.mark_words, group.segment_table, match.mark]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bindings_")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "main"))
+        paths, nref, nuniq = make_corpus(os.path.join(tmp, "main"), main_mb)
+        oracle_part = oracle_part_file_parallel(paths)
+        zdir = os.path.join(tmp, "zipf")
+        os.makedirs(zdir)
+        zpaths, counts, vbuf, voffs = zipf_corpus(zdir, zipf_mb)
+        words = [vbuf[voffs[i]:voffs[i + 1]].tobytes()
+                 for i in range(len(voffs) - 1)]
+        zoracle = wordfreq_oracle(words, counts, len(zpaths))
+        del words, counts, vbuf, voffs
+        _, wf_text = run_wordfreq_script(device, zpaths,
+                                         os.path.join(tmp, "wf-ref.out"), 1)
+        os.makedirs(os.path.join(tmp, "outdir"))
+        opaths, _, _ = make_corpus(os.path.join(tmp, "outdir"), 2,
+                                   skew=True)
+        InvertedIndex(device=device).run(opaths,
+                                         outdir=os.path.join(tmp, "o"))
+        with open(os.path.join(tmp, "o", "part-00000")) as f:
+            opart = f.read()
+        cdir = os.path.join(tmp, "text-check")
+        os.makedirs(cdir)
+        cpaths, _, _, _ = zipf_corpus(cdir, WF_CHECK_MB, nfiles=2)
+        import hashlib
+        refs = {"ii": hashlib.sha256(oracle_part().encode()).hexdigest(),
+                "wf": hashlib.sha256(wf_text.encode()).hexdigest(),
+                "check_paths": cpaths}
+        inputs_s = time.perf_counter() - t0
+        rec = run_bindings(paths, nref, nuniq, zpaths, zoracle, tmp,
+                           kernels, smi, device, refs, (opaths, opart))
+        rec["inputs_s"] = inputs_s
+        rec["alone_seconds"] = time.perf_counter() - t0
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8018,6 +8441,7 @@ def main() -> int:
             raise AssertionError("part-00000 differs from the regex oracle")
         emit({"phase": "outdir", "lines": lines,
               "equals_cpu_and_oracle": True})
+        outdir_cell = (p, parts["cuda"])
 
         int_runs = {}
         for cell, path in int_paths.items():
@@ -8176,6 +8600,16 @@ def main() -> int:
         fleet_rec = run_fleet(paths, nref, nuniq, zipf[0], zipf[1], tmp,
                               smi, device, serve_files=serve_rec["files"])
         emit(fleet_rec)
+        cdir = os.path.join(tmp, "bindings-text")
+        os.makedirs(cdir)
+        bind_rec = run_bindings(
+            paths, nref, nuniq, zipf[0], zipf[1], tmp, kernels, smi, device,
+            refs={"ii": serve_rec["files"]["ta"]["ii/part-00000"],
+                  "wf": wf["wordfreq-zipf"]["out_sha256"],
+                  "check_paths": zipf_corpus(cdir, WF_CHECK_MB,
+                                             nfiles=2)[0]},
+            outdir=outdir_cell)
+        emit(bind_rec)
         shutil.rmtree(main_dir)
         shutil.rmtree(os.path.dirname(zipf[0][0]))
     finally:
@@ -8235,7 +8669,11 @@ def main() -> int:
                     "launches_serve": serve_rec["launches"][k],
                     # the fleet phase, per session, from each result's
                     # meta (the replicas are processes of their own)
-                    "launches_fleet": fleet_rec["launches"][k]}
+                    "launches_fleet": fleet_rec["launches"][k],
+                    # the bindings phase: the shim in this process, by
+                    # command (invertedindex, the fused wordfreq cold
+                    # and warm)
+                    "launches_bindings": bind_rec["launches"][k]}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -8322,4 +8760,6 @@ if __name__ == "__main__":
         sys.exit(serve_alone(sys.argv[1] == "--serve-alone"))
     if sys.argv[1:2] in (["--fleet-rehearse"], ["--fleet-alone"]):
         sys.exit(fleet_alone(sys.argv[1] == "--fleet-alone"))
+    if sys.argv[1:2] in (["--bindings-rehearse"], ["--bindings-alone"]):
+        sys.exit(bindings_alone(sys.argv[1] == "--bindings-alone"))
     sys.exit(main())

@@ -550,6 +550,9 @@ class InvertedIndex:
         if trigger:
             self._compact_chk_runs()
 
+    # mrlint: disable=lock-unguarded-mutation — only called from run()'s
+    # single-threaded phases: before map_files spawns the mapper pool
+    # and after it joins; the locked sites are the pool's
     def _reset_chk(self, counters: bool) -> None:
         """Drop the check's accumulators (``counters`` also zeroes the
         raw and base counts); called outside the map's threads."""

@@ -323,8 +323,9 @@ class Tracer:
         """Drop buffered ring events (sinks stay attached) — e.g. to
         separate a warmup run from the timed run."""
         if self._ring is not None:
-            # RingSink.clear takes the sink's OWN lock; self._lock only
-            # guards the _ring/_jsonl attachment maps, not ring contents
+            # mrlint: disable=lock-unguarded-mutation — RingSink.clear
+            # takes the sink's OWN lock; self._lock only guards the
+            # _ring/_jsonl attachment maps, not ring contents
             self._ring.clear()
 
     def stats(self) -> dict:

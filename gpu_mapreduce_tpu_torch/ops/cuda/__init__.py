@@ -26,6 +26,7 @@ from typing import Callable, Dict, List
 
 from ...core.runtime import DeviceError, bump_dispatch
 from ...obs.context import note_kernel
+from ...utils.env import env_flag
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -77,7 +78,7 @@ def _stale(name: str) -> bool:
 def _start_build(name: str) -> subprocess.Popen:
     os.makedirs(BUILD_DIR, exist_ok=True)
     flags = list(NVCC_FLAGS)
-    if os.environ.get("MRTPU_TORCH_PTXAS_VERBOSE") == "1":
+    if env_flag("MRTPU_TORCH_PTXAS_VERBOSE", False):
         flags += ["-Xptxas", "-v"]
     tmp = _lib_path(name) + f".{os.getpid()}.tmp"
     cmd = [_nvcc(), *flags, "-o", tmp, os.path.join(CSRC, name + ".cu")]

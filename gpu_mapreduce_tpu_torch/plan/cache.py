@@ -80,12 +80,19 @@ class LRUCache:
                     "evictions": self.evictions}
 
 
-_PLAN_CACHE_SIZE = 32
-_PLAN_CACHE = LRUCache(_PLAN_CACHE_SIZE, name="plan")
+_PLAN_CACHE: Optional[LRUCache] = None
+_PLAN_LOCK = threading.Lock()
 
 
 def plan_cache() -> LRUCache:
-    """The process's plan cache (the last 32 plans)."""
+    """The process's plan cache: the last ``MRTPU_PLAN_CACHE`` plans (32
+    by default), sized when it is first made, as the JAX package's."""
+    global _PLAN_CACHE
+    if _PLAN_CACHE is None:
+        with _PLAN_LOCK:
+            if _PLAN_CACHE is None:
+                _PLAN_CACHE = LRUCache(
+                    env_knob("MRTPU_PLAN_CACHE", int, 32), name="plan")
     return _PLAN_CACHE
 
 

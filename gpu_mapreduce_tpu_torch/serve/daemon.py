@@ -296,8 +296,9 @@ class Server:
         global _CURRENT
         from ..ft.journal import Journal
         os.makedirs(self.state_dir, exist_ok=True)
-        # start() runs before any worker/http thread exists; shutdown's
-        # locked close is the only concurrent writer
+        # mrlint: disable=lock-unguarded-mutation — start() runs before
+        # any worker/http thread exists; shutdown's locked close is the
+        # only concurrent writer
         self._journal = Journal(self.state_dir, script_mode=True)
         self._recover()
         from ..obs import httpd, metrics
@@ -1434,11 +1435,17 @@ class Server:
                 if memo_meta.get("hit"):
                     # durable proof the session was memo-served: a
                     # kill -9 replay sees cache_hit+serve_done and
-                    # re-serves from the store — never recomputes
+                    # re-serves from the store — never recomputes.
+                    # mrlint: disable=lock-unguarded-mutation — the
+                    # drain race above: a closed journal costs one
+                    # idempotent replay; Journal.append has its own lock
                     self._journal.append({"kind": "cache_hit",
                                           "sid": sess.sid,
                                           "key": memo_meta.get("key"),
                                           "trace": sess.trace_id})
+                # mrlint: disable=lock-unguarded-mutation — the drain
+                # race above: a closed journal costs one idempotent
+                # replay; Journal.append has its own lock
                 self._journal.append({"kind": "serve_done",
                                       "sid": sess.sid,
                                       "status": sess.state,

@@ -149,7 +149,11 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "serve.overload", "serve.memo", "serve.session",
                    "serve.autoscale", "serve.streams", "serve.daemon",
                    "serve.client", "serve.__main__", "serve.fleet",
-                   "serve.router", "ctl", "obs.trace_view")
+                   "serve.router", "ctl", "obs.trace_view",
+                   "bindings", "bindings.cbridge", "lint", "lint.driver",
+                   "lint.callgraph", "lint.locks", "lint.cachekey",
+                   "lint.knobs", "lint.metrics_doc", "lint.nettimeout",
+                   "lint.purity", "lint.__main__")
 
 
 def test_port_imports_no_jax():
@@ -217,3 +221,17 @@ def test_operator_tools_start_without_torch(tmp_path):
     r = tool("gpu_mapreduce_tpu_torch.obs.trace_view", str(trace))
     assert r.returncode == 0, r.stderr
     assert "oink.wordfreq" in r.stdout
+
+
+def test_lint_starts_without_torch():
+    """mrlint over the port is pure AST: with torch and JAX poisoned it
+    runs over the whole tree and exits 0 with no live finding."""
+    import json
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", TOOL,
+                        "gpu_mapreduce_tpu_torch.lint", "--json", "-"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    payload = json.loads(r.stdout)
+    assert payload["total"] == 0 and payload["files_scanned"] > 100
