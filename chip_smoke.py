@@ -180,11 +180,15 @@ nonzero):
               keys through the same steps on the card and on CPU shards,
               equal after every step.  exchange: four rank processes
               (``chip_smoke.py --dist-rank``) each hold one of those
-              files' keys on their device and run a hash exchange; each
-              rank's block equals shard d of the one-controller
-              make_mesh(4) exchange (cap, count, sha256 of the padded
-              keys and values); count_sync and exchange seconds by rank,
-              the backend and transport.  launcher: ``launch --np 4``
+              files' keys on their device and run a hash exchange cold,
+              again warm (the speculative plan cache) and on the same
+              frame shape with a quarter of each rank's rows valid (the
+              cached plan holds: its larger cap kept); for every call
+              each rank's block equals shard d of the one-controller
+              make_mesh(4) run of the same calls from an empty cache
+              (cap, count, sha256 of the padded keys and values,
+              cap_out, speculative); count_sync and exchange seconds by
+              rank and call, the backend and transport.  launcher: ``launch --np 4``
               and ``--np 2`` over 32 MB of the zipf generator, both
               equal to a Counter oracle, then ``--np 4`` with rank 2
               killed at its second exchange: width 2 after 2
@@ -344,6 +348,22 @@ nonzero):
               the journals; ``obs.trace_view`` summarises a replica's trace.
               Alone: ``--fleet-alone``; on the CPU at 2 MB:
               ``--fleet-rehearse``.
+10. bindings — the C examples and the shared shim over the port's C ABI
+              on the card, and mrlint.  Alone: ``--bindings-alone``; on
+              the CPU: ``--bindings-rehearse``.
+11. examples — each Python example driver
+              (``gpu_mapreduce_tpu_torch/examples/``) through its
+              ``main(argv)`` in this process with no ``-device``, so on
+              the card: invertedindex over the main corpus (its part
+              file the regex oracle's, mark_words once), wordfreq over
+              the first of the zipf cell's files (a Counter's totals and
+              top 10),
+              intcount over the intcount-uniform file (numpy), rmat at
+              the graph phase's scale, parameters and seed (its message
+              and degree_stats lines the graph phase's), wordfreq2 over
+              text-check's 2 MB (a Counter); each driver's seconds,
+              launches and peak allocated bytes.  Alone:
+              ``--examples-alone``; on the CPU: ``--examples-rehearse``.
 
               Then a ``total`` line with the smoke's seconds.
 
@@ -1093,6 +1113,24 @@ def counter_oracle(paths, ntop: int = WF_NTOP):
     return wordfreq_oracle(words, [c[w] for w in words], len(paths), ntop)
 
 
+def counter_oracle_parallel(paths):
+    """:func:`counter_oracle` in a spawned process (never forked: this
+    process has touched CUDA), so the host's count overlaps this
+    process's work.  Returns a callable giving the oracle."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    fut = pool.submit(counter_oracle, list(paths))
+
+    def result() -> dict:
+        try:
+            return fut.result()
+        finally:
+            pool.shutdown(cancel_futures=True)
+    return result
+
+
 def text_spans():
     """The stage spans of a wordfreq run beside op_seconds' own: the
     device split, the intern (hash, id sort and collision check on the
@@ -1294,6 +1332,8 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     record, the chunk-map record, the text-check record, the wordfreq-p4
     record, and the zipf files with their oracle, kept for the ft
     phase)."""
+    # the HTML cell's Counter, counted in a spawned process meanwhile
+    html_oracle = counter_oracle_parallel(html_paths)
     t0 = time.perf_counter()
     zdir = os.path.join(tmp, "zipf")
     os.makedirs(zdir)
@@ -1319,11 +1359,11 @@ def run_text(html_paths, tmp: str, device, kernels, smi: str):
     del ids
     emit({"phase": "kernels", "seg_table_text": text_table})
     t0 = time.perf_counter()
-    oracle = counter_oracle(html_paths)
+    oracle = html_oracle()
     oracle_s = time.perf_counter() - t0
     wf["wordfreq-html"] = run_wordfreq("wordfreq-html", html_paths, oracle,
                                        tmp, kernels, smi)
-    wf["wordfreq-html"]["oracle_s"] = oracle_s
+    wf["wordfreq-html"]["oracle_wait_s"] = oracle_s
     emit(wf["wordfreq-html"])
     t0 = time.perf_counter()
     check = run_text_check(tmp, smi)
@@ -1703,7 +1743,7 @@ GRAPH_SCALE = 22               # BASELINE.json's PageRank scale
 GRAPH_EDGEFACTOR = 16          # Graph500 spec, section 3
 GRAPH_ABCD = (0.57, 0.19, 0.19, 0.05)   # Graph500 Kronecker initiator
 GRAPH_SEED = 20260
-GRAPH_TOL = 1e-8               # above the f32 noise floor (PERF.md)
+GRAPH_TOL = 1e-8               # above PageRank's noise floor (PERF.md)
 GRAPH_MAXITER = 100
 GRAPH_DAMPING = 0.85
 LUBY_SEED = 6789
@@ -1712,6 +1752,7 @@ SSSP_SEED = 12345
 TRI_SCALE = 18                 # cut from 22: the triangle rows' size
 TRI_CHECK_SCALE = 12           # the card-vs-CPU neigh_tri run
 TRI_MEMBERSHIP_BUDGET_S = 60.0
+TRI_CHECK_THREADS = 8          # the membership check's slices
 COMPOSED_CHECK_SCALE = 12      # the composed engines, card vs CPU
 COMPOSED = ("cc_find", "luby_find", "tri_find", "sssp")
 
@@ -2299,7 +2340,10 @@ def run_graph(device, smi: str, kernels=(), scale: int = GRAPH_SCALE,
             "composed": composed, "launches_composed": comp_launches,
             "composed_cc_equal_fused_on_card": True,
             "composed_cc_compare_s": compare_s, "checkpoint": ckpt,
-            "p4": p4_rec}
+            "p4": p4_rec,
+            # the examples phase's reference (popped before the line)
+            "ref_screens": {k: screens[k] for k in ("rmat",
+                                                    "degree_stats")}}
 
 
 def tri_oracles(scale: int, upper, rows, message: str, nbatches: int
@@ -2369,8 +2413,13 @@ def tri_oracles(scale: int, upper, rows, message: str, nbatches: int
     checked = "sample of 2^20 seeded rows"
     ok_edges = in_sample
     if projected <= TRI_MEMBERSHIP_BUDGET_S:
+        # every row, in slices over threads (the sorts and searches
+        # release the GIL)
+        import concurrent.futures
         t0 = time.perf_counter()
-        ok_edges = members(np.arange(t))
+        with concurrent.futures.ThreadPoolExecutor(TRI_CHECK_THREADS) as pool:
+            ok_edges = all(pool.map(members, np.array_split(
+                np.arange(t), TRI_CHECK_THREADS)))
         checked = "all rows"
         part_s["membership_all"] = time.perf_counter() - t0
     part_s["membership_sample"] = sample_s
@@ -3786,6 +3835,10 @@ DIST_LAUNCH_MB = 32
 DIST_LAUNCH_CHUNKS = 8
 DIST_FAULTS = "site=dist.exchange;kind=peer_kill;rank=2;after=1;n=1"
 DIST_TIMEOUT_S = 300           # a subprocess run's limit
+# the exchange across ranks: cold, warm (the cached plan), then the same
+# frame shape with 1 / DIST_VALID_DIV of each rank's rows valid
+DIST_CALLS = ("cold", "warm", "quarter")
+DIST_VALID_DIV = 4
 LAUNCH_ARGS: list = []         # ["--device", "cpu"] in the CPU rehearsals
 
 
@@ -3924,12 +3977,28 @@ def run_dist_reshard(keys_u32, tmp: str, devices=None) -> dict:
     return rec
 
 
+def _block_record(s, st) -> dict:
+    """One exchange's record on a rank or a mesh shard: the received
+    block ``s``'s cap, count and padded keys and values by sha256, and
+    from the exchange's stats ``st`` the plan's cap_out and whether it
+    ran speculatively."""
+    import hashlib
+    return {"cap": s.cap, "count": int(s.counts[0]),
+            "key_sha": hashlib.sha256(
+                s.key.cpu().numpy().tobytes()).hexdigest(),
+            "value_sha": hashlib.sha256(
+                s.value.cpu().numpy().tobytes()).hexdigest(),
+            "cap_out": st.cap_out, "speculative": bool(st.speculative)}
+
+
 def dist_rank_main(d: str) -> int:
     """One rank of the exchange across ranks (``chip_smoke.py --dist-rank
     DIR``, started by :func:`run_dist_exchange`): its file's keys as its
-    block, one hash exchange (then a second, warm), and a JSON record of
-    its received block's digests and sync seconds."""
-    import hashlib
+    block through the calls of ``DIST_CALLS`` — a hash exchange (cold),
+    the same again (warm: the cached plan), then the same frame shape
+    with only the first quarter of each rank's rows valid (the cached
+    plan still holds: its larger cap is kept) — and a JSON record of each
+    call's received block (:func:`_block_record`) and sync seconds."""
     import numpy as np
     from gpu_mapreduce_tpu_torch.core.runtime import synchronize
     from gpu_mapreduce_tpu_torch.ops.cuda import group, match
@@ -3939,26 +4008,27 @@ def dist_rank_main(d: str) -> int:
     kernels = [match.mark_words, group.segment_table, match.mark]
     with open(os.path.join(d, "counts.json")) as f:
         counts = json.load(f)
-    keys = np.fromfile(os.path.join(d, f"part-{rt.rank}.bin"), np.uint32)
-    frame = D.shard_local_rows(
-        (keys.astype(np.uint64), np.ones(len(keys), np.uint32)), counts)
-    runs = []
-    for _ in range(2):
+    keys = np.fromfile(os.path.join(d, f"part-{rt.rank}.bin"),
+                       np.uint32).astype(np.uint64)
+    ones = np.ones(len(keys), np.uint32)
+    frame = D.shard_local_rows((keys, ones), counts)
+    q = [c // DIST_VALID_DIV for c in counts]
+    n = q[rt.rank]
+    frames = {"cold": frame, "warm": frame,
+              "quarter": D.shard_local_rows((keys[:n], ones[:n]), q,
+                                            cap=frame.cap)}
+    calls = {}
+    for label in DIST_CALLS:
         synchronize(rt.device)
         t0 = time.perf_counter()
-        out = exchange(frame, ("hash", None))
+        out = exchange(frames[label], ("hash", None))
         synchronize(rt.device)
-        runs.append({"seconds": time.perf_counter() - t0,
-                     **out.sync_seconds})
-    s = out.shard
+        dt = time.perf_counter() - t0       # before the block's digests
+        calls[label] = {**_block_record(out.shard, out.exchange_stats),
+                        "seconds": dt, **out.sync_seconds}
     rec = {"rank": rt.rank, "device": str(rt.device),
            "backend": rt.backend, "transport": rt.transport,
-           "cap": s.cap, "count": int(s.counts[0]),
-           "key_sha": hashlib.sha256(
-               s.key.cpu().numpy().tobytes()).hexdigest(),
-           "value_sha": hashlib.sha256(
-               s.value.cpu().numpy().tobytes()).hexdigest(),
-           "cold": runs[0], "warm": runs[1],
+           "calls": calls,
            "launches": {k.__name__: k.launches for k in kernels}}
     with open(os.path.join(d, f"rank{rt.rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -3969,18 +4039,19 @@ def dist_rank_main(d: str) -> int:
 
 def run_dist_exchange(keys_u32, tmp: str, devices=None) -> dict:
     """exchange across ranks: DIST_P rank processes each hold one of the
-    intcount-p4-uniform files' keys on their device and run one hash
-    exchange (then a second, warm); each rank's received block (cap,
-    count, padded keys and values by sha256) must equal shard d of the
-    one-controller make_mesh(4) exchange of the same blocks on
-    ``devices``, whose warm exchange is timed beside the ranks'."""
-    import hashlib
+    intcount-p4-uniform files' keys on their device and run the calls of
+    ``DIST_CALLS`` (:func:`dist_rank_main`); the one-controller
+    make_mesh(4) on ``devices`` runs the same calls on the same blocks
+    from an empty plan cache.  For every call each rank's received block
+    (cap, count, padded keys and values by sha256), cap_out and
+    ``speculative`` must equal the mesh's shard of that call; the mesh's
+    warm exchange is timed beside the ranks'."""
     import numpy as np
     import torch
     from gpu_mapreduce_tpu_torch.launch import pick_port
+    from gpu_mapreduce_tpu_torch.parallel import shuffle
     from gpu_mapreduce_tpu_torch.parallel.mesh import make_mesh
     from gpu_mapreduce_tpu_torch.parallel.sharded import mesh_kv
-    from gpu_mapreduce_tpu_torch.parallel.shuffle import exchange
     d = os.path.join(tmp, "dist-exchange")
     paths = split_files(keys_u32, d, DIST_P)
     counts = [os.path.getsize(p) // 4 for p in paths]
@@ -3988,26 +4059,30 @@ def run_dist_exchange(keys_u32, tmp: str, devices=None) -> dict:
         json.dump(counts, f)
     devices = devices or mesh_devices(DIST_P)
     mesh = make_mesh(DIST_P, devices=devices)
-    blocks = [np.fromfile(p, np.uint32) for p in paths]
-    src = mesh_kv(
-        mesh, [torch.from_numpy(b.astype(np.uint64).view(np.int64)).to(dev)
-               for b, dev in zip(blocks, devices)],
-        [torch.ones(len(b), dtype=torch.int32, device=dev)
-         for b, dev in zip(blocks, devices)],
-        counts, np.uint64, np.uint32)
-    exchange(src, ("hash", None))
-    sync_all()
-    t0 = time.perf_counter()
-    ref = exchange(src, ("hash", None))      # warm: the timed reference
-    sync_all()
-    mesh_s = time.perf_counter() - t0
-    want = [{"cap": s.cap, "count": int(s.counts[0]),
-             "key_sha": hashlib.sha256(
-                 s.key.cpu().numpy().tobytes()).hexdigest(),
-             "value_sha": hashlib.sha256(
-                 s.value.cpu().numpy().tobytes()).hexdigest()}
-            for s in ref.shards]
-    del ref, src, blocks
+    blocks = [torch.from_numpy(np.fromfile(p, np.uint32).astype(np.uint64)
+                               .view(np.int64)).to(dev)
+              for p, dev in zip(paths, devices)]
+    ones = [torch.ones(len(b), dtype=torch.int32, device=b.device)
+            for b in blocks]
+    src = mesh_kv(mesh, blocks, ones, counts, np.uint64, np.uint32)
+    q = [c // DIST_VALID_DIV for c in counts]
+    frames = {"cold": src, "warm": src,
+              "quarter": mesh_kv(mesh, blocks, ones, q, np.uint64,
+                                 np.uint32, cap=src.cap)}
+    # the ranks start from empty caches: so does the reference
+    with shuffle._SPEC_LOCK:
+        shuffle._SPEC_CACHE.clear()
+    want, mesh_s = {}, {}
+    for label in DIST_CALLS:
+        sync_all()
+        t0 = time.perf_counter()
+        ref = shuffle.exchange(frames[label], ("hash", None))
+        sync_all()
+        mesh_s[label] = time.perf_counter() - t0
+        want[label] = [_block_record(s, ref.exchange_stats)
+                       for s in ref.shards]
+        del ref
+    del src, frames, blocks, ones
     port = pick_port()
     procs = []
     t0 = time.perf_counter()
@@ -4038,16 +4113,37 @@ def run_dist_exchange(keys_u32, tmp: str, devices=None) -> dict:
                 tails[r] = f.read()[-1500:].decode(errors="replace")
         raise AssertionError(f"dist-exchange: rank exit codes {codes}: "
                              f"{tails}")
+    gate = ("cap", "count", "key_sha", "value_sha", "cap_out",
+            "speculative")
     ranks = []
     for r in range(DIST_P):
         with open(os.path.join(d, f"rank{r}.json")) as f:
             rec = json.load(f)
-        got = {k: rec[k] for k in ("cap", "count", "key_sha", "value_sha")}
-        if got != want[r]:
-            raise AssertionError(f"dist-exchange: rank {r}'s block {got} "
-                                 f"!= the mesh's shard {r} {want[r]}")
+        for label in DIST_CALLS:
+            got = {k: rec["calls"][label][k] for k in gate}
+            exp = {k: want[label][r][k] for k in gate}
+            if got != exp:
+                raise AssertionError(f"dist-exchange {label}: rank {r}'s "
+                                     f"block {got} != the mesh's shard "
+                                     f"{r} {exp}")
         ranks.append(rec)
+    if [want[label][0]["speculative"] for label in DIST_CALLS] != \
+            [False, True, True]:
+        raise AssertionError(f"dist-exchange: speculative "
+                             f"{[want[c][0]['speculative'] for c in DIST_CALLS]}"
+                             f", expected cold False, warm and quarter True")
     shutil.rmtree(d)
+    calls = {label: {"cap_out": want[label][0]["cap_out"],
+                     "speculative": want[label][0]["speculative"],
+                     "counts": [w["count"] for w in want[label]],
+                     "mesh_s": mesh_s[label],
+                     "count_sync_s": [r["calls"][label]["count_sync"]
+                                      for r in ranks],
+                     "exchange_s": [r["calls"][label]["exchange"]
+                                    for r in ranks],
+                     "seconds": [r["calls"][label]["seconds"]
+                                 for r in ranks]}
+             for label in DIST_CALLS}
     return {"ranks": DIST_P, "keys": int(sum(counts)),
             "bytes_per_rank": [c * 4 for c in counts],
             "backend": ranks[0]["backend"],
@@ -4055,14 +4151,14 @@ def run_dist_exchange(keys_u32, tmp: str, devices=None) -> dict:
             "devices": [r["device"] for r in ranks],
             "equals_mesh_shards": True, "wall_s": wall,
             "mesh_devices": [str(dev) for dev in devices],
-            "mesh_exchange_s": mesh_s,
-            "cap": want[0]["cap"], "counts": [w["count"] for w in want],
-            "count_sync_s": {run: [r[run]["count_sync"] for r in ranks]
-                             for run in ("cold", "warm")},
-            "exchange_s": {run: [r[run]["exchange"] for r in ranks]
-                           for run in ("cold", "warm")},
-            "seconds": {run: [r[run]["seconds"] for r in ranks]
-                        for run in ("cold", "warm")},
+            "mesh_exchange_s": mesh_s["warm"],
+            "cap": want["warm"][0]["cap"],
+            "counts": [w["count"] for w in want["warm"]],
+            "calls": calls,
+            "count_sync_s": {c: calls[c]["count_sync_s"]
+                             for c in DIST_CALLS},
+            "exchange_s": {c: calls[c]["exchange_s"] for c in DIST_CALLS},
+            "seconds": {c: calls[c]["seconds"] for c in DIST_CALLS},
             "launches": {k: sum(r["launches"][k] for r in ranks)
                          for k in ranks[0]["launches"]}}
 
@@ -8291,6 +8387,274 @@ def bindings_alone(card: bool) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# examples — the Python example drivers on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_CPU = False           # --examples-rehearse: the CPU, small sizes
+# wordfreq (a Python add a word and a reduce a group on the host) reads
+# the first of the zipf cell's four files: all four took 23.5-28 s on the
+# card's host, past the phase's 30 s aim
+EXAMPLES_WF_FILES = 1
+EXAMPLES_WF2_FILES = 2         # wordfreq2: text-check's 2 MB in 2 files
+
+
+def examples_args() -> list:
+    """The drivers' trailing arguments: none on the card (their default),
+    ``-device cpu`` in the rehearsal."""
+    return ["-device", "cpu"] if EXAMPLES_CPU else []
+
+
+def run_driver(name: str, argv: list, kernels, device) -> dict:
+    """One example driver's ``main(argv)`` in this process, its stdout
+    captured, every launch count set to 0 just before it and the card's
+    peak memory reset; it must return 0.  Its lines, seconds, launches
+    and peak allocated bytes."""
+    import importlib
+    import io
+    import torch
+    mod = importlib.import_module(f"gpu_mapreduce_tpu_torch.examples.{name}")
+    cuda = device.type == "cuda"
+    if cuda:
+        sync_all()
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv) + examples_args())
+    if cuda:
+        sync_all()
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"examples {name}: main returned {rc}")
+    return {"seconds": dt,
+            "launches": {k.__name__: k.launches for k in kernels},
+            "max_memory_allocated": torch.cuda.max_memory_allocated()
+            if cuda else None,
+            "lines": buf.getvalue().splitlines()}
+
+
+def top_groups(lines) -> list:
+    """``count word`` lines as their runs of equal counts, each a set:
+    tied counts compare as a set."""
+    groups = []
+    for ln in lines:
+        n = int(ln.split()[0])
+        if groups and groups[-1][0] == n:
+            groups[-1][1].add(ln.strip())
+        else:
+            groups.append((n, {ln.strip()}))
+    return groups
+
+
+def check_counter_top(lines, counter, name: str) -> None:
+    """``  count word`` lines that must be the Counter's top: each count
+    the word's count, the counts the Counter's largest in order, the
+    words distinct."""
+    got = [(int(ln.split()[0]), ln.split(None, 1)[1].encode())
+           for ln in lines]
+    want = sorted(counter.values(), reverse=True)[:len(got)]
+    if [c for c, _ in got] != want or \
+            any(counter[w] != c for c, w in got) or \
+            len({w for _, w in got}) != len(got):
+        raise AssertionError(f"examples {name}: top {lines} is not the "
+                             f"Counter's ({want})")
+
+
+def run_examples(paths, nref: int, nuniq: int, ii_sha: str, int_path: str,
+                 int_keys, zpaths, cpaths, graph_ref: dict, scale: int,
+                 tmp: str, kernels, smi: str, device) -> dict:
+    """The examples phase: each driver of
+    ``gpu_mapreduce_tpu_torch/examples/`` through its ``main(argv)`` with
+    no ``-device`` (so on the card): invertedindex over the main corpus
+    (its part file's sha256 ``ii_sha``, the regex oracle's; mark_words
+    once), wordfreq over the first ``EXAMPLES_WF_FILES`` of the zipf
+    cell's files (a Counter's totals and top 10, counted in a spawned
+    process meanwhile), intcount over the intcount-uniform file (numpy),
+    rmat at the
+    graph phase's Graph500 parameters and seed without an outfile (its
+    message and degree_stats screen equal to the graph phase's,
+    ``graph_ref``), wordfreq2 over text-check's text (a Counter, both
+    passes).  Each driver's seconds, launches and peak bytes."""
+    import hashlib
+    from collections import Counter
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    d = os.path.join(tmp, "examples")
+    os.makedirs(d)
+    drivers = {}
+    wpaths = list(zpaths[:EXAMPLES_WF_FILES])
+    wf_oracle = counter_oracle_parallel(wpaths)
+
+    out = os.path.join(d, "ii")
+    r = drivers["invertedindex"] = run_driver(
+        "invertedindex", [out] + list(paths), kernels, device)
+    want = f"{nref} (url, doc) pairs, {nuniq} unique urls -> {out}/part-*"
+    if r["lines"][0] != want:
+        raise AssertionError(f"examples invertedindex: {r['lines'][:1]} "
+                             f"!= {want!r}")
+    with open(os.path.join(out, "part-00000"), "rb") as f:
+        if hashlib.sha256(f.read()).hexdigest() != ii_sha:
+            raise AssertionError("examples invertedindex: part-00000 "
+                                 "differs from the regex oracle")
+    if cuda and r["launches"]["mark_words"] != 1:
+        raise AssertionError(f"examples invertedindex: launches "
+                             f"{r['launches']}, mark_words must be 1")
+    shutil.rmtree(out)
+
+    r = drivers["wordfreq"] = run_driver("wordfreq", wpaths, kernels,
+                                         device)
+    zoracle = wf_oracle()
+    summary = (f"{zoracle['nwords']} total words, {zoracle['nunique']} "
+               f"unique words")
+    top = [f"{c} {w.decode(errors='replace')}" for w, c in zoracle["top"]]
+    block = [summary] + top
+    lines = r["lines"]
+    if len(lines) != 2 * len(block) or any(
+            b[0] != summary or top_groups(b[1:]) != top_groups(top)
+            for b in (lines[:len(block)], lines[len(block):])):
+        raise AssertionError(f"examples wordfreq: {lines[:len(block)]} "
+                             f"!= the draws' {block}")
+
+    nints, nuniq_i, itop = intcount_oracle(int_keys, 10)
+    r = drivers["intcount"] = run_driver("intcount", [int_path], kernels,
+                                         device)
+    want = [f"{nints} ints, {nuniq_i} unique"] + \
+        [f"{c} {k}" for k, c in itop]
+    if r["lines"] != want:
+        raise AssertionError(f"examples intcount: {r['lines']} != numpy's "
+                             f"{want}")
+
+    a, b, c, dd = GRAPH_ABCD
+    r = drivers["rmat"] = run_driver(
+        "rmat", [str(scale), str(GRAPH_EDGEFACTOR), str(a), str(b), str(c),
+                 str(dd), "0.0", str(GRAPH_SEED)], kernels, device)
+    want = graph_ref["rmat"] + graph_ref["degree_stats"]
+    if r["lines"] != want:
+        raise AssertionError(f"examples rmat: {r['lines'][:3]} != the graph "
+                             f"phase's {want[:3]}")
+
+    counter = Counter()
+    for p in cpaths:
+        with open(p, "rb") as f:
+            counter.update(f.read().split())
+    r = drivers["wordfreq2"] = run_driver("wordfreq2", list(cpaths), kernels,
+                                          device)
+    lines = r["lines"]
+    n = min(10, len(counter))
+    if not (len(lines) == 2 * n + 3
+            and lines[0] == "top 10 (local sort):"
+            and lines[n + 1] == "top 10 (global, after gather):"
+            and lines[-1] == f"{sum(counter.values())} total words, "
+                             f"{len(counter)} unique words "
+                             f"({len(cpaths)} files)"):
+        raise AssertionError(f"examples wordfreq2: {lines}")
+    check_counter_top(lines[1:n + 1], counter, "wordfreq2 local")
+    check_counter_top(lines[n + 2:2 * n + 2], counter, "wordfreq2 global")
+
+    if cuda and not all(rec["max_memory_allocated"] > 0
+                        for rec in drivers.values()):
+        raise AssertionError("examples: a driver allocated nothing on the "
+                             "card")
+    shutil.rmtree(d)
+    for rec in drivers.values():
+        rec["first_line"] = rec.pop("lines")[0]
+    return {"phase": "examples", "card": smi,
+            "device": "cpu" if EXAMPLES_CPU else str(device),
+            "drivers": drivers,
+            "inputs": {"invertedindex": sum(os.path.getsize(p)
+                                            for p in paths),
+                       "wordfreq": sum(os.path.getsize(p) for p in wpaths),
+                       "intcount": os.path.getsize(int_path),
+                       "rmat_scale": scale,
+                       "wordfreq2": sum(os.path.getsize(p) for p in cpaths)},
+            "launches": {k.__name__: {name: rec["launches"][k.__name__]
+                                      for name, rec in drivers.items()}
+                         for k in kernels},
+            "reduced": [
+                f"wordfreq reads {len(wpaths)} of the zipf cell's "
+                f"{len(zpaths)} files: a Python add a word and a reduce a "
+                f"group on the host took 23.5-28 s over all four, past "
+                f"the phase's 30 s aim",
+                f"wordfreq2 reads text-check's {WF_CHECK_MB} MB in "
+                f"{len(cpaths)} files, not 256 MB: its reduce calls a "
+                f"Python function for each group"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+def examples_alone(card: bool) -> int:
+    """``chip_smoke.py --examples-alone``: the examples phase alone on the
+    card at its full size, its inputs and references made here (the 256
+    MB main corpus and its regex oracle, the zipf corpus, the
+    intcount-uniform file, the graph script's rmat and degree_stats
+    lines, text-check's text).  ``--examples-rehearse``: the
+    same on the CPU at 2 MB and scale 10, every gate but the launch
+    counts and the peaks.  Prints the examples line."""
+    import hashlib
+    import numpy as np
+    import torch
+    from gpu_mapreduce_tpu_torch.apps.corpus import make_corpus
+    from gpu_mapreduce_tpu_torch.ops import cuda as kcuda
+    from gpu_mapreduce_tpu_torch.ops.cuda import group, match
+    global EXAMPLES_CPU
+    if card:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 2
+        kcuda.build_all()
+        smi = nvidia_smi()
+        device = torch.device("cuda", 0)
+        main_mb, zipf_mb, scale = MAIN_MB, WF_MB, GRAPH_SCALE
+        nkeys = INTCOUNT_KEYS
+    else:
+        EXAMPLES_CPU = True
+        smi = "cpu rehearsal"
+        device = torch.device("cpu")
+        main_mb, zipf_mb, scale, nkeys = 2, 2, 10, 1 << 16
+    kernels = [match.mark_words, group.segment_table, match.mark]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "main"))
+        paths, nref, nuniq = make_corpus(os.path.join(tmp, "main"), main_mb)
+        oracle_part = oracle_part_file_parallel(paths)
+        zdir = os.path.join(tmp, "zipf")
+        os.makedirs(zdir)
+        zpaths = zipf_corpus(zdir, zipf_mb)[0]
+        int_keys = np.random.default_rng(7).integers(0, 1 << 32, nkeys,
+                                                     dtype=np.uint32)
+        int_path = os.path.join(tmp, "intcount-uniform.bin")
+        int_keys.tofile(int_path)
+        cdir = os.path.join(tmp, "text-check")
+        os.makedirs(cdir)
+        cpaths, _, _, _ = zipf_corpus(cdir, WF_CHECK_MB,
+                                      nfiles=EXAMPLES_WF2_FILES)
+        gdir = os.path.join(tmp, "graph")
+        os.makedirs(gdir)
+        cwd = os.getcwd()
+        os.chdir(gdir)
+        try:
+            ref = drive_script(device, graph_script(scale, GRAPH_EDGEFACTOR)
+                               [:1] + ["degree_stats 0 -i mre"], ())
+        finally:
+            os.chdir(cwd)
+        graph_ref = {k: ref["screens"][k] for k in ("rmat", "degree_stats")}
+        del ref
+        ii_sha = hashlib.sha256(oracle_part().encode()).hexdigest()
+        inputs_s = time.perf_counter() - t0
+        rec = run_examples(paths, nref, nuniq, ii_sha, int_path, int_keys,
+                           zpaths, cpaths, graph_ref, scale, tmp, kernels,
+                           smi, device)
+        rec["inputs_s"] = inputs_s
+        rec["alone_seconds"] = time.perf_counter() - t0
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8453,7 +8817,6 @@ def main() -> int:
         obs_rec = run_obs(paths, nref, nuniq, main_rec["launches"],
                           int_paths["uniform"], int_keys["uniform"], tmp,
                           kernels, smi, device)
-        shutil.rmtree(int_dir)
         t_mesh = time.perf_counter()
         mesh_int = {}
         for cell, keys in int_keys.items():
@@ -8501,6 +8864,7 @@ def main() -> int:
 
         graph = run_graph(device, smi, kernels, p4=True)
         graph_p4 = graph.pop("p4")
+        graph_ref = graph.pop("ref_screens")
         emit(graph)
         tri = run_tri(device, smi, kernels, p4=True)
         tri_p4 = tri.pop("p4")
@@ -8602,14 +8966,20 @@ def main() -> int:
         emit(fleet_rec)
         cdir = os.path.join(tmp, "bindings-text")
         os.makedirs(cdir)
+        cpaths = zipf_corpus(cdir, WF_CHECK_MB, nfiles=EXAMPLES_WF2_FILES)[0]
         bind_rec = run_bindings(
             paths, nref, nuniq, zipf[0], zipf[1], tmp, kernels, smi, device,
             refs={"ii": serve_rec["files"]["ta"]["ii/part-00000"],
                   "wf": wf["wordfreq-zipf"]["out_sha256"],
-                  "check_paths": zipf_corpus(cdir, WF_CHECK_MB,
-                                             nfiles=2)[0]},
+                  "check_paths": cpaths},
             outdir=outdir_cell)
         emit(bind_rec)
+        ex_rec = run_examples(
+            paths, nref, nuniq, serve_rec["files"]["ta"]["ii/part-00000"],
+            int_paths["uniform"], int_keys["uniform"], zipf[0], cpaths,
+            graph_ref, GRAPH_SCALE, tmp, kernels, smi, device)
+        emit(ex_rec)
+        shutil.rmtree(int_dir)
         shutil.rmtree(main_dir)
         shutil.rmtree(os.path.dirname(zipf[0][0]))
     finally:
@@ -8673,7 +9043,9 @@ def main() -> int:
                     # the bindings phase: the shim in this process, by
                     # command (invertedindex, the fused wordfreq cold
                     # and warm)
-                    "launches_bindings": bind_rec["launches"][k]}
+                    "launches_bindings": bind_rec["launches"][k],
+                    # the examples phase, by driver
+                    "launches_examples": ex_rec["launches"][k]}
                 for k in ("mark_words", "segment_table", "mark")}
     emit({"kernels": [{
         "name": "mark_words", "route": "cuda",
@@ -8762,4 +9134,6 @@ if __name__ == "__main__":
         sys.exit(fleet_alone(sys.argv[1] == "--fleet-alone"))
     if sys.argv[1:2] in (["--bindings-rehearse"], ["--bindings-alone"]):
         sys.exit(bindings_alone(sys.argv[1] == "--bindings-alone"))
+    if sys.argv[1:2] in (["--examples-rehearse"], ["--examples-alone"]):
+        sys.exit(examples_alone(sys.argv[1] == "--examples-alone"))
     sys.exit(main())

@@ -17,9 +17,14 @@ dangling mass, the damping and the largest change run on the replicated
 ranks, once a device, and the change is read from the first shard's
 device only.  One device is the one-shard case.
 
-Float32 sums on the card are not reproducible bit for bit: ``index_add_``
-adds in the order its atomics land, so ranks differ in their last bits
-from run to run and the step count may move by one near ``tol``.
+On the card each step's inflow is summed in float64 and rounded once to
+float32.  There ``index_add_`` adds in the order its atomics land; in
+float32 that order left a largest change of 2e-9 to 1e-8 after
+convergence on the scale-22 RMAT graph, at a ``tol`` of 1e-8, so one run
+could stop two steps after another.  Rounded from float64 the ranks come
+out the same bits from run to run and on four shards as on one
+(``profile_torch_pagerank.py``).  On the CPU ``index_add_`` adds in edge
+order, and the inflow stays float32 as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +57,17 @@ def _dangling_mass(ranks: torch.Tensor, inv_outdeg: torch.Tensor
     return (ranks.sum() - (ranks * torch.sign(inv_outdeg)).sum()) / n
 
 
+def _inflow(r: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+            scale: torch.Tensor) -> torch.Tensor:
+    """One shard's inflow: each edge's scaled source rank summed onto its
+    destination, in float64 where ``index_add_`` adds in the order its
+    atomics land (the card), in float32 where it adds in edge order, as
+    the JAX package does."""
+    dt = torch.float64 if r.device.type == "cuda" else torch.float32
+    return torch.zeros(r.shape[0], dtype=dt, device=r.device).index_add_(
+        0, dst, r[src].mul_(scale).to(dt))
+
+
 def pagerank_step(ranks: List[torch.Tensor], shards,
                   inv: List[torch.Tensor], damping: float = 0.85
                   ) -> List[torch.Tensor]:
@@ -61,14 +77,12 @@ def pagerank_step(ranks: List[torch.Tensor], shards,
     shard, ``edge_scale`` being ``inv[src]``, gathered once for every
     step."""
     n = ranks[0].shape[0]
-    inflow = allreduce([
-        torch.zeros(n, dtype=torch.float32, device=r.device).index_add_(
-            0, dst, r[src].mul_(scale))
-        for r, (src, dst, scale) in zip(ranks, shards)], "sum")
+    inflow = allreduce([_inflow(r, src, dst, scale)
+                        for r, (src, dst, scale) in zip(ranks, shards)], "sum")
     base = float(np.float32((1.0 - damping) / n))
     d = float(np.float32(damping))
-    return per_device(lambda f, r, i: f.add_(_dangling_mass(r, i)).mul_(d)
-                      .add_(base), inflow, ranks, inv)
+    return per_device(lambda f, r, i: f.float().add_(_dangling_mass(r, i))
+                      .mul_(d).add_(base), inflow, ranks, inv)
 
 
 def pagerank(src: torch.Tensor, dst: torch.Tensor, n: int, tol: float = 1e-6,

@@ -19,9 +19,8 @@ commands (``ft/journal.py``); ``resume <dir>`` replays a killed script
 from its last checkpoint.  A top-level script is one request of
 ``obs/context.py`` (one trace id), every command and named-MR line is an
 ``oink.<command>`` span, and each command round is a cancellation
-barrier.  Not ported yet (each raises ``MRError``): the
-named-MR methods ``mrscript.py`` lists, and the settings the port's
-``MapReduce`` lacks.
+barrier.  Every named-MR method of the JAX ``mrscript.py`` and every
+``set`` setting (the 15 fields of ``core/runtime.Settings``) is ported.
 """
 
 from __future__ import annotations
@@ -690,21 +689,13 @@ def _partition_mesh(specs: List[str], device):
     """The mesh the partition specs split: as many shards as their procs
     sum to (None for one), one a CUDA card when that many are present,
     else all on ``device`` (the card unless ``"cpu"``)."""
-    import torch
-
-    from ..core.runtime import resolve_device
-    from ..parallel.mesh import make_mesh
+    from ..parallel.mesh import mesh_on
     from .universe import Universe
     probe = Universe(0)
     for spec in specs:
         probe.add_world(spec)
     total = sum(probe.procs_per_world)
-    if total <= 1:
-        return None
-    dev = resolve_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() >= total:
-        return make_mesh(total)
-    return make_mesh(total, devices=[dev] * total)
+    return mesh_on(total, device) if total > 1 else None
 
 
 if __name__ == "__main__":

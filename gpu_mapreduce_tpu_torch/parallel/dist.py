@@ -912,14 +912,16 @@ def _place_rows(rows, device, dtype):
 
 
 def shard_local_rows(local_rows, counts, key_dtype=None,
-                     value_dtype=None) -> RankKV:
+                     value_dtype=None, cap: Optional[int] = None) -> RankKV:
     """This rank's rows as its blocks of a frame over the process group
     (JAX ``shard_local_rows``): ``local_rows`` is a list of ``(keys,
     values)`` blocks, one a local shard in shard order (a rank holding
     one shard may pass the pair itself); ``counts[P]`` is every shard's
     valid count, agreed by all.  Each block is padded with zeros to the
-    common cap, on its shard's device.  Tensors may carry u64 as int64
-    bits: ``key_dtype``/``value_dtype`` name the logical dtype."""
+    common cap (default: the power of two over the largest count; a
+    caller may keep a larger one, as ``sharded.mesh_kv`` does), on its
+    shard's device.  Tensors may carry u64 as int64 bits:
+    ``key_dtype``/``value_dtype`` name the logical dtype."""
     rt = _require_active()
     L = len(rt.devices)
     blocks = local_rows if isinstance(local_rows, list) else [local_rows]
@@ -930,7 +932,12 @@ def shard_local_rows(local_rows, counts, key_dtype=None,
     if len(blocks) != L:
         raise MRError(f"shard_local_rows: {len(blocks)} local blocks for "
                       f"{L} local shard(s)")
-    cap = round_cap(int(counts.max()) if counts.size else 0)
+    least = round_cap(int(counts.max()) if counts.size else 0)
+    if cap is None:
+        cap = least
+    elif cap < least:
+        raise MRError(f"shard_local_rows: cap {cap} under the largest "
+                      f"count's {least}")
     shards = []
     for l, ((keys, values), dev) in enumerate(zip(blocks, rt.devices)):
         k, kd = _place_rows(keys, dev, key_dtype)

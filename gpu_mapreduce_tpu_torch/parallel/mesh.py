@@ -24,7 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..core.runtime import MRError
+from ..core.runtime import MRError, resolve_device
 
 AXIS = "p"
 
@@ -84,6 +84,16 @@ def make_mesh(ndev: Optional[int] = None,
     device, as ``["cpu"] * 8`` or ``[cuda:0] * 4``): its first ``ndev``
     entries."""
     return Mesh(tuple(_devices(ndev, devices, f"make_mesh({ndev})")))
+
+
+def mesh_on(ndev: int, device=None) -> Mesh:
+    """A mesh of ``ndev`` shards for a caller that names one device: one
+    shard a card where there are ``ndev`` cards, else every shard on
+    ``device`` (the card unless ``"cpu"``; shards may share a card)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= ndev:
+        return make_mesh(ndev)
+    return make_mesh(ndev, devices=[dev] * ndev)
 
 
 def make_mesh2(nslice: int, nchip: Optional[int] = None,

@@ -41,9 +41,12 @@ the speculative plan cache (``_SPEC_CACHE``, JAX :428-450, :664-752):
   phase 2 runs at it, keeping its larger ``cap_out``, and the exchange
   is marked speculative; otherwise phase 2 runs at the fresh plan.  The
   cache is right-sized as JAX does, so caps and ``speculative`` equal
-  JAX's over any sequence of exchanges.  JAX also enqueues phase 2
-  before the pull; the port waits for the pull first (an early
-  dispatch measured slower on an H100, PERF.md §6).
+  JAX's over any sequence of exchanges.  The rank exchange keys its
+  entries by the world, the local shards and the generation instead of
+  a mesh, and runs at a cached plan only where every rank holds the
+  same one (:func:`exchange_ranks`).  JAX also enqueues phase 2 before
+  the pull; the port waits for the pull first, on a mesh and across
+  ranks (an early dispatch measured slower on an H100, PERF.md §6).
 
 The eager exchange (:func:`exchange`) and the fused exchange group of
 ``plan/fuser.py`` share these steps, so their layouts and telemetry are
@@ -65,6 +68,8 @@ buffer donation is not ported (torch never consumes its inputs).
 
 from __future__ import annotations
 
+import hashlib
+import json
 import threading
 import time
 from dataclasses import dataclass
@@ -497,6 +502,20 @@ def _spec_key(skv: MeshKV, dest, transport: int, wire_on: bool) -> tuple:
             wire_on)
 
 
+def _spec_decision(spec, plan, bmax: int, nmax: int, kvrange) -> tuple:
+    """``(the plan phase 2 runs at, speculative, the entry to keep)``
+    from the cached plan ``spec`` (None: none to use) and the fresh
+    ``plan`` (JAX :714-746): a cached plan that still holds runs,
+    keeping its larger cap, and gives way to the fresh one for the next
+    exchange when it is ≥ 4× too large or its tag differs; otherwise the
+    fresh plan runs and is kept."""
+    if spec is not None and _wire.plan_holds(spec, bmax, nmax, kvrange):
+        keep = plan if (spec[0] != plan[0]
+                        or _wire.plan_oversized(spec, bmax, nmax)) else spec
+        return spec, True, keep
+    return plan, False, plan
+
+
 def _under_retry(skv, run: Callable, detail: str,
                  span: Optional[dict] = None):
     """``run()`` under the ft/ ``shuffle.exchange`` fault site and retry
@@ -567,19 +586,9 @@ def _exchange_mesh(skv: MeshKV, dest, transport: int, counters,
     with _count_sync_span():
         counts_mat, _ = ph.pull()
     plan, kvrange, bmax, nmax, new_counts = ph.plan()
-    if spec is not None and _wire.plan_holds(spec, bmax, nmax, kvrange):
-        # the cached plan holds: run at it, keeping its larger cap;
-        # right-size the entry when it is ≥ 4× too large or its tag
-        # differs from the fresh plan's
-        with _SPEC_LOCK:
-            _SPEC_CACHE[key] = plan if (
-                spec[0] != plan[0]
-                or _wire.plan_oversized(spec, bmax, nmax)) else spec
-        ran, speculative = spec, True
-    else:
-        with _SPEC_LOCK:
-            _SPEC_CACHE[key] = plan
-        ran, speculative = plan, False
+    ran, speculative, keep = _spec_decision(spec, plan, bmax, nmax, kvrange)
+    with _SPEC_LOCK:
+        _SPEC_CACHE[key] = keep
     blocks = phase2(skv, ph, ran, transport)
     out = MeshKV(skv.mesh, [ShardedKV(k, v, np.array([n], np.int32),
                                       skv.key_dtype, skv.value_dtype,
@@ -608,9 +617,19 @@ def exchange_ranks(skv: RankKV, dest, counters=None,
     ``all_to_all_single`` lays its output out by source rank, then by
     the source's local index: the mesh's source-major order, so every
     block, cap and count equals the one-process ``make_mesh(W·L)``'s
-    shard byte for byte.  No speculation: the count gather is the
-    exchange's first collective.  The new frame carries
-    ``exchange_stats`` and the seconds of both sync points.
+    shard byte for byte.  The new frame carries ``exchange_stats`` and
+    the seconds of both sync points.
+
+    Speculation (JAX :664-752 over ``host_pull``): each metadata row
+    also carries the digest of the rank's cached plan for this
+    exchange's key (:func:`_rank_spec_key`; 0 with none).  Phase 2 runs
+    at the cached plan only where every rank's digest is the same and
+    nonzero and the plan holds the gathered matrices; every rank then
+    decides alike, so no two ranks enter ``all_to_all_single`` with
+    different caps (a rank restarted with an empty cache makes the
+    exchange fresh on all).  The entry is right-sized as on a mesh, and
+    written only once the rows have arrived.  Over an equal history the
+    caps and ``speculative`` equal the JAX mesh's.
 
     Runs under the ft/ ``shuffle.exchange`` retry policy, its fault point
     before the first collective: the seeded schedule is per process and
@@ -623,6 +642,32 @@ def exchange_ranks(skv: RankKV, dest, counters=None,
         span={"nprocs": skv.nprocs, "transport": 1})
 
 
+def _rank_spec_key(skv: RankKV, dest, wire_on: bool) -> tuple:
+    """The rank exchange's speculative key, computed alike on every rank:
+    the world W, the local shards L, the group's generation, the
+    destination, the frame's whole key and value shapes and dtypes, and
+    whether the codec is on.  No mesh object (a rank frame has none);
+    worlds of different widths never share an entry."""
+    rt = _dist.active()
+    s = skv.shards[0]
+    n = skv.nprocs * s.cap
+    return ("ranks", skv.nprocs // skv.nlocal, skv.nlocal,
+            rt.gen if rt is not None else 0, dest,
+            (n,) + tuple(s.key.shape[1:]), np.dtype(skv.key_dtype).str,
+            (n,) + tuple(s.value.shape[1:]), np.dtype(skv.value_dtype).str,
+            wire_on)
+
+
+def _plan_digest(plan) -> int:
+    """A nonzero int64 digest of a plan, equal on every rank that holds
+    the same plan (0: no plan)."""
+    if plan is None:
+        return 0
+    h = hashlib.blake2b(json.dumps(plan, default=int).encode(),
+                        digest_size=8).digest()
+    return int.from_bytes(h, "little", signed=True) or 1
+
+
 def _exchange_ranks(skv: RankKV, dest, counters, site: str,
                     sp) -> RankKV:
     if skv.key_decode is not None or skv.value_decode is not None:
@@ -630,6 +675,10 @@ def _exchange_ranks(skv: RankKV, dest, counters, site: str,
                       "ported yet (intern tables are per process)")
     P, L, rank = skv.nprocs, skv.nlocal, skv.rank
     wire_on = _wire.wire_enabled()
+    key = _rank_spec_key(skv, dest, wire_on)
+    with _SPEC_LOCK:
+        spec = _SPEC_CACHE.get(key)
+    digest = torch.tensor([_plan_digest(spec)], dtype=torch.int64)
     s0 = skv.shards[0]
     kspec = _wire.col_spec(s0.key, skv.key_dtype)
     vspec = _wire.col_spec(s0.value, skv.value_dtype)
@@ -653,15 +702,21 @@ def _exchange_ranks(skv: RankKV, dest, counters, site: str,
     with _count_sync_span():
         gathered = _dist.guard_call(
             "count_sync", lambda: _dist.all_gather_host(
-                torch.cat([m.cpu() for m in metas]).numpy())).reshape(P, -1)
+                torch.cat([t for m in metas for t in (m.cpu(), digest)])
+                .numpy())).reshape(P, -1)
     t1 = time.perf_counter()
     counts_mat = gathered[:, :P]
     # the straggler classifier's data-skew evidence (obs/fleetobs)
     _dist.note_sync_rows(counts_mat)
-    stats_mat = gathered[:, P:].reshape(P, P, 4) if wire_on else None
-    plan, _kvr, _bmax, _nmax, new_counts = _wire.plan_from_pull(
+    stats_mat = gathered[:, P:-1].reshape(P, P, 4) if wire_on else None
+    plan, kvrange, bmax, nmax, new_counts = _wire.plan_from_pull(
         kspec, vspec, counts_mat, stats_mat, wire_on, elig)
-    kpack, vpack = _packs(plan)
+    # the cached plan is used only where every rank holds the same one
+    digests = gathered[:, -1]
+    agreed = bool((digests == digests[0]).all())
+    ran, speculative, keep = _spec_decision(spec if agreed else None, plan,
+                                            bmax, nmax, kvrange)
+    kpack, vpack = _packs(ran)
     cols = []
     for k, v, sd, st in rows:
         if kpack:
@@ -671,8 +726,10 @@ def _exchange_ranks(skv: RankKV, dest, counters, site: str,
         cols.append((k, v))
     bump_dispatch()
     blocks = _dist.guard_call(site, _dist.all_to_all_rows, cols,
-                              counts_mat, _wire.plan_cap_out(plan))
+                              counts_mat, _wire.plan_cap_out(ran))
     t2 = time.perf_counter()
+    with _SPEC_LOCK:
+        _SPEC_CACHE[key] = keep
     shards = []
     for l, (k, v) in enumerate(blocks):
         d = rank * L + l
@@ -681,11 +738,12 @@ def _exchange_ranks(skv: RankKV, dest, counters, site: str,
             k, v = _decode_block(
                 k, v, torch.from_numpy(counts_mat[:, d].copy()).to(dev),
                 torch.from_numpy(stats_mat[:, d].copy()).to(dev),
-                skv.key_dtype, skv.value_dtype, plan)
+                skv.key_dtype, skv.value_dtype, ran)
         shards.append(ShardedKV(k, v, new_counts[d:d + 1].copy(),
                                 skv.key_dtype, skv.value_dtype))
     out = RankKV(rank, shards, new_counts)
-    out.exchange_stats = exchange_stats(skv, counts_mat, plan, counters)
+    out.exchange_stats = exchange_stats(skv, counts_mat, ran, counters,
+                                        speculative)
     _span_stats(sp, skv, out.exchange_stats)
     out.sync_seconds = {"count_sync": t1 - t0, site: t2 - t1}
     return out

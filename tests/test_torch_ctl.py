@@ -39,7 +39,8 @@ from gpu_mapreduce_tpu_torch.serve import Router, ServeClient, Server, memo
 from gpu_mapreduce_tpu_torch.utils import cas as tcas
 
 from test_torch_fleet import j_replica, replica
-from test_torch_serve import ROOT, WAIT, wait_until, write_corpus
+from test_torch_serve import (ROOT, WAIT, no_flight_left,  # noqa: F401
+                              wait_until, write_corpus)
 
 _spec = importlib.util.spec_from_file_location(
     "mrctl", os.path.join(ROOT, "scripts", "mrctl.py"))

@@ -743,3 +743,191 @@ def test_two_ranks_of_two_shards_match_jax_mesh(tmp_path, monkeypatch):
         if wire == "1":
             assert got[0]["1_flat_hash_st"][3] > 0    # the codec ran
             assert got[0]["1_u16_hash_st"][3] > 0
+
+
+# -- speculation on the rank exchange ----------------------------------------
+
+SPEC_CAP = 64          # rows a shard: every call keeps this frame shape
+
+RANK_SPEC = textwrap.dedent("""
+    import json, os, sys
+    import numpy as np
+    from gpu_mapreduce_tpu_torch.ops.bits import to_numpy
+    from gpu_mapreduce_tpu_torch.parallel import dist as D
+    from gpu_mapreduce_tpu_torch.parallel import shuffle
+    rt = D.init_from_env()
+    d = sys.argv[1]
+    with np.load(os.path.join(d, "inputs.npz")) as z:
+        plan = json.loads(str(z["plan"]))
+        arrs = {k: z[k] for k in z.files if k != "plan"}
+    cap = plan["cap"]
+    out = {}
+
+    def run(tag, call):
+        counts = np.asarray(plan["counts"][call])
+        lo = rt.rank * cap
+        n = int(counts[rt.rank])
+        fr = D.shard_local_rows((arrs[call + "_k"][lo:lo + n],
+                                 arrs[call + "_v"][lo:lo + n]), counts,
+                                cap=cap)
+        res = shuffle.exchange(fr, ("hash", None))
+        st = res.exchange_stats
+        out[tag + "_k"] = to_numpy(res.shard.key, res.key_dtype)
+        out[tag + "_v"] = to_numpy(res.shard.value, res.value_dtype)
+        out[tag + "_c"] = res.counts
+        out[tag + "_st"] = np.array([st.cap_out, int(st.speculative)])
+
+    for wire in ("0", "1"):
+        os.environ["MRTPU_WIRE"] = wire
+        shuffle._SPEC_CACHE.clear()
+        for i, call in enumerate(plan["seq"]):
+            run(f"{wire}_{i}", call)
+    # one rank's cache cleared mid-sequence: the next exchange is fresh
+    # on every rank, then both speculate again
+    os.environ["MRTPU_WIRE"] = "0"
+    shuffle._SPEC_CACHE.clear()
+    for i, call in enumerate(plan["clear_seq"]):
+        if i == plan["clear_at"] and rt.rank == 1:
+            shuffle._SPEC_CACHE.clear()
+        run(f"clear_{i}", call)
+    np.savez(os.path.join(d, f"out{rt.rank}.npz"), **out)
+    rt.stop()
+    os._exit(0)
+""")
+
+
+def _spec_inputs(W: int = 2):
+    """Seeded u64 keys chosen by their lookup3 destination: ``full``
+    sends half of each shard's 64 rows to each destination, ``quarter``
+    keeps the first 16 valid (alternating, so still balanced), ``skew``
+    sends every row to destination 0, ``tiny`` is a quarter again.  The
+    frame's cap stays 64 throughout, so every call shares one spec key;
+    values fit one byte, so the codec packs them."""
+    from gpu_mapreduce_tpu_torch.ops.hash import default_hash
+    rng = np.random.default_rng(77)
+    pool = rng.integers(0, 1 << 64, 4096, dtype=np.uint64, endpoint=False)
+    dest = (default_hash(to_torch(pool, "cpu"), np.uint64) % W).numpy()
+    to0, to1 = pool[dest == 0], pool[dest == 1]
+    n = SPEC_CAP
+    bal = np.empty(W * n, np.uint64)
+    bal[0::2], bal[1::2] = to0[:W * n // 2], to1[:W * n // 2]
+    skew = to0[W * n // 2:W * n // 2 + W * n]
+    vals = rng.integers(0, 100, W * n).astype(np.int64)
+    arrs = {"full_k": bal, "quarter_k": bal, "skew_k": skew, "tiny_k": bal}
+    for c in ("full", "quarter", "skew", "tiny"):
+        arrs[c + "_v"] = vals
+    counts = {"full": [n] * W, "quarter": [n // 4] * W, "skew": [n] * W,
+              "tiny": [n // 4] * W}
+    plan = {"cap": n, "counts": counts,
+            "seq": ["full", "quarter", "skew", "tiny", "tiny"],
+            "clear_seq": ["full", "quarter", "quarter", "quarter"],
+            "clear_at": 2}
+    return plan, arrs
+
+
+def _jax_spec_exchange(mesh, plan, arrs, call, W):
+    """The JAX make_mesh(W) exchange of one call's frame at the common
+    cap: padded blocks, counts, cap_out and speculative."""
+    import jax
+    from gpu_mapreduce_tpu.parallel.mesh import row_sharding
+    cap = plan["cap"]
+    counts = np.asarray(plan["counts"][call], np.int64)
+    k, v = arrs[call + "_k"].copy(), arrs[call + "_v"].copy()
+    for p in range(W):
+        k[p * cap + counts[p]:(p + 1) * cap] = 0
+        v[p * cap + counts[p]:(p + 1) * cap] = 0
+    sh = row_sharding(mesh)
+    skv = JShardedKV(mesh, jax.device_put(k, sh), jax.device_put(v, sh),
+                     counts.astype(np.int32))
+    out = jshuffle.exchange(skv, ("hash", None))
+    c = out.cap
+    K, V = np.asarray(out.key), np.asarray(out.value)
+    st = out.exchange_stats
+    return ([(K[p * c:(p + 1) * c], V[p * c:(p + 1) * c]) for p in range(W)],
+            out.counts, st.cap_out, bool(st.speculative))
+
+
+@pytest.fixture(scope="module")
+def spec_runs(tmp_path_factory):
+    """Both sequences on 2 gloo CPU ranks, one set of processes."""
+    W = 2
+    plan, arrs = _spec_inputs(W)
+    d = str(tmp_path_factory.mktemp("rank_spec"))
+    np.savez(os.path.join(d, "inputs.npz"), plan=json.dumps(plan), **arrs)
+    port = launch.pick_port()
+    procs = []
+    for r in range(W):
+        env = dict(os.environ, PYTHONPATH=ROOT, MRTPU_DIST_WORLD=str(W),
+                   MRTPU_DIST_RANK=str(r),
+                   MRTPU_DIST_COORD=f"localhost:{port}",
+                   MRTPU_DIST_RUNDIR=os.path.join(d, "run"),
+                   MRTPU_DIST_DEVICE="cpu", OMP_NUM_THREADS="1")
+        env.pop("MRTPU_FAULTS", None)
+        procs.append(subprocess.Popen([sys.executable, "-c", RANK_SPEC, d],
+                                      env=env, cwd=ROOT,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT))
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0] * W, \
+        b"\n".join(o[-1500:] for o in outs).decode(errors="replace")
+    return W, plan, arrs, [dict(np.load(os.path.join(d, f"out{r}.npz")))
+                           for r in range(W)]
+
+
+def _assert_call_equal(got, tag, want, W):
+    blocks, wcounts, wcap, wspec = want
+    for r in range(W):
+        assert got[r][tag + "_c"].tolist() == wcounts.tolist(), tag
+        assert got[r][tag + "_st"].tolist() == [wcap, int(wspec)], tag
+        wk, wv = blocks[r]
+        gk, gv = got[r][tag + "_k"], got[r][tag + "_v"]
+        assert gk.dtype == wk.dtype and gv.dtype == wv.dtype, tag
+        np.testing.assert_array_equal(gk, wk, err_msg=f"{tag} {r}")
+        np.testing.assert_array_equal(gv, wv, err_msg=f"{tag} {r}")
+
+
+@pytest.mark.parametrize("wire", ["0", "1"])
+def test_rank_speculation_matches_jax_mesh(wire, spec_runs, monkeypatch):
+    """full → a quarter valid (the cached plan holds: its larger cap is
+    kept) → keys skewed onto one destination (it does not hold: fresh)
+    → a quarter again (holds, ≥ 4× oversized: right-sized) → the same
+    (now at the right-sized plan): every call's padded blocks, counts,
+    cap_out and speculative equal JAX make_mesh(2) over the same
+    sequence from a fresh cache, codec off and on."""
+    W, plan, arrs, got = spec_runs
+    monkeypatch.setenv("MRTPU_WIRE", wire)
+    monkeypatch.setattr(jshuffle, "_SPEC_CACHE", {})
+    mesh = j_make_mesh(W)
+    flags = []
+    for i, call in enumerate(plan["seq"]):
+        want = _jax_spec_exchange(mesh, plan, arrs, call, W)
+        _assert_call_equal(got, f"{wire}_{i}", want, W)
+        flags.append(want[3])
+    caps = [int(got[0][f"{wire}_{i}_st"][0]) for i in range(5)]
+    assert flags == [False, True, False, True, True], (wire, flags, caps)
+    # the quarter keeps the full call's cap; the oversized call runs at
+    # the skewed call's cap and the next at the right-sized one
+    assert caps[1] == caps[0] and caps[3] == caps[2] > caps[4], caps
+
+
+def test_rank_with_a_cleared_cache_goes_fresh(spec_runs, monkeypatch):
+    """Rank 1 loses its cache after two calls: the next exchange runs at
+    the fresh plan on both ranks (no hang, no divergence), equal to JAX
+    from a fresh cache; the one after speculates again on both."""
+    W, plan, arrs, got = spec_runs
+    monkeypatch.setenv("MRTPU_WIRE", "0")
+    mesh = j_make_mesh(W)
+    monkeypatch.setattr(jshuffle, "_SPEC_CACHE", {})
+    for i, call in enumerate(plan["clear_seq"]):
+        if i == plan["clear_at"]:
+            monkeypatch.setattr(jshuffle, "_SPEC_CACHE", {})
+        want = _jax_spec_exchange(mesh, plan, arrs, call, W)
+        _assert_call_equal(got, f"clear_{i}", want, W)
+    assert [bool(got[0][f"clear_{i}_st"][1]) for i in range(4)] == \
+        [False, True, False, True]
+    assert got[0]["clear_3_st"][0] < got[0]["clear_1_st"][0]

@@ -48,8 +48,8 @@ from gpu_mapreduce_tpu_torch.serve import (FleetMember, ServeClient,
 from gpu_mapreduce_tpu_torch.serve.fleet import ring_hash
 from gpu_mapreduce_tpu_torch.utils.cas import reset_store
 
-from test_torch_serve import (ROOT, WAIT, fresh, record,  # noqa: F401
-                              wait_until, wf_script, write_corpus)
+from test_torch_serve import (ROOT, WAIT, fresh, no_flight_left,  # noqa: F401
+                              record, wait_until, wf_script, write_corpus)
 
 
 def replica(root, rid, *, workers=1, paused=False, lease_s=0.6,

@@ -25,8 +25,9 @@ from gpu_mapreduce_tpu_torch.plan.cache import plan_cache
 from gpu_mapreduce_tpu_torch.serve import ServeClient, Server, memo
 from gpu_mapreduce_tpu_torch.utils import cas as tcas
 
-from test_torch_serve import (WAIT, fresh, kinds, record,  # noqa: F401
-                              wf_script, write_corpus)
+from test_torch_serve import (WAIT, fresh, kinds,  # noqa: F401
+                              no_flight_left, record, wf_script,
+                              write_corpus)
 
 
 @pytest.fixture

@@ -1,5 +1,5 @@
 """The port imports neither JAX nor the JAX package, and its entry points
-default to the card.
+(the example drivers among them) default to the card.
 
 A subprocess poisons ``sys.modules`` so that importing ``jax`` or
 ``gpu_mapreduce_tpu`` raises, then imports every module of the port and
@@ -82,7 +82,16 @@ SCRIPT = textwrap.dedent("""
                       lambda: pkg.Stream(tempfile.mkdtemp(), []),
                       lambda: pkg.InvertedIndex(engine="native"),
                       lambda: sys.modules["gpu_mapreduce_tpu_torch.serve"]
-                      .Server(port=0, state_dir=tempfile.mkdtemp())):
+                      .Server(port=0, state_dir=tempfile.mkdtemp()),
+                      *[lambda ex=ex, a=a: sys.modules[
+                          "gpu_mapreduce_tpu_torch.examples." + ex].main(a)
+                        for ex, a in (
+                            ("intcount", ["f"]), ("wordfreq", ["f"]),
+                            ("wordfreq2", ["f"]),
+                            ("rmat", ["4", "2", "0.25", "0.25", "0.25",
+                                      "0.25", "0.0", "7"]),
+                            ("invertedindex", ["o", "f"]),
+                            ("invertedindex", ["o", "f", "--mesh", "2"]))]):
             try:
                 entry()
             except pkg.MRError:
@@ -153,7 +162,10 @@ NEW_SUBPACKAGES = ("oink.script", "oink.commands.rmat", "oink.commands.cc",
                    "bindings", "bindings.cbridge", "lint", "lint.driver",
                    "lint.callgraph", "lint.locks", "lint.cachekey",
                    "lint.knobs", "lint.metrics_doc", "lint.nettimeout",
-                   "lint.purity", "lint.__main__")
+                   "lint.purity", "lint.__main__", "examples",
+                   "examples.intcount", "examples.invertedindex",
+                   "examples.rmat", "examples.wordfreq",
+                   "examples.wordfreq2", "plan.__main__", "utils.publish")
 
 
 def test_port_imports_no_jax():

@@ -47,7 +47,7 @@ from gpu_mapreduce_tpu_torch.serve.overload import (SHED_PRIORITY,
 from gpu_mapreduce_tpu_torch.serve.session import RUNNING, Session
 
 from test_torch_serve import (WAIT, Pair, fresh, http,  # noqa: F401
-                              journal_kinds, kinds, record,
+                              journal_kinds, kinds, no_flight_left, record,
                               spawn_port_daemon, stop, wait_until,
                               wf_script, write_corpus)
 

@@ -34,7 +34,8 @@ from gpu_mapreduce_tpu_torch.serve.session import atomic_write_json
 
 from test_torch_fleet import die, j_replica, replica, store_result
 from test_torch_serve import (ROOT, WAIT, fresh,  # noqa: F401
-                              wait_until, wf_script, write_corpus)
+                              no_flight_left, wait_until, wf_script,
+                              write_corpus)
 
 
 def test_client_finds_fleet_after_replica_death(tmp_path, monkeypatch):

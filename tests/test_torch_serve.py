@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from gpu_mapreduce_tpu.ft.journal import read_journal as j_read_journal
+from gpu_mapreduce_tpu.obs import flight as jflight
 from gpu_mapreduce_tpu.obs import metrics as jmetrics
 from gpu_mapreduce_tpu.obs import slo as jslo
 from gpu_mapreduce_tpu.parallel import shuffle as jshuffle
@@ -46,6 +47,7 @@ from gpu_mapreduce_tpu_torch.core.runtime import (PageAccount,
                                                   global_counters,
                                                   page_account_scope)
 from gpu_mapreduce_tpu_torch.ft.journal import Journal, read_journal
+from gpu_mapreduce_tpu_torch.obs import flight as tflight
 from gpu_mapreduce_tpu_torch.obs import metrics as tmetrics
 from gpu_mapreduce_tpu_torch.obs import slo as tslo
 from gpu_mapreduce_tpu_torch.oink.objects import ObjectManager
@@ -80,6 +82,18 @@ def fresh(monkeypatch):
     for fn in (plan_cache().clear, j_plan_cache().clear, tcas.reset_store,
                jcas.reset_store, tslo.reset, jslo.reset):
         fn()
+
+
+@pytest.fixture(autouse=True)
+def no_flight_left():
+    """A daemon arms its package's flight recorder with the metrics, in
+    the working directory, for the life of the process: disarm both after
+    each test, so that a later test in this process that calls
+    ``sys.excepthook`` (the JAX ``tests/test_metrics.py`` does) leaves no
+    ``mr_flight.*.json`` there.  The other daemon test files import it."""
+    yield
+    tflight.reset()
+    jflight.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -729,3 +743,30 @@ def test_state_dir_read_across_the_packages(tmp_path, writer):
     # replayed highest priority first
     assert [x["sid"] for x in recs if x["kind"] == "serve_done"] == \
         sids[::-1]
+
+
+def _daemon_then_excepthook(root: str, cwd: str):
+    """In one pytest process under ``root``'s tests, from ``cwd``: a
+    daemon test, then the JAX test that calls ``sys.excepthook``."""
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("MRTPU_FLIGHT", None)
+    tests = os.path.join(root, "tests")
+    return subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:randomly", "--rootdir", root,
+         os.path.join(tests, "test_torch_serve.py")
+         + "::test_repeated_request_hits_the_plan_cache",
+         os.path.join(tests, "test_metrics.py")
+         + "::test_flight_dump_on_mrerror"],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_daemon_tests_leave_no_flight_dump(tmp_path):
+    """A daemon arms both packages' flight recorders in the working
+    directory; after a daemon test, a later test's ``sys.excepthook`` in
+    the same process must write no ``mr_flight.*.json`` there (the
+    stray dumps of whole runs in the repo root)."""
+    r = _daemon_then_excepthook(ROOT, str(tmp_path))
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "2 passed" in r.stdout
+    assert not list(tmp_path.glob("mr_flight.*.json"))

@@ -39,6 +39,7 @@ from gpu_mapreduce_tpu_torch.plan.cache import cache_stats
 from gpu_mapreduce_tpu_torch.stream import BatchCutter, Stream, Tailer
 
 from test_torch_parallel import tmesh
+from test_torch_serve import no_flight_left  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
