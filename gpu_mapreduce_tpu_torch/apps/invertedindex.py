@@ -175,6 +175,15 @@ def _extract_core(words: torch.Tensor, file_starts: torch.Tensor, *,
             lengths[order], nhits, npairs, ncoll, nlong)
 
 
+def _pack_words(corpus: np.ndarray, W: int) -> np.ndarray:
+    """The corpus bytes as ``W`` little-endian u32 words, zero-padded
+    (the ``pack`` stage)."""
+    wp = np.zeros(W, np.uint32)
+    w = bytes_view_u32(corpus)
+    wp[:len(w)] = w
+    return wp
+
+
 def _url_dict_wanted(files, want_urls: bool) -> bool:
     """Keep URL bytes when output needs them or the corpus is small."""
     return want_urls or sum(os.path.getsize(f) for f in files) \
@@ -201,9 +210,10 @@ class StageTimer:
         self._lock = threading.Lock()    # native map tasks time in threads
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, **attrs):
+        """Time the body as stage ``name``; ``attrs`` go on its span."""
         from ..obs import get_tracer
-        with get_tracer().span("stage." + name, cat="app"):
+        with get_tracer().span("stage." + name, cat="app", **attrs):
             t0 = time.perf_counter()
             try:
                 yield
@@ -319,9 +329,9 @@ class InvertedIndex:
             W = _bucket_words(-(-len(corpus) // 4))
             fst = np.full(max(len(fstarts), 1), 4 * W, np.int32)
             fst[:len(fstarts)] = fstarts
-            wp = np.zeros(W, np.uint32)
-            w = bytes_view_u32(corpus)
-            wp[:len(w)] = w
+            with self.timer.stage("pack", bytes=len(corpus),
+                                  pad=-len(corpus) % 4):
+                wp = _pack_words(corpus, W)
             with self.timer.stage("h2d"):
                 words = to_torch(wp, self.device)
                 fstarts_d = to_torch(fst, self.device)
@@ -428,13 +438,13 @@ class InvertedIndex:
             W = _bucket_words(-(-max_bytes // 4))
             F = max(max(len(c[2]) for c in per), 1)
             hosts = []
-            for _, corpus, fstarts in per:
-                wp = np.zeros(W, np.uint32)
-                w = bytes_view_u32(corpus)
-                wp[:len(w)] = w
-                fst = np.full(F, 4 * W, np.int32)
-                fst[:len(fstarts)] = fstarts
-                hosts.append((wp, fst))
+            with self.timer.stage("pack",
+                                  bytes=sum(len(c[1]) for c in per),
+                                  pad=sum(-len(c[1]) % 4 for c in per)):
+                for _, corpus, fstarts in per:
+                    fst = np.full(F, 4 * W, np.int32)
+                    fst[:len(fstarts)] = fstarts
+                    hosts.append((_pack_words(corpus, W), fst))
             with self.timer.stage("h2d"):
                 words = [to_torch(wp, dev)
                          for (wp, _), dev in zip(hosts, mesh.devices)]

@@ -34,6 +34,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs.tracer import get_tracer
 from ..parallel.collectives import allreduce, per_device, replicate
 
 
@@ -75,14 +76,17 @@ def pagerank_step(ranks: List[torch.Tensor], shards,
     ``inv`` (1/out-degree) are replicated (one tensor a shard, shared by
     the shards of a device); ``shards`` are ``(src, dst, edge_scale)`` a
     shard, ``edge_scale`` being ``inv[src]``, gathered once for every
-    step."""
-    n = ranks[0].shape[0]
-    inflow = allreduce([_inflow(r, src, dst, scale)
-                        for r, (src, dst, scale) in zip(ranks, shards)], "sum")
-    base = float(np.float32((1.0 - damping) / n))
-    d = float(np.float32(damping))
-    return per_device(lambda f, r, i: f.float().add_(_dangling_mass(r, i))
-                      .mul_(d).add_(base), inflow, ranks, inv)
+    step.  Traced, a ``pagerank.step`` span."""
+    with get_tracer().span("pagerank.step", cat="graph"):
+        n = ranks[0].shape[0]
+        inflow = allreduce([_inflow(r, src, dst, scale)
+                            for r, (src, dst, scale) in zip(ranks, shards)],
+                           "sum")
+        base = float(np.float32((1.0 - damping) / n))
+        d = float(np.float32(damping))
+        return per_device(lambda f, r, i: f.float()
+                          .add_(_dangling_mass(r, i)).mul_(d).add_(base),
+                          inflow, ranks, inv)
 
 
 def pagerank(src: torch.Tensor, dst: torch.Tensor, n: int, tol: float = 1e-6,
@@ -98,16 +102,24 @@ def pagerank_sharded(shards: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                      damping: float = 0.85) -> Tuple[torch.Tensor, int]:
     """The convergence loop over ``(src, dst)`` rank edges a shard, each
     pair on its shard's device.  Returns (ranks [n] float32 on the first
-    shard's device, iterations)."""
-    deg = allreduce([out_degrees(src, n) for src, _ in shards], "sum")
-    inv = per_device(inv_outdegrees, deg)
-    steps = [(src, dst, i[src]) for (src, dst), i in zip(shards, inv)]
-    r = replicate(torch.full((n,), 1.0 / n, dtype=torch.float32,
-                             device=deg[0].device), [d.device for d in deg])
-    tol32 = np.float32(tol)
-    delta, it = np.inf, 0
-    while delta > tol32 and it < maxiter:
-        r2 = pagerank_step(r, steps, inv, damping)
-        delta = (r2[0] - r[0]).abs_().max().item()
-        r, it = r2, it + 1
-    return r[0], it
+    shard's device, iterations).  Traced, the loop is a ``pagerank.loop``
+    span and each read of the largest change a ``pagerank.delta``."""
+    tr = get_tracer()
+    with tr.span("pagerank.loop", cat="graph", n=n,
+                 shards=len(shards)) as sp:
+        deg = allreduce([out_degrees(src, n) for src, _ in shards], "sum")
+        inv = per_device(inv_outdegrees, deg)
+        steps = [(src, dst, i[src]) for (src, dst), i in zip(shards, inv)]
+        r = replicate(torch.full((n,), 1.0 / n, dtype=torch.float32,
+                                 device=deg[0].device),
+                      [d.device for d in deg])
+        tol32 = np.float32(tol)
+        delta, it = np.inf, 0
+        while delta > tol32 and it < maxiter:
+            r2 = pagerank_step(r, steps, inv, damping)
+            with tr.span("pagerank.delta", cat="graph") as dsp:
+                delta = (r2[0] - r[0]).abs_().max().item()
+                dsp.set(delta=delta)
+            r, it = r2, it + 1
+        sp.set(steps=it)
+        return r[0], it

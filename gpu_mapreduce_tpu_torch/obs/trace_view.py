@@ -4,7 +4,7 @@ reference package's ``scripts/trace_view.py``, reading through the port's
 
 Usage:
     python -m gpu_mapreduce_tpu_torch.obs.trace_view TRACE.jsonl
-        [--chrome OUT.json] [--cat CAT] [--json]
+        [--chrome OUT.json [--device PROFILE.json]] [--cat CAT] [--json]
     python -m gpu_mapreduce_tpu_torch.obs.trace_view TRACE.jsonl --traces
     python -m gpu_mapreduce_tpu_torch.obs.trace_view TRACE.jsonl
         --trace ID [--json]
@@ -18,6 +18,13 @@ MapReduce(trace=path)).  --chrome additionally writes the
 Perfetto-loadable Chrome trace-event file; --cat filters to one span
 category (mr_op / shuffle / ingest / oink / app / soak); --json prints
 the aggregate as JSON instead of the table.
+
+--device PROFILE.json (with --chrome) writes the spans into a
+``torch.profiler`` Chrome trace (``prof.export_chrome_trace``) of the
+same run instead: each span, with its args, is laid on the profiler's
+clock by its ``wall`` (the span's start, unix seconds) as ``wall * 1e6 -
+baseTimeNanoseconds / 1e3`` µs, on a track of its own ("mrtpu spans"),
+so every idle gap on the card lies under the spans open at the time.
 
 A DIRECTORY path is a multi-process run dir (``python -m
 gpu_mapreduce_tpu_torch.launch``):
@@ -291,6 +298,27 @@ def trace_report(events, tid: str) -> str:
     return "\n".join(lines)
 
 
+def onto_device_trace(events, profile: dict) -> dict:
+    """``profile`` (a ``torch.profiler`` Chrome trace, loaded) with the
+    span ``events`` added on its clock (module docstring); events
+    without ``wall`` are left out."""
+    from .sinks import chrome_trace
+    base_us = float(profile.get("baseTimeNanoseconds", 0)) / 1e3
+    spans, tracks = [], {}
+    for ev in events:
+        if ev.get("wall") is None:
+            continue
+        ev = dict(ev, ts=round(float(ev["wall"]) * 1e6 - base_us, 3))
+        spans.append(ev)
+        tracks[(ev.get("pid"), ev.get("tid"))] = None
+    names = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+              "args": {"name": "mrtpu spans"}} for pid, tid in tracks]
+    out = dict(profile)
+    out["traceEvents"] = list(profile.get("traceEvents", [])) + names \
+        + chrome_trace(spans)["traceEvents"]
+    return out
+
+
 def main(argv) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__.strip())
@@ -317,18 +345,21 @@ def main(argv) -> int:
         return 0
     path = argv[0]
     chrome = None
+    device = None
     cat = None
     trace = None
     list_traces = False
     as_json = False
     i = 1
     while i < len(argv):
-        if argv[i] in ("--chrome", "--cat", "--trace"):
+        if argv[i] in ("--chrome", "--device", "--cat", "--trace"):
             if i + 1 >= len(argv):
                 print(f"{argv[i]} needs a value", file=sys.stderr)
                 return 1
             if argv[i] == "--chrome":
                 chrome = argv[i + 1]
+            elif argv[i] == "--device":
+                device = argv[i + 1]
             elif argv[i] == "--trace":
                 trace = argv[i + 1]
             else:
@@ -343,6 +374,9 @@ def main(argv) -> int:
         else:
             print(f"unknown argument: {argv[i]}", file=sys.stderr)
             return 1
+    if device and not chrome:
+        print("--device needs --chrome OUT.json", file=sys.stderr)
+        return 1
     from .report import aggregate_ops, per_op_table
     from .sinks import read_jsonl, write_chrome_trace
     rundir = path if os.path.isdir(path) else None
@@ -388,7 +422,14 @@ def main(argv) -> int:
         print(per_op_table(events))
         if rundir is not None:
             print(dist_report(events, rundir))
-    if chrome:
+    if chrome and device:
+        with open(device) as f:
+            doc = onto_device_trace(events, json.load(f))
+        with open(chrome, "w") as f:
+            json.dump(doc, f)
+        print(f"\nwrote {len(doc['traceEvents'])} events -> {chrome}",
+              file=sys.stderr)
+    elif chrome:
         n = write_chrome_trace(chrome, events)
         print(f"\nwrote {n} events -> {chrome}", file=sys.stderr)
     return 0

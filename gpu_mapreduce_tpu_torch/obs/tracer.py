@@ -19,7 +19,11 @@ into CUDA), an NVTX range
 so ``torch.profiler`` and Nsight Systems show each span over the card's
 kernels.  ``MRTPU_TRACE_JAX`` (default on, the JAX package's knob for its
 profiler annotations) turns both off.  A span never synchronises the
-device: its time is the host's wall time around the work it enqueued.
+device: its time is the host's wall time around the work it enqueued,
+taken outside its ranges, so its interval holds them.  A span's ``wall``
+(its start in unix seconds) is on the profiler's clock:
+``wall * 1e6 - baseTimeNanoseconds / 1e3`` µs in a ``torch.profiler``
+Chrome trace (``trace_view --device`` joins the two files).
 
 Counter deltas are process-global: when concurrent ``-partition`` worlds
 overlap, a span may count another world's bytes.  Disabled tracing
@@ -114,6 +118,9 @@ class Span:
         c = tr.counters
         self._snap = tuple(getattr(c, f) for f, _ in _DELTA_FIELDS)
         self._mem0 = c.msizemax
+        # t0 before the ranges open and t1 after they close, so the
+        # span's host interval holds its own profiler range
+        self.t0 = time.perf_counter()
         if tr.annotations:
             # the profiler's range (torch.profiler shows the span's
             # kernels under it) and, with a card, an NVTX range on this
@@ -122,17 +129,16 @@ class Span:
             self._prof.__enter__()
             if tr.nvtx:
                 torch.cuda.nvtx.range_push(self.name)
-        self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        self.t1 = time.perf_counter()
         tr = self.tracer
         if self._prof is not None:
             if tr.nvtx:
                 torch.cuda.nvtx.range_pop()
             self._prof.__exit__(exc_type, exc, tb)
             self._prof = None
+        self.t1 = time.perf_counter()
         stack = tr._stack()
         # pop self even if an inner span leaked (exception unwinding)
         while stack and stack.pop() is not self:
@@ -170,6 +176,16 @@ class Span:
         return ev
 
 
+def _wall_epoch() -> float:
+    """The unix time, in seconds, at ``perf_counter()`` zero, from one
+    read of each clock: a span's ``wall`` is this plus its ``t0``.  It
+    lets a cross-process merge (``fleetobs.read_trace_dir``) rebase each
+    process's private ``ts`` epoch onto one shared clock, and puts a
+    span on ``torch.profiler``'s clock: ``wall * 1e6 -
+    baseTimeNanoseconds / 1e3`` µs in the profiler's Chrome trace."""
+    return (time.time_ns() - time.perf_counter_ns()) / 1e9
+
+
 class Tracer:
     """Span factory + sink fan-out.  One per process normally
     (:func:`get_tracer`); tests may build private instances."""
@@ -190,10 +206,7 @@ class Tracer:
         self.annotations = env_flag("MRTPU_TRACE_JAX", True)
         self._nvtx: Optional[bool] = None
         self.epoch = time.perf_counter()
-        # wall-clock origin of the perf_counter timeline: lets a
-        # cross-process merge (fleetobs.read_trace_dir) rebase
-        # each process's private ts epoch onto one shared clock
-        self.wall_epoch = time.time() - time.perf_counter()
+        self.wall_epoch = _wall_epoch()
         self.pid = os.getpid()
         self._sinks: List[object] = []
         self._ring: Optional["RingSink"] = None
@@ -246,7 +259,10 @@ class Tracer:
         """Turn tracing on.  ``jsonl``: also stream events to this path
         (idempotent per path).  ``ring``: in-memory buffer capacity (a
         ring is always attached; default from MRTPU_TRACE_RING or 65536).
-        Returns self for chaining."""
+        Turned on from off, it reads the wall epoch afresh (the unix
+        clock and ``perf_counter`` drift apart in a long-lived process);
+        ``epoch`` and so every span's ``ts`` keep their origin.  Returns
+        self for chaining."""
         from .sinks import JsonlSink, RingSink
         with self._lock:
             if self._ring is None:
@@ -257,6 +273,8 @@ class Tracer:
                 sink = JsonlSink(jsonl)
                 self._jsonl[jsonl] = sink
                 self._sinks.append(sink)
+        if not self.enabled:
+            self.wall_epoch = _wall_epoch()
         self.enabled = True
         return self
 

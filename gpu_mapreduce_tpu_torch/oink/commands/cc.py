@@ -22,6 +22,7 @@ import torch
 
 from ...core.runtime import MRError
 from ...models.cc import cc_sharded
+from ...obs.tracer import get_tracer
 from ...parallel.devkernels import (U64MAX, kmv_row_state, seg_max_u64,
                                     seg_min_u64, skmv_map, skv_map)
 from ...parallel.staging import stage_graph
@@ -139,7 +140,9 @@ def zone_reassign(fr, kv, ptr):
 class CCFind(Command):
     """cc_find nthresh: (Vi, Zi) with Zi the least vertex id of Vi's
     component.  ``nthresh`` (the reference's big-zone split) is accepted
-    and ignored, as in the JAX package."""
+    and ignored, as in the JAX package.  Traced, each round of the
+    composed engine is a ``cc.round`` span (``round``, and ``changed``,
+    the zones that moved), and the command's span carries ``rounds``."""
 
     ninputs = 1
     noutputs = 1
@@ -171,6 +174,7 @@ class CCFind(Command):
         self.message(f"CC_find: {self.ncc} components in "
                      f"{self.niterate} iterations")
         obj.cleanup()
+        get_tracer().annotate(rounds=self.niterate)
 
     def _run_composed(self):
         obj = self.obj
@@ -181,33 +185,36 @@ class CCFind(Command):
         mrv.collate()
         mrv.reduce(self_zone, batch=True)
 
+        tr = get_tracer()
         niterate = 0
         while True:
             niterate += 1
-            mrz = obj.create_mr()
-            mrz.map_mr(mre, edge_vert_tagged, batch=True)
-            tmp = obj.create_mr()
-            tmp.map_mr(mrv, zone_tagged, batch=True)
-            mrz.add(tmp)
-            obj.free_mr(tmp)
-            mrz.collate()
-            mrz.reduce(edge_zone, batch=True)
-            mrz.collate()
-            nchanged = mrz.reduce(zone_winner, batch=True)
-            if not nchanged:
+            with tr.span("cc.round", cat="oink", round=niterate) as sp:
+                mrz = obj.create_mr()
+                mrz.map_mr(mre, edge_vert_tagged, batch=True)
+                tmp = obj.create_mr()
+                tmp.map_mr(mrv, zone_tagged, batch=True)
+                mrz.add(tmp)
+                obj.free_mr(tmp)
+                mrz.collate()
+                mrz.reduce(edge_zone, batch=True)
+                mrz.collate()
+                nchanged = int(mrz.reduce(zone_winner, batch=True))
+                sp.set(changed=nchanged)
+                if not nchanged:
+                    obj.free_mr(mrz)
+                    break
+                tmp = obj.create_mr()
+                tmp.map_mr(mrv, invert_zone_tagged, batch=True)
+                tmp2 = obj.create_mr()
+                tmp2.map_mr(mrz, winner_tagged, batch=True)
+                tmp.add(tmp2)
+                tmp.collate()
+                tmp.reduce(zone_reassign, batch=True)
                 obj.free_mr(mrz)
-                break
-            tmp = obj.create_mr()
-            tmp.map_mr(mrv, invert_zone_tagged, batch=True)
-            tmp2 = obj.create_mr()
-            tmp2.map_mr(mrz, winner_tagged, batch=True)
-            tmp.add(tmp2)
-            tmp.collate()
-            tmp.reduce(zone_reassign, batch=True)
-            obj.free_mr(mrz)
-            obj.free_mr(tmp2)
-            obj.free_mr(mrv)
-            mrv = tmp
+                obj.free_mr(tmp2)
+                obj.free_mr(mrv)
+                mrv = tmp
 
         mrt = obj.create_mr()
         mrt.map_mr(mrv, invert, batch=True)
@@ -216,6 +223,7 @@ class CCFind(Command):
         self.message(f"CC_find: {self.ncc} components in {niterate} "
                      f"iterations")
         obj.cleanup()
+        tr.annotate(rounds=niterate)
 
 
 @command("cc_stats")

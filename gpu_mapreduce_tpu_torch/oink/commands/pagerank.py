@@ -21,6 +21,7 @@ import numpy as np
 
 from ...core.runtime import MRError
 from ...models.pagerank import pagerank_sharded
+from ...obs.tracer import get_tracer
 from ...ops.bits import to_numpy
 from ...parallel.staging import stage_graph
 from ..command import Command, command
@@ -75,6 +76,7 @@ class PageRankCommand(Command):
         self.message(f"PageRank: {sg.n} vertices, {nedge} edges, "
                      f"{iters} iterations")
         obj.cleanup()
+        get_tracer().annotate(steps=iters)
 
     @property
     def ranks(self) -> dict:

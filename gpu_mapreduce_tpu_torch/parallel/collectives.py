@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..obs.tracer import NULL_SPAN, get_tracer
 from .sharded import MeshKV, ShardedKV
 from .shuffle import _rowbytes, exchange
 
@@ -60,12 +61,27 @@ def allreduce(tensors: Sequence[torch.Tensor], op: str
     reduced elementwise by ``op`` ("sum", "min" or "max") in shard order on
     ``tensors[0]``'s device; returns one result a shard, on its device.
     Shards that share a device share one copy (the same tensor object),
-    and a one-shard list returns its tensor as it is."""
-    fn = _REDUCE[op]
-    acc = tensors[0]
-    for t in tensors[1:]:
-        acc = fn(acc, t.to(acc.device, non_blocking=True))
-    return replicate(acc, [t.device for t in tensors])
+    and a one-shard list returns its tensor as it is.  Traced, a call
+    over more than one shard is a ``mesh.allreduce`` span whose ``bytes``
+    are those copied between devices."""
+    tr = get_tracer()
+    with tr.span("mesh.allreduce", cat="mesh", op=op, shards=len(tensors),
+                 bytes=_moved_bytes(tensors)) \
+            if tr.enabled and len(tensors) > 1 else NULL_SPAN:
+        fn = _REDUCE[op]
+        acc = tensors[0]
+        for t in tensors[1:]:
+            acc = fn(acc, t.to(acc.device, non_blocking=True))
+        return replicate(acc, [t.device for t in tensors])
+
+
+def _moved_bytes(tensors: Sequence[torch.Tensor]) -> int:
+    """Bytes :func:`allreduce` copies between devices: each partial off
+    the first device to it, the result back to each other device."""
+    dev = tensors[0].device
+    off = [t for t in tensors[1:] if t.device != dev]
+    others = {t.device for t in off}
+    return sum(t.nbytes for t in off) + len(others) * tensors[0].nbytes
 
 
 def replicate(t: torch.Tensor, devices: Sequence[torch.device]

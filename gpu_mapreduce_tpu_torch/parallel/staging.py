@@ -35,6 +35,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs.tracer import get_tracer
 from ..ops.bits import M32, from_order_key, order_key, widen64
 from .collectives import replicate
 from .sharded import MeshKV, ShardedKV
@@ -104,28 +105,39 @@ def stage_graph(mr, drop_self: bool = False, need_weights: bool = False
     table + ranked edges a shard, or None for an empty dataset.  With
     ``drop_self`` the self-loop rows leave first (a graph of only
     self-loops stages as n = 0); with ``need_weights`` the value column
-    comes along as float64 weights."""
-    fr = staged_frame(mr)
-    if fr is None:
-        return None
-    blocks = fr.shards if isinstance(fr, MeshKV) else [fr]
-    keys, values = [], []
-    for b in blocks:
-        c = int(b.counts[0])
-        key = b.key[:c]
-        value = b.value[:c] if need_weights else None
-        if drop_self:
-            keep = key[:, 0] != key[:, 1]
-            key = key[keep]
-            value = value[keep] if need_weights else None
-        keys.append(key)
-        values.append(None if value is None
-                      else as_float64(value, fr.value_dtype))
-    verts, n = unique_verts(keys, fr.key_dtype)
-    tables = replicate(verts, [k.device for k in keys])
-    shards = [EdgeShard(*rank_edges(k, t, fr.key_dtype), w)
-              for k, t, w in zip(keys, tables, values)]
-    return StagedGraph(verts, n, shards)
+    comes along as float64 weights.  Traced, the body is a
+    ``graph.stage`` span over the shards' ``graph.unique``, the
+    ``graph.merge`` and a ``graph.rank`` a shard (a shard's ranked
+    edges; the table's copies to the other devices, queued just before,
+    lie under ``graph.stage``).  Attributes come from what the host
+    already holds: it reads no device value for them."""
+    tr = get_tracer()
+    with tr.span("graph.stage", cat="graph") as sp:
+        fr = staged_frame(mr)
+        if fr is None:
+            return None
+        blocks = fr.shards if isinstance(fr, MeshKV) else [fr]
+        counts = [int(b.counts[0]) for b in blocks]
+        sp.set(shards=len(blocks), rows=sum(counts))
+        keys, values = [], []
+        for b, c in zip(blocks, counts):
+            key = b.key[:c]
+            value = b.value[:c] if need_weights else None
+            if drop_self:
+                keep = key[:, 0] != key[:, 1]
+                key = key[keep]
+                value = value[keep] if need_weights else None
+            keys.append(key)
+            values.append(None if value is None
+                          else as_float64(value, fr.value_dtype))
+        verts, n = unique_verts(keys, fr.key_dtype)
+        tables = replicate(verts, [k.device for k in keys])
+        shards = []
+        for p, (k, t, w) in enumerate(zip(keys, tables, values)):
+            with tr.span("graph.rank", cat="graph", shard=p):
+                shards.append(EdgeShard(*rank_edges(k, t, fr.key_dtype), w))
+        sp.set(n=n)
+        return StagedGraph(verts, n, shards)
 
 
 def as_float64(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -152,15 +164,23 @@ def unique_verts(keys: Sequence[torch.Tensor], key_dtype
                  ) -> Tuple[torch.Tensor, int]:
     """Sorted unique endpoint ids (ascending unsigned) over every shard's
     ``[rows, 2]`` edge keys, on the first shard's device, and their
-    count, the one value read by the host."""
-    parts = [_sorted_unique(order_key(k.reshape(-1), key_dtype))
-             for k in keys]
+    count, the one value read by the host.  Each shard's unique is a
+    ``graph.unique`` span; on several shards the merge on the first
+    shard's device is a ``graph.merge`` span."""
+    tr = get_tracer()
+    parts = []
+    for p, k in enumerate(keys):
+        with tr.span("graph.unique", cat="graph", shard=p, rows=k.shape[0]):
+            parts.append(_sorted_unique(order_key(k.reshape(-1),
+                                                  key_dtype)))
     if len(parts) == 1:
         s = parts[0]
     else:
         dev = keys[0].device
-        s = _sorted_unique(torch.cat([p.to(dev, non_blocking=True)
-                                      for p in parts]))
+        with tr.span("graph.merge", cat="graph",
+                     ids=sum(p.shape[0] for p in parts)):
+            s = _sorted_unique(torch.cat([p.to(dev, non_blocking=True)
+                                          for p in parts]))
     verts = from_order_key(s, key_dtype, keys[0].dtype)
     return verts, int(verts.numel())
 
